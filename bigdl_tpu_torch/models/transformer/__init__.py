@@ -7,6 +7,11 @@ parameter tree is the reference's: ``embed`` (V, hidden), ``pos``
 leading layer axis (``ln1``, ``attn``, ``ln2``, ``w1``/``b1``,
 ``w2``/``b2``), ``ln_f``, and ``head`` (hidden, V) when the head is not
 tied.  Pre-LayerNorm blocks, tanh-approximate GELU, LayerNorm eps 1e-5.
+
+``f`` is the serving forward (no autograd); ``apply`` is the training
+forward: differentiable through the stacked leaves (each layer reads
+views of them), with dropout drawn from an explicit
+``torch.Generator`` and optional activation recomputation (``remat``).
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
@@ -40,17 +46,17 @@ def apply_rope(x, positions, base: float = 10000.0):
 
 
 class TransformerLM:
-    """Causal transformer LM over 1-based token ids, for inference.
+    """Causal transformer LM over 1-based token ids.
 
     ``init(generator)`` returns a fresh parameter tree on ``device``;
-    ``build(seed)`` stores one as ``self.params``.  Training (dropout,
-    remat, the flash backward) belongs to a later slice of the port.
+    ``build(seed)`` stores one as ``self.params``.
     """
 
     def __init__(self, vocab_size: int, hidden_size: int = 128,
                  n_head: int = 4, n_layers: int = 2,
                  ffn_size: Optional[int] = None, max_len: int = 512,
-                 tie_embeddings: bool = True, attention_impl: str = "auto",
+                 dropout: float = 0.0, tie_embeddings: bool = True,
+                 remat: bool = False, attention_impl: str = "auto",
                  pos_encoding: str = "learned", rope_base: float = 10000.0,
                  moe_experts: int = 0, doc_start_id: Optional[int] = None,
                  device=None):
@@ -72,7 +78,9 @@ class TransformerLM:
         self.n_layers = n_layers
         self.ffn_size = ffn_size or 4 * hidden_size
         self.max_len = max_len
+        self.dropout = dropout
         self.tie_embeddings = tie_embeddings
+        self.remat = remat
         self.pos_encoding = pos_encoding
         self.rope_base = rope_base
         self.doc_start_id = doc_start_id
@@ -80,6 +88,7 @@ class TransformerLM:
                                        with_bias=True,
                                        attention_impl=attention_impl)
         self.params: Optional[dict] = None
+        self.buffers: dict = {}  # the dense model keeps no buffers
 
     # -------------------------------------------------------------- #
     def _init_block(self, g: torch.Generator) -> dict:
@@ -147,15 +156,30 @@ class TransformerLM:
         m = F.gelu(torch.matmul(m, bp["w1"]) + bp["b1"], approximate="tanh")
         return torch.matmul(m, bp["w2"]) + bp["b2"]
 
-    def _block(self, bp, x, positions, segment_ids=None):
+    def _dropout(self, x, generator: torch.Generator):
+        keep = 1.0 - self.dropout
+        return x * torch.empty_like(x).bernoulli_(keep, generator=generator) \
+            / keep
+
+    def _block(self, bp, x, positions, segment_ids=None, seed=None):
+        """One pre-LN block.  ``seed`` (training with dropout only) seeds
+        the block's own generator, so a recomputed block (``remat``)
+        draws the same masks as its first run."""
         mha = self._mha
         a = self._layer_norm(bp["ln1"], x)
         q, k, v = mha.project_qkv(bp["attn"], a, a, a)
         q, k = self._rope(q, k, positions)
         o = mha.attend(q, k, v, segment_ids=segment_ids)
-        x = x + mha.project_out(bp["attn"], o)
-        m = self._layer_norm(bp["ln2"], x)
-        return x + self._mlp(bp, m)
+        o = mha.project_out(bp["attn"], o)
+        g = None
+        if seed is not None:
+            g = torch.Generator(device=x.device).manual_seed(int(seed))
+            o = self._dropout(o, g)
+        x = x + o
+        m = self._mlp(bp, self._layer_norm(bp["ln2"], x))
+        if g is not None:
+            m = self._dropout(m, g)
+        return x + m
 
     def head_logits(self, params, h):
         """The LM head: ``h @ embed.T`` when tied, ``h @ head`` else."""
@@ -163,10 +187,7 @@ class TransformerLM:
             return torch.matmul(h, params["embed"].T.to(h.dtype))
         return torch.matmul(h, params["head"].to(h.dtype))
 
-    @torch.no_grad()
-    def f(self, params, x):
-        """(B, T) 1-based ids (float or int) -> (B, T, V) float32
-        log-probabilities."""
+    def _forward(self, params, x, training: bool, generator):
         ids = torch.as_tensor(x, device=self.device)
         if ids.is_floating_point():
             ids = ids.to(torch.int32)
@@ -181,8 +202,40 @@ class TransformerLM:
             # ids are 0-based here; the marker id came in 1-based
             segment_ids = torch.cumsum(
                 (ids == self.doc_start_id - 1).to(torch.int32), dim=-1)
+        seeds = [None] * self.n_layers
+        if training and self.dropout > 0.0:
+            if generator is None:
+                raise ValueError(
+                    "TransformerLM with dropout>0 needs a generator in "
+                    "training mode: a fixed seed would apply the same "
+                    "dropout mask every step")
+            # one seed per layer, drawn before the loop (the reference
+            # splits one key per layer)
+            seeds = torch.randint(0, 2 ** 62, (self.n_layers,),
+                                  generator=generator).tolist()
         for layer in range(self.n_layers):
-            h = self._block(layer_params(params["blocks"], layer), h,
-                            positions, segment_ids)
+            bp = layer_params(params["blocks"], layer)
+            if self.remat and torch.is_grad_enabled():
+                h = checkpoint(self._block, bp, h, positions, segment_ids,
+                               seeds[layer], use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                h = self._block(bp, h, positions, segment_ids, seeds[layer])
         h = self._layer_norm(params["ln_f"], h)
         return torch.log_softmax(self.head_logits(params, h).float(), dim=-1)
+
+    @torch.no_grad()
+    def f(self, params, x):
+        """(B, T) 1-based ids (float or int) -> (B, T, V) float32
+        log-probabilities, eval mode, no autograd (the serving
+        forward)."""
+        return self._forward(params, x, False, None)
+
+    def apply(self, params, x, *, buffers=None, training: bool = False,
+              generator: Optional[torch.Generator] = None):
+        """The training forward: ``(logp, buffers)``, differentiable in
+        every leaf of ``params``.  ``training`` turns dropout on, drawn
+        from ``generator`` (a CPU ``torch.Generator``; required when
+        ``dropout > 0``)."""
+        return (self._forward(params, x, training, generator),
+                dict(buffers) if buffers else {})

@@ -26,7 +26,9 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
                           scale: Optional[float] = None):
     """Plain attention over (..., T, D).  Masked scores are ``-inf`` and
     a row whose every key is masked weighs nothing, so it returns 0 (the
-    reference's ``_safe_exp`` / ``_finalize``)."""
+    reference's ``_safe_exp`` / ``_finalize``); its gradients are 0, not
+    NaN, because the exponent of such a row is taken at a finite
+    stand-in for its -inf maximum."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if causal:
         tq, tk = q.shape[-2], k.shape[-2]
@@ -69,9 +71,10 @@ class MultiHeadAttention:
         self.head_dim = head_dim or hidden_size // n_head
         self.causal = causal
         self.with_bias = with_bias
-        # "flash": always the CUDA flash kernel (plain version on CPU
-        # tensors); "xla": always plain attention; "auto": the kernel on
-        # a CUDA device, plain attention on the host
+        # "flash": always the CUDA flash kernels (plain versions on CPU
+        # tensors); "xla": always plain attention; "auto": the kernels on
+        # a CUDA device (which raise for a head width they do not take),
+        # plain attention on the host
         self.attention_impl = attention_impl
 
     def init(self, generator: torch.Generator, device="cpu") -> dict:
@@ -129,9 +132,9 @@ class MultiHeadAttention:
         return y
 
     def attend(self, q, k, v, *, segment_ids=None):
-        """Flash kernel (per :meth:`resolve_use_flash`) or plain
-        attention.  ``segment_ids`` (B, T): packed-document isolation,
-        self-attention only."""
+        """Flash kernels (per :meth:`resolve_use_flash`) or plain
+        attention, both differentiable.  ``segment_ids`` (B, T):
+        packed-document isolation, self-attention only."""
         if segment_ids is not None and q.shape[-2] != k.shape[-2]:
             raise ValueError("segment_ids requires self-attention "
                              "(Tq == Tk)")

@@ -44,6 +44,23 @@ def params_to_numpy(tree):
     return t.numpy()
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, depth first in insertion order: trees
+    built from one another (``tree_map``, ``zeros_like``) share it."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``), keeping the dict structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
 def layer_params(blocks: dict, layer: int) -> dict:
     """One layer's slice of the stacked ``blocks`` tree (views, no
     copies)."""

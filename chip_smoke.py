@@ -7,23 +7,32 @@ Phases, in order; any failure raises, exits non-zero and prints no
 result line:
 
 1. device: the card's name, count, and nvidia-smi's name/power limit;
-2. build: both CUDA kernels from bigdl_tpu_torch/csrc, one nvcc each,
-   started together; prints build seconds and ptxas register/shared
-   memory lines;
-3. kernels: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes, with its time, the plain version's time,
-   the least time the card could take (bound) and, for flash, one
-   scaled_dot_product_attention call as a yardstick (never used by the
-   port);
+2. build: the three CUDA sources of bigdl_tpu_torch/csrc (flash
+   forward, paged decode, flash backward), one nvcc each, started
+   together; prints build seconds and ptxas register lines;
+3. kernels: each of the four kernels against its plain PyTorch version
+   on the card, at the main paths' shapes and at edge cases, with its
+   time, the plain version's time, the least time the card could take
+   (bound) and, where one exists, one PyTorch call computing the same
+   function as a yardstick (never used by the port);
 4. serve: a GPT-2-small-width TransformerLM (random weights from a
    seed, float32) behind LMServingEngine answers 8 requests through the
    flash prefill and paged decode kernels; every greedy stream is held
    against the port's offline generate on plain attention, and both
-   kernels' launch counters must be > 0 for that run.
+   kernels' launch counters must be > 0 for that run;
+5. train: the same model, full depth, trained by LocalOptimizer (Adam,
+   TimeDistributed(ClassNLL)) on a fixed 8 x 1024 batch through the
+   flash forward and both flash backward kernels: step-0 loss and every
+   gradient held against plain attention, every bf16-compute gradient
+   held against them too, the loss must fall over one optimize() of a
+   warm-up and 5 timed steps, one bf16-compute step, and the train CLI
+   once on a packed, document-isolated corpus; the three kernels'
+   launch counters must be 12 a step.
 
-``--profile PATH`` adds one more serve run of fresh prompts under
-torch.profiler and writes its kernel table (device busy time, idle
-share, time by kernel) to PATH.
+``--profile PATH`` adds one more serve run of fresh prompts and one
+more training step under torch.profiler and writes their kernel tables
+(device busy time, idle share, time by kernel) to PATH and to PATH with
+``_train`` before its extension.
 
 The last lines are the kernels' JSON object, nvidia-smi's
 "name, power.limit" line, and the result object.  Without a CUDA
@@ -33,6 +42,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -54,6 +64,22 @@ SERVE = dict(slots=8, cache_len=1024, block_len=16, max_new=32,
              prompt_lens=(17, 33, 64, 128, 200, 300, 511, 700),
              shared_head=64, seed=0)
 TIE_GAP = 1e-4  # a greedy mismatch is a tie when the plain top-2 gap is below
+# backward kernels, relative to each gradient's max |value|: float32 differs
+# by summation order only; bf16 by the rounding of p and ds to bf16
+TOL_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN = dict(batch=8, seq_len=1024, check_batch=2, warmup=1, steps=5,
+             learning_rate=3e-4, seed=0, data_seed=0)
+TOL_LOSS = 1e-5       # step-0 loss, flash vs plain attention, relative
+TOL_GRAD = 1e-3       # each leaf's max abs error over its max |g|: float32
+                      # with the summation order changed through 12 layers
+TOL_BF16_STEP = 2e-2  # bf16-compute step-0 loss vs float32's, relative
+TOL_BF16_GRAD = 6e-2  # each leaf's bf16-compute gradient: max abs error over
+                      # the float32 leaf's max |g|, bf16 rounding of every
+                      # product's inputs through 12 layers and back; about
+                      # twice the worst leaf measured on an H100 (2.7e-2)
+TRAIN_CLI = ["--synthetic", "-e", "1", "-b", "8", "--hiddenSize", "768",
+             "--nHead", "12", "--nLayers", "2", "--seqLength", "128",
+             "--packed", "--docIsolate"]
 
 
 def log(msg: str) -> None:
@@ -99,8 +125,8 @@ def bound(nbytes: float, flops: float, dtype: str):
 def phase_build():
     from bigdl_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    info = _build.build(["flash_fwd", "paged_decode"])
-    log(f"[build] both kernels in {time.perf_counter() - t0:.2f} s "
+    info = _build.build(["flash_fwd", "paged_decode", "flash_bwd"])
+    log(f"[build] three sources in {time.perf_counter() - t0:.2f} s "
         "(one nvcc each, in parallel)")
     for name, r in info.items():
         log(f"[build] {name}: nvcc {r['seconds']:.2f} s -> {r['path']}")
@@ -248,6 +274,107 @@ def paged_case(dev, pos_list, dtype, seed=0):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+def flash_bwd_case(dev, b, tq, tk, d, dtype, causal=True, segmented=False,
+                   seed=0, timed=False):
+    """Both backward kernels on one set of (q, k, v, o, lse, do, dlse)
+    against the plain backward: dq (dq kernel) and dk, dv (dk/dv kernel)
+    within TOL_BWD of each gradient's max |value|, finite, zero dq on
+    rows that see no key, and bitwise equal on a second run.  With
+    ``timed``, the lse cotangent is zero (as on the training path) and
+    returns each kernel's time and bound beside the plain backward's
+    time and the backward half of scaled_dot_product_attention (both
+    computing all three gradients at once, so both stand on both
+    kernels' rows)."""
+    import torch
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops import (flash_attention_backward_reference,
+                                     flash_attention_reference)
+    from bigdl_tpu_torch.ops.flash_attention import (BackwardInputs,
+                                                     flash_bwd_dkv,
+                                                     flash_bwd_dq)
+    tdt = getattr(torch, dtype)
+    h = 12
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, dt=tdt):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    q, k, v = randn(b, h, tq, d), randn(b, h, tk, d), randn(b, h, tk, d)
+    seg = None
+    if segmented:
+        cuts = torch.sort(torch.randint(0, tq, (b, 3), generator=g,
+                                        device=dev), dim=1).values
+        seg = (torch.arange(tq, device=dev)[None, :, None]
+               >= cuts[:, None, :]).sum(-1).to(torch.int32)
+    o, lse = flash_attention_reference(q, k, v, causal=causal,
+                                       q_segment_ids=seg, kv_segment_ids=seg)
+    do = randn(*o.shape)
+    dlse = (torch.zeros_like(lse) if timed
+            else randn(*lse.shape, dt=torch.float32))
+    scale = 1.0 / d ** 0.5
+    x = BackwardInputs(q, k, v, o, lse, do, dlse, seg, seg, causal, scale)
+
+    def run():
+        dk, dv = flash_bwd_dkv(x)
+        return flash_bwd_dq(x), dk, dv
+
+    def plain():
+        return flash_attention_backward_reference(
+            q, k, v, o, lse, do, dlse, causal=causal, scale=scale,
+            q_segment_ids=seg, kv_segment_ids=seg)
+
+    got, again, want = run(), run(), plain()
+    torch.cuda.synchronize()
+    name = (f"flash_bwd ({b},{h},{tq},{d})x({b},{h},{tk},{d}) {dtype} "
+            f"{'causal' if causal else 'full'}"
+            f"{' segmented' if segmented else ''}")
+    errs = {}
+    for gname, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{name}: non-finite {gname}")
+        if not torch.equal(a, a2):
+            raise AssertionError(f"{name}: {gname} differs between two runs")
+        ref = w.float().abs().max().item()
+        err = (a.float() - w.float()).abs().max().item()
+        if err > TOL_BWD[dtype] * max(ref, 1e-6):
+            raise AssertionError(f"{name}: {gname} max_abs_err {err:.3e} "
+                                 f"over max |{gname}| {ref:.3e} (tol "
+                                 f"{TOL_BWD[dtype]} relative)")
+        errs[gname] = err
+    if causal and tq > tk and not torch.all(got[0][:, :, :tq - tk] == 0):
+        raise AssertionError(f"{name}: rows with no visible key got dq != 0")
+    msg = (f"[kernels] {name}: max_abs_err dq {errs['dq']:.3e} dk "
+           f"{errs['dk']:.3e} dv {errs['dv']:.3e}, bitwise repeatable")
+    if not timed:
+        log(msg)
+        return None
+    dkv_ms = cuda_ms(lambda: flash_bwd_dkv(x))
+    dq_ms = cuda_ms(lambda: flash_bwd_dq(x))
+    plain_ms = cuda_ms(plain, iters=5, warmup=1)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do, retain_graph=True))
+    item = q.element_size()
+    n_q, n_k, rows = b * h * tq * d, b * h * tk * d, b * h * tq * 4
+    reads = (2 * n_q + 2 * n_k) * item + 3 * rows   # q, do, k, v; lse,
+    pairs = b * h * _visible_pairs(tq, tk, causal)   # delta, dlse
+    dkv_bound = bound(reads + 2 * n_k * item, 8.0 * d * pairs, dtype)
+    dq_bound = bound(reads + n_q * item, 6.0 * d * pairs, dtype)
+    fused_ms, fused_by = bound(reads + (n_q + 2 * n_k) * item,
+                               10.0 * d * pairs, dtype)
+    log(f"{msg} | dk/dv kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} "
+        f"ms, {dkv_bound[1]}), dq kernel {dq_ms:.4f} ms (bound "
+        f"{dq_bound[0]:.4f} ms, {dq_bound[1]}), one-kernel backward bound "
+        f"{fused_ms:.4f} ms ({fused_by}); plain backward {plain_ms:.4f} ms, "
+        f"sdpa backward {library_ms:.4f} ms (both: all three gradients)")
+    common = dict(plain_ms=plain_ms, library_ms=library_ms)
+    return (dict(max_abs_err=max(errs["dk"], errs["dv"]), ms=dkv_ms,
+                 bound_ms=dkv_bound[0], bound_by=dkv_bound[1], **common),
+            dict(max_abs_err=errs["dq"], ms=dq_ms, bound_ms=dq_bound[0],
+                 bound_by=dq_bound[1], **common))
+
+
 def phase_kernels(dev):
     for t in (8, 100, 512):
         for dtype in ("float32", "bfloat16"):
@@ -265,7 +392,19 @@ def phase_kernels(dev):
     # the served slots' positions at their last decode step
     paged_main = paged_case(dev, [t + SERVE["max_new"] - 2
                                   for t in SERVE["prompt_lens"]], "float32")
-    return flash_main, paged_main
+    for dtype in ("float32", "bfloat16"):
+        flash_bwd_case(dev, 2, 300, 200, 64, dtype, seed=3)  # masked rows
+        flash_bwd_case(dev, 2, 100, 612, 64, dtype, seed=4)  # Tk > Tq
+        flash_bwd_case(dev, 2, 256, 256, 64, dtype, segmented=True, seed=5)
+        flash_bwd_case(dev, 2, 1000, 1000, 64, dtype, seed=6)  # unaligned
+        flash_bwd_case(dev, 2, 333, 333, 128, dtype, seed=7)  # D = 128
+        flash_bwd_case(dev, 2, 77, 77, 128, dtype, segmented=True, seed=8)
+        flash_bwd_case(dev, 2, 33, 17, 64, dtype, causal=False, seed=9)
+    flash_bwd_case(dev, 8, 1024, 1024, 64, "bfloat16", timed=True)
+    # the training step's shape: batch 8 x 1024 tokens, 12 heads of 64
+    dkv_main, dq_main = flash_bwd_case(dev, 8, 1024, 1024, 64, "float32",
+                                       timed=True)
+    return flash_main, paged_main, dkv_main, dq_main
 
 
 # --------------------------------------------------------------------------- #
@@ -300,19 +439,19 @@ def check_stream(ref_model, params, prompt, got, want):
 
 
 def _kernel_family(name: str) -> str:
-    if "flash_fwd_kernel" in name:
-        return "flash_fwd (ours)"
-    if "paged_decode_kernel" in name:
-        return "paged_decode (ours)"
+    for ours in ("flash_fwd", "paged_decode", "flash_bwd_dkv",
+                 "flash_bwd_dq"):
+        if f"{ours}_kernel" in name:
+            return f"{ours} (ours)"
     if any(t in name for t in ("gemm", "gemv", "xmma", "cutlass", "sm90")):
         return "matmul (cuBLAS)"
     return "other PyTorch kernels"
 
 
-def profile_serve(engine, prompts, max_new, out_path):
-    """Serve ``prompts`` once more under torch.profiler: device busy
-    time (the union of kernel intervals) against the host clock, and
-    the kernels by device time.  Writes the table to ``out_path``."""
+def profile_device(run, label, out_path):
+    """Call ``run()`` once under torch.profiler: device busy time (the
+    union of kernel intervals) against the host clock, and the kernels
+    by device time.  Writes the table to ``out_path``."""
     import tempfile
 
     import torch
@@ -320,10 +459,7 @@ def profile_serve(engine, prompts, max_new, out_path):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        streams = [engine.submit(p, max_new_tokens=max_new)
-                   for p in prompts]
-        for st in streams:
-            st.result(timeout=600)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     with tempfile.TemporaryDirectory() as d:
@@ -348,10 +484,10 @@ def profile_serve(engine, prompts, max_new, out_path):
         fam = _kernel_family(e["name"])
         t, c = by_family.get(fam, (0.0, 0))
         by_family[fam] = (t + e["dur"], c + 1)
-    lines = [f"profiled serve run: {len(prompts)} requests x {max_new} "
-             f"tokens, host wall {wall_us / 1e3:.3f} ms, device busy "
-             f"{busy / 1e3:.3f} ms, device idle share "
-             f"{1 - busy / wall_us:.4f}, {len(kern)} kernels"]
+    idle = 1 - busy / wall_us
+    lines = [f"profiled {label}: host wall {wall_us / 1e3:.3f} ms, device "
+             f"busy {busy / 1e3:.3f} ms, device idle share {idle:.4f}, "
+             f"{len(kern)} kernels"]
     for fam, (t, c) in sorted(by_family.items(), key=lambda kv: -kv[1][0]):
         lines.append(f"  family {fam}: {t / 1e3:.3f} ms in {c} kernels")
     for name, (t, c) in sorted(by_name.items(),
@@ -362,13 +498,14 @@ def profile_serve(engine, prompts, max_new, out_path):
     for line in lines[:len(by_family) + 1]:
         log(f"[profile] {line}")
     log(f"[profile] kernel table written to {out_path}")
+    return idle
 
 
 def phase_serve(dev, config=GPT2_SMALL, serve=SERVE, prompts=None,
                 profile_path=None):
     """Build the model from a seed, serve the prompts, check every
     stream.  Returns the serve metrics.  With ``profile_path``, one more
-    run of fresh prompts is traced afterwards (see profile_serve)."""
+    run of fresh prompts is traced afterwards (see profile_device)."""
     import numpy as np
     import torch
     from bigdl_tpu_torch.models.transformer import TransformerLM
@@ -404,8 +541,14 @@ def phase_serve(dev, config=GPT2_SMALL, serve=SERVE, prompts=None,
         launches = {k.symbol: k.launches for k in KERNELS}
         stats = engine.stats()
         if profile_path:
-            profile_serve(engine, serve_prompts(serve["seed"] + 1), max_new,
-                          profile_path)
+            more = serve_prompts(serve["seed"] + 1)
+
+            def run():
+                for st in [engine.submit(p, max_new_tokens=max_new)
+                           for p in more]:
+                    st.result(timeout=600)
+            profile_device(run, f"serve run: {len(more)} requests x "
+                                f"{max_new} tokens", profile_path)
     finally:
         engine.close()
     peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
@@ -438,6 +581,217 @@ def phase_serve(dev, config=GPT2_SMALL, serve=SERVE, prompts=None,
 
 
 # --------------------------------------------------------------------------- #
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _named_leaves(sub, f"{prefix}/{key}")
+    else:
+        yield prefix, tree
+
+
+def _check_grads(run, got, want, tol):
+    """Each gradient leaf of ``got`` finite and within ``tol`` of
+    ``want``'s: its max abs error over ``want``'s max |g|.  The key
+    bias's gradient is zero in exact arithmetic (a constant added to
+    every score of a row leaves its softmax unchanged), so it holds
+    rounding noise only: each leaf's max |g| has a floor of ``tol``
+    times the tree's largest |g|.  Returns (worst ratio, its leaf)."""
+    import torch
+    floor = tol * max(b.abs().max().item() for _, b in _named_leaves(want))
+    worst = (0.0, "")
+    for (path, a), (_, b) in zip(_named_leaves(got), _named_leaves(want)):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"gradient {path}: non-finite on {run}")
+        ratio = (a.float() - b).abs().max().item() / max(
+            b.abs().max().item(), floor)
+        if not ratio <= tol:
+            raise AssertionError(f"gradient {path} on {run}: max_abs_err "
+                                 f"over max |g| {ratio:.3e} > {tol}")
+        worst = max(worst, (ratio, path))
+    return worst
+
+
+def _reset_launches():
+    from bigdl_tpu_torch.ops import KERNELS
+    for k in KERNELS:
+        k.launches = 0
+
+
+def _launches():
+    from bigdl_tpu_torch.ops import KERNELS
+    return {k.symbol: k.launches for k in KERNELS}
+
+
+def check_launches(run, launches, symbols, exactly=None):
+    """Every kernel of ``symbols`` launched in ``run``: at least once, or
+    ``exactly`` times."""
+    for symbol in symbols:
+        n = launches[symbol]
+        if n <= 0 or (exactly is not None and n != exactly):
+            want = "at least once" if exactly is None else f"{exactly} times"
+            raise AssertionError(f"{symbol} was launched {n} times on the "
+                                 f"{run}, not {want}")
+
+
+class _IterationLog(logging.Handler):
+    """The wall clock and loss at the end of each LocalOptimizer
+    iteration, read from the loop's per-iteration log record (emitted
+    after the step's loss fetch, which waits for the update)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.ends, self.losses = [], []
+
+    def emit(self, record):
+        if record.msg.startswith("Epoch %d iteration %d"):
+            self.ends.append(time.perf_counter())
+            self.losses.append(float(record.args[2]))
+
+
+def run_iterations(opt, n):
+    """``opt.optimize()`` for ``n`` more iterations: (losses, seconds
+    from each iteration's end to the next's, n - 1 of them)."""
+    from bigdl_tpu_torch.optim import Trigger
+    opt.set_end_when(Trigger.max_iteration(opt.state.get("neval", 1) + n - 1))
+    logger = logging.getLogger("bigdl_tpu_torch.optim")
+    level, record = logger.level, _IterationLog()
+    logger.setLevel(logging.INFO)
+    logger.addHandler(record)
+    try:
+        opt.optimize()
+    finally:
+        logger.removeHandler(record)
+        logger.setLevel(level)
+    if len(record.losses) != n:
+        raise AssertionError(f"optimize() logged {len(record.losses)} "
+                             f"iterations, not {n}")
+    return record.losses, [b - a for a, b in zip(record.ends, record.ends[1:])]
+
+
+def phase_train(dev, config=GPT2_SMALL, train=TRAIN, cli=TRAIN_CLI,
+                profile_path=None):
+    """Train the model on one fixed batch of random ids (memorisation:
+    the loss must fall) through the public entry points: the float32 and
+    bf16-compute gradient checks against plain attention, the timed
+    LocalOptimizer steps, one bf16-compute step, and the train CLI.  Returns the train metrics,
+    with each run's kernel launch counts."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToBatch
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.models.transformer import train as train_cli
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, loss_and_grads
+    cuda = dev.type == "cuda"
+    batch, seq = train["batch"], train["seq_len"]
+    ids = np.random.RandomState(train["data_seed"]).randint(
+        1, config["vocab_size"] + 1, size=(batch, seq + 1)).astype(np.float32)
+    x, y = ids[:, :-1], ids[:, 1:]
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), True)
+
+    def fresh():
+        return TransformerLM(attention_impl="flash", device=dev,
+                             **config).build(seed=train["seed"])
+
+    def optimizer(model, compute_dtype=None):
+        ds = DataSet.array([Sample(f, l) for f, l in zip(x, y)]) \
+            >> SampleToBatch(batch)
+        opt = LocalOptimizer(model, ds, crit).set_optim_method(
+            Adam(learning_rate=train["learning_rate"]))
+        return opt.set_compute_dtype(compute_dtype) if compute_dtype else opt
+
+    # 1. step-0 loss and every gradient leaf: flash kernels vs plain
+    t0 = time.perf_counter()
+    model = fresh()
+    plain = TransformerLM(attention_impl="xla", device=dev, **config)
+    cb = train["check_batch"]
+    xb, yb = (torch.as_tensor(a[:cb], device=dev) for a in (x, y))
+    loss_f, g_f, _ = loss_and_grads(model, crit, model.params, xb, yb)
+    loss_p, g_p, _ = loss_and_grads(plain, crit, model.params, xb, yb)
+    rel = abs(float(loss_f) - float(loss_p)) / abs(float(loss_p))
+    if not rel <= TOL_LOSS:
+        raise AssertionError(f"step-0 loss flash {float(loss_f)} vs plain "
+                             f"{float(loss_p)}: relative {rel:.3e} > "
+                             f"{TOL_LOSS}")
+    worst = _check_grads("flash", g_f, g_p, TOL_GRAD)
+    log(f"[train] gradient check at {cb}x{seq}, {config['n_layers']} "
+        f"layers: loss flash {float(loss_f):.6f} plain {float(loss_p):.6f} "
+        f"(relative {rel:.2e}), every leaf within {TOL_GRAD} of its max |g| "
+        f"(worst {worst[0]:.2e} at {worst[1]}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    del g_f, plain
+    # the same step with bf16 compute (the bf16 flash kernels, forward and
+    # backward), held against the float32 gradients
+    loss_h, g_h, _ = loss_and_grads(model, crit, model.params, xb, yb,
+                                    compute_dtype=torch.bfloat16)
+    worst16 = _check_grads("bf16 flash", g_h, g_p, TOL_BF16_GRAD)
+    log(f"[train] bf16-compute gradient check at {cb}x{seq}: loss "
+        f"{float(loss_h):.6f}, every leaf within {TOL_BF16_GRAD} of the "
+        f"float32 leaf's max |g| (worst {worst16[0]:.3e} at {worst16[1]})")
+    del g_h, g_p
+
+    # 2. the timed steps
+    opt = optimizer(model)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    # one optimize() over every step, as a user runs it; each step is timed
+    # from the end of the one before, so the warm-up step has no time
+    losses, step_s = run_iterations(opt, train["warmup"] + train["steps"])
+    step_s = step_s[train["warmup"] - 1:]
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}: not finite and "
+                             "falling")
+    step_ms = float(np.median(step_s)) * 1e3
+    idle = None
+    if profile_path:
+        root, ext = os.path.splitext(profile_path)
+        idle = profile_device(lambda: run_iterations(opt, 1),
+                              f"train step ({batch}x{seq})",
+                              f"{root}_train{ext}")
+    log(f"[train] {batch}x{seq} tokens, Adam lr {train['learning_rate']}: "
+        f"losses {[round(v, 4) for v in losses]}; median step "
+        f"{step_ms:.2f} ms over {train['steps']} steps "
+        f"({[round(s * 1e3, 2) for s in step_s]} ms), "
+        f"{batch * seq / step_ms * 1e3:.1f} tokens/s")
+    del opt, model
+
+    # 3. one step with bf16 compute on fresh weights
+    opt16 = optimizer(fresh(), torch.bfloat16)
+    _reset_launches()
+    (loss16,), _ = run_iterations(opt16, 1)
+    launches16 = _launches()
+    rel16 = abs(loss16 - losses[0]) / abs(losses[0])
+    if not rel16 <= TOL_BF16_STEP:
+        raise AssertionError(f"bf16 step-0 loss {loss16} vs float32 "
+                             f"{losses[0]}: relative {rel16:.3e}")
+    log(f"[train] bf16-compute step: loss {loss16:.6f} (float32 "
+        f"{losses[0]:.6f}, relative {rel16:.2e})")
+    del opt16
+
+    # 4. the train CLI: packed windows, documents isolated (segmented
+    # kernels), validation every epoch
+    _reset_launches()
+    cli_opt = train_cli.main(cli + ["--device", dev.type])
+    launches_cli = _launches()
+    (method, result), = cli_opt.validation_results
+    if not (np.isfinite(cli_opt.state["loss"])
+            and np.isfinite(result.result()[0])):
+        raise AssertionError(f"train CLI: loss {cli_opt.state['loss']}, "
+                             f"validation {result}")
+    log(f"[train] CLI {' '.join(cli)}: loss {cli_opt.state['loss']:.6f}, "
+        f"validation {method} {result}")
+    return dict(losses=losses, step_ms=step_ms,
+                tokens_per_s=batch * seq / step_ms * 1e3, peak_bytes=peak,
+                idle_share=idle, launches=launches, launches_bf16=launches16,
+                launches_cli=launches_cli,
+                steps_run=train["warmup"] + train["steps"])
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
         print("chip_smoke.py: the bigdl_tpu_torch package is not beside "
@@ -446,9 +800,10 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
-                    help="after the serve phase, trace one more serve run "
-                         "with torch.profiler and write its kernel table "
-                         "to PATH")
+                    help="trace one more serve run and one more training "
+                         "step with torch.profiler and write their kernel "
+                         "tables to PATH and PATH with _train before its "
+                         "extension")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import torch
@@ -464,18 +819,46 @@ def main() -> int:
     log(f"[device] {kind} | count {count} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
+    phases = {}
+    t0 = time.perf_counter()
     phase_build()
-    flash_main, paged_main = phase_kernels(dev)
+    phases["build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flash_main, paged_main, dkv_main, dq_main = phase_kernels(dev)
+    phases["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     serve = phase_serve(dev, profile_path=args.profile)
-    for symbol, n in serve["launches"].items():
-        if n <= 0:
-            raise AssertionError(f"{symbol} was never launched on the "
-                                 "serve path")
+    phases["serve"] = time.perf_counter() - t0
+    check_launches("serve path", serve["launches"],
+                   ("bigdl_flash_fwd", "bigdl_paged_decode"))
     log(f"[serve] launches on the serve path: {serve['launches']}")
     log(f"[serve] TTFT p50 {serve['ttft_p50_s'] * 1e3:.2f} ms, decode "
         f"{serve['decode_tokens_per_s']:.1f} tokens/s (8 slots), "
         f"max_memory_allocated {serve['peak_bytes'] / 2**20:.1f} MiB, "
         f"wall {serve['wall_s']:.2f} s | {smi}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train = phase_train(dev, profile_path=args.profile)
+    phases["train"] = time.perf_counter() - t0
+    flash_train = ("bigdl_flash_fwd", "bigdl_flash_bwd_dkv",
+                   "bigdl_flash_bwd_dq")
+    per_run = GPT2_SMALL["n_layers"] * train["steps_run"]
+    check_launches("training path", train["launches"], flash_train,
+                   exactly=per_run)
+    check_launches("bf16 training step", train["launches_bf16"], flash_train,
+                   exactly=GPT2_SMALL["n_layers"])
+    check_launches("train CLI", train["launches_cli"], flash_train)
+    log(f"[train] launches on the training path ({train['steps_run']} "
+        f"steps): {train['launches']}; bf16 step: {train['launches_bf16']}; "
+        f"CLI: {train['launches_cli']}")
+    idle = ("not measured (no --profile)" if train["idle_share"] is None
+            else f"{train['idle_share']:.4f}")
+    log(f"[train] median step {train['step_ms']:.2f} ms, "
+        f"{train['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+        f"{train['peak_bytes'] / 2**20:.1f} MiB, device idle share {idle} "
+        f"| {smi}")
+    log("[done] phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phases.items()))
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_fwd.cu",
@@ -485,6 +868,14 @@ def main() -> int:
              source="bigdl_tpu_torch/csrc/paged_decode.cu",
              replaces="bigdl_tpu/ops/paged_attention.py:34",
              launches=serve["launches"]["bigdl_paged_decode"], **paged_main),
+        dict(name="flash_bwd_dkv", route="cuda",
+             source="bigdl_tpu_torch/csrc/flash_bwd.cu",
+             replaces="bigdl_tpu/ops/flash_attention.py:199",
+             launches=train["launches"]["bigdl_flash_bwd_dkv"], **dkv_main),
+        dict(name="flash_bwd_dq", route="cuda",
+             source="bigdl_tpu_torch/csrc/flash_bwd.cu",
+             replaces="bigdl_tpu/ops/flash_attention.py:262",
+             launches=train["launches"]["bigdl_flash_bwd_dq"], **dq_main),
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from bigdl_tpu_torch import resolve_device
-from bigdl_tpu_torch.ops import (FLASH_FWD, PAGED_DECODE,
+from bigdl_tpu_torch.ops import (FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
+                                 PAGED_DECODE, flash_attention,
+                                 flash_attention_backward_reference,
                                  flash_attention_reference,
                                  flash_attention_with_lse,
                                  paged_decode_attention,
@@ -21,6 +23,9 @@ pytestmark = pytest.mark.cuda
 
 TOL = {"float32": (1e-4, 1e-4),     # (o, lse): summation order only
        "bfloat16": (2e-2, 1e-2)}    # bf16 rounding of p and o
+# backward, relative to each gradient's max |value|: float32 differs by
+# summation order only; bf16 by the rounding of p and ds to bf16
+TOL_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 @pytest.fixture
@@ -128,3 +133,95 @@ def test_paged_kernel_never_reads_past_pos(card):
     out = paged_decode_attention(q, ka, va, tables, pos)
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+def _bwd_case(card, dtype, tq, tk, d, causal, segmented=False, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    tdt = getattr(torch, dtype)
+    q = _rand(g, (2, 3, tq, d), card, tdt)
+    k = _rand(g, (2, 3, tk, d), card, tdt)
+    v = _rand(g, (2, 3, tk, d), card, tdt)
+    seg = None
+    if segmented:
+        seg = torch.tensor(np.sort(np.random.RandomState(seed).randint(
+            0, 4, size=(2, tq)), axis=1), dtype=torch.int32, device=card)
+    o, lse = flash_attention_reference(q, k, v, causal=causal,
+                                       q_segment_ids=seg, kv_segment_ids=seg)
+    do = _rand(g, o.shape, card, tdt)
+    dlse = _rand(g, lse.shape, card)
+    return q, k, v, o, lse, do, dlse, seg
+
+
+def _run_bwd(q, k, v, o, lse, do, dlse, seg, causal):
+    from bigdl_tpu_torch.ops.flash_attention import _flash_bwd
+    return _flash_bwd(q, k, v, o, lse, do, dlse, seg, seg, causal,
+                      1.0 / np.sqrt(q.shape[-1]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tq,tk,causal,d,segmented", [
+    (128, 128, True, 64, False),      # aligned, causal
+    (100, 100, True, 64, False),      # unaligned T
+    (90, 40, True, 64, False),        # Tq > Tk: fully masked rows
+    (64, 200, True, 64, False),       # Tk > Tq
+    (70, 70, True, 128, False),       # D = 128
+    (33, 17, False, 64, False),       # not causal
+    (96, 96, True, 64, True),         # segmented
+    (77, 77, True, 128, True)])       # segmented, D = 128, unaligned
+def test_flash_bwd_kernels_match_plain(card, dtype, tq, tk, causal, d,
+                                       segmented):
+    args = _bwd_case(card, dtype, tq, tk, d, causal, segmented, seed=tq + d)
+    seg = args[-1]
+    before = (FLASH_BWD_DKV.launches, FLASH_BWD_DQ.launches)
+    got = _run_bwd(*args, causal)
+    torch.cuda.synchronize()
+    assert (FLASH_BWD_DKV.launches, FLASH_BWD_DQ.launches) == (
+        before[0] + 1, before[1] + 1)
+    q, k, v, o, lse, do, dlse, _ = args
+    want = flash_attention_backward_reference(
+        q, k, v, o, lse, do, dlse, causal=causal, q_segment_ids=seg,
+        kv_segment_ids=seg)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.isfinite(a).all(), name
+        ref = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= TOL_BWD[dtype] * max(ref, 1e-6), (name, err, ref)
+    if tq > tk and causal:
+        # rows 0..tq-tk-1 see no key: they give dq = 0
+        assert torch.all(got[0][:, :, :tq - tk] == 0)
+
+
+def test_flash_bwd_kernels_are_bitwise_repeatable(card):
+    args = _bwd_case(card, "float32", 200, 200, 64, True, seed=5)
+    first = _run_bwd(*args, True)
+    second = _run_bwd(*args, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_autograd_runs_the_kernels(card):
+    """torch.autograd through flash_attention on CUDA tensors launches
+    one forward and one of each backward kernel, and matches autograd
+    through the plain reference."""
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (_rand(g, (2, 4, 150, 64), card).requires_grad_()
+               for _ in range(3))
+    before = [kern.launches for kern in (FLASH_FWD, FLASH_BWD_DKV,
+                                         FLASH_BWD_DQ)]
+    o = flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(((o - 1.0) ** 2).sum(), (q, k, v))
+    after = [kern.launches for kern in (FLASH_FWD, FLASH_BWD_DKV,
+                                        FLASH_BWD_DQ)]
+    assert after == [n + 1 for n in before]
+    o_ref, _ = flash_attention_reference(q, k, v, causal=True)
+    want = torch.autograd.grad(((o_ref - 1.0) ** 2).sum(), (q, k, v))
+    for a, b in zip(grads, want):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def test_flash_bwd_rejects_what_it_cannot_run(card):
+    args = list(_bwd_case(card, "float32", 16, 16, 64, True))
+    args[5] = args[5].to(torch.bfloat16)      # do in another dtype
+    with pytest.raises(ValueError, match="do must be"):
+        _run_bwd(*args, True)

@@ -18,12 +18,16 @@ import torch
 
 from bigdl_tpu.nn.attention import MultiHeadAttention as JaxMHA
 from bigdl_tpu.nn.normalization import layer_norm as jax_layer_norm
+from bigdl_tpu.ops import flash_attention as jax_flash
 from bigdl_tpu.ops import flash_attention_with_lse as jax_flash_lse
 from bigdl_tpu.ops import paged_decode_attention as jax_paged
 
 from bigdl_tpu_torch import resolve_device
-from bigdl_tpu_torch.nn import MultiHeadAttention, layer_norm
-from bigdl_tpu_torch.ops import (FLASH_FWD, PAGED_DECODE, flash_attention,
+from bigdl_tpu_torch.nn import (MultiHeadAttention, dot_product_attention,
+                                layer_norm)
+from bigdl_tpu_torch.ops import (FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
+                                 PAGED_DECODE, flash_attention,
+                                 flash_attention_backward_reference,
                                  flash_attention_reference,
                                  flash_attention_with_lse,
                                  paged_decode_attention,
@@ -104,14 +108,168 @@ def test_flash_plain_matches_jax_bf16():
                                atol=1e-5, rtol=1e-5)
 
 
+# --------------------------------------------------------------------------- #
+# flash backward: the autograd Functions and the plain backward vs the JAX    #
+# Pallas backward kernels (interpret mode)                                    #
+# --------------------------------------------------------------------------- #
+
+BWD_CASES = {
+    # name: (tq, tk, causal, segmented); mirrors tests/test_ops.py's
+    # TestFlashBackward, TestFlashBackwardCross and the segmented grads
+    "full": (32, 32, False, False),
+    "causal": (32, 32, True, False),
+    "causal_tq_gt_tk_fully_masked_rows": (48, 20, True, False),
+    "segmented_unaligned": (45, 45, True, True),
+}
+
+
+def _bwd_inputs(case):
+    tq, tk, causal, segmented = BWD_CASES[case]
+    rng = np.random.RandomState(100 + len(case))
+    q, k, v = (_randn(rng, 2, 2, tq, 16), _randn(rng, 2, 2, tk, 16),
+               _randn(rng, 2, 2, tk, 16))
+    seg = None
+    if segmented:
+        seg = np.sort(rng.randint(0, 3, size=(2, tq)), axis=1).astype(
+            np.int32)
+    return q, k, v, causal, seg
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_function_grads_match_jax(case):
+    """torch.autograd.grad through the port's Function (plain forward and
+    backward on CPU tensors) against jax.grad through the JAX flash
+    custom VJP (Pallas backward kernels, interpret mode), with a
+    cotangent that is non-zero on every row, fully masked ones included:
+    1e-4, float32 on both sides."""
+    q, k, v, causal, seg = _bwd_inputs(case)
+
+    def jloss(q, k, v):
+        o = jax_flash(q, k, v, causal=causal,
+                      segment_ids=None if seg is None else jnp.asarray(seg),
+                      block_q=16, block_k=16)
+        return jnp.sum((o - 1.0) ** 2)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    tq_, tk_, tv_ = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = flash_attention(tq_, tk_, tv_, causal=causal,
+                        segment_ids=None if seg is None
+                        else torch.from_numpy(seg))
+    got = torch.autograd.grad(((o - 1.0) ** 2).sum(), (tq_, tk_, tv_))
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_flash_lse_function_takes_the_lse_cotangent():
+    """A loss of both o and lse (the ring-attention merge shape): the
+    port's _FlashLse backward against jax.grad of the JAX
+    flash_attention_with_lse, 1e-4."""
+    rng = np.random.RandomState(24)
+    q, k, v = (_randn(rng, 2, 2, 32, 16) for _ in range(3))
+    seg = np.sort(rng.randint(0, 2, size=(2, 32)), axis=1).astype(np.int32)
+
+    def jloss(q, k, v):
+        o, lse = jax_flash_lse(q, k, v, causal=True,
+                               q_segment_ids=jnp.asarray(seg),
+                               kv_segment_ids=jnp.asarray(seg),
+                               block_q=16, block_k=16)
+        return jnp.sum(o ** 2) + jnp.sum(jnp.sin(lse))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    o, lse = flash_attention_with_lse(
+        *ts, causal=True, q_segment_ids=torch.from_numpy(seg),
+        kv_segment_ids=torch.from_numpy(seg))
+    got = torch.autograd.grad((o ** 2).sum() + torch.sin(lse).sum(), ts)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_plain_backward_matches_jax_bwd_kernels(case):
+    """The plain backward against the JAX ``_flash_bwd`` (both Pallas
+    backward kernels, interpret mode) on the same (o, lse, do, dlse),
+    with a random lse cotangent and scale 0.25: 1e-4."""
+    from bigdl_tpu.ops.flash_attention import _flash_bwd, _flash_fwd
+    q, k, v, causal, seg = _bwd_inputs(case)
+    jseg = None if seg is None else jnp.asarray(seg)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    o, lse = _flash_fwd(jq, jk, jv, jseg, jseg, causal, 0.25, 16, 16, True)
+    rng = np.random.RandomState(21)
+    do = rng.randn(*o.shape).astype(np.float32)
+    dlse = rng.randn(*lse.shape).astype(np.float32)
+    want = _flash_bwd(jq, jk, jv, o, lse, jnp.asarray(do), jnp.asarray(dlse),
+                      jseg, jseg, causal, 0.25, 16, 16, True)
+    tseg = None if seg is None else torch.from_numpy(seg)
+    got = flash_attention_backward_reference(
+        *(torch.from_numpy(np.array(x)) for x in (q, k, v, o, lse, do,
+                                                   dlse)),
+        causal=causal, scale=0.25, q_segment_ids=tseg, kv_segment_ids=tseg)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_flash_plain_backward_matches_jax_bwd_kernels_bf16():
+    """bf16 inputs: both sides round p before p^T do and ds before ds^T q
+    and ds k, then return bf16 gradients: 2e-2 relative to each
+    gradient's max |value| (bf16 rounding of p, ds and the outputs)."""
+    from bigdl_tpu.ops.flash_attention import _flash_bwd, _flash_fwd
+    rng = np.random.RandomState(25)
+    q, k, v, do = (_randn(rng, 1, 2, 24, 16) for _ in range(4))
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    o, lse = _flash_fwd(jq, jk, jv, None, None, True, 0.25, 8, 8, True)
+    dlse = jnp.zeros(lse.shape, jnp.float32)
+    want = _flash_bwd(jq, jk, jv, o, lse, jdo, dlse, None, None, True, 0.25,
+                      8, 8, True)
+    got = flash_attention_backward_reference(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+        torch.from_numpy(np.array(o.astype(jnp.float32))).to(
+            torch.bfloat16),
+        torch.from_numpy(np.array(lse)),
+        torch.from_numpy(do).to(torch.bfloat16), causal=True, scale=0.25)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        b = np.asarray(b.astype(jnp.float32))
+        np.testing.assert_allclose(a.float().numpy(), b,
+                                   atol=2e-2 * np.abs(b).max(), rtol=0)
+
+
+def test_plain_attention_grads_are_finite_on_fully_masked_rows():
+    """dot_product_attention (the "xla" path): a row with no visible key
+    returns 0 and gives zero, finite gradients, as the flash path does."""
+    rng = np.random.RandomState(26)
+    q, k, v = (torch.from_numpy(_randn(rng, 1, 2, n, 16)).requires_grad_()
+               for n in (12, 8, 8))
+    o = dot_product_attention(q, k, v, causal=True)
+    got = torch.autograd.grad(((o - 1.0) ** 2).sum(), (q, k, v))
+    ref = flash_attention(q, k, v, causal=True)
+    want = torch.autograd.grad(((ref - 1.0) ** 2).sum(), (q, k, v))
+    assert torch.all(o[:, :, :4] == 0)
+    assert torch.all(got[0][:, :, :4] == 0)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
 def test_flash_wrapper_takes_plain_version_on_cpu():
     rng = np.random.RandomState(1)
-    q, k, v = (torch.from_numpy(_randn(rng, 1, 2, 9, 16)) for _ in range(3))
-    before = FLASH_FWD.launches
+    q, k, v = (torch.from_numpy(_randn(rng, 1, 2, 9, 16)).requires_grad_()
+               for _ in range(3))
+    counters = (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ)
+    before = [c.launches for c in counters]
     o = flash_attention(q, k, v, causal=True)
     ref, _ = flash_attention_reference(q, k, v, causal=True)
     assert torch.equal(o, ref)
-    assert FLASH_FWD.launches == before  # a CPU call never launches
+    torch.autograd.grad(o.sum(), (q, k, v))
+    # a CPU call never launches, forward or backward
+    assert [c.launches for c in counters] == before
     with pytest.raises(ValueError):
         flash_attention(q, k[:, :, :5], v[:, :, :5],
                         segment_ids=torch.zeros((1, 9), dtype=torch.int32))
@@ -207,6 +365,18 @@ def test_mha_matches_jax(impl):
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("hidden,heads", [(64, 4), (768, 12)])
+def test_auto_attention_means_the_kernels_on_cuda_at_any_head_width(
+        hidden, heads):
+    """"auto" sends a CUDA device to the flash kernels whatever the head
+    width (the kernels raise for a width they do not take, never fall
+    back) and the CPU to plain attention; "xla" is plain everywhere."""
+    m = MultiHeadAttention(hidden, heads, causal=True)
+    assert m.resolve_use_flash(torch.device("cuda"))
+    assert not m.resolve_use_flash(torch.device("cpu"))
+    assert not m.resolve_use_flash(torch.device("cuda"), "xla")
+
+
 def test_build_runs_one_nvcc_per_source_and_reuses_the_library(
         tmp_path, monkeypatch):
     """ops._build with a stand-in compiler: both sources compile at once
@@ -284,4 +454,7 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
         generate(model, model.params, np.asarray([[1, 2]]), 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LMServingEngine(model)
+    from bigdl_tpu_torch.models.transformer import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--synthetic", "-e", "1"])     # --device defaults to cuda
     assert resolve_device("cpu") == torch.device("cpu")
