@@ -1,5 +1,5 @@
 // Flash-attention backward for Hopper (sm_90a), hand-written CUDA C++:
-// two kernels, one for dk/dv and one for dq.
+// two kernels, one for dk/dv and one for dq, on the tensor cores.
 //
 // Replaces the Pallas TPU kernels `_bwd_dkv_kernel`
 // (bigdl_tpu/ops/flash_attention.py:199) and `_bwd_dq_kernel` (:262),
@@ -8,7 +8,7 @@
 // delta = rowsum(do * o) (computed by the wrapper) and dlse (the lse
 // cotangent):
 //
-//   s  = scale * q k^T            (float32 products)
+//   s  = scale * q k^T            (float32 sums)
 //   p  = mask ? exp(s - lse) : 0  (a select, never exp(.) * mask: a row
 //                                  with no visible key has lse = -1e30 and
 //                                  exp(s - lse) overflows there)
@@ -22,179 +22,341 @@
 // j <= i + Tk - Tq), optional q-side and kv-side segment ids compared for
 // equality.  All sums are float32.
 //
-// Design.  The TPU grids carry dk/dv (or dq) in VMEM scratch across a
-// sequential innermost grid axis; blocks of a CUDA grid run in parallel
-// with nothing carried between them, so here each block loops itself:
-//
-// - dk/dv: one block per (batch, head, BK-key tile) holds its K and V
-//   tiles in shared memory and walks the 64-row query tiles from the
-//   first one whose causal row reaches the key tile (the tiles
-//   `block_live` skips are never visited).  Per query tile it forms the
-//   64 x BK tiles of s and dp in registers (each of 128 threads owns 4
-//   rows x BK/8 keys), turns them into p and ds, and stages both in
-//   shared memory, because p^T do and ds^T q read them transposed; then
-//   each thread accumulates BK/16 key rows x D/8 columns of dk and dv in
-//   registers.
-// - dq: one block per (batch, head, 64-query tile) holds its Q and dO
-//   tiles and walks the 64-key tiles up to the diagonal, accumulating dq
-//   in registers as the forward accumulates o.  A row's ds entries are
-//   written and read only by the 8 lanes that own the row, all in one
-//   warp, so a warp barrier orders them.
-//
-// Neither kernel uses atomics: every output element is summed by one
-// thread in a fixed order, so results are bitwise repeatable.  Tiles are
-// staged in shared memory as float32 with a padded row stride (D + 1,
-// BK + 1), so the column reads of every product are free of bank
-// conflicts; dynamic shared memory (up to 146 KB for dq at D = 128) is
-// enabled with cudaFuncSetAttribute.  For D = 128 the dk/dv kernel takes
-// 32-key tiles to keep its two accumulators at 64 registers a thread.
-//
 // What bounds it on this card: at the training shapes (T = 1024, D = 64)
 // the backward does O(T^2 D) operations on O(T D) bytes, so it is bound
-// by operations.  This first version runs them as float32 FMAs on the CUDA
-// cores (67 TFLOP/s peak), not on the tensor cores; register tiling
-// (24 shared loads feed 64 FMAs in the score loop) keeps shared memory
-// from being the limit.  The split into two kernels recomputes s and dp
-// in both (8 D + 6 D operations a visible pair against 10 D for a single
-// fused backward), the price of having no atomics; wgmma, TMA and bf16
-// tensor-core products are later work.
+// by operations, and only the tensor cores reach the card's operation
+// rate.  Every product of both kernels is an `mma.sync`:
+//
+// - bf16: m16n8k16 bf16 x bf16 -> float32 (989 TFLOP/s peak).  Tiles stay
+//   bf16 in shared memory; operands come from `ldmatrix` (`.trans` where a
+//   product reads a tile along its rows).
+// - float32: 3xTF32 on m16n8k8 (495 / 3 = 165 TFLOP/s peak).  Each operand
+//   x splits into hi = tf32(x) and lo = tf32(x - hi), both rounded to
+//   nearest, and a product sums lo*hi + hi*lo + hi*hi in float32: about
+//   float32's accuracy (a single TF32 product misses the 1e-4 tolerance of
+//   the float32 backward; three stay 100x inside it).  There is no
+//   single-pass TF32 path.  Fragments are plain 32-bit shared loads,
+//   split as they are used; those loads and splits, several instructions
+//   for each `mma`, are what holds this path below the bf16 one's share
+//   of its peak (PERF.md).
+//
+// Shared tiles are row-major with an XOR swizzle of their 16-byte chunks
+// (chunk ^ (row & 7)): a row of 64 bf16 values is 128 bytes, so without
+// it the 8 rows an `ldmatrix` or a fragment load reads would hit one bank
+// group 8 times.
+//
+// - dk/dv: one block per (batch, head, 64-key tile), 4 warps of 16 key
+//   rows.  K and V stay in shared memory; the query tiles (BQ rows of Q and
+//   dO, and their lse, delta, dlse and segment ids) stream through a
+//   2-stage ring filled by `cp.async` (16 bytes a thread; rows past T are
+//   zero-filled from a clamped in-bounds address), the next tile's copy in
+//   flight while the current one is computed.  The walk starts at the first
+//   query tile whose causal row reaches the key tile.  The warp computes
+//   the transposed tiles S^T = K Q^T and dP^T = V dO^T, so it owns whole
+//   key rows and P^T and dS^T come out of the accumulators already laid out
+//   as the A operand of dV += P^T dO and dK += dS^T Q: no pass through
+//   shared memory.  In bf16 two adjacent n8 accumulator tiles are one k16 A
+//   fragment after `__floats2bfloat162_rn` (the rounding the semantics ask
+//   for).  In tf32 the A fragment holds columns (c, c + 4) where the
+//   accumulator holds (2c, 2c + 1), so the B operand's k rows are read
+//   permuted to match (row 2c where the fragment wants c, 2c + 1 where it
+//   wants c + 4).  The query-side scalars belong to the accumulator's
+//   column here, and are read from the ring.
+// - dq: one block per (batch, head, 64-query tile), 4 warps of 16 query
+//   rows.  Q and dO stay in shared memory; K and V tiles (and the key
+//   segment ids) stream through the same kind of ring up to the last tile
+//   a causal row reaches.  S = Q K^T and dP = dO V^T; dS comes out of its
+//   accumulator as the A fragment of dQ += dS K, with K read along its rows
+//   (`ldmatrix.trans`, or the permuted rows in tf32).
+//
+// The streamed tiles (BQ of dk/dv, BK of dq) have 64 rows for bf16 at
+// D = 64 and 32 rows otherwise: float32's split operands and D = 128's
+// accumulators leave fewer registers for the score tiles, and the smaller
+// tiles measured faster there.  Dynamic shared memory above 48 KB is
+// enabled with cudaFuncSetAttribute.
+//
+// Softmax: exp(x) is computed as exp2(x log2 e), with scale log2 e folded
+// into one multiply-add.  A warp whose 16 x BQ (or 16 x BK) tile is visible
+// everywhere (inside T, below the causal diagonal, no segments) skips the
+// mask; the tiles on the diagonal and at the ragged edge take it.
+//
+// Neither kernel uses atomics: every output element is summed by one
+// thread in a fixed order, so results are bitwise repeatable.  The split
+// into two kernels recomputes s and dp in both (8 D + 6 D operations a
+// visible pair against 10 D for one fused backward); dq without atomics is
+// what keeps the result repeatable.  `wgmma` and TMA are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int BQ = 64;       // query rows per tile (both kernels)
-constexpr int BK_DQ = 64;    // key rows per tile of the dq kernel
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;  // 4 warps of 16 rows
+constexpr int BK_DKV = 64;    // key rows of a dk/dv block
+constexpr int BQ_DQ = 64;     // query rows of a dq block
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// the value a product operand takes in the input type (identity for f32)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// rows [r0, r0 + rows) of a (T, D) matrix into a padded float32 tile;
-// rows at or past `limit` are zero
+// element offset of (r, c) in a row-major tile of D columns whose 16-byte
+// chunks are XOR-swizzled by the row
 template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int rows, int limit) {
-  constexpr int LD = D + 1;
-  for (int idx = threadIdx.x; idx < rows * D; idx += THREADS) {
-    const int r = idx / D, c = idx % D;
-    dst[r * LD + c] =
-        (r0 + r < limit) ? to_f32(src[(size_t)(r0 + r) * D + c]) : 0.f;
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int E = 16 / (int)sizeof(T);
+  return r * D + (((c / E) ^ (r & 7)) * E) + (c % E);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [r0, r0 + ROWS) of a (rows, D) matrix into a swizzled tile, 16
+// bytes a copy; rows at or past `limit` are zero-filled (source clamped)
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
+                                          int limit) {
+  constexpr int E = 16 / (int)sizeof(T);
+  constexpr int CPR = D / E;  // chunks a row
+#pragma unroll
+  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += THREADS) {
+    const int r = idx / CPR, c = (idx % CPR) * E;
+    const bool in = r0 + r < limit;
+    const T* from = src + (in ? (size_t)(r0 + r) * D + c : 0);
+    cp_async16(smem_u32(dst + swz<T, D>(r, c)), from, in);
   }
 }
 
-// s = Q K^T and dp = dO V^T for this thread's 4 query rows (ty * 4 + i)
-// and CK keys (tx + 8 j) of the tile, unscaled
-template <int D, int CK>
-__device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs,
-                                            const float* Ks, const float* Vs,
-                                            int ty, int tx, float (&s)[4][CK],
-                                            float (&dp)[4][CK]) {
-  constexpr int LD = D + 1;
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32 to nearest, ties away from zero: the bits of
+// cvt.rna.tf32.f32 for finite x, in two integer operations (the cvt
+// instruction costs more on this card)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo, both tf32, each rounded to nearest
+template <int N>
+__device__ __forceinline__ void split_tf32(const float (&x)[N],
+                                           uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < N; ++i) {
+    hi[i] = tf32_rna(x[i]);
+    lo[i] = tf32_rna(x[i] - __uint_as_float(hi[i]));
+  }
+}
+
+// c += a b in float32 by three tf32 products (the small terms first)
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh[0], bh[1]);
+  mma_tf32(c, ah, bl[0], bl[1]);
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// acc[j] += A[a0 : a0 + 16, :] . B[8 j : 8 j + 8, :]^T for j < NT, the
+// warp's 16 x (8 NT) tile of a product over all D columns of two swizzled
+// row-major tiles
+template <typename T, int D, int NT>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const T* A,
+                                        int a0, const T* B, int lane) {
+  if constexpr (sizeof(T) == 2) {
 #pragma unroll
-    for (int j = 0; j < CK; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], g[4], kk[CK], vv[CK];
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, smem_u32(A + swz<T, D>(a0 + (lane & 15),
+                                        kk * 16 + (lane >> 4) * 8)));
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = Qs[(ty * 4 + i) * LD + d];
-      g[i] = dOs[(ty * 4 + i) * LD + d];
-    }
-#pragma unroll
-    for (int j = 0; j < CK; ++j) {
-      kk[j] = Ks[(tx + 8 * j) * LD + d];
-      vv[j] = Vs[(tx + 8 * j) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-        dp[i][j] = fmaf(g[i], vv[j], dp[i][j]);
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t b[4];  // n tiles j (b[0], b[1]) and j + 1 (b[2], b[3])
+        ldsm_x4(b, smem_u32(B + swz<T, D>(8 * j + (lane & 7) +
+                                              ((lane >> 4) << 3),
+                                          kk * 16 + ((lane >> 3) & 1) * 8)));
+        mma_bf16(acc[j], a, b[0], b[1]);
+        mma_bf16(acc[j + 1], a, b[2], b[3]);
       }
-  }
-}
-
-// per-row inputs of the thread's 4 query rows: lse, delta - dlse, segment
-struct Rows {
-  float lse[4], rest[4];
-  int seg[4];
-};
-
-__device__ __forceinline__ Rows load_rows(const float* lse,
-                                          const float* delta,
-                                          const float* dlse, const int* seg_q,
-                                          size_t bh, int b, int q0, int ty,
-                                          int Tq) {
-  Rows r;
+    }
+  } else {
+    const int g = lane >> 2, t = lane & 3;
+    // fully unrolled at D = 128 the dk/dv instantiation spills registers
+    constexpr int kUnroll = D == 128 ? 4 : D / 8;
+#pragma unroll(kUnroll)
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int c = kk * 8 + t;
+      const float a[4] = {A[swz<T, D>(a0 + g, c)], A[swz<T, D>(a0 + g + 8, c)],
+                          A[swz<T, D>(a0 + g, c + 4)],
+                          A[swz<T, D>(a0 + g + 8, c + 4)]};
+      uint32_t ah[4], al[4];
+      split_tf32(a, ah, al);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    const bool in = qi < Tq;
-    const size_t g = bh * Tq + qi;
-    r.lse[i] = in ? lse[g] : 0.f;
-    r.rest[i] = in ? delta[g] - dlse[g] : 0.f;
-    r.seg[i] = (seg_q != nullptr && in) ? seg_q[(size_t)b * Tq + qi] : -1;
-  }
-  return r;
-}
-
-// s, dp -> p, ds in place (p into s, ds into dp), with the kernels' masks
-template <int CK>
-__device__ __forceinline__ void probs(float (&s)[4][CK], float (&dp)[4][CK],
-                                      const Rows& rows, const int (&segk)[CK],
-                                      int q0, int k0, int ty, int tx, int Tq,
-                                      int Tk, int causal, bool segmented,
-                                      float scale) {
-  const int shift = Tk - Tq;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < CK; ++j) {
-      const int kj = k0 + tx + 8 * j;
-      bool vis = qi < Tq && kj < Tk;
-      if (causal) vis = vis && kj <= qi + shift;
-      if (segmented) vis = vis && rows.seg[i] == segk[j];
-      const float p = vis ? expf(s[i][j] * scale - rows.lse[i]) : 0.f;
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - rows.rest[i]);
+      for (int j = 0; j < NT; ++j) {
+        const float b[2] = {B[swz<T, D>(8 * j + g, c)],
+                            B[swz<T, D>(8 * j + g, c + 4)]};
+        uint32_t bh[2], bl[2];
+        split_tf32(b, bh, bl);
+        mma_3xtf32(acc[j], ah, al, bh, bl);
+      }
     }
   }
 }
 
-template <int D, int BK>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) *
-         (size_t)(2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * (BK + 1));
+// out[n] += P . B[0 : 8 NK, 8 n : 8 n + 8] for n < D / 8: P is the warp's
+// float32 accumulator tile (16 rows x 8 NK columns), fed back as the A
+// operand (bf16: rounded to nearest; float32: split into tf32 hi and lo,
+// with B's k rows permuted to the accumulator's column order); B a
+// swizzled row-major tile read along its rows
+template <typename T, int D, int NK>
+__device__ __forceinline__ void mma_pb(float (&out)[D / 8][4],
+                                       const float (&P)[NK][4], const T* B,
+                                       int lane) {
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int m = 0; m < NK / 2; ++m) {
+      const uint32_t a[4] = {
+          pack_bf16(P[2 * m][0], P[2 * m][1]),
+          pack_bf16(P[2 * m][2], P[2 * m][3]),
+          pack_bf16(P[2 * m + 1][0], P[2 * m + 1][1]),
+          pack_bf16(P[2 * m + 1][2], P[2 * m + 1][3])};
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) {
+        uint32_t b[4];  // n tiles 2n (b[0], b[1]) and 2n + 1 (b[2], b[3])
+        ldsm_x4_t(b, smem_u32(B + swz<T, D>(m * 16 + (lane & 7) +
+                                                ((lane >> 3) & 1) * 8,
+                                            n * 16 + (lane >> 4) * 8)));
+        mma_bf16(out[2 * n], a, b[0], b[1]);
+        mma_bf16(out[2 * n + 1], a, b[2], b[3]);
+      }
+    }
+  } else {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int m = 0; m < NK; ++m) {
+      // fragment column t holds accumulator column 2t, column t + 4 holds
+      // 2t + 1
+      const float a[4] = {P[m][0], P[m][2], P[m][1], P[m][3]};
+      uint32_t ah[4], al[4];
+      split_tf32(a, ah, al);
+      const int r = m * 8 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const float b[2] = {B[swz<T, D>(r, n * 8 + g)],
+                            B[swz<T, D>(r + 1, n * 8 + g)]};
+        uint32_t bh[2], bl[2];
+        split_tf32(b, bh, bl);
+        mma_3xtf32(out[n], ah, al, bh, bl);
+      }
+    }
+  }
 }
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) *
-         (size_t)(2 * BQ * (D + 1) + 2 * BK_DQ * (D + 1) + BQ * (BK_DQ + 1));
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float a, float b);
+template <>
+__device__ __forceinline__ void store2<float>(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst,
+                                                      float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// the warp's 16 accumulator rows (r0 + g, r0 + g + 8) times `mul` into
+// rows of a (rows, D) matrix; rows at or past `limit` are not written
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 8][4],
+                                           int r0, int limit, float mul,
+                                           int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r >= limit) continue;
+    T* row = out + (size_t)r * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2<T>(row + n * 8 + 2 * t, acc[n][2 * h] * mul,
+                acc[n][2 * h + 1] * mul);
+  }
+}
+
+template <typename T, int D, int BQ>
+constexpr size_t dkv_smem_bytes() {
+  // K, V; two stages of (Q, dO); two stages of lse, delta, dlse, seg
+  return sizeof(T) * (size_t)(2 * BK_DKV * D + 4 * BQ * D) +
+         sizeof(float) * (size_t)(2 * 4 * BQ);
 }
 
 template <typename T, int D, int BK>
+constexpr size_t dq_smem_bytes() {
+  // Q, dO; two stages of (K, V); two stages of the key segment ids
+  return sizeof(T) * (size_t)(2 * BQ_DQ * D + 4 * BK * D) +
+         sizeof(int) * (size_t)(2 * BK);
+}
+
+template <typename T, int D, int BQ>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -205,108 +367,137 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const int* __restrict__ seg_k, T* __restrict__ dk,
                      T* __restrict__ dv, int H, int Tq, int Tk, int causal,
                      float scale) {
-  constexpr int LD = D + 1;
-  constexpr int LP = BK + 1;
-  constexpr int CK = BK / 8;    // keys per thread in the score tiles
-  constexpr int RK = BK / 16;   // key rows per thread in the accumulators
-  constexpr int DPT = D / 8;    // columns per thread in the accumulators
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * LD;
-  float* Qs = Vs + BK * LD;
-  float* dOs = Qs + BQ * LD;
-  float* Ps = dOs + BQ * LD;
-  float* dSs = Ps + BQ * LP;
+  constexpr int BK = BK_DKV;
+  constexpr int NQ = BQ / 8;  // n8 tiles of queries in S^T
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + BK * D;
+  T* ring = Vs + BK * D;  // stage s: Q at ring + 2 s BQ D, dO after it
+  float* scalars = reinterpret_cast<float*>(ring + 4 * BQ * D);
+  // stage s: lse, delta, dlse, seg (int) at scalars + 4 s BQ, BQ each
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;
-  const int tx = tid & 7;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.x * BK;
   const int b = blockIdx.z;
   const size_t bh = (size_t)b * H + blockIdx.y;
   const T* qb = q + bh * Tq * D;
   const T* dob = dout + bh * Tq * D;
   const bool segmented = seg_q != nullptr;
+  const int shift = Tk - Tq;
+  const float scale_l2 = scale * kLog2e;  // exp(x) = exp2(x log2 e)
 
-  load_tile<T, D>(Ks, k + bh * Tk * D, k0, BK, Tk);
-  load_tile<T, D>(Vs, v + bh * Tk * D, k0, BK, Tk);
-  int segk[CK];
-#pragma unroll
-  for (int j = 0; j < CK; ++j) {
-    const int kj = k0 + tx + 8 * j;
-    segk[j] = (segmented && kj < Tk) ? seg_k[(size_t)b * Tk + kj] : -2;
-  }
+  load_tile<T, D, BK>(Ks, k + bh * Tk * D, k0, Tk);
+  load_tile<T, D, BK>(Vs, v + bh * Tk * D, k0, Tk);
+  cp_async_commit();
 
-  float acc_k[RK][DPT], acc_v[RK][DPT];
-#pragma unroll
-  for (int r = 0; r < RK; ++r)
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
+  auto prefetch = [&](int iq, int stage) {
+    T* Qs = ring + 2 * stage * BQ * D;
+    const int q0 = iq * BQ;
+    load_tile<T, D, BQ>(Qs, qb, q0, Tq);
+    load_tile<T, D, BQ>(Qs + BQ * D, dob, q0, Tq);
+    float* sc = scalars + 4 * stage * BQ;
+    const int n_rows = segmented ? 4 * BQ : 3 * BQ;
+    for (int i = threadIdx.x; i < n_rows; i += THREADS) {
+      const int which = i / BQ, r = i % BQ, qi = q0 + r;
+      const bool in = qi < Tq;
+      const size_t at = in ? bh * Tq + qi : 0;
+      const void* from =
+          which == 0   ? (const void*)(lse + at)
+          : which == 1 ? (const void*)(delta + at)
+          : which == 2 ? (const void*)(dlse + at)
+                       : (const void*)(seg_q + (in ? (size_t)b * Tq + qi : 0));
+      cp_async4(smem_u32(sc + i), from, in);
+    }
+  };
 
   // the first query tile holding a row whose causal reach includes k0
-  int iq = 0;
+  int iq0 = 0;
   if (causal) {
-    const int first = k0 - (Tk - Tq);
-    iq = first <= 0 ? 0 : first / BQ;
+    const int first = k0 - shift;
+    iq0 = first <= 0 ? 0 : first / BQ;
   }
   const int n_q = (Tq + BQ - 1) / BQ;
-  for (; iq < n_q; ++iq) {
+  prefetch(iq0, 0);
+  cp_async_commit();
+
+  // the thread's two key rows: accumulator rows g and g + 8 of its warp
+  int kj[2], segk[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    kj[h] = k0 + warp * 16 + g + 8 * h;
+    segk[h] = (segmented && kj[h] < Tk) ? seg_k[(size_t)b * Tk + kj[h]] : -2;
+  }
+
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int iq = iq0; iq < n_q; ++iq) {
+    const int stage = (iq - iq0) & 1;
+    if (iq + 1 < n_q) {
+      prefetch(iq + 1, stage ^ 1);  // in flight while this tile is computed
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Qs = ring + 2 * stage * BQ * D;
+    const T* dOs = Qs + BQ * D;
+    const float* sc = scalars + 4 * stage * BQ;
+    const int* segq = reinterpret_cast<const int*>(sc + 3 * BQ);
+
+    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    mma_abt<T, D, NQ>(st, Ks, warp * 16, Qs, lane);
+    mma_abt<T, D, NQ>(dpt, Vs, warp * 16, dOs, lane);
+
+    // P^T into st, dS^T into dpt
     const int q0 = iq * BQ;
-    __syncthreads();  // every thread is done with the previous tile
-    load_tile<T, D>(Qs, qb, q0, BQ, Tq);
-    load_tile<T, D>(dOs, dob, q0, BQ, Tq);
-    __syncthreads();
-
-    float s[4][CK], dp[4][CK];
-    score_tiles<D, CK>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
-    const Rows rows = load_rows(lse, delta, dlse, seg_q, bh, b, q0, ty, Tq);
-    probs<CK>(s, dp, rows, segk, q0, k0, ty, tx, Tq, Tk, causal, segmented,
-              scale);
+    auto probs = [&](auto masked) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NQ; ++j)
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        Ps[(ty * 4 + i) * LP + tx + 8 * j] = round_to<T>(s[i][j]);
-        dSs[(ty * 4 + i) * LP + tx + 8 * j] = round_to<T>(dp[i][j]);
-      }
-    __syncthreads();
-
-    // dv += p^T do, dk += ds^T q over this tile's query rows
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float pk[RK], sk[RK];
-#pragma unroll
-      for (int r = 0; r < RK; ++r) {
-        pk[r] = Ps[qq * LP + ty * RK + r];
-        sk[r] = dSs[qq * LP + ty * RK + r];
-      }
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        const float g = dOs[qq * LD + tx + 8 * c];
-        const float a = Qs[qq * LD + tx + 8 * c];
-#pragma unroll
-        for (int r = 0; r < RK; ++r) {
-          acc_v[r][c] = fmaf(pk[r], g, acc_v[r][c]);
-          acc_k[r][c] = fmaf(sk[r], a, acc_k[r][c]);
+        for (int e = 0; e < 4; ++e) {
+          const int ql = j * 8 + 2 * t + (e & 1);
+          bool vis = true;
+          if constexpr (decltype(masked)::value) {
+            const int qi = q0 + ql, key = kj[e >> 1];
+            vis = qi < Tq && key < Tk;
+            if (causal) vis = vis && key <= qi + shift;
+            if (segmented) vis = vis && segq[ql] == segk[e >> 1];
+          }
+          const float p =
+              vis ? exp2f(st[j][e] * scale_l2 - sc[ql] * kLog2e) : 0.f;
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - (sc[BQ + ql] - sc[2 * BQ + ql]));
         }
-      }
-    }
+    };
+    // no mask to compute where every pair of the warp's tile is visible
+    const int kw_last = k0 + warp * 16 + 15;
+    if (!segmented && q0 + BQ <= Tq && kw_last < Tk &&
+        (!causal || kw_last <= q0 + shift))
+      probs(std::false_type{});
+    else
+      probs(std::true_type{});
+
+    mma_pb<T, D, NQ>(acc_v, st, dOs, lane);  // dV += P^T dO
+    mma_pb<T, D, NQ>(acc_k, dpt, Qs, lane);  // dK += dS^T Q
+    __syncthreads();  // every warp is done with this stage
   }
 
-#pragma unroll
-  for (int r = 0; r < RK; ++r) {
-    const int kr = k0 + ty * RK + r;
-    if (kr >= Tk) continue;
-    const size_t row = (bh * Tk + kr) * D;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      dk[row + tx + 8 * c] = from_f32<T>(acc_k[r][c] * scale);
-      dv[row + tx + 8 * c] = from_f32<T>(acc_v[r][c]);
-    }
-  }
+  store_rows<T, D>(dk + bh * Tk * D, acc_k, k0 + warp * 16, Tk, scale, lane);
+  store_rows<T, D>(dv + bh * Tk * D, acc_v, k0 + warp * 16, Tk, 1.f, lane);
 }
 
-template <typename T, int D>
+template <typename T, int D, int BK>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -316,94 +507,127 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int* __restrict__ seg_q,
                     const int* __restrict__ seg_k, T* __restrict__ dq, int H,
                     int Tq, int Tk, int causal, float scale) {
-  constexpr int BK = BK_DQ;
-  constexpr int LD = D + 1;
-  constexpr int LP = BK + 1;
-  constexpr int CK = BK / 8;
-  constexpr int DPT = D / 8;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * LD;
-  float* Ks = dOs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* dSs = Vs + BK * LD;
+  constexpr int BQ = BQ_DQ;
+  constexpr int NK = BK / 8;  // n8 tiles of keys in S
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* dOs = Qs + BQ * D;
+  T* ring = dOs + BQ * D;  // stage s: K at ring + 2 s BK D, V after it
+  int* segk_ring = reinterpret_cast<int*>(ring + 4 * BK * D);  // BK a stage
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;
-  const int tx = tid & 7;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.z;
   const size_t bh = (size_t)b * H + blockIdx.y;
   const T* kb = k + bh * Tk * D;
   const T* vb = v + bh * Tk * D;
   const bool segmented = seg_q != nullptr;
+  const int shift = Tk - Tq;
+  const float scale_l2 = scale * kLog2e;  // exp(x) = exp2(x log2 e)
 
-  load_tile<T, D>(Qs, q + bh * Tq * D, q0, BQ, Tq);
-  load_tile<T, D>(dOs, dout + bh * Tq * D, q0, BQ, Tq);
-  const Rows rows = load_rows(lse, delta, dlse, seg_q, bh, b, q0, ty, Tq);
+  load_tile<T, D, BQ>(Qs, q + bh * Tq * D, q0, Tq);
+  load_tile<T, D, BQ>(dOs, dout + bh * Tq * D, q0, Tq);
+  cp_async_commit();
 
-  float acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
+  auto prefetch = [&](int j, int stage) {
+    T* Ks = ring + 2 * stage * BK * D;
+    const int k0 = j * BK;
+    load_tile<T, D, BK>(Ks, kb, k0, Tk);
+    load_tile<T, D, BK>(Ks + BK * D, vb, k0, Tk);
+    if (segmented)
+      for (int i = threadIdx.x; i < BK; i += THREADS) {
+        const bool in = k0 + i < Tk;
+        cp_async4(smem_u32(segk_ring + stage * BK + i),
+                  seg_k + (in ? (size_t)b * Tk + k0 + i : 0), in);
+      }
+  };
 
   // key tiles that hold at least one visible key for some real row
   int n_k = (Tk + BK - 1) / BK;
   if (causal) {
-    const int last_visible = min(q0 + BQ, Tq) - 1 + (Tk - Tq);
+    const int last_visible = min(q0 + BQ, Tq) - 1 + shift;
     n_k = last_visible < 0 ? 0 : min(n_k, last_visible / BK + 1);
   }
+  if (n_k > 0) prefetch(0, 0);
+  cp_async_commit();
+
+  // the thread's two query rows: accumulator rows g and g + 8 of its warp
+  int qi[2], segq[2];
+  float row_lse[2], rest[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qi[h] = q0 + warp * 16 + g + 8 * h;
+    const bool in = qi[h] < Tq;
+    const size_t at = bh * Tq + qi[h];
+    row_lse[h] = in ? lse[at] : 0.f;
+    rest[h] = in ? delta[at] - dlse[at] : 0.f;
+    segq[h] = (segmented && in) ? seg_q[(size_t)b * Tq + qi[h]] : -1;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   for (int j = 0; j < n_k; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // every warp is done reading the previous K/V tile
-    load_tile<T, D>(Ks, kb, k0, BK, Tk);
-    load_tile<T, D>(Vs, vb, k0, BK, Tk);
+    const int stage = j & 1;
+    if (j + 1 < n_k) {
+      prefetch(j + 1, stage ^ 1);  // in flight while this tile is computed
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
+    const T* Ks = ring + 2 * stage * BK * D;
+    const T* Vs = Ks + BK * D;
+    const int* segk = segk_ring + stage * BK;
 
-    int segk[CK];
+    float s[NK][4], dp[NK][4];
 #pragma unroll
-    for (int jj = 0; jj < CK; ++jj) {
-      const int kj = k0 + tx + 8 * jj;
-      segk[jj] = (segmented && kj < Tk) ? seg_k[(size_t)b * Tk + kj] : -2;
-    }
-    float s[4][CK], dp[4][CK];
-    score_tiles<D, CK>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
-    probs<CK>(s, dp, rows, segk, q0, k0, ty, tx, Tq, Tk, causal, segmented,
-              scale);
+    for (int jj = 0; jj < NK; ++jj)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < CK; ++jj)
-        dSs[(ty * 4 + i) * LP + tx + 8 * jj] = round_to<T>(dp[i][jj]);
-    // a row's ds entries are written and read only by the 8 lanes that
-    // own the row, all in this warp
-    __syncwarp();
+      for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.f;
+    mma_abt<T, D, NK>(s, Qs, warp * 16, Ks, lane);
+    mma_abt<T, D, NK>(dp, dOs, warp * 16, Vs, lane);
 
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float ds[4];
+    // dS into dp
+    const int k0 = j * BK;
+    auto probs = [&](auto masked) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty * 4 + i) * LP + kk];
+      for (int jj = 0; jj < NK; ++jj)
 #pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        const float kv = Ks[kk * LD + tx + 8 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(ds[i], kv, acc[i][c]);
-      }
-    }
-    __syncwarp();  // ds is rewritten by the next tile
+        for (int e = 0; e < 4; ++e) {
+          const int kl = jj * 8 + 2 * t + (e & 1);
+          const int h = e >> 1;
+          bool vis = true;
+          if constexpr (decltype(masked)::value) {
+            const int key = k0 + kl;
+            vis = qi[h] < Tq && key < Tk;
+            if (causal) vis = vis && key <= qi[h] + shift;
+            if (segmented) vis = vis && segq[h] == segk[kl];
+          }
+          const float p =
+              vis ? exp2f(s[jj][e] * scale_l2 - row_lse[h] * kLog2e) : 0.f;
+          dp[jj][e] = p * (dp[jj][e] - rest[h]);
+        }
+    };
+    // no mask to compute where every pair of the warp's tile is visible
+    const int qw0 = q0 + warp * 16;
+    if (!segmented && qw0 + 16 <= Tq && k0 + BK <= Tk &&
+        (!causal || k0 + BK - 1 <= qw0 + shift))
+      probs(std::false_type{});
+    else
+      probs(std::true_type{});
+
+    mma_pb<T, D, NK>(acc, dp, Ks, lane);  // dQ += dS K
+    __syncthreads();  // every warp is done with this stage
   }
+  cp_async_wait<0>();  // nothing left in flight when no key tile ran
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= Tq) continue;
-    T* row = dq + (bh * Tq + qi) * D;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) row[tx + 8 * c] = from_f32<T>(acc[i][c] * scale);
-  }
+  store_rows<T, D>(dq + bh * Tq * D, acc, q0 + warp * 16, Tq, scale, lane);
 }
 
 struct Ptrs {
@@ -412,16 +636,16 @@ struct Ptrs {
   const int *seg_q, *seg_k;
 };
 
-template <typename T, int D, int BK>
+template <typename T, int D, int BQ>
 int launch_dkv(const Ptrs& p, void* dk, void* dv, int B, int H, int Tq,
                int Tk, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<D, BK>();
+  const size_t smem = dkv_smem_bytes<T, D, BQ>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D, BK>,
+      flash_bwd_dkv_kernel<T, D, BQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tk + BK - 1) / BK, H, B);
-  flash_bwd_dkv_kernel<T, D, BK><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((Tk + BK_DKV - 1) / BK_DKV, H, B);
+  flash_bwd_dkv_kernel<T, D, BQ><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(p.q), static_cast<const T*>(p.k),
       static_cast<const T*>(p.v), static_cast<const T*>(p.dout), p.lse,
       p.delta, p.dlse, p.seg_q, p.seg_k, static_cast<T*>(dk),
@@ -429,16 +653,16 @@ int launch_dkv(const Ptrs& p, void* dk, void* dv, int B, int H, int Tq,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int BK>
 int launch_dq(const Ptrs& p, void* dq, int B, int H, int Tq, int Tk,
               int causal, float scale, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
+  const size_t smem = dq_smem_bytes<T, D, BK>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dq_kernel<T, D, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((Tq + BQ_DQ - 1) / BQ_DQ, H, B);
+  flash_bwd_dq_kernel<T, D, BK><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(p.q), static_cast<const T*>(p.k),
       static_cast<const T*>(p.v), static_cast<const T*>(p.dout), p.lse,
       p.delta, p.dlse, p.seg_q, p.seg_k, static_cast<T*>(dq), H, Tq, Tk,
@@ -472,7 +696,7 @@ int bigdl_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Ptrs p = make_ptrs(q, k, v, dout, lse, delta, dlse, seg_q, seg_k);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch_dkv<float, 64, 64>(p, dk, dv, B, H, Tq, Tk, causal, scale, st);
+    return launch_dkv<float, 64, 32>(p, dk, dv, B, H, Tq, Tk, causal, scale, st);
   if (dtype == 0 && D == 128)
     return launch_dkv<float, 128, 32>(p, dk, dv, B, H, Tq, Tk, causal, scale, st);
   if (dtype == 1 && D == 64)
@@ -491,13 +715,13 @@ int bigdl_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Ptrs p = make_ptrs(q, k, v, dout, lse, delta, dlse, seg_q, seg_k);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch_dq<float, 64>(p, dq, B, H, Tq, Tk, causal, scale, st);
+    return launch_dq<float, 64, 32>(p, dq, B, H, Tq, Tk, causal, scale, st);
   if (dtype == 0 && D == 128)
-    return launch_dq<float, 128>(p, dq, B, H, Tq, Tk, causal, scale, st);
+    return launch_dq<float, 128, 32>(p, dq, B, H, Tq, Tk, causal, scale, st);
   if (dtype == 1 && D == 64)
-    return launch_dq<__nv_bfloat16, 64>(p, dq, B, H, Tq, Tk, causal, scale, st);
+    return launch_dq<__nv_bfloat16, 64, 64>(p, dq, B, H, Tq, Tk, causal, scale, st);
   if (dtype == 1 && D == 128)
-    return launch_dq<__nv_bfloat16, 128>(p, dq, B, H, Tq, Tk, causal, scale, st);
+    return launch_dq<__nv_bfloat16, 128, 32>(p, dq, B, H, Tq, Tk, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

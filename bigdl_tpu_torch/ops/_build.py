@@ -95,7 +95,7 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
             os.replace(tmp, lib)  # atomic: a reader never sees half a file
             out[name] = {"path": lib, "seconds": seconds,
                          "ptxas": [ln.strip() for ln in log.splitlines()
-                                   if "ptxas" in ln]}
+                                   if "ptxas" in ln or "spill" in ln]}
     return out
 
 

@@ -9,7 +9,7 @@ result line:
 1. device: the card's name, count, and nvidia-smi's name/power limit;
 2. build: the three CUDA sources of bigdl_tpu_torch/csrc (flash
    forward, paged decode, flash backward), one nvcc each, started
-   together; prints build seconds and ptxas register lines;
+   together; prints build seconds and ptxas register and spill lines;
 3. kernels: each of the four kernels against its plain PyTorch version
    on the card, at the main paths' shapes and at edge cases, with its
    time, the plain version's time, the least time the card could take
@@ -25,14 +25,21 @@ result line:
    flash forward and both flash backward kernels: step-0 loss and every
    gradient held against plain attention, every bf16-compute gradient
    held against them too, the loss must fall over one optimize() of a
-   warm-up and 5 timed steps, one bf16-compute step, and the train CLI
-   once on a packed, document-isolated corpus; the three kernels'
-   launch counters must be 12 a step.
+   warm-up and 5 timed steps, one optimize() of a warm-up and 3 timed
+   bf16-compute steps, and the train CLI once on a packed,
+   document-isolated corpus; the three kernels' launch counters must be
+   12 a step.
 
-``--profile PATH`` adds one more serve run of fresh prompts and one
-more training step under torch.profiler and writes their kernel tables
-(device busy time, idle share, time by kernel) to PATH and to PATH with
-``_train`` before its extension.
+``--profile PATH`` adds one more serve run of fresh prompts, one more
+float32 training step and one more bf16-compute step under
+torch.profiler and writes their kernel tables (device busy time, idle
+share, time by kernel) to PATH and to PATH with ``_train`` and
+``_train_bf16`` before its extension.
+
+The backward kernels' bounds take float32 at the 3xTF32 tensor-core
+rate (495 / 3 TFLOP/s), the rate those kernels run at; the CUDA-core
+bound (67 TFLOP/s) is printed beside it.  The forward's float32 bound
+stays at the CUDA-core rate.
 
 The last lines are the kernels' JSON object, nvidia-smi's
 "name, power.limit" line, and the result object.  Without a CUDA
@@ -52,6 +59,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,        # CUDA-core float32 (no tensor cores)
+              "float32_3xtf32": 495e12 / 3,  # float32 as three TF32 products
               "bfloat16": 989e12}      # dense bf16 tensor cores
 TOL_F32 = 1e-4                         # float32: summation order only
 TOL_BF16_O, TOL_BF16_LSE = 2e-2, 1e-2  # bf16 rounding of p and o
@@ -68,7 +76,7 @@ TIE_GAP = 1e-4  # a greedy mismatch is a tie when the plain top-2 gap is below
 # by summation order only; bf16 by the rounding of p and ds to bf16
 TOL_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN = dict(batch=8, seq_len=1024, check_batch=2, warmup=1, steps=5,
-             learning_rate=3e-4, seed=0, data_seed=0)
+             bf16_steps=3, learning_rate=3e-4, seed=0, data_seed=0)
 TOL_LOSS = 1e-5       # step-0 loss, flash vs plain attention, relative
 TOL_GRAD = 1e-3       # each leaf's max abs error over its max |g|: float32
                       # with the summation order changed through 12 layers
@@ -131,7 +139,8 @@ def phase_build():
     for name, r in info.items():
         log(f"[build] {name}: nvcc {r['seconds']:.2f} s -> {r['path']}")
         for line in r["ptxas"]:
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "Compiling entry",
+                                       "spill")):
                 log(f"[build]   {line}")
 
 
@@ -359,15 +368,27 @@ def flash_bwd_case(dev, b, tq, tk, d, dtype, causal=True, segmented=False,
     n_q, n_k, rows = b * h * tq * d, b * h * tk * d, b * h * tq * 4
     reads = (2 * n_q + 2 * n_k) * item + 3 * rows   # q, do, k, v; lse,
     pairs = b * h * _visible_pairs(tq, tk, causal)   # delta, dlse
-    dkv_bound = bound(reads + 2 * n_k * item, 8.0 * d * pairs, dtype)
-    dq_bound = bound(reads + n_q * item, 6.0 * d * pairs, dtype)
+    # the kernels run float32 on the tensor cores as three TF32 products;
+    # the CUDA-core bound is printed beside it for the earlier kernels' rows
+    basis = "float32_3xtf32" if dtype == "float32" else dtype
+    dkv_bytes, dkv_ops = reads + 2 * n_k * item, 8.0 * d * pairs
+    dq_bytes, dq_ops = reads + n_q * item, 6.0 * d * pairs
+    dkv_bound = bound(dkv_bytes, dkv_ops, basis)
+    dq_bound = bound(dq_bytes, dq_ops, basis)
     fused_ms, fused_by = bound(reads + (n_q + 2 * n_k) * item,
-                               10.0 * d * pairs, dtype)
+                               10.0 * d * pairs, basis)
+    simt = ""
+    if dtype == "float32":
+        simt = (f"; at the 67 TFLOP/s CUDA-core rate: dk/dv "
+                f"{bound(dkv_bytes, dkv_ops, 'float32')[0]:.4f} ms, dq "
+                f"{bound(dq_bytes, dq_ops, 'float32')[0]:.4f} ms")
     log(f"{msg} | dk/dv kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} "
         f"ms, {dkv_bound[1]}), dq kernel {dq_ms:.4f} ms (bound "
         f"{dq_bound[0]:.4f} ms, {dq_bound[1]}), one-kernel backward bound "
-        f"{fused_ms:.4f} ms ({fused_by}); plain backward {plain_ms:.4f} ms, "
-        f"sdpa backward {library_ms:.4f} ms (both: all three gradients)")
+        f"{fused_ms:.4f} ms ({fused_by}); bounds at {basis} "
+        f"{PEAK_FLOPS[basis] / 1e12:.0f} TFLOP/s{simt}; plain backward "
+        f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms (both: all "
+        f"three gradients)")
     common = dict(plain_ms=plain_ms, library_ms=library_ms)
     return (dict(max_abs_err=max(errs["dk"], errs["dv"]), ms=dkv_ms,
                  bound_ms=dkv_bound[0], bound_by=dkv_bound[1], **common),
@@ -443,7 +464,8 @@ def _kernel_family(name: str) -> str:
                  "flash_bwd_dq"):
         if f"{ours}_kernel" in name:
             return f"{ours} (ours)"
-    if any(t in name for t in ("gemm", "gemv", "xmma", "cutlass", "sm90")):
+    if any(t in name for t in ("gemm", "gemv", "xmma", "cutlass", "sm90",
+                               "nvjet")):
         return "matmul (cuBLAS)"
     return "other PyTorch kernels"
 
@@ -759,17 +781,33 @@ def phase_train(dev, config=GPT2_SMALL, train=TRAIN, cli=TRAIN_CLI,
         f"{batch * seq / step_ms * 1e3:.1f} tokens/s")
     del opt, model
 
-    # 3. one step with bf16 compute on fresh weights
+    # 3. bf16 compute on fresh weights, timed as the float32 steps are:
+    # one optimize() of a warm-up and the timed steps
     opt16 = optimizer(fresh(), torch.bfloat16)
     _reset_launches()
-    (loss16,), _ = run_iterations(opt16, 1)
+    losses16, step_s16 = run_iterations(
+        opt16, train["warmup"] + train["bf16_steps"])
     launches16 = _launches()
+    step_s16 = step_s16[train["warmup"] - 1:]
+    loss16 = losses16[0]
     rel16 = abs(loss16 - losses[0]) / abs(losses[0])
     if not rel16 <= TOL_BF16_STEP:
         raise AssertionError(f"bf16 step-0 loss {loss16} vs float32 "
                              f"{losses[0]}: relative {rel16:.3e}")
+    if not all(np.isfinite(losses16)):
+        raise AssertionError(f"bf16-compute losses {losses16}: not finite")
+    step16_ms = float(np.median(step_s16)) * 1e3
+    if profile_path:
+        root, ext = os.path.splitext(profile_path)
+        profile_device(lambda: run_iterations(opt16, 1),
+                       f"bf16-compute train step ({batch}x{seq})",
+                       f"{root}_train_bf16{ext}")
     log(f"[train] bf16-compute step: loss {loss16:.6f} (float32 "
-        f"{losses[0]:.6f}, relative {rel16:.2e})")
+        f"{losses[0]:.6f}, relative {rel16:.2e}); losses "
+        f"{[round(v, 4) for v in losses16]}; median step {step16_ms:.2f} ms "
+        f"over {train['bf16_steps']} steps "
+        f"({[round(s * 1e3, 2) for s in step_s16]} ms), "
+        f"{batch * seq / step16_ms * 1e3:.1f} tokens/s")
     del opt16
 
     # 4. the train CLI: packed windows, documents isolated (segmented
@@ -787,8 +825,10 @@ def phase_train(dev, config=GPT2_SMALL, train=TRAIN, cli=TRAIN_CLI,
     return dict(losses=losses, step_ms=step_ms,
                 tokens_per_s=batch * seq / step_ms * 1e3, peak_bytes=peak,
                 idle_share=idle, launches=launches, launches_bf16=launches16,
-                launches_cli=launches_cli,
-                steps_run=train["warmup"] + train["steps"])
+                launches_cli=launches_cli, step16_ms=step16_ms,
+                tokens_per_s16=batch * seq / step16_ms * 1e3,
+                steps_run=train["warmup"] + train["steps"],
+                steps_run_bf16=train["warmup"] + train["bf16_steps"])
 
 
 # --------------------------------------------------------------------------- #
@@ -845,18 +885,21 @@ def main() -> int:
     per_run = GPT2_SMALL["n_layers"] * train["steps_run"]
     check_launches("training path", train["launches"], flash_train,
                    exactly=per_run)
-    check_launches("bf16 training step", train["launches_bf16"], flash_train,
-                   exactly=GPT2_SMALL["n_layers"])
+    check_launches("bf16-compute training path", train["launches_bf16"],
+                   flash_train,
+                   exactly=GPT2_SMALL["n_layers"] * train["steps_run_bf16"])
     check_launches("train CLI", train["launches_cli"], flash_train)
     log(f"[train] launches on the training path ({train['steps_run']} "
-        f"steps): {train['launches']}; bf16 step: {train['launches_bf16']}; "
+        f"steps): {train['launches']}; bf16-compute path "
+        f"({train['steps_run_bf16']} steps): {train['launches_bf16']}; "
         f"CLI: {train['launches_cli']}")
     idle = ("not measured (no --profile)" if train["idle_share"] is None
             else f"{train['idle_share']:.4f}")
     log(f"[train] median step {train['step_ms']:.2f} ms, "
         f"{train['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
-        f"{train['peak_bytes'] / 2**20:.1f} MiB, device idle share {idle} "
-        f"| {smi}")
+        f"{train['peak_bytes'] / 2**20:.1f} MiB, device idle share {idle}; "
+        f"bf16-compute median step {train['step16_ms']:.2f} ms, "
+        f"{train['tokens_per_s16']:.1f} tokens/s | {smi}")
     log("[done] phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()))
     kernels = [

@@ -158,26 +158,16 @@ def _run_bwd(q, k, v, o, lse, do, dlse, seg, causal):
                       1.0 / np.sqrt(q.shape[-1]))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("tq,tk,causal,d,segmented", [
-    (128, 128, True, 64, False),      # aligned, causal
-    (100, 100, True, 64, False),      # unaligned T
-    (90, 40, True, 64, False),        # Tq > Tk: fully masked rows
-    (64, 200, True, 64, False),       # Tk > Tq
-    (70, 70, True, 128, False),       # D = 128
-    (33, 17, False, 64, False),       # not causal
-    (96, 96, True, 64, True),         # segmented
-    (77, 77, True, 128, True)])       # segmented, D = 128, unaligned
-def test_flash_bwd_kernels_match_plain(card, dtype, tq, tk, causal, d,
-                                       segmented):
-    args = _bwd_case(card, dtype, tq, tk, d, causal, segmented, seed=tq + d)
-    seg = args[-1]
+def _check_bwd(args, dtype, causal):
+    """Both backward kernels launched once each, every gradient within
+    TOL_BWD of the plain backward's, and dq = 0 on rows that see no key."""
+    q, k, v, o, lse, do, dlse, seg = args
+    tq, tk = q.shape[2], k.shape[2]
     before = (FLASH_BWD_DKV.launches, FLASH_BWD_DQ.launches)
     got = _run_bwd(*args, causal)
     torch.cuda.synchronize()
     assert (FLASH_BWD_DKV.launches, FLASH_BWD_DQ.launches) == (
         before[0] + 1, before[1] + 1)
-    q, k, v, o, lse, do, dlse, _ = args
     want = flash_attention_backward_reference(
         q, k, v, o, lse, do, dlse, causal=causal, q_segment_ids=seg,
         kv_segment_ids=seg)
@@ -192,8 +182,33 @@ def test_flash_bwd_kernels_match_plain(card, dtype, tq, tk, causal, d,
         assert torch.all(got[0][:, :, :tq - tk] == 0)
 
 
-def test_flash_bwd_kernels_are_bitwise_repeatable(card):
-    args = _bwd_case(card, "float32", 200, 200, 64, True, seed=5)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tq,tk,causal,d,segmented", [
+    (128, 128, True, 64, False),      # aligned, causal
+    (100, 100, True, 64, False),      # unaligned T
+    (90, 40, True, 64, False),        # Tq > Tk: fully masked rows
+    (64, 200, True, 64, False),       # Tk > Tq
+    (70, 70, True, 128, False),       # D = 128
+    (33, 17, False, 64, False),       # not causal
+    (96, 96, True, 64, True),         # segmented
+    (77, 77, True, 128, True),        # segmented, D = 128, unaligned
+    (1024, 1024, True, 64, False)])   # long rows: the most terms a sum
+def test_flash_bwd_kernels_match_plain(card, dtype, tq, tk, causal, d,
+                                       segmented):
+    args = _bwd_case(card, dtype, tq, tk, d, causal, segmented, seed=tq + d)
+    _check_bwd(args, dtype, causal)
+
+
+def test_flash_bwd_kernels_match_plain_float32_d128_long(card):
+    """float32 at D = 128 over 512 rows: the 3xTF32 products with the
+    largest accumulators and the 32-row streamed tiles."""
+    args = _bwd_case(card, "float32", 512, 512, 128, True, seed=11)
+    _check_bwd(args, "float32", True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernels_are_bitwise_repeatable(card, dtype):
+    args = _bwd_case(card, dtype, 200, 200, 64, True, seed=5)
     first = _run_bwd(*args, True)
     second = _run_bwd(*args, True)
     for a, b in zip(first, second):

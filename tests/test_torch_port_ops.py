@@ -240,6 +240,58 @@ def test_flash_plain_backward_matches_jax_bwd_kernels_bf16():
                                    atol=2e-2 * np.abs(b).max(), rtol=0)
 
 
+def _tf32(x):
+    """float32 rounded to TF32 (10 stored mantissa bits) to nearest, ties
+    away from zero, on the float32 word, as ``cvt.rna.tf32.f32`` does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_mm(a, b, passes):
+    """a @ b with float32 sums over TF32 operands: one product of the
+    rounded operands (``passes=1``), or the backward kernels' 3xTF32
+    split, lo*hi + hi*lo + hi*hi with x = hi + lo (``passes=3``)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_flash_backward_products_need_three_tf32_passes(passes):
+    """The float32 backward kernels run every product on the tensor cores
+    as three TF32 products.  Emulated here on the CPU at (1,4,256,64)
+    causal, the five products so split keep every gradient within the
+    kernels' float32 tolerance, 1e-4 of its max |value|, of the plain
+    backward; one TF32 product each does not (at most 2.3e-6 against
+    4e-4 to 1.4e-3 on this input)."""
+    rng = np.random.RandomState(30)
+    q, k, v, do = (torch.from_numpy(_randn(rng, 1, 4, 256, 64))
+                   for _ in range(4))
+    dlse = torch.from_numpy(_randn(rng, 1, 4, 256))
+    scale = 0.125
+    o, lse = flash_attention_reference(q, k, v, causal=True, scale=scale)
+    want = flash_attention_backward_reference(q, k, v, o, lse, do, dlse,
+                                              causal=True, scale=scale)
+    kt, vt = k.transpose(-1, -2), v.transpose(-1, -2)
+    mask = torch.ones(256, 256, dtype=torch.bool).tril()
+    s = _tf32_mm(q, kt, passes) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dv = _tf32_mm(p.transpose(-1, -2), do, passes)
+    dp = _tf32_mm(do, vt, passes)
+    rest = (do * o).sum(-1) - dlse
+    ds = p * (dp - rest[..., None])
+    dq = _tf32_mm(ds, k, passes) * scale
+    dk = _tf32_mm(ds.transpose(-1, -2), q, passes) * scale
+    ratios = [(a - b).abs().max().item() / b.abs().max().item()
+              for a, b in zip((dq, dk, dv), want)]
+    if passes == 3:
+        assert max(ratios) <= 1e-4, ratios
+    else:
+        assert min(ratios) > 1e-4, ratios
+
+
 def test_plain_attention_grads_are_finite_on_fully_masked_rows():
     """dot_product_attention (the "xla" path): a row with no visible key
     returns 0 and gives zero, finite gradients, as the flash path does."""
