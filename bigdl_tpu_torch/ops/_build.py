@@ -6,8 +6,9 @@ shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o <build dir>/<name>-<hash>.so
 
-The library's file name carries a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one is reused.  The build
+The library's file name carries a hash of the source, of the shared
+headers beside it (``csrc/*.cuh``) and of the flags, so an edited source
+or header rebuilds and an unchanged one is reused.  The build
 directory (``bigdl_tpu_torch/_build``) is listed in ``.gitignore``.
 Libraries load with ``ctypes``: every pointer and the stream go as
 ``c_void_p``, every C entry point returns ``cudaGetLastError()``, and
@@ -48,8 +49,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """The library's path, named by a hash of the source, every shared
+    header of ``csrc/`` (``*.cuh``, which any source may include) and
+    the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -10,6 +10,12 @@ not multiply, as the dense gather path), keys at positions > ``pos[s]``
 masked, softmax, float32 ``w . v``; the output is float32 for float32
 and bfloat16 arenas alike, shaped like ``q``.
 
+The kernel splits each (slot, head)'s context into chunks of
+``CHUNK_KEYS`` keys (rounded to whole KV blocks), one thread block a
+chunk, and merges the chunks' float32 partials in a second kernel behind
+the same C entry point (one launch a call); the wrapper allocates the
+partials' workspace.
+
 The wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises.
 """
@@ -25,7 +31,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 PAGED_DECODE = Kernel(
     "paged_decode", "bigdl_paged_decode",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+CHUNK_KEYS = 64  # keys a thread block of the kernel attends
+
+
+def split_count(table_width: int, block_len: int, chunk_keys: int) -> int:
+    """Chunks a (slot, head) is split into: ``ceil(M / chunk_blocks)``
+    with ``chunk_blocks = max(1, chunk_keys // block_len)`` table entries
+    a chunk."""
+    chunk_blocks = max(1, chunk_keys // block_len)
+    return -(-table_width // chunk_blocks)
 
 
 def paged_decode_attention_reference(q, k_arena, v_arena, tables, pos):
@@ -86,14 +102,21 @@ def paged_decode_attention(q, k_arena, v_arena, tables, pos):
                          f"tables {tuple(tables.shape)}, pos {tuple(pos.shape)}")
     if not (k_arena.is_contiguous() and v_arena.is_contiguous()):
         raise ValueError("paged kernel reads contiguous arenas")
+    if k_arena.data_ptr() % 16 or v_arena.data_ptr() % 16:
+        raise ValueError("paged kernel reads 16-byte aligned arenas")
     qf = q3.float().contiguous()
     tables = tables.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty((s, h, d), dtype=torch.float32, device=q.device)
     if s:
+        n_split = split_count(m, blk, CHUNK_KEYS)
+        # per chunk (m, l, acc[D]); chunks past pos are never written or read
+        ws = torch.empty((s, h, n_split, d + 2), dtype=torch.float32,
+                         device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         PAGED_DECODE.launch(qf.data_ptr(), k_arena.data_ptr(),
                             v_arena.data_ptr(), tables.data_ptr(),
-                            pos.data_ptr(), out.data_ptr(), s, h, blk, d, m,
-                            _DTYPES[k_arena.dtype], stream)
+                            pos.data_ptr(), out.data_ptr(), ws.data_ptr(), s,
+                            h, blk, d, m, n_split, _DTYPES[k_arena.dtype],
+                            stream)
     return out[:, :, None, :] if squeeze else out

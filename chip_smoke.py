@@ -14,7 +14,12 @@ result line:
    on the card, at the main paths' shapes and at edge cases, with its
    time, the plain version's time, the least time the card could take
    (bound) and, where one exists, one PyTorch call computing the same
-   function as a yardstick (never used by the port);
+   function as a yardstick (never used by the port); every case also
+   checks that a second run on the same inputs gives bitwise equal
+   outputs.  The forward is timed at the serve path's largest prefill
+   (1,12,1024,64) and at the training step's (8,12,1024,64), in float32
+   and bf16; each paged case prints the K/V bytes it read and the TB/s
+   that makes;
 4. serve: a GPT-2-small-width TransformerLM (random weights from a
    seed, float32) behind LMServingEngine answers 8 requests through the
    flash prefill and paged decode kernels; every greedy stream is held
@@ -36,10 +41,9 @@ torch.profiler and writes their kernel tables (device busy time, idle
 share, time by kernel) to PATH and to PATH with ``_train`` and
 ``_train_bf16`` before its extension.
 
-The backward kernels' bounds take float32 at the 3xTF32 tensor-core
-rate (495 / 3 TFLOP/s), the rate those kernels run at; the CUDA-core
-bound (67 TFLOP/s) is printed beside it.  The forward's float32 bound
-stays at the CUDA-core rate.
+The flash kernels' bounds, forward and backward, take float32 at the
+3xTF32 tensor-core rate (495 / 3 TFLOP/s), the rate those kernels run
+at; the CUDA-core bound (67 TFLOP/s) is printed beside it.
 
 The last lines are the kernels' JSON object, nvidia-smi's
 "name, power.limit" line, and the result object.  Without a CUDA
@@ -159,14 +163,18 @@ def _visible_pairs(tq, tk, causal, seg_q=None, seg_k=None) -> int:
     return total
 
 
-def flash_case(dev, tq, tk, dtype, causal=True, segmented=False, seed=0):
+def flash_case(dev, tq, tk, dtype, causal=True, segmented=False, seed=0,
+               b=1):
+    """The forward kernel at (b, 12, tq, 64) x (b, 12, tk, 64) against
+    its plain version: o and lse within tolerance, finite, bitwise equal
+    on a second run; timed beside the plain version and SDPA."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.ops import (flash_attention_reference,
                                      flash_attention_with_lse)
     tdt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(seed)
-    b, h, d = 1, 12, 64
+    h, d = 12, 64
     q = torch.randn((b, h, tq, d), generator=g).to(dev, tdt)
     k = torch.randn((b, h, tk, d), generator=g).to(dev, tdt)
     v = torch.randn((b, h, tk, d), generator=g).to(dev, tdt)
@@ -186,21 +194,25 @@ def flash_case(dev, tq, tk, dtype, causal=True, segmented=False, seed=0):
                                          kv_segment_ids=seg)
 
     o, lse = kernel()
+    o2, lse2 = kernel()
     o_ref, lse_ref = plain()
     torch.cuda.synchronize()
+    name = (f"flash_fwd ({b},12,{tq},64)x({b},12,{tk},64) {dtype} "
+            f"{'causal' if causal else 'full'}{' segmented' if seg is not None else ''}")
     if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
-        raise AssertionError(f"flash T={tq}/{tk} {dtype}: non-finite output")
+        raise AssertionError(f"{name}: non-finite output")
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"{name}: o or lse differs between two runs")
     err_o = (o.float() - o_ref.float()).abs().max().item()
     err_l = (lse - lse_ref).abs().max().item()
     tol_o, tol_l = ((TOL_F32, TOL_F32) if dtype == "float32"
                     else (TOL_BF16_O, TOL_BF16_LSE))
-    name = (f"flash_fwd (1,12,{tq},64)x(1,12,{tk},64) {dtype} "
-            f"{'causal' if causal else 'full'}{' segmented' if seg is not None else ''}")
     if err_o > tol_o or err_l > tol_l:
         raise AssertionError(f"{name}: o err {err_o:.3e} (tol {tol_o}), "
                              f"lse err {err_l:.3e} (tol {tol_l})")
+    del o2, lse2, o_ref, lse_ref
     ms = cuda_ms(kernel)
-    plain_ms = cuda_ms(plain)
+    plain_ms = cuda_ms(plain, iters=5 if b > 1 else 20)
     mask = None
     if seg is not None or tq != tk:
         i = torch.arange(tq, device=dev)[:, None]
@@ -219,10 +231,18 @@ def flash_case(dev, tq, tk, dtype, causal=True, segmented=False, seed=0):
         + lse.numel() * 4 + (0 if seg is None else 2 * seg.numel() * 4)
     seg_np = None if seg is None else seg.cpu().numpy()
     flops = 4.0 * b * h * d * _visible_pairs(tq, tk, causal, seg_np, seg_np)
-    bound_ms, bound_by = bound(nbytes, flops, dtype)
-    log(f"[kernels] {name}: max_abs_err o {err_o:.3e} lse {err_l:.3e} | "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    # the kernel runs float32 on the tensor cores as three TF32 products
+    basis = "float32_3xtf32" if dtype == "float32" else dtype
+    bound_ms, bound_by = bound(nbytes, flops, basis)
+    simt = ""
+    if dtype == "float32":
+        simt = (f"; {bound(nbytes, flops, 'float32')[0]:.4f} ms at the 67 "
+                f"TFLOP/s CUDA-core rate")
+    log(f"[kernels] {name}: max_abs_err o {err_o:.3e} lse {err_l:.3e}, "
+        f"bitwise repeatable | kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {basis} "
+        f"{PEAK_FLOPS[basis] / 1e12:.0f} TFLOP/s{simt})")
     return dict(max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
@@ -259,26 +279,31 @@ def paged_case(dev, pos_list, dtype, seed=0):
         return paged_decode_attention_reference(q, ka[layer], va[layer],
                                                 tables, pos)
 
+    name = f"paged_decode S=8 H=12 D=64 blen=16 M=64 {dtype} pos={pos_list}"
     err = 0.0
     for layer in (0, layers - 1):
-        out, ref = kernel(layer), plain(layer)
+        out, again, ref = kernel(layer), kernel(layer), plain(layer)
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
-            raise AssertionError("paged decode: non-finite output")
+            raise AssertionError(f"{name}: non-finite output")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name}: output differs between two runs")
         err = max(err, (out - ref).abs().max().item())
-    name = f"paged_decode S=8 H=12 D=64 blen=16 M=64 {dtype} pos={pos_list}"
     if err > TOL_F32:
         raise AssertionError(f"{name}: max_abs_err {err:.3e} (tol {TOL_F32})")
     ms = cuda_ms(kernel, iters=48)
     plain_ms = cuda_ms(plain, iters=24)
     live = sum(p + 1 for p in pos_list)
-    nbytes = (q.numel() * 4 + 2 * live * h * d * ka.element_size()
-              + tables.numel() * 4 + pos.numel() * 4 + out.numel() * 4)
+    kv_bytes = 2 * live * h * d * ka.element_size()
+    nbytes = (q.numel() * 4 + kv_bytes + tables.numel() * 4
+              + pos.numel() * 4 + out.numel() * 4)
     flops = 4.0 * h * d * live
     bound_ms, bound_by = bound(nbytes, flops, "float32")
-    log(f"[kernels] {name}: max_abs_err {err:.3e} | kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library null (no single PyTorch call), "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"[kernels] {name}: max_abs_err {err:.3e}, bitwise repeatable | "
+        f"kernel {ms:.4f} ms, live K/V {kv_bytes / 1e6:.3f} MB read at "
+        f"{kv_bytes / ms / 1e9:.3f} TB/s, plain {plain_ms:.4f} ms, library "
+        f"null (no single PyTorch call), bound {bound_ms:.4f} ms "
+        f"({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
@@ -403,6 +428,9 @@ def phase_kernels(dev):
     flash_case(dev, 1024, 1024, "bfloat16")
     flash_case(dev, 256, 256, "float32", segmented=True, seed=1)
     flash_case(dev, 100, 612, "float32", seed=2)
+    # the training step's shape, both compute dtypes
+    for dtype in ("bfloat16", "float32"):
+        flash_case(dev, 1024, 1024, dtype, b=8)
     # the served model's largest prefill bucket (the 700-token prompt)
     flash_main = flash_case(dev, 1024, 1024, "float32")
     mid = [16 * i + 8 for i in range(8)]
@@ -459,10 +487,17 @@ def check_stream(ref_model, params, prompt, got, want):
     return f"tie at position {i}, plain top-2 gap {gap:.3e}"
 
 
+# device kernel -> the port's kernel (C entry point) that launches it
+_OUR_KERNELS = {"flash_fwd_kernel": "flash_fwd",
+                "paged_chunk_kernel": "paged_decode",
+                "paged_combine_kernel": "paged_decode",
+                "flash_bwd_dkv_kernel": "flash_bwd_dkv",
+                "flash_bwd_dq_kernel": "flash_bwd_dq"}
+
+
 def _kernel_family(name: str) -> str:
-    for ours in ("flash_fwd", "paged_decode", "flash_bwd_dkv",
-                 "flash_bwd_dq"):
-        if f"{ours}_kernel" in name:
+    for kernel, ours in _OUR_KERNELS.items():
+        if kernel in name:
             return f"{ours} (ours)"
     if any(t in name for t in ("gemm", "gemv", "xmma", "cutlass", "sm90",
                                "nvjet")):

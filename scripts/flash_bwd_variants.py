@@ -4,8 +4,9 @@
     python3 scripts/flash_bwd_variants.py A.cu B.cu ...
 
 Each argument is a copy of ``bigdl_tpu_torch/csrc/flash_bwd.cu`` with
-some change.  All are built at once with the port's nvcc flags (ptxas
-register and spill lines printed), then each library's dK/dV and dQ
+some change.  All are built at once with the port's nvcc flags and
+``-I bigdl_tpu_torch/csrc`` for the shared headers (ptxas register and
+spill lines printed), then each library's dK/dV and dQ
 kernels run on the same inputs, causal, zero lse cotangent: (8,12,1024,64)
 in float32 and bf16 and (2,12,512,128) in float32.  For each variant it
 prints every gradient's max abs error over its max |value| against the
@@ -29,9 +30,10 @@ SHAPES = [(8, 1024, 64, "float32"), (8, 1024, 64, "bfloat16"),
 
 
 def build(sources):
-    from bigdl_tpu_torch.ops._build import NVCC_FLAGS, nvcc_path
-    procs = {s: subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o",
-                                  s[:-3] + ".so", s],
+    from bigdl_tpu_torch.ops._build import CSRC_DIR, NVCC_FLAGS, nvcc_path
+    # the copies live outside csrc/: its shared headers come by -I
+    procs = {s: subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-I",
+                                  str(CSRC_DIR), "-o", s[:-3] + ".so", s],
                                  stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
              for s in sources}

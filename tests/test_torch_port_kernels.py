@@ -79,6 +79,26 @@ def test_flash_kernel_segments_and_masked_rows(card):
     assert torch.all(o[:, :, :40] == 0) and torch.all(lse[:, :, :40] <= -1e29)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,d", [(8, 1024, 64),    # the training step
+                                   (2, 512, 128)])   # D = 128
+def test_flash_kernel_matches_plain_at_full_size(card, dtype, b, t, d):
+    """The tensor-core forward at the training step's shape and at
+    D = 128, causal: o and lse within tolerance, and bitwise equal on a
+    second run (no atomics: every sum in a fixed order)."""
+    g = torch.Generator().manual_seed(b + t + d)
+    tdt = getattr(torch, dtype)
+    q, k, v = (_rand(g, (b, 12, t, d), card, tdt) for _ in range(3))
+    o, lse = flash_attention_with_lse(q, k, v, causal=True)
+    o2, lse2 = flash_attention_with_lse(q, k, v, causal=True)
+    o_ref, lse_ref = flash_attention_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    tol_o, tol_l = TOL[dtype]
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol_o
+    assert (lse - lse_ref).abs().max().item() <= tol_l
+
+
 def test_flash_kernel_rejects_what_it_cannot_run(card):
     q = torch.zeros((1, 1, 8, 32), device=card)
     with pytest.raises(ValueError, match="head_dim"):
@@ -110,16 +130,42 @@ def test_paged_kernel_matches_plain(card, dtype, layout):
     assert (out - ref).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_kernel_matches_plain_at_chunk_edges(card, dtype, d):
+    """Positions at and across the 64-key chunks' edges (one to four
+    chunks live) and the last position of the table, M * block_len - 1:
+    within 1e-4 of the plain version, and bitwise equal on a second run
+    (the combine merges the chunks in a fixed order)."""
+    g = torch.Generator().manual_seed(d)
+    s, h, blen, width = 8, 3, 16, 16
+    n = s * width + 1
+    ka, va = (_rand(g, (n, h, blen, d), card, getattr(torch, dtype))
+              for _ in range(2))
+    tables = (torch.randperm(n - 1, generator=g) + 1).reshape(s, width).to(
+        card, torch.int32)
+    q = _rand(g, (s, h, d), card)
+    pos = torch.tensor([0, 63, 64, 65, 127, 128, 200, width * 16 - 1],
+                       dtype=torch.int32, device=card)
+    out = paged_decode_attention(q, ka, va, tables, pos)
+    again = paged_decode_attention(q, ka, va, tables, pos)
+    ref = paged_decode_attention_reference(q, ka, va, tables, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
 def test_paged_kernel_never_reads_past_pos(card):
-    """NaN in every block past each slot's live prefix, and in the
-    scratch block, must not reach the output."""
+    """NaN in every K/V row past each slot's live prefix (the rest of its
+    last block and every block after it, so whole 64-key chunks past
+    pos), and in the scratch block, must not reach the output."""
     g = torch.Generator().manual_seed(2)
-    s, h, d, blen, width = 2, 2, 64, 16, 4
+    s, h, d, blen, width = 3, 2, 64, 16, 12
     n = s * width + 1
     ka, va = (_rand(g, (n, h, blen, d), card) for _ in range(2))
     tables = torch.arange(1, n, dtype=torch.int32, device=card).reshape(
         s, width)
-    pos = torch.tensor([5, 20], dtype=torch.int32, device=card)
+    pos = torch.tensor([5, 70, 130], dtype=torch.int32, device=card)
     q = _rand(g, (s, h, d), card)
     ref = paged_decode_attention_reference(q, ka, va, tables, pos)
     for si in range(s):
@@ -133,6 +179,22 @@ def test_paged_kernel_never_reads_past_pos(card):
     out = paged_decode_attention(q, ka, va, tables, pos)
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+def test_paged_kernel_rejects_misaligned_arenas(card):
+    """The kernel reads K/V rows as 16-byte vectors: an arena whose data
+    starts off a 16-byte boundary is refused, never read."""
+    s, h, d, blen, width = 2, 2, 64, 16, 2
+    n = s * width + 1
+    flat = torch.zeros(n * h * blen * d + 1, device=card)
+    ka = flat[1:].view(n, h, blen, d)            # contiguous, 4 bytes off
+    va = torch.zeros_like(ka)
+    tables = torch.arange(1, n, dtype=torch.int32, device=card).reshape(
+        s, width)
+    pos = torch.zeros(s, dtype=torch.int32, device=card)
+    q = torch.zeros((s, h, d), device=card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_decode_attention(q, ka, va, tables, pos)
 
 
 def _bwd_case(card, dtype, tq, tk, d, causal, segmented=False, seed=0):

@@ -292,6 +292,135 @@ def test_flash_backward_products_need_three_tf32_passes(passes):
         assert min(ratios) > 1e-4, ratios
 
 
+_LOG2E = 1.4426950408889634
+
+
+def _flash_fwd_emulation(q, k, v, causal, scale, passes, bq=64, bk=64):
+    """The tensor-core forward's arithmetic in torch, float32: 64-row
+    query tiles walk 64-key tiles up to the last one a causal row
+    reaches; S = Q K^T and O += P V as TF32 products (``_tf32_mm``); the
+    online softmax in exp2 form with m kept in the units of s * scale,
+    masked scores -inf; o = acc / l (l == 0 taken as 1), lse = m + log l."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    shift = tk - tq
+    o = torch.zeros_like(q)
+    lse = torch.empty((b, h, tq))
+    scale_l2 = scale * _LOG2E
+    for q0 in range(0, tq, bq):
+        rows = torch.arange(q0, min(q0 + bq, tq))
+        m = torch.full((b, h, len(rows)), -1e30)
+        l = torch.zeros((b, h, len(rows)))
+        acc = torch.zeros((b, h, len(rows), d))
+        n_k = -(-tk // bk)
+        if causal:
+            last = int(rows[-1]) + shift
+            n_k = 0 if last < 0 else min(n_k, last // bk + 1)
+        for j in range(n_k):
+            keys = torch.arange(j * bk, min((j + 1) * bk, tk))
+            s = _tf32_mm(q[:, :, rows], k[:, :, keys].transpose(-1, -2),
+                         passes)
+            if causal:
+                vis = keys[None, :] <= rows[:, None] + shift
+                s = torch.where(vis, s, torch.full_like(s, -float("inf")))
+            m_new = torch.maximum(m, s.amax(-1) * scale)
+            alpha = torch.exp2((m - m_new) * _LOG2E)
+            p = torch.exp2(s * scale_l2 - (m_new * _LOG2E)[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + _tf32_mm(p, v[:, :, keys], passes)
+            m = m_new
+        l_safe = torch.where(l == 0, torch.ones_like(l), l)
+        o[:, :, rows] = acc / l_safe[..., None]
+        lse[:, :, rows] = m + torch.log(l_safe)
+    return o, lse
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("tk", [200, 136])
+def test_flash_forward_emulation_matches_jax(tk, passes):
+    """The float32 forward kernel runs both products on the tensor cores
+    as three TF32 products.  Emulated on the CPU at (1,4,200,64) x
+    (1,4,tk,64) causal, o and lse stay within 1e-4 of the JAX
+    ``flash_attention_with_lse`` (Pallas kernel, interpret mode); with
+    tk = 136 the first 64 rows see no key and must give o = 0 and lse =
+    -1e30 exactly.  One TF32 product each does not stay within 1e-4."""
+    rng = np.random.RandomState(40 + tk)
+    q = _randn(rng, 1, 4, 200, 64)
+    k, v = _randn(rng, 1, 4, tk, 64), _randn(rng, 1, 4, tk, 64)
+    o_ref, lse_ref = jax_flash_lse(*(jnp.asarray(x) for x in (q, k, v)),
+                                   causal=True, block_q=64, block_k=64)
+    o, lse = _flash_fwd_emulation(*(torch.from_numpy(x) for x in (q, k, v)),
+                                  causal=True, scale=0.125, passes=passes)
+    err = max(np.abs(o.numpy() - np.asarray(o_ref)).max(),
+              np.abs(lse.numpy() - np.asarray(lse_ref)).max())
+    if passes == 1:
+        assert err > 1e-4, err
+        return
+    assert err <= 1e-4, err
+    blind = 200 - tk
+    assert np.all(o.numpy()[:, :, :blind] == 0.0)
+    assert np.all(lse.numpy()[:, :, :blind] == np.float32(-1e30))
+
+
+def _paged_split_emulation(q, ka, va, tables, pos, chunk_keys):
+    """The split paged kernel's arithmetic in torch, float32: each (slot,
+    head)'s live keys in chunks of whole table entries; per chunk the
+    scores q . k / sqrt(D), m = max, p = exp(s - m), l = sum p and
+    acc = p . V; the combine over the live chunks in chunk order,
+    o = sum acc_c exp(m_c - M) / sum l_c exp(m_c - M)."""
+    from bigdl_tpu_torch.ops.paged_attention import split_count
+    s, h, d = q.shape
+    width = tables.shape[1]
+    blen = ka.shape[2]
+    n_split = split_count(width, blen, chunk_keys)
+    chunk = -(-width // n_split) * blen
+    out = torch.empty((s, h, d))
+    for si in range(s):
+        n = min(int(pos[si]) + 1, width * blen)
+        kp = torch.arange(n)
+        blocks = tables[si].long()[kp // blen]
+        krows = ka[blocks, :, kp % blen].float()       # (n, H, D)
+        vrows = va[blocks, :, kp % blen].float()
+        for hi in range(h):
+            parts = []
+            for k0 in range(0, n, chunk):
+                kk, vv = krows[k0:k0 + chunk, hi], vrows[k0:k0 + chunk, hi]
+                sc = (kk @ q[si, hi]) / torch.sqrt(torch.tensor(
+                    d, dtype=torch.float32))
+                m = sc.max()
+                p = torch.exp(sc - m)
+                parts.append((m, p.sum(), p @ vv))
+            mx = torch.stack([m for m, _, _ in parts]).max()
+            f = [torch.exp(m - mx) for m, _, _ in parts]
+            lt = sum(l * fc for (_, l, _), fc in zip(parts, f))
+            out[si, hi] = sum(a * fc for (_, _, a), fc in zip(parts, f)) / lt
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_split_emulation_matches_jax(dtype):
+    """The paged kernel's chunked partials and their combine, emulated on
+    the CPU with the wrapper's chunk size (64 keys, 4 blocks of 16), at
+    pos 0, 15, 16, 63, 64 and M * block_len - 1 (one to two chunks, at
+    and across block and chunk edges): within 1e-5 of the JAX
+    ``paged_decode_attention`` (Pallas kernel, interpret mode); the bf16
+    arena is read in float32 on both sides."""
+    from bigdl_tpu_torch.ops.paged_attention import CHUNK_KEYS
+    q, ka, va, tables = _paged_inputs(seed=8, slots=6, heads=2, head_dim=64,
+                                      width=8, block_len=16)
+    pos = np.asarray([0, 15, 16, 63, 64, 8 * 16 - 1], np.int32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ref = jax_paged(jnp.asarray(q), jnp.asarray(ka, jdt), jnp.asarray(va, jdt),
+                    jnp.asarray(tables), jnp.asarray(pos))
+    tdt = getattr(torch, dtype)
+    out = _paged_split_emulation(
+        torch.from_numpy(q), torch.from_numpy(ka).to(tdt),
+        torch.from_numpy(va).to(tdt), torch.from_numpy(tables),
+        torch.from_numpy(pos), CHUNK_KEYS)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
 def test_plain_attention_grads_are_finite_on_fully_masked_rows():
     """dot_product_attention (the "xla" path): a row with no visible key
     returns 0 and gives zero, finite gradients, as the flash path does."""
@@ -453,6 +582,25 @@ def test_build_runs_one_nvcc_per_source_and_reuses_the_library(
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build2")
     with pytest.raises(RuntimeError, match="no such intrinsic"):
         _build.build(["paged_decode"])
+
+
+def test_build_hashes_the_shared_headers_into_every_library(tmp_path,
+                                                           monkeypatch):
+    """Every source may include csrc/*.cuh: editing a header in a copy of
+    csrc changes every library's path (so none is reused stale), and an
+    unchanged tree gives the same paths."""
+    import shutil
+    from bigdl_tpu_torch.ops import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    names = ("flash_fwd", "paged_decode", "flash_bwd")
+    before = [_build.library_path(n) for n in names]
+    assert [_build.library_path(n) for n in names] == before
+    header = csrc / "sm90_mma.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = [_build.library_path(n) for n in names]
+    assert all(a != b for a, b in zip(after, before))
 
 
 def test_params_roundtrip_keeps_keys_and_layout():
