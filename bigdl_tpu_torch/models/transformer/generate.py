@@ -12,12 +12,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.models.transformer import TransformerLM
 from bigdl_tpu_torch.nn.attention import dot_product_attention
 from bigdl_tpu_torch.ops import flash_attention, paged_decode_attention
+from bigdl_tpu_torch.utils import keychain
 from bigdl_tpu_torch.utils.params import layer_params
 
 
@@ -92,7 +94,10 @@ def _decode_step_slots(model, params, token, pos, k_cache, v_cache):
     pos = pos.long()
     h = params["embed"][token.long()][:, None, :]
     if model.pos_encoding == "learned":
-        h = h + params["pos"][pos][:, None, :]
+        # clamped: a drafter's scratch row sits one past max_len when
+        # cache_len == max_len (the reference's gather clamps the same)
+        h = h + params["pos"][pos.clamp(max=params["pos"].shape[0] - 1)][
+            :, None, :]
     positions = pos[:, None, None]
     cache_len = k_cache.shape[3]
     mask = (torch.arange(cache_len, device=pos.device)[None, :]
@@ -233,12 +238,166 @@ def _decode_step_paged(model, params, token, pos, tables, k_arena,
     return logits.float(), k_arena, v_arena
 
 
+def _score_candidates(model, params, tokens, rope_pos, store, n_cand, mask,
+                      tables, k_arena, v_arena):
+    """The verify steps' shared body: W candidate rows per slot, row j of
+    slot s rotated (and, for learned positions, embedded) at
+    ``rope_pos[s, j]``, its k/v written in place at arena position
+    ``store[s, j]`` (rows >= ``n_cand[s]`` go to the scratch block 0,
+    which is never attended), attending the slot's gathered chain under
+    ``mask`` (S, 1, W, ctx) with float32 scores.  Returns (float32 logits
+    (S, W, V), k_arena, v_arena)."""
+    mha = model._mha
+    s, w = tokens.shape
+    m = tables.shape[1]
+    B = k_arena.shape[3]
+    ctx = m * B
+    dev = tokens.device
+    tables_l = tables.long()
+    h = params["embed"][tokens.long()]               # (S, W, hidden)
+    if model.pos_encoding == "learned":
+        # clamped: padded rows of a near-full slot may index past the table
+        h = h + params["pos"][rope_pos.clamp(max=params["pos"].shape[0] - 1)]
+    positions = rope_pos[:, None, :]                 # (S, 1, W)
+    # the column index clamps to the table width (a padded row of a
+    # chain-filling slot would otherwise index past it), and rows >=
+    # n_cand go to the scratch block outright
+    blkcol = (store // B).clamp(max=m - 1)
+    blk = torch.where(torch.arange(w, device=dev)[None, :]
+                      < n_cand.long()[:, None],
+                      tables_l[torch.arange(s, device=dev)[:, None], blkcol],
+                      0)                             # (S, W)
+    off = store % B
+    for i, bp in enumerate(_layers(model, params)):
+        kc, vc = k_arena[i], v_arena[i]              # (N, H, B, D)
+        q, k, v = _block_qkv(model, bp, h)           # (S, H, W, D)
+        q, k = model._rope(q, k, positions)
+        kc[blk, :, off, :] = k.transpose(1, 2).to(kc.dtype)
+        vc[blk, :, off, :] = v.transpose(1, 2).to(vc.dtype)
+        kg = kc[tables_l].permute(0, 2, 1, 3, 4).reshape(
+            s, mha.n_head, ctx, mha.head_dim)
+        vg = vc[tables_l].permute(0, 2, 1, 3, 4).reshape(
+            s, mha.n_head, ctx, mha.head_dim)
+        scores = torch.matmul(q.float(), kg.float().transpose(-1, -2))
+        scores = scores / torch.sqrt(
+            torch.tensor(mha.head_dim, dtype=torch.float32))
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        o = torch.matmul(torch.softmax(scores, dim=-1), vg.float())
+        h = _finish_block(model, bp, h, o.to(h.dtype))
+    h = model._layer_norm(params["ln_f"], h)
+    return _head_logits(model, params, h).float(), k_arena, v_arena
+
+
+def _verify_step_paged(model, params, tokens, pos, n_cand, tables, k_arena,
+                       v_arena):
+    """Speculative VERIFY over paged arenas: score all W = k+1 candidate
+    rows per slot in one step.  ``tokens`` (S, W) 0-based, laid out
+    ``[last_emitted, draft_1 .. draft_k]``; ``pos`` (S,) each slot's next
+    write position, so candidate j sits at ``pos + j``; ``n_cand`` (S,)
+    the valid rows per slot (1 for a plain-decode slot, 0 for an idle
+    one).  Returns (float32 logits (S, W, V), k_arena, v_arena), the
+    arenas written in place: logits row j is the distribution for the
+    token after candidate j.
+
+    Rollback is pointer-only: a rejected row's k/v stays in the arena
+    above the slot's rewound position, where the position mask hides it
+    until a later write lands there.  Attention is the dense gather with
+    float32 scores, the reference's own (its paged kernel is
+    single-query)."""
+    s, w = tokens.shape
+    ctx = tables.shape[1] * k_arena.shape[3]
+    dev = tokens.device
+    abspos = pos.long()[:, None] + torch.arange(w, device=dev)[None, :]
+    # row j attends positions <= pos + j: (S, 1, W, ctx)
+    mask = (torch.arange(ctx, device=dev)[None, None, :]
+            <= abspos[:, :, None])[:, None]
+    return _score_candidates(model, params, tokens, abspos, abspos, n_cand,
+                             mask, tables, k_arena, v_arena)
+
+
+def _tree_verify_step_paged(model, params, tokens, pos, n_cand, tables,
+                            k_arena, v_arena, *, depths, anc):
+    """Tree-speculative VERIFY over paged arenas: score all W nodes of a
+    fixed-shape candidate tree per slot in one step.  ``tokens`` (S, W)
+    holds one token per node (node 0 the last emitted root), ``depths``
+    (W,) and ``anc`` (W, W) are the shape's per-node depths and
+    ancestor-or-self matrix.
+
+    Node j stores its k/v at arena offset ``pos + j`` (siblings share a
+    position but never an offset) and rotates at its true position
+    ``pos + depths[j]``; its mask admits the committed prefix (``col <
+    pos``) plus exactly its ancestors' offsets.  A path node at depth d
+    therefore sees what linear-verify row d sees, and a chain shape is
+    the linear verify.  ``_tree_commit_paged`` later copies accepted
+    off-spine rows down to their position offsets; rows >= ``n_cand`` go
+    to the scratch block."""
+    s, w = tokens.shape
+    ctx = tables.shape[1] * k_arena.shape[3]
+    dev = tokens.device
+    pos_l = pos.long()
+    depths = torch.as_tensor(np.asarray(depths), dtype=torch.long,
+                             device=dev)
+    ancm = torch.as_tensor(np.asarray(anc, bool), device=dev)  # (W, W)
+    store = pos_l[:, None] + torch.arange(w, device=dev)[None, :]
+    rope = pos_l[:, None] + depths[None, :]
+    rel = torch.arange(ctx, device=dev)[None, :] - pos_l[:, None]  # (S, ctx)
+    in_tree = (rel >= 0) & (rel < w)
+    anc_cols = ancm[:, rel.clamp(0, w - 1)]          # (W, S, ctx)
+    mask = ((rel < 0)[:, None, :]
+            | (in_tree[:, None, :] & anc_cols.permute(1, 0, 2)))[:, None]
+    return _score_candidates(model, params, tokens, rope, store, n_cand,
+                             mask, tables, k_arena, v_arena)
+
+
+def _tree_commit_paged(src, pos, tables, k_arena, v_arena):
+    """After the host walk accepts a tree path, copy each accepted node's
+    k/v row from its STORE offset ``pos + src[s, d-1]`` down to its
+    POSITION offset ``pos + d``, in place, so the committed chain reads
+    contiguously.  ``src`` (S, Dmax) is the accepted node at depth d =
+    column + 1; identity entries rewrite a row onto itself.  Each layer
+    gathers every source row before it writes any."""
+    s, dmax = src.shape
+    m = tables.shape[1]
+    B = k_arena.shape[3]
+    dev = src.device
+    rows = torch.arange(s, device=dev)[:, None]
+    tables_l = tables.long()
+    src_abs = pos.long()[:, None] + src.long()
+    dst_abs = (pos.long()[:, None] + 1
+               + torch.arange(dmax, device=dev)[None, :])
+    # identity rows of a near-full slot clamp src and dst to the same
+    # final block column, so the clamped write is still a no-op
+    sblk = tables_l[rows, (src_abs // B).clamp(max=m - 1)]
+    soff = src_abs % B
+    dblk = tables_l[rows, (dst_abs // B).clamp(max=m - 1)]
+    doff = dst_abs % B
+    for kc, vc in zip(k_arena, v_arena):
+        kr = kc[sblk, :, soff, :]                    # (S, Dmax, H, D) copies
+        vr = vc[sblk, :, soff, :]
+        kc[dblk, :, doff, :] = kr
+        vc[dblk, :, doff, :] = vr
+    return k_arena, v_arena
+
+
+def _choose(logits, temperature: float, key, clamp: bool):
+    """Each row's next token by ``keychain.sample`` over the whole (B, V)
+    block with one key, on the host; greedy stays on the device."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    toks = keychain.sample(key, logits.cpu().numpy(), temperature, clamp)
+    return torch.from_numpy(toks).to(logits.device)
+
+
 @torch.no_grad()
 def generate(model: TransformerLM, params, prompt_ids, max_new_tokens: int,
-             *, temperature: float = 0.0, cache_len: Optional[int] = None,
-             device=None):
-    """Greedy continuation of ``prompt_ids`` (B, T) 1-based ids; returns
-    (B, T + max_new_tokens) 1-based int64 ids on the host.
+             *, temperature: float = 0.0, rng=None,
+             cache_len: Optional[int] = None, device=None):
+    """Continue ``prompt_ids`` (B, T) 1-based ids; returns (B, T +
+    max_new_tokens) 1-based int64 ids on the host.  temperature 0 is
+    greedy; above it each token is drawn from the reference's key chain:
+    ``rng`` (an int seed or a (2,) uint32 key, default seed 0) splits
+    once for the first token, and the rest split ``max_new_tokens - 1``
+    step keys, one categorical over the (B, V) logits each.
 
     ``device`` (default ``"cuda"``) must be the model's device.
     ``cache_len`` defaults to prompt + new and must be <= max_len."""
@@ -246,10 +405,6 @@ def generate(model: TransformerLM, params, prompt_ids, max_new_tokens: int,
     if dev != model.device:
         raise ValueError(f"generate on {dev}, but the model lives on "
                          f"{model.device}")
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "sampling (temperature > 0) needs the jax.random key chain, "
-            "not ported yet (ROADMAP Queue 1 item 4)")
     ids = torch.as_tensor(prompt_ids)
     if ids.is_floating_point():
         ids = ids.to(torch.int32)
@@ -270,15 +425,22 @@ def generate(model: TransformerLM, params, prompt_ids, max_new_tokens: int,
         raise ValueError(
             f"cache_len ({cache_len}) smaller than prompt + new tokens "
             f"({total})")
+    key = keychain.as_key(rng)
+    first_key = step_keys = None
+    if temperature > 0.0:
+        key, first_key = keychain.split(key)
+        if max_new_tokens > 1:
+            step_keys = keychain.split(key, int(max_new_tokens) - 1)
     ids0 = (ids - 1).to(dev)
     logits, k_cache, v_cache = _prefill(model, params, ids0, cache_len)
-    tok = torch.argmax(logits, dim=-1)
+    tok = _choose(logits, temperature, first_key, clamp=False)
     out = [tok]
     pos = torch.full((b,), t, dtype=torch.long, device=dev)
-    for _ in range(int(max_new_tokens) - 1):
+    for i in range(int(max_new_tokens) - 1):
         logits, k_cache, v_cache = _decode_step_slots(
             model, params, tok, pos, k_cache, v_cache)
-        tok = torch.argmax(logits, dim=-1)
+        tok = _choose(logits, temperature,
+                      None if step_keys is None else step_keys[i], clamp=True)
         out.append(tok)
         pos = pos + 1
     gen = torch.stack(out, dim=1).cpu() + 1

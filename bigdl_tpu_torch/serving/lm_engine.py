@@ -14,17 +14,25 @@
   position; attention reads each slot's chain through a padded int32
   block table, in place through the CUDA paged kernel on the card.
 
-A slot's greedy stream is the computation offline ``generate`` runs at
-batch 1: cached prefix keys are stored post-RoPE, bucket padding and
-stale rows are masked by position.  Ids are 1-based at ``submit`` and in
-the streams, 0-based inside.
+- **sampling**: at ``temperature > 0`` each token is drawn on the host
+  from the logits row, with the key chain offline ``generate`` uses.
+- **speculation** (``spec=SpecConfig(...)``): a drafter proposes k
+  tokens per slot and one verify step scores every candidate row (or a
+  candidate tree's nodes) against the arenas; the host accepts the
+  prefix that matches the offline draws.
+
+A slot's stream, greedy or sampled, speculative or not, is the
+computation offline ``generate`` runs at batch 1: cached prefix keys
+are stored post-RoPE, bucket padding and stale rows are masked by
+position, and every draw replays the request's key chain.  Ids are
+1-based at ``submit`` and in the streams, 0-based inside.
 
 One worker thread owns every device launch; it selects the engine's
 device before its first launch and brings logits to the host with
 ``.cpu()``, which synchronises.  Not ported yet, and refused with
-``NotImplementedError`` when asked for: sampling (``temperature > 0``),
-``spec``, ``kvtier``, ``migrate``/``adopt``, ``placement``,
-``kv_quant``, deadlines and cancellation.
+``NotImplementedError`` when asked for: the default int8 drafter,
+``kvtier``, ``migrate``/``adopt``, ``placement``, ``kv_quant``,
+deadlines and cancellation.
 """
 from __future__ import annotations
 
@@ -40,11 +48,16 @@ import torch
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.models.transformer.generate import (
     _decode_step_paged, _insert_blocks, _prefill_parts,
-    _prefill_suffix_parts)
+    _prefill_suffix_parts, _tree_commit_paged, _tree_verify_step_paged,
+    _verify_step_paged)
 from bigdl_tpu_torch.serving.errors import (PoolExhausted, RequestExceedsPool,
                                             ServingClosed, ServingQueueFull)
+from bigdl_tpu_torch.serving.histogram import Histogram
 from bigdl_tpu_torch.serving.kvcache import BlockPool, RadixCache
-from bigdl_tpu_torch.serving.sampling import pick_token
+from bigdl_tpu_torch.serving.spec import (DraftModel, NgramDrafter,
+                                          SpecConfig, SpecMetrics)
+from bigdl_tpu_torch.serving.spec.verify import accept_row, pick_token
+from bigdl_tpu_torch.utils import keychain
 
 
 def prefill_bucket_lengths(max_len: int, min_bucket: int = 8) -> tuple:
@@ -152,32 +165,6 @@ class LMStream:
 
 
 # ---------------------------------------------------------------------- #
-class _Histogram:
-    """Observed seconds: count and mean over all observations,
-    percentiles over the most recent ``window``."""
-
-    def __init__(self, window: int = 4096):
-        self._recent: deque = deque(maxlen=window)
-        self.count = 0
-        self.sum = 0.0
-
-    def observe(self, x: float) -> None:
-        self._recent.append(float(x))
-        self.count += 1
-        self.sum += float(x)
-
-    def percentile(self, q: float) -> Optional[float]:
-        if not self._recent:
-            return None
-        return float(np.percentile(np.asarray(self._recent), q))
-
-    def snapshot(self) -> dict:
-        return {"count": self.count,
-                "mean_s": (self.sum / self.count) if self.count else None,
-                "p50_s": self.percentile(50),
-                "p99_s": self.percentile(99)}
-
-
 class LMMetrics:
     """Serving counters and latency histograms; thread-safe (the
     decode worker records, callers read ``snapshot()``)."""
@@ -185,8 +172,8 @@ class LMMetrics:
     def __init__(self, slots: int, throughput_window_s: float = 60.0):
         self._lock = threading.Lock()
         self.slots = int(slots)
-        self.ttft = _Histogram()
-        self.itl = _Histogram()
+        self.ttft = Histogram()
+        self.itl = Histogram()
         self.requests = 0
         self.rejected = 0
         self.completed = 0
@@ -196,6 +183,7 @@ class LMMetrics:
         self.slot_steps = 0
         self.active_slot_steps = 0
         self.peak_active = 0
+        self.spec: Optional[SpecMetrics] = None  # set by a spec engine
         self.started_at = time.perf_counter()
         self._window_s = float(throughput_window_s)
         self._recent: deque = deque()  # (t, n_tokens) per decode step
@@ -258,23 +246,32 @@ class LMMetrics:
                     if self.slot_steps else None,
                 "ttft": self.ttft.snapshot(),
                 "itl": self.itl.snapshot(),
+                "spec": (self.spec.snapshot()
+                         if self.spec is not None else None),
             }
 
 
 # ---------------------------------------------------------------------- #
 class _Request:
-    __slots__ = ("stream", "prompt0", "max_new", "eos0")
+    __slots__ = ("stream", "prompt0", "max_new", "temperature", "eos0",
+                 "first_key", "step_keys")
 
-    def __init__(self, stream, prompt0, max_new, eos0):
+    def __init__(self, stream, prompt0, max_new, temperature, eos0,
+                 first_key, step_keys):
         self.stream = stream
         self.prompt0 = prompt0          # (t,) int32, 0-based
         self.max_new = max_new
+        self.temperature = temperature
         self.eos0 = eos0                # 0-based eos id or None
+        self.first_key = first_key      # (2,) uint32 or None
+        self.step_keys = step_keys      # (max_new - 1, 2) uint32 or None
 
 
 class _Slot:
-    __slots__ = ("stream", "pos_next", "last0", "remaining", "eos0",
-                 "last_emit_at", "blocks", "table")
+    __slots__ = ("stream", "pos_next", "last0", "remaining", "step_idx",
+                 "temperature", "eos0", "step_keys", "last_emit_at",
+                 "blocks", "table", "draft_ok", "demoted", "accept_ema",
+                 "spec_rounds", "probe_in", "tree_rung")
 
     def __init__(self, req: _Request, prompt_len: int, first0: int,
                  blocks: List[int], table: np.ndarray):
@@ -282,10 +279,25 @@ class _Slot:
         self.pos_next = prompt_len      # next cache position to write
         self.last0 = first0             # last emitted token, 0-based
         self.remaining = req.max_new - 1
+        self.step_idx = 0               # index into step_keys
+        self.temperature = req.temperature
         self.eos0 = req.eos0
+        self.step_keys = req.step_keys
         self.last_emit_at = time.perf_counter()
         self.blocks = blocks            # one pool ref per block
         self.table = table              # (M,) int32, scratch-padded
+        # speculation state (spec engines only)
+        self.draft_ok = False           # the drafter holds this slot
+        self.demoted = False            # plain decode until re-probe
+        self.accept_ema = None          # acceptance-rate EMA
+        self.spec_rounds = 0            # rounds of EMA evidence
+        self.probe_in = 0               # plain rounds until re-probe
+        self.tree_rung = 0              # shape-ladder rung (tree mode)
+
+    def key(self):
+        """The chain key of the slot's next token (None when greedy)."""
+        return (self.step_keys[self.step_idx]
+                if self.step_keys is not None else None)
 
 
 class _Prefill:
@@ -306,8 +318,9 @@ class _Prefill:
 
 # ---------------------------------------------------------------------- #
 class LMServingEngine:
-    """Serve ``TransformerLM`` greedy generation with continuous batching
-    over a paged, prefix-shared KV cache.
+    """Serve ``TransformerLM`` generation, greedy or sampled, optionally
+    speculative, with continuous batching over a paged, prefix-shared KV
+    cache.
 
     Args:
         model: a ``TransformerLM`` with ``params`` set, on ``device``.
@@ -323,6 +336,8 @@ class LMServingEngine:
             ``slots`` worst-case chains plus 4 for radix-held prefixes).
         enable_prefix_cache: radix prefix sharing on admission (never
             changes streamed tokens).
+        temperature: default sampling temperature (0 is greedy); a
+            request's ``submit(temperature=, rng=)`` overrides it.
         eos_id: default 1-based stop token; generation also stops at
             ``max_new``.
         max_queue: admission queue bound (``ServingQueueFull`` beyond).
@@ -334,6 +349,12 @@ class LMServingEngine:
             plain version on the CPU), ``"gather"`` (dense gather of
             each chain) or ``"auto"`` (the kernel on a CUDA device, the
             gather on the CPU).  Greedy streams agree across all of them.
+        spec: a :class:`SpecConfig` enabling draft-verify
+            speculative decoding: every decode round becomes a verify
+            round (plain slots ride it as one-row candidates).  It needs
+            ``SpecConfig(draft=<TransformerLM on this device>)`` or
+            ``drafter_compute="ngram"``; the default int8 drafter is not
+            ported yet.
         device: must be the model's device (default ``"cuda"``).
     """
 
@@ -354,15 +375,20 @@ class LMServingEngine:
                  spec=None, kvtier=None, migrate=None, placement=None,
                  name: str = "lm",
                  device=None):
-        for what, val, item in (("spec (speculative decoding)", spec, "9"),
-                                ("kvtier", kvtier, "11"),
+        for what, val, item in (("kvtier", kvtier, "11"),
                                 ("migrate (disaggregated serving)",
                                  migrate, "11"),
                                 ("placement", placement, "11")):
             if val is not None:
                 raise _not_ported(what, item)
-        if temperature > 0.0:
-            raise _not_ported("sampling (temperature > 0)", "4")
+        if spec is not None and not isinstance(spec, SpecConfig):
+            raise TypeError(f"spec must be a SpecConfig, got {spec!r}")
+        if (spec is not None and spec.draft is None
+                and spec.drafter_compute != "ngram"):
+            raise _not_ported(
+                "the default drafter (the target's int8 quantize() clone; "
+                "pass SpecConfig(draft=<a TransformerLM>) or "
+                "drafter_compute='ngram')", "10")
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(f"engine on {self.device}, but the model lives "
@@ -380,6 +406,7 @@ class LMServingEngine:
                 f"cache_len ({self.cache_len}) exceeds model.max_len "
                 f"({model.max_len})")
         self.max_new_tokens = int(max_new_tokens)
+        self.temperature = float(temperature)
         self.eos_id = eos_id
         self._max_queue = int(max_queue)
 
@@ -423,7 +450,42 @@ class LMServingEngine:
                            else "gather")
         self.decode_attn = decode_attn
 
+        # -- speculation (draft-verify) --------------------------------- #
+        self.spec = spec
+        self.draft = None
+        self.spec_metrics = None
+        if spec is not None:
+            if spec.drafter_compute == "ngram":
+                # zero-model prompt-lookup drafter: host-side suffix
+                # matching, no device work, no arena
+                self.draft = NgramDrafter(model.vocab_size, slots=self.slots,
+                                          ngram_max=spec.ngram_max)
+            else:
+                draft_lm = spec.draft
+                if draft_lm.vocab_size != model.vocab_size:
+                    raise ValueError(
+                        f"draft model vocab ({draft_lm.vocab_size}) differs "
+                        f"from the target's ({model.vocab_size}): drafted "
+                        "token ids would not be the target's token ids")
+                if draft_lm.device != self.device:
+                    raise ValueError(f"draft model on {draft_lm.device}, "
+                                     f"engine on {self.device}")
+                self.draft = DraftModel(
+                    draft_lm, slots=self.slots, cache_len=self.cache_len,
+                    prefill_buckets=self.prefill_buckets,
+                    sampling=spec.sampling)
+            self.spec_metrics = SpecMetrics()
+            self.spec_metrics.compute_mode = self.draft.compute_mode
+            if spec.tree:
+                self._tree_shapes = list(spec.shapes)
+                # the accepted-path commit moves rows only for shapes
+                # with off-spine nodes, up to the deepest alternate
+                self._commit_dmax = max(
+                    (s.max_depth for s in self._tree_shapes
+                     if not s.is_chain), default=0)
+
         self.metrics = LMMetrics(self.slots)
+        self.metrics.spec = self.spec_metrics
         self._cv = threading.Condition()
         self._queue: deque = deque()
         self._free = list(range(self.slots))
@@ -437,11 +499,12 @@ class LMServingEngine:
 
     # ------------------------------------------------------------------ #
     def warmup(self) -> int:
-        """Run every prefill bucket and one decode step once before
-        traffic, so the first use of each shape (library kernel choice,
-        the CUDA kernels' build and load) is not paid inside a request.
-        Writes land only in the scratch block.  Returns the number of
-        buckets run."""
+        """Run every prefill bucket and one decode step (a spec engine:
+        each verify width, the tree commit and the drafter's steps) once
+        before traffic, so the first use of each shape (library kernel
+        choice, the CUDA kernels' build and load) is not paid inside a
+        request.  Writes land only in scratch rows.  Returns the number
+        of buckets run."""
         dev, B = self.device, self.block_len
         on_card = (torch.cuda.device(dev) if dev.type == "cuda"
                    else contextlib.nullcontext())
@@ -456,12 +519,29 @@ class LMServingEngine:
                                          attention_impl=self.attention_impl)
                 _insert_blocks(self.pool.k, self.pool.v, k, v,
                                torch.zeros((-(-b // B),), dtype=torch.long))
-            zeros = torch.zeros((self.slots,), dtype=torch.int32)
-            logits, _, _ = _decode_step_paged(
-                self.model, self._params, zeros, zeros,
-                torch.zeros((self.slots, self.table_width), dtype=torch.int32),
-                self.pool.k, self.pool.v, attn_impl=self.decode_attn)
-            logits.cpu()
+            zeros = np.zeros((self.slots,), np.int32)
+            tables = np.zeros((self.slots, self.table_width), np.int32)
+            if self.draft is None:
+                z, tb = (torch.from_numpy(a).to(dev) for a in (zeros, tables))
+                logits, _, _ = _decode_step_paged(
+                    self.model, self._params, z, z, tb,
+                    self.pool.k, self.pool.v, attn_impl=self.decode_attn)
+                logits.cpu()
+                return len(self.prefill_buckets)
+            # a spec engine decodes through its verify steps only; idle
+            # rows (n_cand 0) write the scratch block
+            if self.spec.tree:
+                for rung, shp in enumerate(self._tree_shapes):
+                    self._verify(np.zeros((self.slots, shp.width), np.int32),
+                                 zeros, zeros, tables, rung)
+                if self._commit_dmax:
+                    self._commit(np.tile(np.arange(
+                        1, self._commit_dmax + 1, dtype=np.int32),
+                        (self.slots, 1)), zeros, tables)
+            else:
+                self._verify(np.zeros((self.slots, self.spec.k + 1),
+                                      np.int32), zeros, zeros, tables)
+            self.draft.warmup()
         return len(self.prefill_buckets)
 
     def bucket_for(self, prompt_len: int) -> int:
@@ -485,13 +565,15 @@ class LMServingEngine:
                max_new_tokens: Optional[int] = None,
                temperature: Optional[float] = None,
                eos_id: Optional[int] = None,
-               deadline_s: Optional[float] = None) -> LMStream:
+               deadline_s: Optional[float] = None,
+               rng=None) -> LMStream:
         """Enqueue one prompt ((t,) or (1, t), 1-based ids); returns an
-        :class:`LMStream` of its continuation."""
+        :class:`LMStream` of its continuation.  A sampled request
+        (``temperature > 0``) draws from the key chain of ``rng`` (an int
+        seed or a (2,) uint32 key, default seed 0), exactly as offline
+        ``generate`` at batch 1 does."""
         if deadline_s is not None:
             raise _not_ported("deadline_s (request deadlines)", "11")
-        if temperature is not None and temperature > 0.0:
-            raise _not_ported("sampling (temperature > 0)", "4")
         prompt = np.asarray(prompt_ids).reshape(-1).astype(np.int32)
         t = prompt.shape[0]
         if t == 0:
@@ -513,10 +595,20 @@ class LMServingEngine:
                 f"pool holds {self.pool.capacity}")
         if self._chunk_full == 0:
             self.bucket_for(t)  # sub-block buckets: no chunked prefill
+        temp = float(self.temperature if temperature is None
+                     else temperature)
         eos = eos_id if eos_id is not None else self.eos_id
         eos0 = (int(eos) - 1) if eos is not None else None
+        first_key = step_keys = None
+        if temp > 0.0:
+            # offline generate()'s key chain: one split for the first
+            # token, then max_new - 1 step keys
+            key, first_key = keychain.split(keychain.as_key(rng))
+            if max_new > 1:
+                step_keys = keychain.split(key, max_new - 1)
         stream = LMStream(prompt, max_new)
-        req = _Request(stream, prompt - 1, max_new, eos0)
+        req = _Request(stream, prompt - 1, max_new, temp, eos0, first_key,
+                       step_keys)
         with self._cv:
             if self._closing:
                 raise ServingClosed("LMServingEngine is closed")
@@ -582,7 +674,12 @@ class LMServingEngine:
                     if not self._n_active:
                         self._cv.wait(0.05)
             if self._n_active:
-                self._step()
+                if self.draft is None:
+                    self._step()
+                elif self.spec.tree:
+                    self._step_spec_tree()
+                else:
+                    self._step_spec()
 
     def _admit(self, slot: int, req: _Request) -> bool:
         """Prefill + insert one request into ``slot``.  Returns False
@@ -663,7 +760,8 @@ class LMServingEngine:
         if self.radix is not None and t // B:
             self.radix.insert(req.prompt0[:(t // B) * B], blocks[:t // B])
         logits = pf.logits.cpu().numpy()  # synchronises; (1, V) float32
-        first0 = pick_token(logits[0])
+        first0 = pick_token(logits[0], req.temperature, req.first_key,
+                            clamp=False)
         req.stream._emit(first0 + 1)
         self.metrics.record_first_token(
             req.stream.first_token_at - req.stream.submitted_at)
@@ -678,18 +776,59 @@ class LMServingEngine:
         table = np.zeros((self.table_width,), np.int32)
         table[:len(blocks)] = blocks
         st = _Slot(req, t, first0, blocks, table)
+        if self.draft is not None:
+            # the drafter prefills the whole prompt into its own cache,
+            # the first token queued as pending; a prompt admitted in
+            # chunks serves plain decode
+            st.draft_ok = self.draft.can_draft(t)
+            if st.draft_ok:
+                self.draft.admit(slot, req.prompt0)
+                self.draft.push(slot, first0)
+                if self.spec.tree:
+                    st.tree_rung = self.spec.init_rung
         with self._cv:
             self._slots[slot] = st
             self._n_active += 1
+
+    # -- decode rounds ------------------------------------------------- #
+    def _emit(self, st: _Slot, token0: int, now: float, itls: list) -> bool:
+        """Stream one token from a slot and book it; True when the stream
+        is done (budget spent or EOS), which finishes it."""
+        st.stream._emit(token0 + 1)
+        itls.append(now - st.last_emit_at)
+        st.last_emit_at = now
+        st.last0 = token0
+        st.pos_next += 1
+        st.step_idx += 1
+        st.remaining -= 1
+        if st.remaining <= 0 or (st.eos0 is not None and token0 == st.eos0):
+            st.stream._finish()
+            self.metrics.record_complete()
+            return True
+        return False
+
+    def _retire(self, freed: List[int]) -> None:
+        """Return finished slots and their blocks."""
+        if not freed:
+            return
+        with self._cv:
+            for i in freed:
+                self.pool.release(self._slots[i].blocks)
+                self._slots[i] = None
+                if self.draft is not None:
+                    self.draft.release(i)
+                self._free.append(i)
+                self._n_active -= 1
+            self._cv.notify_all()
 
     def _step(self):
         token = np.zeros((self.slots,), np.int64)
         pos = np.zeros((self.slots,), np.int32)
         tables = np.zeros((self.slots, self.table_width), np.int32)
-        active = 0
+        active = []
         for i, st in enumerate(self._slots):
             if st is not None:
-                active += 1
+                active.append(i)
                 token[i] = st.last0
                 pos[i] = st.pos_next
                 tables[i] = st.table
@@ -704,30 +843,295 @@ class LMServingEngine:
         now = time.perf_counter()
         itls = []
         freed = []
+        for i in active:
+            st = self._slots[i]
+            nxt0 = pick_token(logits[i], st.temperature, st.key(), clamp=True)
+            if self._emit(st, nxt0, now, itls):
+                freed.append(i)
+        self.metrics.record_step(len(active), itls)
+        self._retire(freed)
+
+    # -- speculation ---------------------------------------------------- #
+    def _verify(self, tokens, pos, ncand, tables, rung=None) -> np.ndarray:
+        """One verify step over every slot (the linear one, or the tree
+        one of ladder ``rung``), the arenas written in place; returns the
+        (S, W, V) float32 logits on the host."""
+        dev = self.device
+        args = [torch.from_numpy(a).to(dev)
+                for a in (tokens, pos, ncand, tables)]
+        if rung is None:
+            logits, _, _ = _verify_step_paged(
+                self.model, self._params, *args, self.pool.k, self.pool.v)
+        else:
+            shp = self._tree_shapes[rung]
+            logits, _, _ = _tree_verify_step_paged(
+                self.model, self._params, *args, self.pool.k, self.pool.v,
+                depths=shp.depths, anc=shp.anc)
+        return logits.cpu().numpy()  # synchronises
+
+    def _commit(self, src, pos, tables) -> None:
+        dev = self.device
+        _tree_commit_paged(torch.from_numpy(src).to(dev),
+                           torch.from_numpy(pos).to(dev),
+                           torch.from_numpy(tables).to(dev),
+                           self.pool.k, self.pool.v)
+
+    def _may_speculate(self, st: _Slot) -> bool:
+        """A demoted slot serves ``probe_interval`` plain rounds, then is
+        re-probed with its acceptance EMA forgotten."""
+        if not st.demoted:
+            return True
+        st.probe_in -= 1
+        if st.probe_in > 0:
+            return False
+        st.demoted = False
+        st.accept_ema = None
+        st.spec_rounds = 0
+        if self.spec.tree:
+            st.tree_rung = self.spec.init_rung
+        self.spec_metrics.record_reprobe()
+        return True
+
+    def _track_acceptance(self, st: _Slot, rate: float,
+                          finished: bool) -> bool:
+        """Fold one round's acceptance rate into the slot's EMA; demote
+        the slot (True) when it collapsed below ``demote_below`` after
+        ``min_rounds`` rounds."""
+        cfg = self.spec
+        st.accept_ema = (rate if st.accept_ema is None
+                         else cfg.ema_alpha * rate
+                         + (1.0 - cfg.ema_alpha) * st.accept_ema)
+        st.spec_rounds += 1
+        if (not finished and st.spec_rounds >= cfg.min_rounds
+                and st.accept_ema < cfg.demote_below):
+            st.demoted = True
+            st.probe_in = cfg.probe_interval
+            self.spec_metrics.record_demotion()
+            return True
+        return False
+
+    def _step_spec(self):
+        """One speculative round: draft k tokens per eligible slot, run
+        the verify step over all k+1 candidate rows of every active slot,
+        then walk each slot's rows emitting the accepted prefix plus one
+        bonus/correction token: the offline trajectory under "replay".
+        Rejection rewinds the position pointer only.  Demoted,
+        chunk-admitted and budget-exhausted slots ride the round as
+        one-row candidates."""
+        cfg = self.spec
+        jobs = {}
+        for i, st in enumerate(self._slots):
+            if st is None or not st.draft_ok or not self._may_speculate(st):
+                continue
+            # never draft past the budget: the round emits at most
+            # k_eff + 1 tokens, and every verify write must stay inside
+            # the chain allocated for prompt + max_new at admission
+            k_eff = min(cfg.k, st.remaining - 1)
+            if k_eff < 1:
+                continue
+            keys = None
+            if st.temperature > 0.0 and st.step_keys is not None:
+                keys = st.step_keys[st.step_idx:st.step_idx + k_eff]
+            jobs[i] = (k_eff, st.temperature, keys)
+        steps_before = self.draft.steps
+        drafts = self.draft.draft_round(jobs)
+
+        tokens = np.zeros((self.slots, cfg.k + 1), np.int32)
+        pos = np.zeros((self.slots,), np.int32)
+        ncand = np.zeros((self.slots,), np.int32)
+        tables = np.zeros((self.slots, self.table_width), np.int32)
+        active = []
         for i, st in enumerate(self._slots):
             if st is None:
                 continue
-            nxt0 = pick_token(logits[i])
-            st.stream._emit(nxt0 + 1)
-            itls.append(now - st.last_emit_at)
-            st.last_emit_at = now
-            st.last0 = nxt0
-            st.pos_next += 1
-            st.remaining -= 1
-            if st.remaining <= 0 or (st.eos0 is not None
-                                     and nxt0 == st.eos0):
-                st.stream._finish()
-                self.metrics.record_complete()
+            active.append(i)
+            ds = drafts[i][0] if i in drafts else ()
+            tokens[i, 0] = st.last0
+            tokens[i, 1:1 + len(ds)] = ds
+            ncand[i] = 1 + len(ds)
+            pos[i] = st.pos_next
+            tables[i] = st.table
+        if not active:
+            return
+        logits = self._verify(tokens, pos, ncand, tables)  # (S, W, V)
+        now = time.perf_counter()
+        itls = []
+        freed = []
+        n_emitted = 0
+        for i in active:
+            st = self._slots[i]
+            ds, qrows, _ = drafts.get(i, ((), None, ()))
+            k_eff = len(ds)
+            emitted = []
+            accepted = 0
+            finished = False
+            for j in range(k_eff + 1):
+                e = accept_row(logits[i, j], ds[j] if j < k_eff else None,
+                               st.temperature, st.key(), cfg.sampling,
+                               qrows[j] if qrows is not None
+                               and j < k_eff else None)
+                emitted.append(e)
+                if self._emit(st, e, now, itls):
+                    finished = True
+                    break
+                if j >= k_eff or ds[j] != e:
+                    break
+                accepted += 1
+            n_emitted += len(emitted)
+            if k_eff:
+                self.spec_metrics.record_round(k_eff, accepted)
+                self._track_acceptance(st, accepted / k_eff, finished)
+            if finished:
                 freed.append(i)
-        self.metrics.record_step(active, itls)
-        if freed:
-            with self._cv:
-                for i in freed:
-                    self.pool.release(self._slots[i].blocks)
-                    self._slots[i] = None
-                    self._free.append(i)
-                    self._n_active -= 1
-                self._cv.notify_all()
+            elif st.draft_ok:
+                if k_eff:
+                    self.draft.commit(i, accepted, emitted)
+                else:
+                    self.draft.push(i, emitted[0])
+        self.spec_metrics.record_verify_round(
+            bool(jobs), n_emitted, self.draft.steps - steps_before)
+        self.metrics.record_step(len(active), itls)
+        self._retire(freed)
+
+    def _step_spec_tree(self):
+        """One tree-speculative round (replay only): each eligible slot
+        picks a ladder rung (its adaptive ``tree_rung``, lowered until
+        the shape fits its remaining budget), the drafter proposes the
+        spine plus ranked runner-up alternates, and one verify step at
+        the round's widest rung (narrower slots truncated by ``n_cand``)
+        scores every node.  The host walks each slot's tree from the
+        root, emitting the offline draw at every accepted node.  A slot
+        that accepted an alternate has that node's k/v copied down to
+        its position offset afterwards (``_tree_commit_paged``, skipped
+        on spine-only rounds).
+
+        The acceptance EMA drives rung promotion at ``promote_above``,
+        step-down at ``stepdown_below`` and demotion to plain decode
+        below ``demote_below``; a re-probed slot restarts at
+        ``init_rung``."""
+        cfg = self.spec
+        shapes = self._tree_shapes
+        top = len(shapes) - 1
+        jobs = {}
+        for i, st in enumerate(self._slots):
+            if st is None or not st.draft_ok or not self._may_speculate(st):
+                continue
+            # budget clamp: a shape stores nodes at pos .. pos+W-1 and
+            # emits at most max_depth+1 <= W tokens, so W <= remaining
+            # keeps every write and emission inside the chain
+            rung = min(st.tree_rung, top)
+            while rung >= 0 and shapes[rung].width > st.remaining:
+                rung -= 1
+            if rung >= 0:
+                jobs[i] = rung
+        djobs = {}
+        for i, rung in jobs.items():
+            st = self._slots[i]
+            shp = shapes[rung]
+            keys = None
+            if st.temperature > 0.0 and st.step_keys is not None:
+                keys = st.step_keys[st.step_idx:st.step_idx + shp.spine]
+            djobs[i] = (shp.spine, st.temperature, keys, shp.alt_counts)
+        steps_before = self.draft.steps
+        drafts = self.draft.draft_round(djobs)
+
+        round_rung = max(jobs.values(), default=0)
+        w = shapes[round_rung].width
+        tokens = np.zeros((self.slots, w), np.int32)
+        pos = np.zeros((self.slots,), np.int32)
+        ncand = np.zeros((self.slots,), np.int32)
+        tables = np.zeros((self.slots, self.table_width), np.int32)
+        active = []
+        for i, st in enumerate(self._slots):
+            if st is None:
+                continue
+            active.append(i)
+            tokens[i, 0] = st.last0
+            pos[i] = st.pos_next
+            tables[i] = st.table
+            ncand[i] = 1
+            if i in jobs:
+                shp = shapes[jobs[i]]
+                ds, _, alts = drafts[i]
+                for j in range(1, shp.width):
+                    if j <= shp.spine:
+                        tokens[i, j] = ds[j - 1]
+                        continue
+                    p = shp.parents[j]
+                    ranked = alts[p] if p < len(alts) else ()
+                    r = shp.alt_rank[j]
+                    # an unfillable alternate keeps token 0: under replay
+                    # it is accepted only if 0 is the offline emission
+                    if r < len(ranked):
+                        tokens[i, j] = ranked[r]
+                ncand[i] = shp.width
+        if not active:
+            return
+        logits = self._verify(tokens, pos, ncand, tables, round_rung)
+        now = time.perf_counter()
+        itls = []
+        freed = []
+        n_emitted = 0
+        commit_src = None     # built when some slot accepts an alternate
+        for i in active:
+            st = self._slots[i]
+            shp = shapes[jobs[i]] if i in jobs else None
+            emitted = []
+            node = 0
+            accepted = spine_ok = alt_ok = 0
+            finished = False
+            while True:
+                e = pick_token(logits[i, node], st.temperature, st.key(),
+                               clamp=True)
+                emitted.append(e)
+                if self._emit(st, e, now, itls):
+                    finished = True
+                    break
+                nxt = None
+                if shp is not None:
+                    nxt = next((c for c in shp.children[node]
+                                if int(tokens[i, c]) == e), None)
+                if nxt is None:
+                    break
+                accepted += 1
+                if nxt <= shp.spine:
+                    spine_ok += 1
+                else:
+                    # the path left the spine: schedule this node's k/v
+                    # copy-down (alternates are leaves: one per slot)
+                    alt_ok += 1
+                    if commit_src is None:
+                        commit_src = np.tile(np.arange(
+                            1, self._commit_dmax + 1, dtype=np.int32),
+                            (self.slots, 1))
+                    commit_src[i, accepted - 1] = nxt
+                node = nxt
+            n_emitted += len(emitted)
+            if shp is not None:
+                self.spec_metrics.record_round(shp.width - 1, accepted)
+                self.spec_metrics.record_tree_slot(
+                    shp.max_depth, shp.width, len(emitted), alt_ok)
+                if not self._track_acceptance(st, accepted / shp.max_depth,
+                                              finished):
+                    if st.accept_ema >= cfg.promote_above:
+                        st.tree_rung = min(st.tree_rung + 1, top)
+                    elif st.accept_ema < cfg.stepdown_below:
+                        st.tree_rung = max(st.tree_rung - 1, 0)
+            if finished:
+                freed.append(i)
+            elif st.draft_ok:
+                if shp is not None:
+                    # the drafter's cache tracks only the SPINE: rewind
+                    # past accepted spine drafts, catch up on the rest
+                    self.draft.commit(i, spine_ok, emitted)
+                else:
+                    self.draft.push(i, emitted[0])
+        if commit_src is not None:
+            self._commit(commit_src, pos, tables)
+        self.spec_metrics.record_verify_round(
+            bool(jobs), n_emitted, self.draft.steps - steps_before)
+        self.metrics.record_step(len(active), itls)
+        self._retire(freed)
 
     def _fail_all(self, error: BaseException) -> None:
         with self._cv:
@@ -740,6 +1144,8 @@ class LMServingEngine:
                     self._slots[i] = None
                     self._free.append(i)
             self._n_active = 0
+            if self.draft is not None:
+                self.draft.release_all()
             self._cv.notify_all()
         for s in pending:
             s._finish(error=error)
@@ -766,7 +1172,24 @@ class LMServingEngine:
             "prefill_buckets": list(self.prefill_buckets),
             "kvcache": kv,
             "metrics": self.metrics.snapshot(),
+            "spec": self._spec_stats(),
         }
+
+    def _spec_stats(self) -> Optional[dict]:
+        if self.spec is None:
+            return None
+        with self._cv:
+            demoted = sum(1 for s in self._slots
+                          if s is not None and s.demoted)
+            rungs = [s.tree_rung if s is not None else None
+                     for s in self._slots]
+        out = self.spec.describe()
+        out["demoted_slots"] = demoted
+        out["draft"] = self.draft.describe()
+        if self.spec.tree:
+            out["slot_rungs"] = rungs
+        out.update(self.spec_metrics.snapshot())
+        return out
 
     def close(self, timeout: Optional[float] = 30.0) -> None:
         """Drain: stop admitting, finish queued + in-flight requests;

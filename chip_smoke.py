@@ -25,7 +25,27 @@ result line:
    flash prefill and paged decode kernels; every greedy stream is held
    against the port's offline generate on plain attention, and both
    kernels' launch counters must be > 0 for that run;
-5. train: the same model, full depth, trained by LocalOptimizer (Adam,
+5. serve_sampled: the same 8 requests sampled at temperature 0.7,
+   request i from the key chain of seed i, through both kernels; every
+   stream held against offline generate with the same temperature and
+   seed (a mismatch is a tie only where the top two of log-probs / T +
+   the step's Gumbel noise lie within 1e-4);
+6. spec: the same requests on a speculative engine (k = 4, every decode
+   round a verify round), in four arms: (1) linear, greedy, the drafter
+   a second TransformerLM holding the target's weights: its accepted
+   share must be >= 0.9; (2) linear, sampled, replay acceptance, a
+   2-layer drafter (the target's embedding, positions, final norm and
+   first two blocks); (3) the same with rejection acceptance, run twice:
+   the two runs must agree; (4) tree verify on the default ladder
+   (widths 2, 3, 5, 8), sampled, once with the 2-layer drafter started
+   and held on the widest rung (the one with alternates): some
+   alternate must be accepted, so the accepted-path commit copies rows
+   on the card; and with the n-gram drafter on 8 copy-heavy prompts
+   that end inside their repeated segment, sampled and then greedy: the
+   greedy run must have a match accepted.  Arms 1, 2 and 4 hold every
+   stream against offline generate, and the flash forward must launch
+   in every arm;
+7. train: the same model, full depth, trained by LocalOptimizer (Adam,
    TimeDistributed(ClassNLL)) on a fixed 8 x 1024 batch through the
    flash forward and both flash backward kernels: step-0 loss and every
    gradient held against plain attention, every bf16-compute gradient
@@ -36,10 +56,10 @@ result line:
    12 a step.
 
 ``--profile PATH`` adds one more serve run of fresh prompts, one more
-float32 training step and one more bf16-compute step under
-torch.profiler and writes their kernel tables (device busy time, idle
-share, time by kernel) to PATH and to PATH with ``_train`` and
-``_train_bf16`` before its extension.
+run of spec arm 2, one more float32 training step and one more
+bf16-compute step under torch.profiler and writes their kernel tables
+(device busy time, idle share, time by kernel) to PATH and to PATH with
+``_spec``, ``_train`` and ``_train_bf16`` before its extension.
 
 The flash kernels' bounds, forward and backward, take float32 at the
 3xTF32 tensor-core rate (495 / 3 TFLOP/s), the rate those kernels run
@@ -75,7 +95,13 @@ GPT2_SMALL = dict(vocab_size=50257, hidden_size=768, n_head=12, n_layers=12,
 SERVE = dict(slots=8, cache_len=1024, block_len=16, max_new=32,
              prompt_lens=(17, 33, 64, 128, 200, 300, 511, 700),
              shared_head=64, seed=0)
-TIE_GAP = 1e-4  # a greedy mismatch is a tie when the plain top-2 gap is below
+SPEC = dict(k=4, temperature=0.7, draft_layers=2, min_accept_full=0.9,
+            ngram_seed=2, ngram_prompts=8, ngram_segment=24, ngram_repeats=4,
+            ngram_tail=16,
+            # the tree arm's step-down EMA: at the demotion floor, so a
+            # slot stays on the widest rung until it would be demoted
+            tree_stepdown=0.1)
+TIE_GAP = 1e-4  # a mismatch is a tie when the plain top-2 gap is below
 # backward kernels, relative to each gradient's max |value|: float32 differs
 # by summation order only; bf16 by the rounding of p and ds to bf16
 TOL_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -469,22 +495,97 @@ def serve_prompts(seed=SERVE["seed"]):
     return prompts
 
 
-def check_stream(ref_model, params, prompt, got, want):
-    """Greedy streams must match; a difference counts as a tie only when
-    the plain path's top-2 log-prob gap at the first diverging step is
-    below TIE_GAP.  Returns None, or a description of the tie."""
+class Oracle:
+    """The port's offline ``generate`` at batch 1 on plain attention,
+    on a model built from the served model's seed (so the same weights),
+    each stream computed once."""
+
+    def __init__(self, dev, config, seed):
+        from bigdl_tpu_torch.models.transformer import TransformerLM
+        self.dev = dev
+        self.model = TransformerLM(attention_impl="xla", device=dev,
+                                   **config).build(seed=seed)
+        self._streams = {}
+
+    def stream(self, prompt, max_new, temperature=0.0, rng=None):
+        from bigdl_tpu_torch.models.transformer.generate import generate
+        key = (prompt.tobytes(), max_new, temperature,
+               rng if temperature > 0 else None)
+        if key not in self._streams:
+            self._streams[key] = generate(
+                self.model, self.model.params, prompt[None], max_new,
+                temperature=temperature, rng=rng, device=self.dev).numpy()[0]
+        return self._streams[key]
+
+    def check(self, prompt, got, max_new, temperature=0.0, rng=None):
+        """A served stream must equal offline generate's.  A difference
+        counts as a tie only when, at the first diverging step, the top
+        two of the plain path's scores lie within TIE_GAP: its log-probs
+        when greedy; log-probs / T + the step key's Gumbel noise (the
+        draw's own scores, up to a constant) when sampled.  Returns
+        None, or a description of the tie."""
+        import numpy as np
+        from bigdl_tpu_torch.utils import keychain
+        want = self.stream(prompt, max_new, temperature, rng)
+        if got.shape == want.shape and np.array_equal(got, want):
+            return None
+        if got.shape != want.shape:
+            raise AssertionError(f"prompt of {len(prompt)} tokens: served "
+                                 f"{got.shape}, offline {want.shape}")
+        i = int(np.nonzero(got != want)[0][0])
+        scores = self.model.f(self.model.params,
+                              want[None, :i])[0, -1].cpu().numpy()
+        if temperature > 0:
+            key, first = keychain.split(keychain.as_key(rng))
+            j = i - len(prompt)           # the generated token's index
+            if j == 0:
+                draw_key, denom = first, temperature
+            else:
+                draw_key = keychain.split(key, max_new - 1)[j - 1]
+                denom = max(temperature, 1e-6)
+            scores = (scores / np.float32(denom)
+                      + keychain.gumbel(draw_key, (1, scores.shape[0]))[0])
+        top = np.sort(scores)[-2:]
+        gap = float(top[1] - top[0])
+        if gap >= TIE_GAP:
+            raise AssertionError(
+                f"prompt of {len(prompt)} tokens: served stream diverges "
+                f"from offline generate at position {i} (plain top-2 gap "
+                f"{gap:.3e})")
+        return f"tie at position {i}, plain top-2 gap {gap:.3e}"
+
+
+def serve_run(engine, prompts, max_new, temperature=0.0):
+    """Submit every prompt at once (request i samples with ``rng=i``)
+    and wait for all, the launch counters read from 0 around it.
+    Returns the run's numbers with its streams and results."""
     import numpy as np
-    if np.array_equal(got, want):
-        return None
-    i = int(np.nonzero(got != want)[0][0])
-    lp = ref_model.f(params, want[None, :i])[0, -1]
-    top = lp.topk(2).values
-    gap = float(top[0] - top[1])
-    if gap >= TIE_GAP:
-        raise AssertionError(
-            f"prompt of {len(prompt)} tokens: served stream diverges from "
-            f"offline generate at position {i} (plain top-2 gap {gap:.3e})")
-    return f"tie at position {i}, plain top-2 gap {gap:.3e}"
+    _reset_launches()
+    t0 = time.perf_counter()
+    streams = [engine.submit(p, max_new_tokens=max_new,
+                             temperature=temperature, rng=i)
+               for i, p in enumerate(prompts)]
+    results = [s.result(timeout=600) for s in streams]
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    decode_s = (max(s.finished_at for s in streams)
+                - max(s.first_token_at for s in streams))
+    decode_tokens = sum(len(s.generated) - 1 for s in streams)
+    return dict(results=results, launches=launches, wall_s=wall,
+                ttft_p50_s=float(np.median([s.ttft_s for s in streams])),
+                decode_tokens_per_s=decode_tokens / decode_s)
+
+
+def check_streams(phase, oracle, prompts, results, max_new, temperature=0.0):
+    """Every stream against offline generate (ties allowed as
+    ``Oracle.check`` defines them); returns the ties."""
+    ties = []
+    for i, (p, r) in enumerate(zip(prompts, results)):
+        tie = oracle.check(p, r, max_new, temperature, rng=i)
+        if tie is not None:
+            ties.append((len(p), tie))
+            log(f"[{phase}] prompt of {len(p)} tokens: {tie}")
+    return ties
 
 
 # device kernel -> the port's kernel (C entry point) that launches it
@@ -558,83 +659,239 @@ def profile_device(run, label, out_path):
     return idle
 
 
-def phase_serve(dev, config=GPT2_SMALL, serve=SERVE, prompts=None,
-                profile_path=None):
-    """Build the model from a seed, serve the prompts, check every
-    stream.  Returns the serve metrics.  With ``profile_path``, one more
-    run of fresh prompts is traced afterwards (see profile_device)."""
-    import numpy as np
-    import torch
+def build_lm(dev, config, seed, attention_impl="flash"):
     from bigdl_tpu_torch.models.transformer import TransformerLM
-    from bigdl_tpu_torch.models.transformer.generate import generate
-    from bigdl_tpu_torch.ops import KERNELS
-    from bigdl_tpu_torch.serving import LMServingEngine
-
     t0 = time.perf_counter()
-    model = TransformerLM(attention_impl="flash", device=dev,
-                          **config).build(seed=serve["seed"])
-    ref_model = TransformerLM(attention_impl="xla", device=dev, **config)
-    ref_model.params = model.params
-    log(f"[serve] model built from seed {serve['seed']} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    model = TransformerLM(attention_impl=attention_impl, device=dev,
+                          **config).build(seed=seed)
+    log(f"[model] {config['n_layers']} layers x {config['hidden_size']} "
+        f"built from seed {seed} in {time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def make_engine(model, dev, serve, **kw):
+    from bigdl_tpu_torch.serving import LMServingEngine
+    return LMServingEngine(
+        model, slots=serve["slots"], cache_len=serve["cache_len"],
+        block_len=serve["block_len"], max_new_tokens=serve["max_new"],
+        attention_impl="flash", decode_attn="paged_kernel", device=dev, **kw)
+
+
+def phase_serve(dev, config=GPT2_SMALL, serve=SERVE, prompts=None,
+                profile_path=None, oracle=None):
+    """Build the model from a seed, serve the prompts greedily, check
+    every stream.  Returns the serve metrics.  With ``profile_path``,
+    one more run of fresh prompts is traced afterwards (see
+    profile_device)."""
+    import torch
+    model = build_lm(dev, config, serve["seed"])
+    oracle = oracle or Oracle(dev, config, serve["seed"])
     prompts = serve_prompts() if prompts is None else prompts
     max_new = serve["max_new"]
-    engine = LMServingEngine(
-        model, slots=serve["slots"], cache_len=serve["cache_len"],
-        block_len=serve["block_len"], max_new_tokens=max_new,
-        attention_impl="flash", decode_attn="paged_kernel", device=dev)
+    engine = make_engine(model, dev, serve)
     try:
         engine.warmup()
         if dev.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        for k in KERNELS:
-            k.launches = 0
-        t0 = time.perf_counter()
-        streams = [engine.submit(p, max_new_tokens=max_new)
-                   for p in prompts]
-        results = [s.result(timeout=600) for s in streams]
-        wall = time.perf_counter() - t0
-        launches = {k.symbol: k.launches for k in KERNELS}
+        out = serve_run(engine, prompts, max_new)
         stats = engine.stats()
         if profile_path:
             more = serve_prompts(serve["seed"] + 1)
-
-            def run():
-                for st in [engine.submit(p, max_new_tokens=max_new)
-                           for p in more]:
-                    st.result(timeout=600)
-            profile_device(run, f"serve run: {len(more)} requests x "
-                                f"{max_new} tokens", profile_path)
+            profile_device(lambda: serve_run(engine, more, max_new),
+                           f"serve run: {len(more)} requests x {max_new} "
+                           "tokens", profile_path)
     finally:
         engine.close()
     peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
             else None)
-    ttfts = [s.ttft_s for s in streams]
-    decode_s = (max(s.finished_at for s in streams)
-                - max(s.first_token_at for s in streams))
-    decode_tokens = sum(len(s.generated) - 1 for s in streams)
-    ties = []
-    for p, s, r in zip(prompts, streams, results):
-        assert r.shape == (len(p) + max_new,), r.shape
-        want = generate(ref_model, model.params, p[None], max_new,
-                        device=dev).numpy()[0]
-        tie = check_stream(ref_model, model.params, p, r, want)
-        if tie is not None:
-            ties.append((len(p), tie))
-            log(f"[serve] prompt of {len(p)} tokens: {tie}")
+    ties = check_streams("serve", oracle, prompts, out.pop("results"),
+                         max_new)
     hits = stats["kvcache"]["prefix_cache"]["hits"]
     if hits < 1:
         raise AssertionError("the shared-head prompts missed the radix cache")
-    out = dict(launches=launches, ttft_p50_s=float(np.median(ttfts)),
-               decode_tokens_per_s=decode_tokens / decode_s,
-               wall_s=wall, peak_bytes=peak, ties=ties, radix_hits=hits,
+    out.update(peak_bytes=peak, ties=ties, radix_hits=hits,
                matched_streams=len(prompts) - len(ties))
     log(f"[serve] {len(prompts)} requests, prompt lengths "
         f"{[len(p) for p in prompts]}, max_new {max_new}: "
         f"{out['matched_streams']} streams identical to offline generate, "
         f"{len(ties)} ties; radix hits {hits}")
     return out
+
+
+def phase_serve_sampled(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC,
+                        prompts=None, oracle=None):
+    """The serve phase's requests sampled at ``spec["temperature"]``,
+    request i from the key chain of seed i, through the flash prefill
+    and paged decode kernels; every stream held against offline
+    generate with the same temperature and seed."""
+    model = build_lm(dev, config, serve["seed"])
+    oracle = oracle or Oracle(dev, config, serve["seed"])
+    prompts = serve_prompts() if prompts is None else prompts
+    temp, max_new = spec["temperature"], serve["max_new"]
+    engine = make_engine(model, dev, serve, temperature=temp)
+    try:
+        engine.warmup()
+        out = serve_run(engine, prompts, max_new, temp)
+    finally:
+        engine.close()
+    ties = check_streams("serve_sampled", oracle, prompts,
+                         out.pop("results"), max_new, temp)
+    out.update(ties=ties, matched_streams=len(prompts) - len(ties),
+               draw_ms=host_draw_ms(config["vocab_size"]))
+    log(f"[serve_sampled] {len(prompts)} requests at temperature {temp} "
+        f"(request i from seed i): {out['matched_streams']} streams "
+        f"identical to offline generate, {len(ties)} ties; TTFT p50 "
+        f"{out['ttft_p50_s'] * 1e3:.2f} ms, decode "
+        f"{out['decode_tokens_per_s']:.1f} tokens/s; launches "
+        f"{out['launches']}; one host draw over {config['vocab_size']} "
+        f"logits {out['draw_ms']:.3f} ms (host clock, median of 20)")
+    return out
+
+
+def host_draw_ms(vocab, n=20):
+    """Host milliseconds of one key-chain categorical draw over a (1,
+    vocab) logits row, as the engine draws every sampled token."""
+    import numpy as np
+    from bigdl_tpu_torch.utils import keychain
+    row = np.zeros((1, vocab), np.float32)
+    keys = keychain.split(keychain.prng_key(0), n)
+    times = []
+    for key in keys:
+        t0 = time.perf_counter()
+        keychain.categorical(key, row)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def ngram_prompts(spec=SPEC, vocab=GPT2_SMALL["vocab_size"]):
+    """Copy-heavy prompts: a random segment repeated, then its first
+    ``ngram_tail`` tokens, so every prompt ends inside the segment and
+    its suffix recurs."""
+    import numpy as np
+    rng = np.random.RandomState(spec["ngram_seed"])
+    out = []
+    for _ in range(spec["ngram_prompts"]):
+        seg = rng.randint(1, vocab + 1, size=spec["ngram_segment"])
+        out.append(np.concatenate([seg] * spec["ngram_repeats"]
+                                  + [seg[:spec["ngram_tail"]]]))
+    return out
+
+
+def _first_layers(tree, n):
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def phase_spec(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC, prompts=None,
+               oracle=None, profile_path=None):
+    """Speculative serving on the served model, four arms (see the
+    module docstring).  Returns each run's numbers by arm name."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.serving import SpecConfig
+
+    model = build_lm(dev, config, serve["seed"])
+    oracle = oracle or Oracle(dev, config, serve["seed"])
+    prompts = serve_prompts() if prompts is None else prompts
+    temp, max_new, k = spec["temperature"], serve["max_new"], spec["k"]
+    full = TransformerLM(attention_impl="flash", device=dev, **config)
+    full.params = model.params
+    small = TransformerLM(attention_impl="flash", device=dev,
+                          **dict(config, n_layers=spec["draft_layers"]))
+    small.params = dict(model.params,
+                        blocks=_first_layers(model.params["blocks"],
+                                             spec["draft_layers"]))
+    widest = len(SpecConfig(k=k, draft=small, tree=True).shapes) - 1
+    arms = [
+        ("linear_full_greedy", SpecConfig(k=k, draft=full), 0.0, prompts,
+         True),
+        ("linear_2layer_replay", SpecConfig(k=k, draft=small), temp,
+         prompts, True),
+        ("linear_2layer_rejection", SpecConfig(k=k, draft=small,
+                                               sampling="rejection"),
+         temp, prompts, False),
+        ("linear_2layer_rejection_again", SpecConfig(
+            k=k, draft=small, sampling="rejection"), temp, prompts, False),
+        ("tree_2layer_replay", SpecConfig(
+            k=k, draft=small, tree=True, init_rung=widest,
+            stepdown_below=spec["tree_stepdown"]), temp, prompts, True),
+        ("tree_ngram_replay", SpecConfig(k=k, tree=True,
+                                         drafter_compute="ngram"),
+         temp, ngram_prompts(spec, config["vocab_size"]), True),
+        # random weights sampled at 0.7 emit near-uniform tokens that no
+        # context holds; greedy, they repeat, so the drafter's matches
+        # (and their acceptance) reach the verify step
+        ("tree_ngram_greedy", SpecConfig(k=k, tree=True,
+                                         drafter_compute="ngram"),
+         0.0, ngram_prompts(spec, config["vocab_size"]), True),
+    ]
+    runs = {}
+    for name, cfg, t, ps, exact in arms:
+        engine = make_engine(model, dev, serve, spec=cfg)
+        try:
+            engine.warmup()
+            out = serve_run(engine, ps, max_new, t)
+            st = engine.stats()["spec"]
+            if profile_path and name == "linear_2layer_replay":
+                root, ext = os.path.splitext(profile_path)
+                more = serve_prompts(serve["seed"] + 1)
+                profile_device(
+                    lambda: serve_run(engine, more, max_new, t),
+                    f"spec run {name}: {len(more)} requests x {max_new} "
+                    "tokens", f"{root}_spec{ext}")
+        finally:
+            engine.close()
+            del engine
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        out["ties"] = (check_streams(f"spec {name}", oracle, ps,
+                                     out["results"], max_new, t)
+                       if exact else None)
+        out["stats"] = st
+        widths = cfg.describe().get("tree_widths")
+        shape = f"k {k}" + (f", tree widths {widths}" if widths else "")
+        log(f"[spec] {name}: {shape}, temperature {t}, sampling "
+            f"{cfg.sampling}: verify rounds "
+            f"{st['verify_rounds']}, drafter steps {st['draft_steps']}, "
+            f"accepted {st['accepted']} of {st['drafted']} drafted "
+            f"({st['accepted'] / max(st['verify_rounds'], 1):.3f} a verify "
+            f"round), emitted {st['accepted_per_verify_step']:.3f} a verify "
+            f"round; TTFT p50 {out['ttft_p50_s'] * 1e3:.2f} ms, decode "
+            f"{out['decode_tokens_per_s']:.1f} tokens/s; launches "
+            f"{out['launches']}"
+            + ("" if not exact else f"; {len(ps) - len(out['ties'])} of "
+               f"{len(ps)} streams identical to offline generate"))
+        log(f"[spec] {name} stats()['spec']: {json.dumps(st)}")
+        runs[name] = out
+    a, b = (runs["linear_2layer_rejection"]["results"],
+            runs["linear_2layer_rejection_again"]["results"])
+    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("rejection sampling: two runs of the same "
+                             "requests gave different streams")
+    share = runs["linear_full_greedy"]["stats"]["acceptance_rate"]
+    if not share >= spec["min_accept_full"]:
+        raise AssertionError(f"the drafter holding the target's weights had "
+                             f"{share} of its drafts accepted, not >= "
+                             f"{spec['min_accept_full']}")
+    hits = {name: runs[name]["stats"]["draft"]["hit_rate"]
+            for name in ("tree_ngram_replay", "tree_ngram_greedy")}
+    if not (hits["tree_ngram_greedy"] > 0.0
+            and runs["tree_ngram_greedy"]["stats"]["accepted"] > 0):
+        raise AssertionError("the greedy n-gram run had no match accepted: "
+                             "no n-gram proposal was verified")
+    alt_accepts = runs["tree_2layer_replay"]["stats"]["alt_accepts"]
+    if not alt_accepts > 0:
+        raise AssertionError("the tree arm on its widest rung accepted no "
+                             "alternate: the commit copied no row")
+    log(f"[spec] rejection sampling: both runs identical; the full drafter's "
+        f"accepted share {share:.4f}; tree 2-layer alternates accepted "
+        f"{alt_accepts}; n-gram hit rates {hits}")
+    for out in runs.values():
+        del out["results"]
+    return runs
 
 
 # --------------------------------------------------------------------------- #
@@ -875,10 +1132,10 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
-                    help="trace one more serve run and one more training "
+                    help="trace one more serve run, spec run and training "
                          "step with torch.profiler and write their kernel "
-                         "tables to PATH and PATH with _train before its "
-                         "extension")
+                         "tables to PATH and PATH with _spec and _train "
+                         "before its extension")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import torch
@@ -902,7 +1159,8 @@ def main() -> int:
     flash_main, paged_main, dkv_main, dq_main = phase_kernels(dev)
     phases["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    serve = phase_serve(dev, profile_path=args.profile)
+    oracle = Oracle(dev, GPT2_SMALL, SERVE["seed"])
+    serve = phase_serve(dev, profile_path=args.profile, oracle=oracle)
     phases["serve"] = time.perf_counter() - t0
     check_launches("serve path", serve["launches"],
                    ("bigdl_flash_fwd", "bigdl_paged_decode"))
@@ -911,6 +1169,27 @@ def main() -> int:
         f"{serve['decode_tokens_per_s']:.1f} tokens/s (8 slots), "
         f"max_memory_allocated {serve['peak_bytes'] / 2**20:.1f} MiB, "
         f"wall {serve['wall_s']:.2f} s | {smi}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sampled = phase_serve_sampled(dev, oracle=oracle)
+    phases["serve_sampled"] = time.perf_counter() - t0
+    check_launches("sampled serve path", sampled["launches"],
+                   ("bigdl_flash_fwd", "bigdl_paged_decode"))
+    log(f"[serve_sampled] TTFT p50 {sampled['ttft_p50_s'] * 1e3:.2f} ms, "
+        f"decode {sampled['decode_tokens_per_s']:.1f} tokens/s (8 slots), "
+        f"wall {sampled['wall_s']:.2f} s | {smi}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spec = phase_spec(dev, oracle=oracle, profile_path=args.profile)
+    phases["spec"] = time.perf_counter() - t0
+    spec_launches = {}
+    for name, run in spec.items():
+        check_launches(f"spec arm {name}", run["launches"],
+                       ("bigdl_flash_fwd",))
+        for symbol, n in run["launches"].items():
+            spec_launches[symbol] = spec_launches.get(symbol, 0) + n
+    log(f"[spec] launches over the spec runs: {spec_launches} | {smi}")
+    del oracle
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train = phase_train(dev, profile_path=args.profile)
@@ -937,23 +1216,40 @@ def main() -> int:
         f"{train['tokens_per_s16']:.1f} tokens/s | {smi}")
     log("[done] phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()))
+    # launches: the serve path's (the training path's for the backward
+    # pair); by_path: every path's own run, counted from 0
+    paths = dict(serve=serve["launches"], serve_sampled=sampled["launches"],
+                 spec=spec_launches, train=train["launches"])
+
+    def by_path(symbol, names):
+        return {p: paths[p][symbol] for p in names}
+
+    serving = ("serve", "serve_sampled", "spec")
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_fwd.cu",
              replaces="bigdl_tpu/ops/flash_attention.py:39",
-             launches=serve["launches"]["bigdl_flash_fwd"], **flash_main),
+             launches=serve["launches"]["bigdl_flash_fwd"],
+             launches_by_path=by_path("bigdl_flash_fwd",
+                                      serving + ("train",)), **flash_main),
         dict(name="paged_decode", route="cuda",
              source="bigdl_tpu_torch/csrc/paged_decode.cu",
              replaces="bigdl_tpu/ops/paged_attention.py:34",
-             launches=serve["launches"]["bigdl_paged_decode"], **paged_main),
+             launches=serve["launches"]["bigdl_paged_decode"],
+             launches_by_path=by_path("bigdl_paged_decode", serving),
+             **paged_main),
         dict(name="flash_bwd_dkv", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_bwd.cu",
              replaces="bigdl_tpu/ops/flash_attention.py:199",
-             launches=train["launches"]["bigdl_flash_bwd_dkv"], **dkv_main),
+             launches=train["launches"]["bigdl_flash_bwd_dkv"],
+             launches_by_path=by_path("bigdl_flash_bwd_dkv", ("train",)),
+             **dkv_main),
         dict(name="flash_bwd_dq", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_bwd.cu",
              replaces="bigdl_tpu/ops/flash_attention.py:262",
-             launches=train["launches"]["bigdl_flash_bwd_dq"], **dq_main),
+             launches=train["launches"]["bigdl_flash_bwd_dq"],
+             launches_by_path=by_path("bigdl_flash_bwd_dq", ("train",)),
+             **dq_main),
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

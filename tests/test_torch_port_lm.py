@@ -166,9 +166,6 @@ def test_unported_options_raise():
                       device="cpu")
     tm = TransformerLM(vocab_size=11, hidden_size=8, n_head=2, n_layers=1,
                        max_len=16, device="cpu").build(0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tgen.generate(tm, tm.params, np.asarray([[1, 2]]), 2,
-                      temperature=0.7, device="cpu")
     with pytest.raises(ValueError, match="max_len"):
         tgen.generate(tm, tm.params, np.ones((1, 10), np.int32), 8,
                       device="cpu")

@@ -15,7 +15,8 @@ from bigdl_tpu.models.transformer.generate import generate as jax_generate
 from bigdl_tpu_torch.models.transformer import TransformerLM
 from bigdl_tpu_torch.serving import (LMServingEngine, PoolExhausted,
                                      RequestExceedsPool, ServingClosed,
-                                     ServingQueueFull, prefill_bucket_lengths)
+                                     ServingQueueFull, SpecConfig,
+                                     prefill_bucket_lengths)
 from bigdl_tpu_torch.serving.kvcache import BlockPool, RadixCache
 from bigdl_tpu_torch.utils.params import params_from_numpy
 
@@ -131,16 +132,18 @@ def test_typed_rejections(pair):
 
 def test_unported_options_raise(pair):
     _, tm = pair
-    for kw in (dict(spec=2), dict(kvtier=object()), dict(migrate=print),
-               dict(placement=object()), dict(kv_quant="int8"),
-               dict(temperature=0.8)):
+    for kw in (dict(kvtier=object()), dict(migrate=print),
+               dict(placement=object()), dict(kv_quant="int8")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LMServingEngine(tm, device="cpu", **kw)
+    # the default drafter is the target's int8 clone: quantization
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        LMServingEngine(tm, device="cpu", spec=SpecConfig(k=2))
+    with pytest.raises(TypeError, match="SpecConfig"):
+        LMServingEngine(tm, device="cpu", spec=2)
     with LMServingEngine(tm, cache_len=32, device="cpu") as eng:
         with pytest.raises(NotImplementedError):
             eng.submit([1, 2], deadline_s=1.0)
-        with pytest.raises(NotImplementedError):
-            eng.submit([1, 2], temperature=0.5)
         s = eng.submit([1, 2], max_new_tokens=1)
         with pytest.raises(NotImplementedError):
             s.cancel()
