@@ -33,9 +33,9 @@ def apply_rope(x, positions, base: float = 10000.0):
     with D even, positions broadcastable to (..., T) absolute indices."""
     d = x.shape[-1]
     half = d // 2
-    freqs = torch.tensor(base, dtype=torch.float32, device=x.device) ** (
-        -torch.arange(0, half, dtype=torch.float32, device=x.device)
-        * 2.0 / d)
+    # a Python base: no host-to-device copy, so a captured step holds it
+    freqs = torch.pow(float(base), -torch.arange(
+        0, half, dtype=torch.float32, device=x.device) * 2.0 / d)
     ang = positions.to(device=x.device, dtype=torch.float32)[..., :, None] \
         * freqs
     cos, sin = torch.cos(ang), torch.sin(ang)

@@ -7,9 +7,16 @@ updates KV caches and paged arenas IN PLACE (``index_put_``), where the
 reference donates them and returns fresh arrays.  The functions still
 return the caches they were given, so the two packages share one
 contract.  Ids are 0-based inside, 1-based at :func:`generate`'s edge.
+
+The serving steps are capturable as CUDA graphs: every per-call index
+(``last_index``, ``prefix_len``, a tree rung's ``depths``/``anc``) may
+be a device tensor, and no step reads a value back to the host or
+copies one to the device, so one captured graph serves every value of
+its inputs.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -38,19 +45,29 @@ def _head_logits(model, params, h):
     return model.head_logits(params, h)
 
 
+def _row_at(h, index):
+    """``h[:, index]`` kept as a length-1 axis: a Python int slices, a
+    device int tensor (any shape holding one value) gathers on the
+    device."""
+    if isinstance(index, torch.Tensor):
+        return h.index_select(1, index.reshape(1).long())
+    return h[:, index:index + 1]
+
+
 def _finish_block(model, bp, h, o):
     h = h + model._mha.project_out(bp["attn"], o)
     m = model._layer_norm(bp["ln2"], h)
     return h + model._mlp(bp, m)
 
 
-def _prefill_parts(model, params, ids0, last_index: int, *,
+def _prefill_parts(model, params, ids0, last_index, *,
                    attention_impl: Optional[str] = None):
     """Run a (possibly bucket-padded) prompt once; return (float32
     logits (B, V) at ``last_index``, k, v) with k/v (L, B, H, T, D).
     Padded tail rows stay causally invisible to the row at
-    ``last_index``.  ``attention_impl`` overrides the model's attention
-    core ("flash" runs the CUDA flash kernel)."""
+    ``last_index`` (an int, or a device int tensor).  ``attention_impl``
+    overrides the model's attention core ("flash" runs the CUDA flash
+    kernel)."""
     b, t = ids0.shape
     h = params["embed"][ids0]
     if model.pos_encoding == "learned":
@@ -68,7 +85,7 @@ def _prefill_parts(model, params, ids0, last_index: int, *,
         h = _finish_block(model, bp, h, o)
         ks.append(k)
         vs.append(v)
-    h = h[:, last_index:last_index + 1]
+    h = _row_at(h, last_index)
     h = model._layer_norm(params["ln_f"], h)
     logits = _head_logits(model, params, h)[:, 0]
     return logits.float(), torch.stack(ks), torch.stack(vs)
@@ -110,7 +127,7 @@ def _decode_step_slots(model, params, token, pos, k_cache, v_cache):
         kc[rows, :, pos, :] = k[:, :, 0, :].to(kc.dtype)
         vc[rows, :, pos, :] = v[:, :, 0, :].to(vc.dtype)
         scores = torch.matmul(q.float(), kc.float().transpose(-1, -2))
-        scores = scores / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+        scores = scores / math.sqrt(hd)
         scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
         o = torch.matmul(torch.softmax(scores, dim=-1), vc.float())
         h = _finish_block(model, bp, h, o.to(h.dtype))
@@ -119,14 +136,15 @@ def _decode_step_slots(model, params, token, pos, k_cache, v_cache):
     return logits.float(), k_cache, v_cache
 
 
-def _prefill_suffix_parts(model, params, ids0, last_index: int,
-                          prefix_len: int, blocks, k_arena, v_arena):
+def _prefill_suffix_parts(model, params, ids0, last_index, prefix_len,
+                          blocks, k_arena, v_arena):
     """Prefill a prompt SUFFIX against a cached prefix held in paged
     blocks: ``ids0`` (1, Ts) is the bucket-padded suffix at absolute
     positions ``prefix_len + i``; ``blocks`` (Pb,) the scratch-padded
     chain holding the prefix in the arenas (L, N, H, B, D).  Returns
     (logits at suffix index ``last_index``, k, v) with k/v (L, 1, H,
     Ts, D), as :func:`_prefill_parts` for the suffix rows.
+    ``last_index`` and ``prefix_len`` are ints or device int tensors.
 
     Attention is plain (as in the reference): the suffix queries attend
     the cached prefix keys (stored post-RoPE, so never rotated again)
@@ -158,7 +176,7 @@ def _prefill_suffix_parts(model, params, ids0, last_index: int,
         h = _finish_block(model, bp, h, o)
         ks.append(k)
         vs.append(v)
-    h = h[:, last_index:last_index + 1]
+    h = _row_at(h, last_index)
     h = model._layer_norm(params["ln_f"], h)
     logits = _head_logits(model, params, h)[:, 0]
     return logits.float(), torch.stack(ks), torch.stack(vs)
@@ -228,8 +246,7 @@ def _decode_step_paged(model, params, token, pos, tables, k_arena,
             vg = vc[tables_l].permute(0, 2, 1, 3, 4).reshape(
                 s, mha.n_head, ctx, mha.head_dim)
             scores = torch.matmul(q.float(), kg.float().transpose(-1, -2))
-            scores = scores / torch.sqrt(
-                torch.tensor(mha.head_dim, dtype=torch.float32))
+            scores = scores / math.sqrt(mha.head_dim)
             scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
             o = torch.matmul(torch.softmax(scores, dim=-1), vg.float())
         h = _finish_block(model, bp, h, o.to(h.dtype))
@@ -279,8 +296,7 @@ def _score_candidates(model, params, tokens, rope_pos, store, n_cand, mask,
         vg = vc[tables_l].permute(0, 2, 1, 3, 4).reshape(
             s, mha.n_head, ctx, mha.head_dim)
         scores = torch.matmul(q.float(), kg.float().transpose(-1, -2))
-        scores = scores / torch.sqrt(
-            torch.tensor(mha.head_dim, dtype=torch.float32))
+        scores = scores / math.sqrt(mha.head_dim)
         scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
         o = torch.matmul(torch.softmax(scores, dim=-1), vg.float())
         h = _finish_block(model, bp, h, o.to(h.dtype))
@@ -321,7 +337,8 @@ def _tree_verify_step_paged(model, params, tokens, pos, n_cand, tables,
     fixed-shape candidate tree per slot in one step.  ``tokens`` (S, W)
     holds one token per node (node 0 the last emitted root), ``depths``
     (W,) and ``anc`` (W, W) are the shape's per-node depths and
-    ancestor-or-self matrix.
+    ancestor-or-self matrix (numpy, or device tensors built once per
+    shape, as a captured step takes them).
 
     Node j stores its k/v at arena offset ``pos + j`` (siblings share a
     position but never an offset) and rotates at its true position
@@ -335,9 +352,11 @@ def _tree_verify_step_paged(model, params, tokens, pos, n_cand, tables,
     ctx = tables.shape[1] * k_arena.shape[3]
     dev = tokens.device
     pos_l = pos.long()
-    depths = torch.as_tensor(np.asarray(depths), dtype=torch.long,
-                             device=dev)
-    ancm = torch.as_tensor(np.asarray(anc, bool), device=dev)  # (W, W)
+    if not isinstance(depths, torch.Tensor):
+        depths = torch.as_tensor(np.asarray(depths), device=dev)
+    if not isinstance(anc, torch.Tensor):
+        anc = torch.as_tensor(np.asarray(anc, bool), device=dev)
+    depths, ancm = depths.long(), anc.bool()          # (W,), (W, W)
     store = pos_l[:, None] + torch.arange(w, device=dev)[None, :]
     rope = pos_l[:, None] + depths[None, :]
     rel = torch.arange(ctx, device=dev)[None, :] - pos_l[:, None]  # (S, ctx)

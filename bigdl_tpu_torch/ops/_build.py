@@ -109,7 +109,12 @@ class Kernel:
     """One hand-written CUDA kernel behind a C entry point.
 
     ``launches`` counts successful launches; the wrapper that owns the
-    kernel is the only caller of :meth:`launch`.
+    kernel is the only caller of :meth:`launch`.  A launch made while a
+    CUDA graph is captured runs nothing then: the graph cache
+    (``serving/compile_cache.py``) takes such counts back and adds them
+    on every replay, so ``launches`` counts what the device ran.  The
+    library must be built and loaded before a capture: a first launch
+    inside one raises.
     """
 
     def __init__(self, source: str, symbol: str,
@@ -124,6 +129,13 @@ class Kernel:
 
     def _entry(self):
         if self._fn is None:
+            import torch
+            if (torch.cuda.is_available()
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError(
+                    f"{self.symbol}: first launch inside a CUDA graph "
+                    "capture; run the step once eagerly first, so the "
+                    "library builds and loads outside the capture")
             path = build([self.source])[self.source]["path"]
             lib = ctypes.CDLL(str(path))
             fn = getattr(lib, self.symbol)

@@ -22,6 +22,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -59,7 +60,7 @@ def paged_decode_attention_reference(q, k_arena, v_arena, tables, pos):
     kg = k_arena[tables].permute(0, 2, 1, 3, 4).reshape(s, h, ctx, d)
     vg = v_arena[tables].permute(0, 2, 1, 3, 4).reshape(s, h, ctx, d)
     scores = torch.matmul(q4.float(), kg.float().transpose(-1, -2))
-    scores = scores / torch.sqrt(torch.tensor(d, dtype=torch.float32))
+    scores = scores / math.sqrt(d)
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     w = torch.softmax(scores, dim=-1)
     o = torch.matmul(w, vg.float())

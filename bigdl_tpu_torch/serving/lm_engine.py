@@ -27,16 +27,28 @@ are stored post-RoPE, bucket padding and stale rows are masked by
 position, and every draw replays the request's key chain.  Ids are
 1-based at ``submit`` and in the streams, 0-based inside.
 
-One worker thread owns every device launch; it selects the engine's
-device before its first launch and brings logits to the host with
-``.cpu()``, which synchronises.  Not ported yet, and refused with
-``NotImplementedError`` when asked for: the default int8 drafter,
-``kvtier``, ``migrate``/``adopt``, ``placement``, ``kv_quant``,
-deadlines and cancellation.
+Every device step has a fixed shape and runs through an entry of
+``serving/compile_cache.py``: on a CUDA device a captured CUDA graph,
+replayed with its inputs copied into static buffers (``cuda_graphs``).
+The contract is the reference's bounded one: one prefill entry per
+bucket (``prefill_cache``, the block insert inside), one per (suffix
+bucket, prefix-chain bucket) pair (``prefix_prefill_cache``, made ahead
+by :meth:`LMServingEngine.warmup_prefix`), one decode step, one linear
+verify step or one per tree rung (``_verify_compiles``), one tree
+commit (``_commit_compiles``), and the drafter's own decode and prefill
+entries.  Host draws, the acceptance walks and the radix bookkeeping
+stay outside every graph.
+
+One worker thread owns every launch and replay after warmup; it selects
+the engine's device before its first launch and brings logits to the
+host with ``.cpu()`` (which synchronises) before the next replay, since
+a graph's outputs live in a pool the next graph reuses.  Not ported
+yet, and refused with ``NotImplementedError`` when asked for: the
+default int8 drafter, ``kvtier``, ``migrate``/``adopt``, ``placement``,
+``kv_quant``, deadlines and cancellation.
 """
 from __future__ import annotations
 
-import contextlib
 import threading
 import time
 from collections import deque
@@ -50,6 +62,8 @@ from bigdl_tpu_torch.models.transformer.generate import (
     _decode_step_paged, _insert_blocks, _prefill_parts,
     _prefill_suffix_parts, _tree_commit_paged, _tree_verify_step_paged,
     _verify_step_paged)
+from bigdl_tpu_torch.serving.compile_cache import (CompileCache, GraphPool,
+                                                   StepGraph)
 from bigdl_tpu_torch.serving.errors import (PoolExhausted, RequestExceedsPool,
                                             ServingClosed, ServingQueueFull)
 from bigdl_tpu_torch.serving.histogram import Histogram
@@ -302,7 +316,8 @@ class _Slot:
 
 class _Prefill:
     """An admitted request's prefill in progress: blocks are allocated,
-    ``p`` tokens are in the arena."""
+    ``p`` tokens are in the arena; ``logits`` (host) once the last chunk
+    ran."""
 
     __slots__ = ("req", "blocks", "slot", "p", "t", "logits")
 
@@ -355,6 +370,12 @@ class LMServingEngine:
             ``SpecConfig(draft=<TransformerLM on this device>)`` or
             ``drafter_compute="ngram"``; the default int8 drafter is not
             ported yet.
+        max_cache_entries: LRU bound of each prefill cache (as the
+            reference's ``CompileCache``).
+        cuda_graphs: ``None`` (default) captures every device step as a
+            CUDA graph on a CUDA device and runs eagerly on the CPU;
+            ``False`` runs eagerly on the card too (to measure what
+            capture returns); ``True`` off a CUDA device raises.
         device: must be the model's device (default ``"cuda"``).
     """
 
@@ -373,6 +394,8 @@ class LMServingEngine:
                  decode_attn: str = "auto",
                  kv_quant: Optional[str] = None,
                  spec=None, kvtier=None, migrate=None, placement=None,
+                 max_cache_entries: int = 16,
+                 cuda_graphs: Optional[bool] = None,
                  name: str = "lm",
                  device=None):
         for what, val, item in (("kvtier", kvtier, "11"),
@@ -396,6 +419,12 @@ class LMServingEngine:
         if model.params is None:
             raise ValueError("the model has no params: call model.build(seed) "
                              "or set model.params")
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        elif cuda_graphs and self.device.type != "cuda":
+            raise ValueError(f"cuda_graphs=True needs a CUDA device, the "
+                             f"engine is on {self.device}")
+        self.cuda_graphs = bool(cuda_graphs)
         self.model = model
         self.name = name
         self._params = model.params
@@ -450,6 +479,40 @@ class LMServingEngine:
                            else "gather")
         self.decode_attn = decode_attn
 
+        # -- the device steps, one graph per shape ---------------------- #
+        self.graphs = GraphPool(self.device, capture=self.cuda_graphs)
+        pool, attn = self.pool, self.attention_impl
+
+        def _prefill_fn(params, buffers, x):
+            del buffers  # part of the CompileCache signature only
+            logits, k, v = _prefill_parts(model, params, x["ids"],
+                                          x["len"] - 1, attention_impl=attn)
+            _insert_blocks(pool.k, pool.v, k, v, x["insert"])
+            return logits
+
+        self.prefill_cache = CompileCache(
+            _prefill_fn, graphs=self.graphs, max_entries=max_cache_entries)
+
+        def _prefix_prefill_fn(params, buffers, x):
+            del buffers
+            logits, k, v = _prefill_suffix_parts(
+                model, params, x["ids"], x["len"] - 1, x["prefix_len"],
+                x["blocks"], pool.k, pool.v)
+            _insert_blocks(pool.k, pool.v, k, v, x["insert"])
+            return logits
+
+        self.prefix_prefill_cache = CompileCache(
+            _prefix_prefill_fn, graphs=self.graphs,
+            max_entries=max_cache_entries)
+
+        def _decode_fn(x):
+            logits, _, _ = _decode_step_paged(
+                model, self._params, x["token"], x["pos"], x["tables"],
+                pool.k, pool.v, attn_impl=decode_attn)
+            return logits
+
+        self._decode_exec = StepGraph(_decode_fn, self.graphs)
+
         # -- speculation (draft-verify) --------------------------------- #
         self.spec = spec
         self.draft = None
@@ -473,16 +536,23 @@ class LMServingEngine:
                 self.draft = DraftModel(
                     draft_lm, slots=self.slots, cache_len=self.cache_len,
                     prefill_buckets=self.prefill_buckets,
-                    sampling=spec.sampling)
+                    max_cache_entries=max_cache_entries,
+                    sampling=spec.sampling, graphs=self.graphs)
             self.spec_metrics = SpecMetrics()
             self.spec_metrics.compute_mode = self.draft.compute_mode
+            self._verify_execs = self._verify_steps(spec)
             if spec.tree:
-                self._tree_shapes = list(spec.shapes)
                 # the accepted-path commit moves rows only for shapes
                 # with off-spine nodes, up to the deepest alternate
                 self._commit_dmax = max(
                     (s.max_depth for s in self._tree_shapes
                      if not s.is_chain), default=0)
+
+                def _commit_fn(x):
+                    _tree_commit_paged(x["src"], x["pos"], x["tables"],
+                                       pool.k, pool.v)
+
+                self._commit_exec = StepGraph(_commit_fn, self.graphs)
 
         self.metrics = LMMetrics(self.slots)
         self.metrics.spec = self.spec_metrics
@@ -497,37 +567,74 @@ class LMServingEngine:
             target=self._run, daemon=True, name=f"lm-serve-{name}")
         self._worker.start()
 
+    def _verify_steps(self, spec) -> List[StepGraph]:
+        """The verify steps: one at (S, k+1), or one per tree rung, each
+        rung's depths and ancestor matrix on the device once, here."""
+        model, pool = self.model, self.pool
+        if not spec.tree:
+            def _verify_fn(x):
+                logits, _, _ = _verify_step_paged(
+                    model, self._params, x["tokens"], x["pos"], x["ncand"],
+                    x["tables"], pool.k, pool.v)
+                return logits
+
+            return [StepGraph(_verify_fn, self.graphs)]
+        self._tree_shapes = list(spec.shapes)
+        steps = []
+        for shp in self._tree_shapes:
+            depths = torch.as_tensor(np.asarray(shp.depths, np.int64),
+                                     device=self.device)
+            anc = torch.as_tensor(np.asarray(shp.anc, bool),
+                                  device=self.device)
+
+            def _tree_fn(x, depths=depths, anc=anc):
+                logits, _, _ = _tree_verify_step_paged(
+                    model, self._params, x["tokens"], x["pos"], x["ncand"],
+                    x["tables"], pool.k, pool.v, depths=depths, anc=anc)
+                return logits
+
+            steps.append(StepGraph(_tree_fn, self.graphs))
+        return steps
+
+    @property
+    def _verify_compiles(self) -> int:
+        """Verify entries made: 1 (linear) or one per tree rung."""
+        if self.spec is None:
+            return 0
+        return sum(e.compiles for e in self._verify_execs)
+
+    @property
+    def _commit_compiles(self) -> int:
+        """Tree-commit entries made: at most 1."""
+        if self.spec is None or not self.spec.tree:
+            return 0
+        return self._commit_exec.compiles
+
     # ------------------------------------------------------------------ #
+    def _before_traffic(self, what: str):
+        # holding the scheduler's lock keeps the worker from admitting
+        # anything while the arenas are touched here
+        if self._queue or self._n_active:
+            raise RuntimeError(f"{what} runs before traffic")
+
     def warmup(self) -> int:
-        """Run every prefill bucket and one decode step (a spec engine:
-        each verify width, the tree commit and the drafter's steps) once
-        before traffic, so the first use of each shape (library kernel
-        choice, the CUDA kernels' build and load) is not paid inside a
-        request.  Writes land only in scratch rows.  Returns the number
-        of buckets run."""
-        dev, B = self.device, self.block_len
-        on_card = (torch.cuda.device(dev) if dev.type == "cuda"
-                   else contextlib.nullcontext())
-        with self._cv, torch.no_grad(), torch.device(dev), on_card:
-            # holding the scheduler's lock keeps the worker from
-            # admitting anything while the arenas are touched here
-            if self._queue or self._n_active:
-                raise RuntimeError("warmup() runs before traffic")
-            for b in self.prefill_buckets:
-                ids = torch.zeros((1, b), dtype=torch.long)
-                _, k, v = _prefill_parts(self.model, self._params, ids, b - 1,
-                                         attention_impl=self.attention_impl)
-                _insert_blocks(self.pool.k, self.pool.v, k, v,
-                               torch.zeros((-(-b // B),), dtype=torch.long))
+        """Make every prefill bucket's entry and the decode step (a spec
+        engine: each verify width, the tree commit and the drafter's
+        steps) before traffic, so no first use (a capture, the CUDA
+        kernels' build and load, library kernel choices) is paid inside
+        a request.  Each runs once; writes land only in scratch rows.
+        Returns the number of prefill entries newly made."""
+        with self._cv, torch.no_grad():
+            self._before_traffic("warmup()")
+            n = self.prefill_cache.warmup_inputs(
+                self._params, self.model.buffers,
+                [self._prefill_x(np.zeros((1, b), np.int64), b, 0, [])
+                 for b in self.prefill_buckets])
             zeros = np.zeros((self.slots,), np.int32)
             tables = np.zeros((self.slots, self.table_width), np.int32)
             if self.draft is None:
-                z, tb = (torch.from_numpy(a).to(dev) for a in (zeros, tables))
-                logits, _, _ = _decode_step_paged(
-                    self.model, self._params, z, z, tb,
-                    self.pool.k, self.pool.v, attn_impl=self.decode_attn)
-                logits.cpu()
-                return len(self.prefill_buckets)
+                self._decode(np.zeros((self.slots,), np.int64), zeros, tables)
+                return n
             # a spec engine decodes through its verify steps only; idle
             # rows (n_cand 0) write the scratch block
             if self.spec.tree:
@@ -542,7 +649,36 @@ class LMServingEngine:
                 self._verify(np.zeros((self.slots, self.spec.k + 1),
                                       np.int32), zeros, zeros, tables)
             self.draft.warmup()
-        return len(self.prefill_buckets)
+        return n
+
+    def warmup_prefix(self, suffix_lens: Optional[Sequence[int]] = None,
+                      prefix_blocks: Optional[Sequence[int]] = None) -> int:
+        """Make the prefix-suffix prefill entries before traffic: one per
+        (suffix bucket, prefix-chain bucket) pair.  Optional (they are
+        also made on first use), but a TTFT-sensitive deployment warms
+        them so the first shared-prefix hit does not pay a capture.
+        Pass the expected unmatched-suffix lengths and cached prefix
+        block counts to warm only the pairs the traffic will hit (the
+        full cross product otherwise).  Each runs once on scratch
+        blocks.  Returns the number newly made."""
+        if suffix_lens is not None:
+            cap = self.prefill_buckets[-1]
+            sb = sorted({self.bucket_for(min(int(s), cap))
+                         for s in suffix_lens})
+        else:
+            sb = list(self.prefill_buckets)
+        if prefix_blocks is not None:
+            pbs = sorted({self._prefix_bucket_for(int(p))
+                          for p in prefix_blocks})
+        else:
+            pbs = list(self._prefix_block_buckets)
+        inputs = [self._prefill_x(np.zeros((1, b), np.int64), b,
+                                  pb * self.block_len, [])
+                  for b in sb for pb in pbs]
+        with self._cv, torch.no_grad():
+            self._before_traffic("warmup_prefix()")
+            return self.prefix_prefill_cache.warmup_inputs(
+                self._params, self.model.buffers, inputs)
 
     def bucket_for(self, prompt_len: int) -> int:
         """Smallest configured prefill bucket >= prompt_len."""
@@ -713,43 +849,46 @@ class LMServingEngine:
             raise
         return True
 
+    def _prefill_x(self, ids: np.ndarray, ts: int, p: int,
+                   blocks: Sequence[int]) -> dict:
+        """A prefill entry's inputs for the ``ts`` tokens in ``ids`` (1,
+        bucket) at position ``p`` of a chain ``blocks``: the block ids
+        the chunk's k/v rows scatter into (block-aligned; bucket-padding
+        rows land in trailing owned blocks or the scratch block, always
+        masked until overwritten) and, past the first chunk, the
+        scratch-padded prefix chain."""
+        B = self.block_len
+        nb_w = -(-ids.shape[1] // B)
+        ids_w = np.zeros((nb_w,), np.int64)
+        owned = blocks[p // B:p // B + nb_w]
+        ids_w[:len(owned)] = owned
+        x = {"ids": ids, "len": np.int32(ts), "insert": ids_w}
+        if p:
+            nbp = p // B
+            chain = blocks[:nbp]        # empty in warmup: scratch only
+            pblocks = np.zeros((self._prefix_bucket_for(nbp),), np.int64)
+            pblocks[:len(chain)] = chain
+            x.update(prefix_len=np.int32(p), blocks=pblocks)
+        return x
+
     def _prefill_chunk(self, pf: _Prefill) -> bool:
         """One bucketed prefill pass + block scatter; True when the
         whole prompt is in the arena.  Chunks stay block-aligned (except
         the final remainder) so the suffix path's prefix_len is always a
         whole number of blocks."""
-        req, blocks, t = pf.req, pf.blocks, pf.t
-        B = self.block_len
-        p = pf.p
+        req, t, p = pf.req, pf.t, pf.p
         rem = t - p
         ts = rem if rem <= self.prefill_buckets[-1] else self._chunk_full
-        bucket = self.bucket_for(ts)
-        ids = np.zeros((1, bucket), np.int64)
+        ids = np.zeros((1, self.bucket_for(ts)), np.int64)
         ids[0, :ts] = req.prompt0[p:p + ts]
-        ids_t = torch.from_numpy(ids).to(self.device)
-        if p == 0:
-            logits, k, v = _prefill_parts(
-                self.model, self._params, ids_t, ts - 1,
-                attention_impl=self.attention_impl)
-        else:
-            nbp = p // B
-            pblocks = np.zeros((self._prefix_bucket_for(nbp),), np.int64)
-            pblocks[:nbp] = blocks[:nbp]
-            logits, k, v = _prefill_suffix_parts(
-                self.model, self._params, ids_t, ts - 1, p,
-                torch.from_numpy(pblocks).to(self.device),
-                self.pool.k, self.pool.v)
-        # scatter the chunk's k/v into its (block-aligned) blocks;
-        # bucket-padding rows land in trailing owned blocks or the
-        # scratch block, always masked until overwritten
-        nb_w = -(-bucket // B)
-        ids_w = np.zeros((nb_w,), np.int64)
-        owned = blocks[p // B:p // B + nb_w]
-        ids_w[:len(owned)] = owned
-        _insert_blocks(self.pool.k, self.pool.v, k, v,
-                       torch.from_numpy(ids_w).to(self.device))
-        pf.logits = logits
+        x = self._prefill_x(ids, ts, p, pf.blocks)
+        cache = self.prefill_cache if p == 0 else self.prefix_prefill_cache
+        logits = cache(self._params, self.model.buffers, x)
         pf.p = p + ts
+        if pf.p >= t:
+            # only the last chunk's logits are read, before any other
+            # step replays over them
+            pf.logits = logits.cpu().numpy()  # synchronises; (1, V)
         return pf.p >= t
 
     def _finish_prefill(self, pf: _Prefill) -> None:
@@ -759,8 +898,7 @@ class LMServingEngine:
         # matched head is already in the trie; only novel tails add)
         if self.radix is not None and t // B:
             self.radix.insert(req.prompt0[:(t // B) * B], blocks[:t // B])
-        logits = pf.logits.cpu().numpy()  # synchronises; (1, V) float32
-        first0 = pick_token(logits[0], req.temperature, req.first_key,
+        first0 = pick_token(pf.logits[0], req.temperature, req.first_key,
                             clamp=False)
         req.stream._emit(first0 + 1)
         self.metrics.record_first_token(
@@ -834,12 +972,7 @@ class LMServingEngine:
                 tables[i] = st.table
         if not active:
             return
-        dev = self.device
-        logits, _, _ = _decode_step_paged(
-            self.model, self._params, torch.from_numpy(token).to(dev),
-            torch.from_numpy(pos).to(dev), torch.from_numpy(tables).to(dev),
-            self.pool.k, self.pool.v, attn_impl=self.decode_attn)
-        logits = logits.cpu().numpy()  # synchronises; (S, V) float32
+        logits = self._decode(token, pos, tables)
         now = time.perf_counter()
         itls = []
         freed = []
@@ -851,30 +984,25 @@ class LMServingEngine:
         self.metrics.record_step(len(active), itls)
         self._retire(freed)
 
+    def _decode(self, token, pos, tables) -> np.ndarray:
+        """One decode step over every slot, the arenas written in place;
+        returns the (S, V) float32 logits on the host."""
+        logits = self._decode_exec({"token": token, "pos": pos,
+                                    "tables": tables})
+        return logits.cpu().numpy()  # synchronises
+
     # -- speculation ---------------------------------------------------- #
     def _verify(self, tokens, pos, ncand, tables, rung=None) -> np.ndarray:
         """One verify step over every slot (the linear one, or the tree
         one of ladder ``rung``), the arenas written in place; returns the
         (S, W, V) float32 logits on the host."""
-        dev = self.device
-        args = [torch.from_numpy(a).to(dev)
-                for a in (tokens, pos, ncand, tables)]
-        if rung is None:
-            logits, _, _ = _verify_step_paged(
-                self.model, self._params, *args, self.pool.k, self.pool.v)
-        else:
-            shp = self._tree_shapes[rung]
-            logits, _, _ = _tree_verify_step_paged(
-                self.model, self._params, *args, self.pool.k, self.pool.v,
-                depths=shp.depths, anc=shp.anc)
+        step = self._verify_execs[0 if rung is None else rung]
+        logits = step({"tokens": tokens, "pos": pos, "ncand": ncand,
+                       "tables": tables})
         return logits.cpu().numpy()  # synchronises
 
     def _commit(self, src, pos, tables) -> None:
-        dev = self.device
-        _tree_commit_paged(torch.from_numpy(src).to(dev),
-                           torch.from_numpy(pos).to(dev),
-                           torch.from_numpy(tables).to(dev),
-                           self.pool.k, self.pool.v)
+        self._commit_exec({"src": src, "pos": pos, "tables": tables})
 
     def _may_speculate(self, st: _Slot) -> bool:
         """A demoted slot serves ``probe_interval`` plain rounds, then is
@@ -1170,6 +1298,9 @@ class LMServingEngine:
             "attention_impl": self.attention_impl,
             "decode_attn": self.decode_attn,
             "prefill_buckets": list(self.prefill_buckets),
+            "prefill_cache": self.prefill_cache.stats(),
+            "prefix_prefill_cache": self.prefix_prefill_cache.stats(),
+            "cuda_graphs": self.graphs.stats(),
             "kvcache": kv,
             "metrics": self.metrics.snapshot(),
             "spec": self._spec_stats(),
@@ -1186,10 +1317,17 @@ class LMServingEngine:
         out = self.spec.describe()
         out["demoted_slots"] = demoted
         out["draft"] = self.draft.describe()
+        out["verify_compiles"] = self._verify_compiles
         if self.spec.tree:
+            out["commit_compiles"] = self._commit_compiles
             out["slot_rungs"] = rungs
         out.update(self.spec_metrics.snapshot())
         return out
+
+    def cache_buffer_pointers(self) -> tuple:
+        """Device addresses of the k/v arenas: the graphs captured them,
+        so they stay fixed across steps and requests."""
+        return self.pool.k.data_ptr(), self.pool.v.data_ptr()
 
     def close(self, timeout: Optional[float] = 30.0) -> None:
         """Drain: stop admitting, finish queued + in-flight requests;

@@ -6,9 +6,12 @@ tokens ahead per slot against its OWN dense KV arena, (L, S, H,
 cache_len + 1, D) on the engine's device: one contiguous region per
 slot, no paging (the verifier never reads it).  Row ``cache_len`` is a
 scratch position that absorbs idle slots' writes.  Each shape runs one
-fixed-shape function: the batched decode step over all S slots
-(``_decode_step_slots``), the bucketed prefill (``_prefill_parts``, the
-flash kernel on the card) and the slot insert per prompt bucket.
+fixed-shape function, a captured CUDA graph on the card (the engine's
+``cuda_graphs``, in the engine's graph pool): the batched decode step
+over all S slots (``_decode_step_slots``; ``decode_compiles`` is its
+bounded-executables witness) and, per prompt bucket, the prefill
+(``_prefill_parts``, the flash kernel on the card) with its slot insert
+(``prefill_cache``).
 Drafting k tokens for the speculating slots costs ``max(pending) + k -
 1`` batched decode steps a round; slots whose chains finish early idle
 on the scratch row.
@@ -31,6 +34,8 @@ import torch
 
 from bigdl_tpu_torch.models.transformer.generate import (_decode_step_slots,
                                                          _prefill_parts)
+from bigdl_tpu_torch.serving.compile_cache import (CompileCache, GraphPool,
+                                                   StepGraph)
 from bigdl_tpu_torch.serving.spec.verify import draft_pick
 from bigdl_tpu_torch.utils import keychain
 
@@ -63,14 +68,16 @@ def _ranked_alternates(logits_row: np.ndarray, temperature: float, key,
     return out
 
 
-def _insert_slot_dense(k_cache, v_cache, k_new, v_new, slot: int):
+def _insert_slot_dense(k_cache, v_cache, k_new, v_new, slot):
     """Write a prefilled prompt's k/v (L, 1, H, Tb, D) into one slot's
     rows of the dense caches (L, S, H, C+1, D) from position 0, in
-    place.  Bucket-padding rows land above the prompt, masked until
-    decode overwrites them."""
+    place; ``slot`` is a (1,) int tensor on the caches' device.
+    Bucket-padding rows land above the prompt, masked until decode
+    overwrites them."""
     tb = k_new.shape[3]
-    k_cache[:, slot, :, :tb] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, slot, :, :tb] = v_new[:, 0].to(v_cache.dtype)
+    idx = slot.reshape(1).long()
+    k_cache[:, idx, :, :tb] = k_new.to(k_cache.dtype)
+    v_cache[:, idx, :, :tb] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
 
 
@@ -88,7 +95,9 @@ class DraftModel:
     """Runs a float drafter for every speculating slot of one engine."""
 
     def __init__(self, model, *, slots: int, cache_len: int,
-                 prefill_buckets, sampling: str = "replay"):
+                 prefill_buckets, max_cache_entries: int = 16,
+                 sampling: str = "replay",
+                 graphs: Optional[GraphPool] = None):
         if model.params is None:
             raise ValueError("the draft model has no params: call "
                              "model.build(seed) or set model.params")
@@ -116,6 +125,24 @@ class DraftModel:
         self.k = torch.zeros(shape, dtype=dt, device=self.device)
         self.v = torch.zeros(shape, dtype=dt, device=self.device)
         self.steps = 0             # drafter decode steps (overhead meter)
+        self.graphs = (graphs if graphs is not None
+                       else GraphPool(self.device, capture=False))
+        k, v = self.k, self.v
+
+        def _prefill_fn(params, buffers, x):
+            del buffers
+            _, kn, vn = _prefill_parts(model, params, x["ids"], x["len"] - 1)
+            _insert_slot_dense(k, v, kn, vn, x["slot"])
+
+        self.prefill_cache = CompileCache(
+            _prefill_fn, graphs=self.graphs, max_entries=max_cache_entries)
+
+        def _decode_fn(x):
+            logits, _, _ = _decode_step_slots(model, self._params, x["token"],
+                                              x["pos"], k, v)
+            return logits
+
+        self._decode_exec = StepGraph(_decode_fn, self.graphs)
         self._st: List[Optional[_DraftSlot]] = [None] * self.slots
 
     @property
@@ -123,29 +150,33 @@ class DraftModel:
         """Device bytes of the drafter's dense k + v arena."""
         return 2 * self.k.numel() * self.k.element_size()
 
-    # -- device steps --------------------------------------------------- #
-    @torch.no_grad()
-    def _prefill(self, ids0: np.ndarray, t: int):
-        ids = torch.from_numpy(ids0.astype(np.int64)).to(self.device)
-        return _prefill_parts(self.model, self._params, ids, t - 1)
+    @property
+    def decode_compiles(self) -> int:
+        """Decode graphs made: exactly one once warm."""
+        return self._decode_exec.compiles
 
-    @torch.no_grad()
+    # -- device steps --------------------------------------------------- #
+    @staticmethod
+    def _prefill_x(ids0: np.ndarray, t: int, slot: int) -> dict:
+        return {"ids": ids0.astype(np.int64), "len": np.int32(t),
+                "slot": np.asarray([slot], np.int64)}
+
     def _decode(self, token: np.ndarray, pos: np.ndarray) -> np.ndarray:
-        logits, _, _ = _decode_step_slots(
-            self.model, self._params,
-            torch.from_numpy(token).to(self.device),
-            torch.from_numpy(pos).to(self.device), self.k, self.v)
+        logits = self._decode_exec({"token": token, "pos": pos})
         return logits.cpu().numpy()      # synchronises; (S, V) float32
 
     def warmup(self) -> int:
-        """Run each prefill bucket and one decode step once, writing
-        only the scratch row, so first uses are not paid inside a
-        request; returns the number of buckets run."""
-        for b in self.prefill_buckets:
-            self._prefill(np.zeros((1, b), np.int64), b)
+        """Make each prefill bucket's entry and the decode step before
+        traffic (each runs once: the prefills write slot 0's rows, which
+        an admission rewrites, and the decode the scratch row); returns
+        the number of prefill entries newly made."""
+        n = self.prefill_cache.warmup_inputs(
+            self._params, self.model.buffers,
+            [self._prefill_x(np.zeros((1, b), np.int64), b, 0)
+             for b in self.prefill_buckets])
         self._decode(np.zeros((self.slots,), np.int64),
                      np.full((self.slots,), self.scratch_pos, np.int64))
-        return len(self.prefill_buckets)
+        return n
 
     # -- per-slot lifecycle --------------------------------------------- #
     def can_draft(self, prompt_len: int) -> bool:
@@ -167,8 +198,8 @@ class DraftModel:
         t = int(prompt0.shape[0])
         ids = np.zeros((1, self.bucket_for(t)), np.int64)
         ids[0, :t] = prompt0
-        _, k, v = self._prefill(ids, t)
-        _insert_slot_dense(self.k, self.v, k, v, slot)
+        self.prefill_cache(self._params, self.model.buffers,
+                           self._prefill_x(ids, t, slot))
         self._st[slot] = _DraftSlot(t)
 
     def push(self, slot: int, token0: int) -> None:
@@ -266,7 +297,9 @@ class DraftModel:
                 "layers": self.model.n_layers,
                 "cache_len": self.cache_len,
                 "arena_bytes": self.arena_bytes,
-                "steps": self.steps}
+                "steps": self.steps,
+                "decode_compiles": self.decode_compiles,
+                "prefill_cache": self.prefill_cache.stats()}
 
 
 class NgramDrafter:
@@ -288,6 +321,7 @@ class NgramDrafter:
         self.ngram_max = max(1, int(ngram_max))
         self._ctx: List[Optional[List[int]]] = [None] * self.slots
         self.steps = 0             # never advances: zero drafter cost
+        self.decode_compiles = 0   # no device step, no graph
         self.compute_mode = "ngram"
         self.arena_bytes = 0
         self.lookups = 0

@@ -22,9 +22,16 @@ result line:
    that makes;
 4. serve: a GPT-2-small-width TransformerLM (random weights from a
    seed, float32) behind LMServingEngine answers 8 requests through the
-   flash prefill and paged decode kernels; every greedy stream is held
-   against the port's offline generate on plain attention, and both
-   kernels' launch counters must be > 0 for that run;
+   flash prefill and paged decode kernels, every device step a replayed
+   CUDA graph: ``warmup()`` captures each prefill bucket and the decode
+   step, ``warmup_prefix()`` the (suffix bucket, prefix-chain bucket)
+   pair of the prompts' radix hit.  Every greedy stream is held against
+   the port's offline generate on plain attention, and both kernels'
+   launch counters (counted through the replays) must be > 0 for that
+   run.  The same requests then run once more on an engine with
+   ``cuda_graphs=False`` (the eager path), streams held alike, and both
+   runs print TTFT p50, decode tokens/s, captures, replays and the two
+   kernels' launches;
 5. serve_sampled: the same 8 requests sampled at temperature 0.7,
    request i from the key chain of seed i, through both kernels; every
    stream held against offline generate with the same temperature and
@@ -44,7 +51,7 @@ result line:
    that end inside their repeated segment, sampled and then greedy: the
    greedy run must have a match accepted.  Arms 1, 2 and 4 hold every
    stream against offline generate, and the flash forward must launch
-   in every arm;
+   in every arm.  Arm 2 runs once more with ``cuda_graphs=False``;
 7. train: the same model, full depth, trained by LocalOptimizer (Adam,
    TimeDistributed(ClassNLL)) on a fixed 8 x 1024 batch through the
    flash forward and both flash backward kernels: step-0 loss and every
@@ -55,11 +62,20 @@ result line:
    document-isolated corpus; the three kernels' launch counters must be
    12 a step.
 
-``--profile PATH`` adds one more serve run of fresh prompts, one more
-run of spec arm 2, one more float32 training step and one more
-bf16-compute step under torch.profiler and writes their kernel tables
-(device busy time, idle share, time by kernel) to PATH and to PATH with
-``_spec``, ``_train`` and ``_train_bf16`` before its extension.
+Every serving engine must keep its captures bounded: prefill entries at
+most the buckets, one decode graph, one verify graph (one per tree
+rung), at most one commit graph, one drafter decode graph (none for the
+n-gram drafter), and no capture after warmup on the traffic warmup
+covered.  Each run prints its warmup seconds, capture seconds and the
+bytes of the engine's graph pool.
+
+``--profile PATH`` adds one more serve run of fresh prompts on each of
+the two serve engines, one more run of spec arm 2 on each of its two
+engines, one more float32 training step and one more bf16-compute step
+under torch.profiler and writes their kernel tables (device busy time,
+idle share, time by kernel) to PATH and to PATH with ``_eager``,
+``_spec``, ``_spec_eager``, ``_train`` and ``_train_bf16`` before its
+extension.
 
 The flash kernels' bounds, forward and backward, take float32 at the
 3xTF32 tensor-core rate (495 / 3 TFLOP/s), the rate those kernels run
@@ -555,6 +571,89 @@ class Oracle:
         return f"tie at position {i}, plain top-2 gap {gap:.3e}"
 
 
+def radix_pairs(prompts, block_len):
+    """Suffix lengths and cached block counts of the radix hits among
+    ``prompts`` admitted in order: a prompt matches the whole blocks it
+    shares with an earlier prompt, at most ``(len - 1) // block_len``."""
+    import numpy as np
+    suffix, blocks = [], []
+    for i, p in enumerate(prompts):
+        best = 0
+        for q in prompts[:i]:
+            n, limit = 0, min((len(p) - 1) // block_len, len(q) // block_len)
+            while n < limit and np.array_equal(
+                    p[n * block_len:(n + 1) * block_len],
+                    q[n * block_len:(n + 1) * block_len]):
+                n += 1
+            best = max(best, n)
+        if best:
+            suffix.append(len(p) - best * block_len)
+            blocks.append(best)
+    return suffix, blocks
+
+
+def warm_engine(engine, prompts):
+    """``warmup()``, then ``warmup_prefix()`` for the radix hits of
+    ``prompts``; returns the wall seconds and the graph counters."""
+    import torch
+    t0 = time.perf_counter()
+    engine.warmup()
+    suffix, blocks = radix_pairs(prompts, engine.block_len)
+    engine.warmup_prefix(suffix_lens=suffix, prefix_blocks=blocks)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(engine.graphs.stats(), warm_s=time.perf_counter() - t0,
+                pool_bytes=engine.graphs.pool_bytes())
+
+
+def check_bounded(run, engine, warm):
+    """The bounded-captures contract after ``run``: prefill entries at
+    most the buckets, one decode graph, one verify graph (one per tree
+    rung), at most one commit graph, one drafter decode graph (none for
+    the n-gram drafter), and no capture since warmup.  Returns the
+    engine's graph counters."""
+    st = engine.stats()
+    bad = []
+    if st["prefill_cache"]["entries"] > len(engine.prefill_buckets):
+        bad.append(f"{st['prefill_cache']['entries']} prefill entries for "
+                   f"{len(engine.prefill_buckets)} buckets")
+    if engine.spec is None:
+        if engine._decode_exec.compiles != 1:
+            bad.append(f"{engine._decode_exec.compiles} decode graphs")
+    else:
+        want = len(engine._tree_shapes) if engine.spec.tree else 1
+        if engine._verify_compiles != want:
+            bad.append(f"{engine._verify_compiles} verify graphs, not {want}")
+        if engine._commit_compiles > 1:
+            bad.append(f"{engine._commit_compiles} commit graphs")
+        want = 0 if engine.spec.drafter_compute == "ngram" else 1
+        if engine.draft.decode_compiles != want:
+            bad.append(f"{engine.draft.decode_compiles} drafter decode "
+                       f"graphs, not {want}")
+    graphs = st["cuda_graphs"]
+    if graphs["captures"] != warm["captures"]:
+        bad.append(f"{graphs['captures'] - warm['captures']} captures after "
+                   "warmup on traffic it covered")
+    if bad:
+        raise AssertionError(f"{run}: unbounded captures: " + "; ".join(bad))
+    return graphs
+
+
+def idle_text(idle):
+    return "not measured (no --profile)" if idle is None else f"{idle:.4f}"
+
+
+def graph_line(out):
+    """The graph counters and warmup times of one run, for the log."""
+    g, w = out["graphs"], out["warm"]
+    pool = ("none" if w["pool_bytes"] is None
+            else f"{w['pool_bytes'] / 2**20:.1f} MiB")
+    return (f"graphs {'on' if g['enabled'] else 'off'}: {g['captures']} "
+            f"captures ({w['capture_s']:.2f} s of capture in a "
+            f"{w['warm_s']:.2f} s warmup), {g['replays']} replays, graph "
+            f"pool {pool}")
+
+
 def serve_run(engine, prompts, max_new, temperature=0.0):
     """Submit every prompt at once (request i samples with ``rng=i``)
     and wait for all, the launch counters read from 0 around it.
@@ -677,46 +776,79 @@ def make_engine(model, dev, serve, **kw):
         attention_impl="flash", decode_attn="paged_kernel", device=dev, **kw)
 
 
-def phase_serve(dev, config=GPT2_SMALL, serve=SERVE, prompts=None,
-                profile_path=None, oracle=None):
-    """Build the model from a seed, serve the prompts greedily, check
-    every stream.  Returns the serve metrics.  With ``profile_path``,
-    one more run of fresh prompts is traced afterwards (see
-    profile_device)."""
+def release(dev):
+    """Return a closed engine's memory (its graphs and pool) to the card."""
+    import gc
+
     import torch
-    model = build_lm(dev, config, serve["seed"])
-    oracle = oracle or Oracle(dev, config, serve["seed"])
-    prompts = serve_prompts() if prompts is None else prompts
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def serve_once(dev, model, serve, prompts, oracle, label, profile_path=None,
+               **engine_kw):
+    """One greedy serve run on a fresh engine (warmed, then checked for
+    bounded captures), every stream held against offline generate.
+    With ``profile_path``, one more run of fresh prompts is traced."""
+    import torch
     max_new = serve["max_new"]
-    engine = make_engine(model, dev, serve)
+    engine = make_engine(model, dev, serve, **engine_kw)
     try:
-        engine.warmup()
+        warm = warm_engine(engine, prompts)
         if dev.type == "cuda":
-            torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         out = serve_run(engine, prompts, max_new)
         stats = engine.stats()
+        out["graphs"] = check_bounded(label, engine, warm)
+        out["idle_share"] = None
         if profile_path:
             more = serve_prompts(serve["seed"] + 1)
-            profile_device(lambda: serve_run(engine, more, max_new),
-                           f"serve run: {len(more)} requests x {max_new} "
-                           "tokens", profile_path)
+            out["idle_share"] = profile_device(
+                lambda: serve_run(engine, more, max_new),
+                f"{label} run: {len(more)} requests x {max_new} tokens",
+                profile_path)
+            check_bounded(f"{label} (profiled run)", engine, warm)
     finally:
         engine.close()
+        del engine
+        release(dev)
     peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
             else None)
-    ties = check_streams("serve", oracle, prompts, out.pop("results"),
+    ties = check_streams(label, oracle, prompts, out.pop("results"),
                          max_new)
     hits = stats["kvcache"]["prefix_cache"]["hits"]
     if hits < 1:
         raise AssertionError("the shared-head prompts missed the radix cache")
-    out.update(peak_bytes=peak, ties=ties, radix_hits=hits,
-               matched_streams=len(prompts) - len(ties))
-    log(f"[serve] {len(prompts)} requests, prompt lengths "
+    out.update(peak_bytes=peak, ties=ties, radix_hits=hits, warm=warm,
+               matched_streams=len(prompts) - len(ties),
+               prefix_prefill=stats["prefix_prefill_cache"])
+    log(f"[{label}] {len(prompts)} requests, prompt lengths "
         f"{[len(p) for p in prompts]}, max_new {max_new}: "
         f"{out['matched_streams']} streams identical to offline generate, "
-        f"{len(ties)} ties; radix hits {hits}")
+        f"{len(ties)} ties; radix hits {hits}; {graph_line(out)}")
     return out
+
+
+def phase_serve(dev, config=GPT2_SMALL, serve=SERVE, prompts=None,
+                profile_path=None, oracle=None):
+    """Build the model from a seed and serve the prompts greedily, first
+    through CUDA graphs (the default), then eagerly (``cuda_graphs=False``)
+    on a second engine; check every stream of both.  Returns (graphs
+    run, eager run).  With ``profile_path``, one more run of fresh
+    prompts is traced on each engine (see profile_device)."""
+    model = build_lm(dev, config, serve["seed"])
+    oracle = oracle or Oracle(dev, config, serve["seed"])
+    prompts = serve_prompts() if prompts is None else prompts
+    graphs = serve_once(dev, model, serve, prompts, oracle, "serve",
+                        profile_path)
+    eager_path = None
+    if profile_path:
+        root, ext = os.path.splitext(profile_path)
+        eager_path = f"{root}_eager{ext}"
+    eager = serve_once(dev, model, serve, prompts, oracle, "serve eager",
+                       eager_path, cuda_graphs=False)
+    return graphs, eager
 
 
 def phase_serve_sampled(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC,
@@ -731,10 +863,14 @@ def phase_serve_sampled(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC,
     temp, max_new = spec["temperature"], serve["max_new"]
     engine = make_engine(model, dev, serve, temperature=temp)
     try:
-        engine.warmup()
+        warm = warm_engine(engine, prompts)
         out = serve_run(engine, prompts, max_new, temp)
+        out.update(graphs=check_bounded("serve_sampled", engine, warm),
+                   warm=warm)
     finally:
         engine.close()
+        del engine
+        release(dev)
     ties = check_streams("serve_sampled", oracle, prompts,
                          out.pop("results"), max_new, temp)
     out.update(ties=ties, matched_streams=len(prompts) - len(ties),
@@ -745,7 +881,8 @@ def phase_serve_sampled(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC,
         f"{out['ttft_p50_s'] * 1e3:.2f} ms, decode "
         f"{out['decode_tokens_per_s']:.1f} tokens/s; launches "
         f"{out['launches']}; one host draw over {config['vocab_size']} "
-        f"logits {out['draw_ms']:.3f} ms (host clock, median of 20)")
+        f"logits {out['draw_ms']:.3f} ms (host clock, median of 20); "
+        f"{graph_line(out)}")
     return out
 
 
@@ -810,6 +947,10 @@ def phase_spec(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC, prompts=None,
          True),
         ("linear_2layer_replay", SpecConfig(k=k, draft=small), temp,
          prompts, True),
+        # arm 2 once more on the eager path, to measure what capture
+        # returns
+        ("linear_2layer_replay_eager", SpecConfig(k=k, draft=small), temp,
+         prompts, True),
         ("linear_2layer_rejection", SpecConfig(k=k, draft=small,
                                                sampling="rejection"),
          temp, prompts, False),
@@ -830,23 +971,27 @@ def phase_spec(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC, prompts=None,
     ]
     runs = {}
     for name, cfg, t, ps, exact in arms:
-        engine = make_engine(model, dev, serve, spec=cfg)
+        eager = name.endswith("_eager")
+        engine = make_engine(model, dev, serve, spec=cfg,
+                             cuda_graphs=False if eager else None)
         try:
-            engine.warmup()
+            warm = warm_engine(engine, ps)
             out = serve_run(engine, ps, max_new, t)
             st = engine.stats()["spec"]
-            if profile_path and name == "linear_2layer_replay":
+            out.update(graphs=check_bounded(f"spec {name}", engine, warm),
+                       warm=warm, idle_share=None)
+            if profile_path and name.startswith("linear_2layer_replay"):
                 root, ext = os.path.splitext(profile_path)
                 more = serve_prompts(serve["seed"] + 1)
-                profile_device(
+                out["idle_share"] = profile_device(
                     lambda: serve_run(engine, more, max_new, t),
                     f"spec run {name}: {len(more)} requests x {max_new} "
-                    "tokens", f"{root}_spec{ext}")
+                    "tokens", f"{root}_spec{'_eager' if eager else ''}{ext}")
+                check_bounded(f"spec {name} (profiled run)", engine, warm)
         finally:
             engine.close()
             del engine
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
+            release(dev)
         out["ties"] = (check_streams(f"spec {name}", oracle, ps,
                                      out["results"], max_new, t)
                        if exact else None)
@@ -863,7 +1008,8 @@ def phase_spec(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC, prompts=None,
             f"{out['decode_tokens_per_s']:.1f} tokens/s; launches "
             f"{out['launches']}"
             + ("" if not exact else f"; {len(ps) - len(out['ties'])} of "
-               f"{len(ps)} streams identical to offline generate"))
+               f"{len(ps)} streams identical to offline generate")
+            + f"; {graph_line(out)}")
         log(f"[spec] {name} stats()['spec']: {json.dumps(st)}")
         runs[name] = out
     a, b = (runs["linear_2layer_rejection"]["results"],
@@ -1160,15 +1306,24 @@ def main() -> int:
     phases["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     oracle = Oracle(dev, GPT2_SMALL, SERVE["seed"])
-    serve = phase_serve(dev, profile_path=args.profile, oracle=oracle)
+    serve, serve_eager = phase_serve(dev, profile_path=args.profile,
+                                     oracle=oracle)
     phases["serve"] = time.perf_counter() - t0
     check_launches("serve path", serve["launches"],
                    ("bigdl_flash_fwd", "bigdl_paged_decode"))
-    log(f"[serve] launches on the serve path: {serve['launches']}")
-    log(f"[serve] TTFT p50 {serve['ttft_p50_s'] * 1e3:.2f} ms, decode "
-        f"{serve['decode_tokens_per_s']:.1f} tokens/s (8 slots), "
-        f"max_memory_allocated {serve['peak_bytes'] / 2**20:.1f} MiB, "
-        f"wall {serve['wall_s']:.2f} s | {smi}")
+    check_launches("eager serve path", serve_eager["launches"],
+                   ("bigdl_flash_fwd", "bigdl_paged_decode"))
+    log(f"[serve] launches on the serve path (through replays): "
+        f"{serve['launches']}")
+    for label, run in (("graphs", serve), ("eager", serve_eager)):
+        log(f"[serve] {label}: TTFT p50 {run['ttft_p50_s'] * 1e3:.2f} ms, "
+            f"decode {run['decode_tokens_per_s']:.1f} tokens/s (8 slots), "
+            f"flash_fwd {run['launches']['bigdl_flash_fwd']} and "
+            f"paged_decode {run['launches']['bigdl_paged_decode']} launches, "
+            f"{run['graphs']['captures']} captures, {run['graphs']['replays']}"
+            f" replays, device idle share {idle_text(run['idle_share'])}, "
+            f"max_memory_allocated {run['peak_bytes'] / 2**20:.1f} MiB, "
+            f"wall {run['wall_s']:.2f} s | {smi}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     sampled = phase_serve_sampled(dev, oracle=oracle)
@@ -1189,6 +1344,15 @@ def main() -> int:
         for symbol, n in run["launches"].items():
             spec_launches[symbol] = spec_launches.get(symbol, 0) + n
     log(f"[spec] launches over the spec runs: {spec_launches} | {smi}")
+    for label, name in (("graphs", "linear_2layer_replay"),
+                        ("eager", "linear_2layer_replay_eager")):
+        run = spec[name]
+        log(f"[spec] arm 2 {label}: TTFT p50 {run['ttft_p50_s'] * 1e3:.2f} "
+            f"ms, decode {run['decode_tokens_per_s']:.1f} tokens/s, "
+            f"flash_fwd {run['launches']['bigdl_flash_fwd']} launches, "
+            f"{run['graphs']['captures']} captures, {run['graphs']['replays']}"
+            f" replays, device idle share {idle_text(run['idle_share'])} "
+            f"| {smi}")
     del oracle
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1207,8 +1371,7 @@ def main() -> int:
         f"steps): {train['launches']}; bf16-compute path "
         f"({train['steps_run_bf16']} steps): {train['launches_bf16']}; "
         f"CLI: {train['launches_cli']}")
-    idle = ("not measured (no --profile)" if train["idle_share"] is None
-            else f"{train['idle_share']:.4f}")
+    idle = idle_text(train["idle_share"])
     log(f"[train] median step {train['step_ms']:.2f} ms, "
         f"{train['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
         f"{train['peak_bytes'] / 2**20:.1f} MiB, device idle share {idle}; "

@@ -302,3 +302,207 @@ def test_flash_bwd_rejects_what_it_cannot_run(card):
     args[5] = args[5].to(torch.bfloat16)      # do in another dtype
     with pytest.raises(ValueError, match="do must be"):
         _run_bwd(*args, True)
+
+
+# --------------------------------------------------------------------------- #
+# the serving engine on the card: warmup, CUDA graphs, replay vs eager        #
+# --------------------------------------------------------------------------- #
+
+ENGINE_LM = dict(vocab_size=97, hidden_size=128, n_head=2, n_layers=2,
+                 max_len=128)
+ENGINE_KW = dict(slots=4, cache_len=128, block_len=16, max_new_tokens=8,
+                 prefill_buckets=(16, 32, 64), attention_impl="flash",
+                 decode_attn="paged_kernel")
+HEAD = 32                  # the radix pair's shared head: 2 whole blocks
+
+
+def _engine_lm(card):
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    return TransformerLM(attention_impl="flash", device=card,
+                         **ENGINE_LM).build(seed=0)
+
+
+def _engine(lm, kind, cuda_graphs=None):
+    """A plain engine, or a linear or tree speculative one whose drafter
+    is a second model holding the target's weights."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.serving import LMServingEngine, SpecConfig
+    spec = None
+    if kind != "plain":
+        draft = TransformerLM(attention_impl="flash", device=lm.device,
+                              **ENGINE_LM)
+        draft.params = lm.params
+        spec = SpecConfig(k=3, draft=draft, tree=kind == "tree")
+    return LMServingEngine(lm, spec=spec, cuda_graphs=cuda_graphs,
+                           device=lm.device, **ENGINE_KW)
+
+
+def _engine_prompts():
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, 98, size=n) for n in (5, 40, 50, 63)]
+    prompts[2][:HEAD] = prompts[1][:HEAD]      # a radix hit, suffix 18
+    return prompts
+
+
+def _launch_counts():
+    from bigdl_tpu_torch.ops import KERNELS
+    return {k.symbol: k.launches for k in KERNELS}
+
+
+@pytest.mark.parametrize("kind", ["plain", "linear", "tree"])
+def test_engine_on_card_with_graphs_streams_equal_generate(card, kind):
+    """warmup() and warmup_prefix() on the card (the paged kernel gets
+    device block tables), then greedy and sampled streams through
+    replayed graphs, each equal to offline generate; the traffic the
+    warmups covered captures nothing new, and the kernels' launches are
+    counted through the replays."""
+    from bigdl_tpu_torch.models.transformer.generate import generate
+    lm = _engine_lm(card)
+    eng = _engine(lm, kind)
+    prompts = _engine_prompts()
+    try:
+        assert eng.cuda_graphs
+        assert eng.warmup() == len(ENGINE_KW["prefill_buckets"])
+        # every (suffix bucket, chain bucket) pair: the second round's
+        # prompts also hit the blocks the first round cached
+        assert eng.warmup_prefix() == 3 * 4
+        warm = eng.stats()["cuda_graphs"]["captures"]
+        before = _launch_counts()
+        for temperature in (0.0, 0.7):
+            streams = [eng.submit(p, max_new_tokens=8,
+                                  temperature=temperature, rng=i)
+                       for i, p in enumerate(prompts)]
+            for i, (p, s) in enumerate(zip(prompts, streams)):
+                want = generate(lm, lm.params, p[None], 8,
+                                temperature=temperature, rng=i,
+                                device=card).numpy()[0]
+                np.testing.assert_array_equal(s.result(timeout=120), want)
+        st = eng.stats()
+        assert st["cuda_graphs"]["captures"] == warm
+        assert st["cuda_graphs"]["replays"] > 0
+        assert st["kvcache"]["prefix_cache"]["hits"] >= 2
+        assert st["prefix_prefill_cache"]["hits"] >= 2
+        assert st["prefix_prefill_cache"]["misses"] == 0
+        after = _launch_counts()
+        assert after["bigdl_flash_fwd"] > before["bigdl_flash_fwd"]
+        if kind == "plain":
+            assert after["bigdl_paged_decode"] > before["bigdl_paged_decode"]
+        else:
+            assert st["spec"]["drafted"] > 0
+            assert eng.draft.decode_compiles == 1
+    finally:
+        eng.close()
+
+
+def _same(tag, got, want, diffs):
+    """Bitwise equal, or within 1e-6 with the difference recorded."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, tag
+    diff = float(np.abs(got - want).max()) if got.size else 0.0
+    diffs[tag] = diff
+    assert diff <= 1e-6, (tag, diff)
+
+
+def _replay_and_eager(graph, eager, fn, diffs, tag):
+    """``fn(engine)`` on both engines: equal host results, equal arenas
+    (the scratch block aside) and equal kernel launches."""
+    counts = []
+    outs = []
+    for eng in (graph, eager):
+        before = _launch_counts()
+        outs.append(fn(eng))
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        counts.append({k: after[k] - before[k] for k in after})
+    if outs[0] is not None:
+        _same(tag, outs[0], outs[1], diffs)
+    assert counts[0] == counts[1], (tag, counts)
+    for a, b in ((graph.pool.k, eager.pool.k), (graph.pool.v, eager.pool.v)):
+        _same(f"{tag} arena", a[:, 1:].cpu(), b[:, 1:].cpu(), diffs)
+    return counts[0]
+
+
+@pytest.mark.parametrize("kind", ["plain", "linear", "tree"])
+def test_replayed_steps_equal_eager_steps(card, kind):
+    """Every step an engine captures, replayed, against the same step run
+    eagerly (``cuda_graphs=False``) on the same arenas and inputs: host
+    logits, written arena rows and kernel launches counted through the
+    replay all equal."""
+    lm = _engine_lm(card)
+    graph, eager = _engine(lm, kind), _engine(lm, kind, cuda_graphs=False)
+    diffs = {}
+    try:
+        assert graph.cuda_graphs and not eager.cuda_graphs
+        for eng in (graph, eager):
+            eng.warmup()
+            eng.warmup_prefix(suffix_lens=[18], prefix_blocks=[2])
+        g = torch.Generator().manual_seed(7)
+        for name in ("k", "v"):
+            fill = torch.randn(getattr(graph.pool, name).shape, generator=g)
+            getattr(graph.pool, name).copy_(fill)
+            getattr(eager.pool, name).copy_(fill)
+        captures = graph.graphs.captures
+        rng = np.random.RandomState(1)
+        S, M = graph.slots, graph.table_width
+        n = graph.pool.shape[1]
+        tables = rng.randint(1, n, size=(S, M)).astype(np.int32)
+        pos = np.asarray([0, 17, 70, 120], np.int32)
+        # prefill buckets, first chunk and a suffix after 2 cached blocks
+        for b, ts in ((16, 9), (32, 32), (64, 50)):
+            ids = np.zeros((1, b), np.int64)
+            ids[0, :ts] = rng.randint(0, 97, size=ts)
+            blocks = [int(i) for i in rng.choice(np.arange(1, n), 8, False)]
+            x = graph._prefill_x(ids, ts, 0, blocks)
+            c = _replay_and_eager(graph, eager, lambda e: e.prefill_cache(
+                e._params, {}, x).cpu(), diffs, f"prefill {b}")
+            assert c["bigdl_flash_fwd"] == ENGINE_LM["n_layers"]
+        ids = np.zeros((1, 32), np.int64)
+        ids[0, :18] = rng.randint(0, 97, size=18)
+        xs = graph._prefill_x(ids, 18, 32, blocks)
+        _replay_and_eager(graph, eager, lambda e: e.prefix_prefill_cache(
+            e._params, {}, xs).cpu(), diffs, "suffix prefill")
+        if kind == "plain":
+            token = rng.randint(0, 97, size=S).astype(np.int64)
+            c = _replay_and_eager(graph, eager, lambda e: e._decode(
+                token, pos, tables), diffs, "decode")
+            assert c["bigdl_paged_decode"] == ENGINE_LM["n_layers"]
+        else:
+            rungs = (range(len(graph._tree_shapes)) if kind == "tree"
+                     else [None])
+            for rung in rungs:
+                w = (graph._tree_shapes[rung].width if rung is not None
+                     else graph.spec.k + 1)
+                tokens = rng.randint(0, 97, size=(S, w)).astype(np.int32)
+                ncand = np.asarray([w, 1, 0, w], np.int32)
+                _replay_and_eager(graph, eager, lambda e: e._verify(
+                    tokens, pos, ncand, tables, rung), diffs,
+                    f"verify rung {rung}")
+            if kind == "tree":
+                dmax = graph._commit_dmax
+                src = np.tile(np.arange(1, dmax + 1, dtype=np.int32), (S, 1))
+                src[0, 0] = dmax + 1
+                _replay_and_eager(graph, eager, lambda e: e._commit(
+                    src, pos, tables), diffs, "commit")
+            # the drafter's steps on its own dense arena
+            for name in ("k", "v"):
+                fill = torch.randn(getattr(graph.draft, name).shape,
+                                   generator=g)
+                getattr(graph.draft, name).copy_(fill)
+                getattr(eager.draft, name).copy_(fill)
+            token = rng.randint(0, 97, size=S).astype(np.int64)
+            dpos = pos.astype(np.int64)
+            _replay_and_eager(graph, eager, lambda e: e.draft._decode(
+                token, dpos), diffs, "drafter decode")
+            ids = np.zeros((1, 32), np.int64)
+            ids[0, :20] = rng.randint(0, 97, size=20)
+            xd = graph.draft._prefill_x(ids, 20, 2)
+            _replay_and_eager(graph, eager, lambda e: e.draft.prefill_cache(
+                e.draft._params, {}, xd), diffs, "drafter prefill")
+            _same("drafter arena", graph.draft.k.cpu(), eager.draft.k.cpu(),
+                  diffs)
+        assert graph.graphs.captures == captures     # every step replayed
+        assert eager.graphs.captures == 0
+        print(f"[{kind}] max |replay - eager|: {diffs}")
+    finally:
+        graph.close()
+        eager.close()

@@ -633,6 +633,7 @@ def test_port_never_imports_jax_or_the_jax_package():
     files = sorted((REPO / "bigdl_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    assert REPO / "bigdl_tpu_torch/serving/compile_cache.py" in files
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
