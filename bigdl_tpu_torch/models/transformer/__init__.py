@@ -12,9 +12,13 @@ tied.  Pre-LayerNorm blocks, tanh-approximate GELU, LayerNorm eps 1e-5.
 forward: differentiable through the stacked leaves (each layer reads
 views of them), with dropout drawn from an explicit
 ``torch.Generator`` and optional activation recomputation (``remat``).
+``quantize`` returns an int8 (or bf16) clone for serving: both forwards
+expand its dequant-mode leaves at the entry (``quant.dequantize_entry``)
+and send int8-compute leaves to ``quant.qmatmul``.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional
 
@@ -25,6 +29,10 @@ from torch.utils.checkpoint import checkpoint
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.nn.normalization import layer_norm
+from bigdl_tpu_torch.quant.kernels import qmatmul
+from bigdl_tpu_torch.quant.qtensor import is_qtensor
+from bigdl_tpu_torch.quant.transform import (QuantPolicy, dequantize_entry,
+                                             quantize_params)
 from bigdl_tpu_torch.utils.params import layer_params
 
 
@@ -141,6 +149,31 @@ class TransformerLM:
         self.params = self.init(torch.Generator().manual_seed(int(seed)))
         return self
 
+    def quantize(self, dtype: str = "int8", *, policy=None,
+                 compute: Optional[str] = None) -> "TransformerLM":
+        """A weight-quantized clone for serving (``self`` keeps its
+        params; the two can serve side by side, their graphs keyed
+        apart).  ``dtype="int8"``: eligible weights become QTensors
+        (``quant.QuantPolicy``'s defaults skip biases, 1-D leaves and the
+        embedding tables); ``compute`` picks the products' regime
+        (``"dequant"``, ``"int8"``, ``"auto"``, ``"fp8"``), and an
+        explicit ``policy`` wins over it.  ``dtype="bf16"``: a plain
+        cast.  The clone's ``quant_report`` holds the byte counts, the
+        per-leaf max abs dequantization error and, for int8 compute, the
+        int32-accumulator overflow risk.  Inference only: train the
+        float model and quantize again."""
+        if self.params is None:
+            raise ValueError("quantize() needs params: call build(seed) "
+                             "or set params first")
+        if policy is None and compute is not None:
+            policy = QuantPolicy(dtype, compute=compute)
+        report: dict = {}
+        new = copy.copy(self)
+        new.params = quantize_params(self.params, dtype, policy=policy,
+                                     report=report)
+        new.quant_report = report
+        return new
+
     # -------------------------------------------------------------- #
     @staticmethod
     def _layer_norm(p, x):
@@ -153,8 +186,8 @@ class TransformerLM:
                 apply_rope(k, positions, self.rope_base))
 
     def _mlp(self, bp, m):
-        m = F.gelu(torch.matmul(m, bp["w1"]) + bp["b1"], approximate="tanh")
-        return torch.matmul(m, bp["w2"]) + bp["b2"]
+        m = F.gelu(qmatmul(m, bp["w1"]) + bp["b1"], approximate="tanh")
+        return qmatmul(m, bp["w2"]) + bp["b2"]
 
     def _dropout(self, x, generator: torch.Generator):
         keep = 1.0 - self.dropout
@@ -182,12 +215,18 @@ class TransformerLM:
         return x + m
 
     def head_logits(self, params, h):
-        """The LM head: ``h @ embed.T`` when tied, ``h @ head`` else."""
+        """The LM head: ``h @ embed.T`` when tied, ``h @ head`` else (a
+        quantized untied head through ``qmatmul``; the policy never
+        quantizes the embedding)."""
         if self.tie_embeddings:
             return torch.matmul(h, params["embed"].T.to(h.dtype))
-        return torch.matmul(h, params["head"].to(h.dtype))
+        head = params["head"]
+        if is_qtensor(head):
+            return qmatmul(h, head)
+        return torch.matmul(h, head.to(h.dtype))
 
     def _forward(self, params, x, training: bool, generator):
+        params = dequantize_entry(params)  # int8 clones run the forward too
         ids = torch.as_tensor(x, device=self.device)
         if ids.is_floating_point():
             ids = ids.to(torch.int32)

@@ -13,6 +13,17 @@ The serving steps are capturable as CUDA graphs: every per-call index
 be a device tensor, and no step reads a value back to the host or
 copies one to the device, so one captured graph serves every value of
 its inputs.
+
+Quantized params (``TransformerLM.quantize``) serve as they are stored:
+each step expands the top-level dequant-mode leaves at its entry and
+the stacked blocks' one layer at a time (``_layers``), where the
+reference expands the whole tree inside its traced step.  The expansion
+is elementwise, so the numbers are the same, and a captured step holds
+one layer's float copy instead of the model's.  ``k_scale``/``v_scale``
+(L, N, H, B) float32 mark int8 KV arenas (``BlockPool(kv_quant=
+"int8")``): rows are quantized per (position, head) on write
+(:func:`_kv_quantize_rows`) and dequantized inside the dense gather;
+the paged kernel reads float arenas only, as the reference's does.
 """
 from __future__ import annotations
 
@@ -26,12 +37,66 @@ from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.models.transformer import TransformerLM
 from bigdl_tpu_torch.nn.attention import dot_product_attention
 from bigdl_tpu_torch.ops import flash_attention, paged_decode_attention
+from bigdl_tpu_torch.quant.qtensor import true_div
+from bigdl_tpu_torch.quant.transform import dequantize_entry
 from bigdl_tpu_torch.utils import keychain
 from bigdl_tpu_torch.utils.params import layer_params
 
 
+def _entry(params):
+    """The entry seam for the top-level leaves (embeddings, final norm,
+    an untied head); the blocks expand per layer in :func:`_layers`."""
+    top = dequantize_entry({k: v for k, v in params.items()
+                            if k != "blocks"})
+    return dict(top, blocks=params["blocks"])
+
+
 def _layers(model, params):
-    return [layer_params(params["blocks"], i) for i in range(model.n_layers)]
+    """Each layer's params in turn, its dequant-mode leaves expanded as
+    it is reached (one layer's float copy alive at a time)."""
+    for i in range(model.n_layers):
+        yield dequantize_entry(layer_params(params["blocks"], i))
+
+
+def _kv_quantize_rows(x):
+    """Symmetric int8 rows for the quantized KV arenas: ``x`` (..., D)
+    float -> (q int8 (..., D), scale float32 (...,)), one absmax scale
+    per (position, head) row, bitwise the reference's."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    s = true_div(torch.clamp_min(amax, 1e-12), 127.0)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _layer_scales(k_scale, v_scale, layer):
+    """One layer's (k, v) scale arenas; (None, None) for float arenas."""
+    if k_scale is None:
+        return None, None
+    return k_scale[layer], v_scale[layer]
+
+
+def _write_rows(kc, vc, ks, vs, blk, off, k, v):
+    """Write one layer's new k/v rows (..., H, D) at (``blk``, ``off``)
+    in place: as they are into float arenas, quantized with their
+    scales into int8 ones (``ks``/``vs`` not None)."""
+    if ks is None:
+        kc[blk, :, off, :] = k.to(kc.dtype)
+        vc[blk, :, off, :] = v.to(vc.dtype)
+        return
+    kq, ksr = _kv_quantize_rows(k)
+    vq, vsr = _kv_quantize_rows(v)
+    kc[blk, :, off, :] = kq
+    vc[blk, :, off, :] = vq
+    ks[blk, :, off] = ksr
+    vs[blk, :, off] = vsr
+
+
+def _gather_rows(arena, scale, index):
+    """``arena[index]`` of one layer; int8 rows come back dequantized,
+    times their gathered scales in one float32 pass."""
+    x = arena[index]
+    return x if scale is None else x * scale[index][..., None]
 
 
 def _block_qkv(model, bp, h):
@@ -68,6 +133,7 @@ def _prefill_parts(model, params, ids0, last_index, *,
     ``last_index`` (an int, or a device int tensor).  ``attention_impl``
     overrides the model's attention core ("flash" runs the CUDA flash
     kernel)."""
+    params = _entry(params)
     b, t = ids0.shape
     h = params["embed"][ids0]
     if model.pos_encoding == "learned":
@@ -106,6 +172,7 @@ def _decode_step_slots(model, params, token, pos, k_cache, v_cache):
     0-based, pos (S,) the position each slot writes.  Caches (L, S, H,
     cache_len, D) are written in place.  Returns (float32 logits (S, V),
     k_cache, v_cache)."""
+    params = _entry(params)
     s = token.shape[0]
     hd = model._mha.head_dim
     pos = pos.long()
@@ -137,7 +204,8 @@ def _decode_step_slots(model, params, token, pos, k_cache, v_cache):
 
 
 def _prefill_suffix_parts(model, params, ids0, last_index, prefix_len,
-                          blocks, k_arena, v_arena):
+                          blocks, k_arena, v_arena, k_scale=None,
+                          v_scale=None):
     """Prefill a prompt SUFFIX against a cached prefix held in paged
     blocks: ``ids0`` (1, Ts) is the bucket-padded suffix at absolute
     positions ``prefix_len + i``; ``blocks`` (Pb,) the scratch-padded
@@ -148,7 +216,11 @@ def _prefill_suffix_parts(model, params, ids0, last_index, prefix_len,
 
     Attention is plain (as in the reference): the suffix queries attend
     the cached prefix keys (stored post-RoPE, so never rotated again)
-    below ``prefix_len`` plus the causal suffix keys."""
+    below ``prefix_len`` plus the causal suffix keys.  With
+    ``k_scale``/``v_scale`` the prefix gather dequantizes int8 rows; the
+    returned suffix k/v stay float (``_insert_blocks`` quantizes
+    them)."""
+    params = _entry(params)
     b, ts = ids0.shape
     dev = ids0.device
     blen = k_arena.shape[3]
@@ -168,8 +240,11 @@ def _prefill_suffix_parts(model, params, ids0, last_index, prefix_len,
         q, k, v = _block_qkv(model, bp, h)
         q, k = model._rope(q, k, positions)
         n_h, d = kc.shape[1], kc.shape[3]
-        kp = kc[blocks].permute(1, 0, 2, 3).reshape(1, n_h, pb * blen, d)
-        vp = vc[blocks].permute(1, 0, 2, 3).reshape(1, n_h, pb * blen, d)
+        ksl, vsl = _layer_scales(k_scale, v_scale, i)
+        kp = _gather_rows(kc, ksl, blocks)
+        vp = _gather_rows(vc, vsl, blocks)
+        kp = kp.permute(1, 0, 2, 3).reshape(1, n_h, pb * blen, d)
+        vp = vp.permute(1, 0, 2, 3).reshape(1, n_h, pb * blen, d)
         o = dot_product_attention(q, torch.cat([kp.to(k.dtype), k], dim=2),
                                   torch.cat([vp.to(v.dtype), v], dim=2),
                                   mask=mask)
@@ -182,12 +257,16 @@ def _prefill_suffix_parts(model, params, ids0, last_index, prefix_len,
     return logits.float(), torch.stack(ks), torch.stack(vs)
 
 
-def _insert_blocks(k_arena, v_arena, k_new, v_new, block_ids):
+def _insert_blocks(k_arena, v_arena, k_new, v_new, block_ids,
+                   k_scale=None, v_scale=None):
     """Scatter a prefilled chunk's k/v (L, 1, H, Tb, D) into arena
     blocks (L, N, H, B, D) in place: row i lands in block
     ``block_ids[i // B]`` at offset ``i % B`` (chunks start
     block-aligned).  ``block_ids`` is padded with the scratch block 0,
-    which absorbs the bucket-padding rows."""
+    which absorbs the bucket-padding rows.  With ``k_scale``/``v_scale``
+    (L, N, H, B) the rows are quantized per (position, head) on the way
+    in and their scales scattered alongside; returns the four arenas
+    then."""
     L, N, H, B, D = k_arena.shape
     nb = block_ids.shape[0]
     tb = k_new.shape[3]
@@ -195,6 +274,16 @@ def _insert_blocks(k_arena, v_arena, k_new, v_new, block_ids):
     if pad:
         k_new = torch.nn.functional.pad(k_new, (0, 0, 0, pad))
         v_new = torch.nn.functional.pad(v_new, (0, 0, 0, pad))
+    if k_scale is not None:
+        kq, ksr = _kv_quantize_rows(k_new[:, 0])     # (L, H, nb*B, D/-)
+        vq, vsr = _kv_quantize_rows(v_new[:, 0])
+        k_arena[:, block_ids] = kq.reshape(L, H, nb, B, D).permute(
+            0, 2, 1, 3, 4)
+        v_arena[:, block_ids] = vq.reshape(L, H, nb, B, D).permute(
+            0, 2, 1, 3, 4)
+        k_scale[:, block_ids] = ksr.reshape(L, H, nb, B).permute(0, 2, 1, 3)
+        v_scale[:, block_ids] = vsr.reshape(L, H, nb, B).permute(0, 2, 1, 3)
+        return k_arena, v_arena, k_scale, v_scale
     kb = k_new[:, 0].reshape(L, H, nb, B, D).permute(0, 2, 1, 3, 4)
     vb = v_new[:, 0].reshape(L, H, nb, B, D).permute(0, 2, 1, 3, 4)
     k_arena[:, block_ids] = kb.to(k_arena.dtype)
@@ -203,7 +292,8 @@ def _insert_blocks(k_arena, v_arena, k_new, v_new, block_ids):
 
 
 def _decode_step_paged(model, params, token, pos, tables, k_arena,
-                       v_arena, *, attn_impl: str = "gather"):
+                       v_arena, k_scale=None, v_scale=None, *,
+                       attn_impl: str = "gather"):
     """One cached decode step over S slots against PAGED arenas (L, N,
     H, B, D): each slot's KV lives in the blocks named by its row of
     ``tables`` (S, M).  The new k/v row of each slot is written in place
@@ -213,10 +303,16 @@ def _decode_step_paged(model, params, token, pos, tables, k_arena,
     by gathering it into a dense (S, H, M*B, D) view (``"gather"``) or
     in place through the CUDA paged kernel (``"paged_kernel"``; its
     plain version on CPU tensors).  Returns (float32 logits (S, V),
-    k_arena, v_arena)."""
+    k_arena, v_arena), and the scale arenas after them for int8 arenas
+    (``k_scale``/``v_scale``), which need the gather: the paged kernel
+    reads raw float blocks."""
     if attn_impl not in ("gather", "paged_kernel"):
         raise ValueError(f"attn_impl must be 'gather' or 'paged_kernel', "
                          f"got {attn_impl!r}")
+    if k_scale is not None and attn_impl == "paged_kernel":
+        raise ValueError("kv_quant='int8' requires decode_attn='gather' "
+                         "(the paged kernel reads raw float blocks)")
+    params = _entry(params)
     mha = model._mha
     s, m = tables.shape
     B = k_arena.shape[3]
@@ -236,14 +332,16 @@ def _decode_step_paged(model, params, token, pos, tables, k_arena,
         kc, vc = k_arena[i], v_arena[i]              # (N, H, B, D)
         q, k, v = _block_qkv(model, bp, h)           # (S, H, 1, D)
         q, k = model._rope(q, k, positions)
-        kc[blk, :, off, :] = k[:, :, 0, :].to(kc.dtype)
-        vc[blk, :, off, :] = v[:, :, 0, :].to(vc.dtype)
+        ksl, vsl = _layer_scales(k_scale, v_scale, i)
+        _write_rows(kc, vc, ksl, vsl, blk, off, k[:, :, 0, :], v[:, :, 0, :])
         if attn_impl == "paged_kernel":
             o = paged_decode_attention(q, kc, vc, tables, pos)
         else:
-            kg = kc[tables_l].permute(0, 2, 1, 3, 4).reshape(
+            kg = _gather_rows(kc, ksl, tables_l)
+            vg = _gather_rows(vc, vsl, tables_l)
+            kg = kg.permute(0, 2, 1, 3, 4).reshape(
                 s, mha.n_head, ctx, mha.head_dim)
-            vg = vc[tables_l].permute(0, 2, 1, 3, 4).reshape(
+            vg = vg.permute(0, 2, 1, 3, 4).reshape(
                 s, mha.n_head, ctx, mha.head_dim)
             scores = torch.matmul(q.float(), kg.float().transpose(-1, -2))
             scores = scores / math.sqrt(mha.head_dim)
@@ -252,18 +350,22 @@ def _decode_step_paged(model, params, token, pos, tables, k_arena,
         h = _finish_block(model, bp, h, o.to(h.dtype))
     h = model._layer_norm(params["ln_f"], h)
     logits = _head_logits(model, params, h)[:, 0]
+    if k_scale is not None:
+        return logits.float(), k_arena, v_arena, k_scale, v_scale
     return logits.float(), k_arena, v_arena
 
 
 def _score_candidates(model, params, tokens, rope_pos, store, n_cand, mask,
-                      tables, k_arena, v_arena):
+                      tables, k_arena, v_arena, k_scale=None, v_scale=None):
     """The verify steps' shared body: W candidate rows per slot, row j of
     slot s rotated (and, for learned positions, embedded) at
     ``rope_pos[s, j]``, its k/v written in place at arena position
     ``store[s, j]`` (rows >= ``n_cand[s]`` go to the scratch block 0,
     which is never attended), attending the slot's gathered chain under
     ``mask`` (S, 1, W, ctx) with float32 scores.  Returns (float32 logits
-    (S, W, V), k_arena, v_arena)."""
+    (S, W, V), k_arena, v_arena), and the scale arenas after them for
+    int8 arenas."""
+    params = _entry(params)
     mha = model._mha
     s, w = tokens.shape
     m = tables.shape[1]
@@ -289,11 +391,14 @@ def _score_candidates(model, params, tokens, rope_pos, store, n_cand, mask,
         kc, vc = k_arena[i], v_arena[i]              # (N, H, B, D)
         q, k, v = _block_qkv(model, bp, h)           # (S, H, W, D)
         q, k = model._rope(q, k, positions)
-        kc[blk, :, off, :] = k.transpose(1, 2).to(kc.dtype)
-        vc[blk, :, off, :] = v.transpose(1, 2).to(vc.dtype)
-        kg = kc[tables_l].permute(0, 2, 1, 3, 4).reshape(
+        ksl, vsl = _layer_scales(k_scale, v_scale, i)
+        _write_rows(kc, vc, ksl, vsl, blk, off, k.transpose(1, 2),
+                    v.transpose(1, 2))
+        kg = _gather_rows(kc, ksl, tables_l)
+        vg = _gather_rows(vc, vsl, tables_l)
+        kg = kg.permute(0, 2, 1, 3, 4).reshape(
             s, mha.n_head, ctx, mha.head_dim)
-        vg = vc[tables_l].permute(0, 2, 1, 3, 4).reshape(
+        vg = vg.permute(0, 2, 1, 3, 4).reshape(
             s, mha.n_head, ctx, mha.head_dim)
         scores = torch.matmul(q.float(), kg.float().transpose(-1, -2))
         scores = scores / math.sqrt(mha.head_dim)
@@ -301,11 +406,14 @@ def _score_candidates(model, params, tokens, rope_pos, store, n_cand, mask,
         o = torch.matmul(torch.softmax(scores, dim=-1), vg.float())
         h = _finish_block(model, bp, h, o.to(h.dtype))
     h = model._layer_norm(params["ln_f"], h)
-    return _head_logits(model, params, h).float(), k_arena, v_arena
+    logits = _head_logits(model, params, h).float()
+    if k_scale is not None:
+        return logits, k_arena, v_arena, k_scale, v_scale
+    return logits, k_arena, v_arena
 
 
 def _verify_step_paged(model, params, tokens, pos, n_cand, tables, k_arena,
-                       v_arena):
+                       v_arena, k_scale=None, v_scale=None):
     """Speculative VERIFY over paged arenas: score all W = k+1 candidate
     rows per slot in one step.  ``tokens`` (S, W) 0-based, laid out
     ``[last_emitted, draft_1 .. draft_k]``; ``pos`` (S,) each slot's next
@@ -328,11 +436,13 @@ def _verify_step_paged(model, params, tokens, pos, n_cand, tables, k_arena,
     mask = (torch.arange(ctx, device=dev)[None, None, :]
             <= abspos[:, :, None])[:, None]
     return _score_candidates(model, params, tokens, abspos, abspos, n_cand,
-                             mask, tables, k_arena, v_arena)
+                             mask, tables, k_arena, v_arena, k_scale,
+                             v_scale)
 
 
 def _tree_verify_step_paged(model, params, tokens, pos, n_cand, tables,
-                            k_arena, v_arena, *, depths, anc):
+                            k_arena, v_arena, k_scale=None, v_scale=None,
+                            *, depths, anc):
     """Tree-speculative VERIFY over paged arenas: score all W nodes of a
     fixed-shape candidate tree per slot in one step.  ``tokens`` (S, W)
     holds one token per node (node 0 the last emitted root), ``depths``
@@ -365,16 +475,19 @@ def _tree_verify_step_paged(model, params, tokens, pos, n_cand, tables,
     mask = ((rel < 0)[:, None, :]
             | (in_tree[:, None, :] & anc_cols.permute(1, 0, 2)))[:, None]
     return _score_candidates(model, params, tokens, rope, store, n_cand,
-                             mask, tables, k_arena, v_arena)
+                             mask, tables, k_arena, v_arena, k_scale,
+                             v_scale)
 
 
-def _tree_commit_paged(src, pos, tables, k_arena, v_arena):
+def _tree_commit_paged(src, pos, tables, k_arena, v_arena, k_scale=None,
+                       v_scale=None):
     """After the host walk accepts a tree path, copy each accepted node's
     k/v row from its STORE offset ``pos + src[s, d-1]`` down to its
     POSITION offset ``pos + d``, in place, so the committed chain reads
     contiguously.  ``src`` (S, Dmax) is the accepted node at depth d =
     column + 1; identity entries rewrite a row onto itself.  Each layer
-    gathers every source row before it writes any."""
+    gathers every source row (with its scales, for int8 arenas) before it
+    writes any.  Returns the arenas it was given."""
     s, dmax = src.shape
     m = tables.shape[1]
     B = k_arena.shape[3]
@@ -390,11 +503,20 @@ def _tree_commit_paged(src, pos, tables, k_arena, v_arena):
     soff = src_abs % B
     dblk = tables_l[rows, (dst_abs // B).clamp(max=m - 1)]
     doff = dst_abs % B
-    for kc, vc in zip(k_arena, v_arena):
+    for i, (kc, vc) in enumerate(zip(k_arena, v_arena)):
+        ksl, vsl = _layer_scales(k_scale, v_scale, i)
         kr = kc[sblk, :, soff, :]                    # (S, Dmax, H, D) copies
         vr = vc[sblk, :, soff, :]
+        if ksl is not None:
+            ksr = ksl[sblk, :, soff]                 # (S, Dmax, H) copies
+            vsr = vsl[sblk, :, soff]
         kc[dblk, :, doff, :] = kr
         vc[dblk, :, doff, :] = vr
+        if ksl is not None:
+            ksl[dblk, :, doff] = ksr
+            vsl[dblk, :, doff] = vsr
+    if k_scale is not None:
+        return k_arena, v_arena, k_scale, v_scale
     return k_arena, v_arena
 
 
@@ -450,6 +572,7 @@ def generate(model: TransformerLM, params, prompt_ids, max_new_tokens: int,
         key, first_key = keychain.split(key)
         if max_new_tokens > 1:
             step_keys = keychain.split(key, int(max_new_tokens) - 1)
+    params = dequantize_entry(params)  # int8 clones generate too
     ids0 = (ids - 1).to(dev)
     logits, k_cache, v_cache = _prefill(model, params, ids0, cache_len)
     tok = _choose(logits, temperature, first_key, clamp=False)

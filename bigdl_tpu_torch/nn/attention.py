@@ -11,6 +11,9 @@ from typing import Optional
 
 import torch
 
+from bigdl_tpu_torch.quant.kernels import qmatmul
+from bigdl_tpu_torch.quant.qtensor import is_qtensor
+
 
 def segment_mask(seg_q, seg_k):
     """(B, 1, Tq, Tk) boolean packed-document isolation mask from
@@ -48,7 +51,10 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
 
 def _match_compute_dtype(x, w):
     """Cast a float input to a float weight's dtype (the reference's
-    ``match_compute_dtype``), so the product runs in the weight's type."""
+    ``match_compute_dtype``), so the product runs in the weight's type; a
+    QTensor weight leaves the input as it is (``qmatmul`` decides)."""
+    if is_qtensor(w):
+        return x
     if x.is_floating_point() and w.is_floating_point() and x.dtype != w.dtype:
         return x.to(w.dtype)
     return x
@@ -117,16 +123,18 @@ class MultiHeadAttention:
         return x.transpose(1, 2).reshape(b, t, h * d)
 
     def project_qkv(self, params, q_in, k_in, v_in):
-        q = torch.matmul(_match_compute_dtype(q_in, params["wq"]), params["wq"])
-        k = torch.matmul(_match_compute_dtype(k_in, params["wk"]), params["wk"])
-        v = torch.matmul(_match_compute_dtype(v_in, params["wv"]), params["wv"])
+        # qmatmul is the QTensor-aware seam: plain tensors go straight to
+        # torch.matmul, an int8-compute weight to the int8 product
+        q = qmatmul(_match_compute_dtype(q_in, params["wq"]), params["wq"])
+        k = qmatmul(_match_compute_dtype(k_in, params["wk"]), params["wk"])
+        v = qmatmul(_match_compute_dtype(v_in, params["wv"]), params["wv"])
         if self.with_bias:
             q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
         return (self._split_heads(q), self._split_heads(k),
                 self._split_heads(v))
 
     def project_out(self, params, o):
-        y = torch.matmul(self._merge_heads(o), params["wo"])
+        y = qmatmul(self._merge_heads(o), params["wo"])
         if self.with_bias:
             y = y + params["bo"]
         return y

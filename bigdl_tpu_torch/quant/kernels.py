@@ -1,0 +1,149 @@
+"""Products with quantized weights: dequant, int8 and fp8 (port of
+``bigdl_tpu/quant/kernels.py``).
+
+The reference computes these as plain ``lax.dot_general`` products with
+int32 (int8) or float32 (fp8) accumulation, outside any Pallas kernel;
+here they are library calls of the same arithmetic:
+
+- **dequant**: ``q * scale`` expanded to the weight's original dtype,
+  then ``torch.matmul`` at the activation's precision;
+- **int8** (:func:`qmatmul_i8`): the activation quantized per token
+  (``activations.quantize_per_token``), ``torch._int_mm`` for the exact
+  int32 accumulators, then one float32 rescale ``acc * xs * ws``;
+- **fp8** (:func:`qmatmul_f8`): both operands cast to e4m3 with per-row
+  and per-column scales; ``torch._scaled_mm`` on the card, a float32
+  product of the same e4m3 values on the CPU.
+
+cuBLASLt's int8 product on the card refuses a first operand of 16 rows
+or fewer and any ``k`` or ``n`` that is not a multiple of 8, and runs
+fastest with the second operand column-major (the layout ``QTensor``
+stores).  Rows are independent and zero columns add nothing, so
+:func:`int_mm` pads with zeros and slices the result: the accumulators
+stay exact, with no float fallback.
+
+``qlinear``/``qconv`` and their ``_i8`` forms wait for the port's
+``nn.Linear``/``SpatialConvolution`` (ROADMAP Queue 1 item 12).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from bigdl_tpu_torch.quant.activations import (E4M3_MAX, FP8_DTYPE,
+                                               quantize_per_token,
+                                               quantize_per_token_fp8)
+from bigdl_tpu_torch.quant.qtensor import (QTensor, _col_major, is_qtensor,
+                                           torch_dtype, true_div)
+
+# cuBLASLt int8 product on the card: more than 16 rows, k and n multiples
+# of 8 (checked on an H100 with torch 2.11); fp8: k and n multiples of 16
+_INT8_MIN_ROWS = 32
+_INT8_ALIGN = 8
+_FP8_ALIGN = 16
+
+
+def _pad_to(n: int, align: int) -> int:
+    return -(-n // align) * align - n
+
+
+def int_mm(a, b):
+    """The exact int32 product of int8 ``a`` (m, k) and ``b`` (k, n).
+    On the card, ``a`` is padded with zero rows to more than 16 and both
+    operands with zeros to k and n multiples of 8; ``b`` goes to
+    cuBLASLt column-major."""
+    if a.device.type != "cuda":
+        return torch._int_mm(a, b)      # the CPU takes every shape
+    m, k = a.shape
+    n = b.shape[1]
+    pm = max(_INT8_MIN_ROWS - m, 0)
+    pk, pn = _pad_to(k, _INT8_ALIGN), _pad_to(n, _INT8_ALIGN)
+    if pm or pk:
+        a = F.pad(a, (0, pk, 0, pm))
+    if pk or pn:
+        b = F.pad(b, (0, pn, 0, pk))
+    acc = torch._int_mm(a, _col_major(b))
+    return acc[:m, :n] if (pm or pn) else acc
+
+
+def _f8_mm(a, b):
+    """float32 product of e4m3 ``a`` (m, k) and ``b`` (k, n): cuBLASLt's
+    fp8 product (unit scales) on the card, the same e4m3 values as
+    float32 on the CPU."""
+    if a.device.type != "cuda":
+        return torch.matmul(a.float(), b.float())
+    k, n = b.shape
+    pk, pn = _pad_to(k, _FP8_ALIGN), _pad_to(n, _FP8_ALIGN)
+    if pk:
+        a = F.pad(a.view(torch.uint8), (0, pk)).view(FP8_DTYPE)
+    if pk or pn:
+        b = F.pad(b.view(torch.uint8), (0, pn, 0, pk)).view(FP8_DTYPE)
+    one = torch.ones((), dtype=torch.float32, device=a.device)
+    acc = torch._scaled_mm(a, _col_major(b), scale_a=one, scale_b=one,
+                           out_dtype=torch.float32)
+    return acc[:, :n] if pn else acc
+
+
+def resolve_compute(qweight: QTensor, x_shape) -> str:
+    """The effective compute mode for one (activation shape, weight)
+    pair.  ``"auto"`` resolves as the reference's rule does when its
+    autotune cache holds no verdict (``lookup_qcompute(...) or
+    "dequant"``): the port has no autotune cache yet (ROADMAP Queue 1
+    item 7), so ``"auto"`` is ``"dequant"`` for now."""
+    del x_shape  # the shape keys the autotune verdict, once ported
+    mode = qweight.compute
+    return "dequant" if mode == "auto" else mode
+
+
+def qmatmul(x, w):
+    """``x @ w`` for the ``(in, out)`` weights the transformer consumes
+    directly (attention projections, MLP halves, the untied head):
+    plain tensors go to ``torch.matmul`` (mixed float types promoted);
+    a QTensor's ``compute`` picks the recipe."""
+    if not is_qtensor(w):
+        if (x.is_floating_point() and w.is_floating_point()
+                and x.dtype != w.dtype):
+            # as jnp's ``@`` promotes (a bf16 clone's weights, float32
+            # activations)
+            dt = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(dt), w.to(dt)
+        return torch.matmul(x, w)
+    if w.q.ndim == 2:
+        mode = resolve_compute(w, x.shape)
+        if mode == "int8":
+            return qmatmul_i8(x, w)
+        if mode == "fp8":
+            return qmatmul_f8(x, w)
+    # the entry seam's numbers: expand to the original dtype, multiply
+    # at the activation's precision
+    wd = w.dequantize()
+    if x.is_floating_point() and x.dtype != wd.dtype:
+        x = x.to(wd.dtype)
+    return torch.matmul(x, wd)
+
+
+def qmatmul_i8(x, qweight: QTensor):
+    """``x @ w`` (``(in, out)`` weight, scales ``(1, out)``) with int8 x
+    int8 products: per-token activation quantization, exact int32
+    accumulation, one float32 rescale by activation scale (..., 1) x
+    weight scale (out,)."""
+    xq, xs = quantize_per_token(x, scale=qweight.act_scale)
+    acc = int_mm(xq.reshape(-1, xq.shape[-1]), qweight.q)
+    acc = acc.reshape(xq.shape[:-1] + (acc.shape[-1],))
+    y = acc.float() * xs * qweight.scale.reshape(-1)
+    return y.to(torch_dtype(qweight.orig_dtype))
+
+
+def qmatmul_f8(x, qweight: QTensor):
+    """fp8 (e4m3) form of :func:`qmatmul_i8`: both operands cast to e4m3
+    with per-token / per-column scales, float32 accumulation, one
+    rescale.  Reached only through ``compute="fp8"``, which the policy
+    gates on ``activations.fp8_supported()``."""
+    xq, xs = quantize_per_token_fp8(x, force=True)
+    wf = qweight.q.float()                  # re-express the int8 in e4m3
+    wmax = torch.clamp_min(wf.abs().amax(dim=0, keepdim=True), 1e-12)
+    wq = (wf / true_div(wmax, E4M3_MAX)).to(FP8_DTYPE)
+    acc = _f8_mm(xq.reshape(-1, xq.shape[-1]), wq)
+    acc = acc.reshape(xq.shape[:-1] + (acc.shape[-1],))
+    ws = qweight.scale.reshape(-1) * true_div(wmax.reshape(-1), E4M3_MAX)
+    y = acc * xs * ws
+    return y.to(torch_dtype(qweight.orig_dtype))

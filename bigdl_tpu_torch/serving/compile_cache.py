@@ -8,11 +8,16 @@ state.  The CUDA counterpart of an executable is one
 ``torch.cuda.CUDAGraph`` per shape, captured once and replayed.  Entries
 are keyed on
 
-    (per-leaf (shape, dtype) of the inputs, params dtype tag)
+    (per-leaf (shape, dtype) of the inputs, params dtype tag,
+     params compute tag)
 
-where the tag is "bf16" when a params leaf is bfloat16, else "f32".  The
-port has no int8 params and no placement, so it has no int8 tag and no
-placement tag.
+where the dtype tag is the reference's ``quant.params_dtype_tag``
+("int8" when a params leaf is a QTensor, else "bf16" when one is
+bfloat16, else "f32") and the compute tag the dominant compute mode of
+the QTensor leaves (``quant.params_compute_tag``; None for a float
+tree), which the reference's pytree aux keeps apart: an int8 tree and a
+float tree, or one int8 payload under two compute modes, never share a
+graph.  The port has no placement, so it has no placement tag.
 
 On a CUDA device an entry is a captured graph (:class:`GraphPool`
 makes it): static device tensors for the inputs, pinned host buffers to
@@ -55,9 +60,13 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.utils.params import tree_leaves
+from bigdl_tpu_torch.quant.transform import (params_compute_tag,
+                                             params_dtype_tag)
 
-Key = Tuple[tuple, str]
+__all__ = ["CompileCache", "GraphPool", "StepGraph", "input_signature",
+           "params_dtype_tag"]
+
+Key = Tuple[tuple, str, Optional[str]]
 
 
 def _dtype_name(dtype) -> str:
@@ -78,14 +87,6 @@ def input_signature(x) -> tuple:
         return (f"dict{keys}", tuple(input_signature(x[k]) for k in keys))
     raise TypeError(f"cache inputs are arrays or dicts of arrays, got "
                     f"{type(x).__name__}")
-
-
-def params_dtype_tag(params) -> str:
-    """"bf16" when any params leaf is bfloat16, else "f32"."""
-    for leaf in tree_leaves(params):
-        if getattr(leaf, "dtype", None) == torch.bfloat16:
-            return "bf16"
-    return "f32"
 
 
 def _leaves(x):
@@ -292,8 +293,10 @@ class CompileCache:
 
     # ------------------------------------------------------------------ #
     def key_for(self, x, params=None) -> Key:
-        return (input_signature(x),
-                params_dtype_tag(params) if params is not None else "f32")
+        if params is None:
+            return (input_signature(x), "f32", None)
+        return (input_signature(x), params_dtype_tag(params),
+                params_compute_tag(params))
 
     def _make(self, params, buffers, x):
         fn = self._fn

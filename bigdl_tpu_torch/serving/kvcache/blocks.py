@@ -10,6 +10,11 @@ on the engine's device, and a sequence is a host-side list of block ids
 rows into blocks and decode reads them through a padded int32 table,
 both in place.  Allocation, refcounts and sharing live on the host.
 
+With ``kv_quant="int8"`` the arenas hold int8 rows and two float32
+scale arenas ``ks``/``vs`` of shape (L, num_blocks, H, block_len), one
+scale per (position, head) row; the dense gather dequantizes them (the
+paged kernel reads float arenas only).
+
 Block 0 is reserved as **scratch**: padded table entries and padded
 scatter targets point at it, so garbage lands in (or comes from) it and
 is always masked by the position mask.  It is never allocated or freed.
@@ -35,19 +40,23 @@ class BlockPool:
         n_layers / n_heads / head_dim: model geometry (L, H, D).
         block_len: tokens per block (the page size).
         num_blocks: total blocks INCLUDING the scratch block 0.
-        dtype: arena dtype (float32 by default).
+        dtype: arena dtype (float32 by default) of a float pool.
         device: where the arenas live.
-        kv_quant: only ``None``; int8 arenas are a later slice.
+        kv_quant: ``None`` (float arenas) or ``"int8"``: int8 arenas
+            plus the float32 scale arenas ``ks``/``vs`` (L, N, H, B).
+            About 4x the positions in the same memory, less the scales'
+            1/D; lossy, so streams are not bit-exact against a float
+            pool.  Chain export/adopt waits for disaggregated serving
+            (ROADMAP Queue 1 item 11.4).
     """
 
     def __init__(self, *, n_layers: int, n_heads: int, head_dim: int,
                  block_len: int, num_blocks: int,
                  dtype: Optional[torch.dtype] = None, device="cpu",
                  kv_quant: Optional[str] = None):
-        if kv_quant is not None:
-            raise NotImplementedError(
-                "kv_quant is not ported yet (ROADMAP Queue 1 item 10: "
-                "quantization); the pool stores full-precision KV")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(
+                f"kv_quant must be None or 'int8', got {kv_quant!r}")
         if block_len < 1:
             raise ValueError(f"block_len must be >= 1, got {block_len}")
         if num_blocks < 2:
@@ -58,8 +67,17 @@ class BlockPool:
         self.num_blocks = int(num_blocks)
         self.shape = (int(n_layers), self.num_blocks, int(n_heads),
                       self.block_len, int(head_dim))
-        self.kv_quant = None
-        dt = dtype if dtype is not None else torch.float32
+        self.kv_quant = kv_quant
+        if kv_quant == "int8":
+            dt = torch.int8
+            # per-(position, head) scales, block-major like the arenas
+            self.ks = torch.zeros(self.shape[:4], dtype=torch.float32,
+                                  device=device)
+            self.vs = torch.zeros(self.shape[:4], dtype=torch.float32,
+                                  device=device)
+        else:
+            dt = dtype if dtype is not None else torch.float32
+            self.ks = self.vs = None
         self.k = torch.zeros(self.shape, dtype=dt, device=device)
         self.v = torch.zeros(self.shape, dtype=dt, device=device)
         self.dtype = dt
@@ -80,9 +98,22 @@ class BlockPool:
             return len(self._free)
 
     @property
-    def arena_bytes(self) -> int:
-        """Device footprint of the k + v arenas."""
+    def kv_arena_bytes(self) -> int:
+        """Device footprint of the k + v data arenas alone."""
         return 2 * self.k.numel() * self.k.element_size()
+
+    @property
+    def scale_arena_bytes(self) -> int:
+        """Device footprint of the int8 pool's scale arenas (0 for a
+        float pool)."""
+        if self.ks is None:
+            return 0
+        return 2 * self.ks.numel() * self.ks.element_size()
+
+    @property
+    def arena_bytes(self) -> int:
+        """Device footprint of the k + v arenas, scale arenas included."""
+        return self.kv_arena_bytes + self.scale_arena_bytes
 
     def blocks_for(self, n_tokens: int) -> int:
         """Blocks needed to hold ``n_tokens`` cache positions."""
@@ -139,4 +170,5 @@ class BlockPool:
             "utilization": ((self.capacity - free) / self.capacity
                             if self.capacity else 0.0),
             "arena_bytes": self.arena_bytes,
+            "kv_quant": self.kv_quant or "none",
         }

@@ -13,13 +13,24 @@
 - **decode**: one step advances every occupied slot at its own
   position; attention reads each slot's chain through a padded int32
   block table, in place through the CUDA paged kernel on the card.
+- **int8 KV** (``kv_quant="int8"``): the arenas hold int8 rows with a
+  float32 scale per (position, head); every step quantizes the rows it
+  writes and dequantizes inside the dense gather, so decode uses the
+  gather (the paged kernel reads float arenas, as the reference's
+  does).
 
 - **sampling**: at ``temperature > 0`` each token is drawn on the host
   from the logits row, with the key chain offline ``generate`` uses.
-- **speculation** (``spec=SpecConfig(...)``): a drafter proposes k
-  tokens per slot and one verify step scores every candidate row (or a
+- **speculation** (``spec=SpecConfig(...)`` or ``spec=k``): a drafter
+  (by default the target's int8 ``quantize()`` clone) proposes k tokens
+  per slot and one verify step scores every candidate row (or a
   candidate tree's nodes) against the arenas; the host accepts the
   prefix that matches the offline draws.
+
+A quantized target (``model.quantize("int8")``) serves from its int8
+storage: each step expands one layer's dequant-mode weights at a time
+and sends int8-compute weights to the int8 product
+(``quant.qmatmul``).
 
 A slot's stream, greedy or sampled, speculative or not, is the
 computation offline ``generate`` runs at batch 1: cached prefix keys
@@ -43,12 +54,13 @@ One worker thread owns every launch and replay after warmup; it selects
 the engine's device before its first launch and brings logits to the
 host with ``.cpu()`` (which synchronises) before the next replay, since
 a graph's outputs live in a pool the next graph reuses.  Not ported
-yet, and refused with ``NotImplementedError`` when asked for: the
-default int8 drafter, ``kvtier``, ``migrate``/``adopt``, ``placement``,
-``kv_quant``, deadlines and cancellation.
+yet, and refused with ``NotImplementedError`` when asked for:
+``kvtier``, ``migrate``/``adopt``, ``placement``, deadlines and
+cancellation.
 """
 from __future__ import annotations
 
+import copy
 import threading
 import time
 from collections import deque
@@ -62,6 +74,8 @@ from bigdl_tpu_torch.models.transformer.generate import (
     _decode_step_paged, _insert_blocks, _prefill_parts,
     _prefill_suffix_parts, _tree_commit_paged, _tree_verify_step_paged,
     _verify_step_paged)
+from bigdl_tpu_torch.quant.transform import (params_dtype_tag,
+                                             set_compute_mode)
 from bigdl_tpu_torch.serving.compile_cache import (CompileCache, GraphPool,
                                                    StepGraph)
 from bigdl_tpu_torch.serving.errors import (PoolExhausted, RequestExceedsPool,
@@ -363,13 +377,22 @@ class LMServingEngine:
         decode_attn: ``"paged_kernel"`` (the CUDA paged kernel; its
             plain version on the CPU), ``"gather"`` (dense gather of
             each chain) or ``"auto"`` (the kernel on a CUDA device, the
-            gather on the CPU).  Greedy streams agree across all of them.
-        spec: a :class:`SpecConfig` enabling draft-verify
-            speculative decoding: every decode round becomes a verify
-            round (plain slots ride it as one-row candidates).  It needs
-            ``SpecConfig(draft=<TransformerLM on this device>)`` or
-            ``drafter_compute="ngram"``; the default int8 drafter is not
-            ported yet.
+            gather on the CPU; always the gather with ``kv_quant``).
+            Greedy streams agree across all of them.
+        kv_quant: ``None`` (float KV, the default) or ``"int8"``: int8
+            arenas with per-(position, head) float32 scales, about 4x the
+            positions in the same memory.  Lossy (streams are not
+            bit-exact against a float pool); decodes through the gather,
+            and ``decode_attn="paged_kernel"`` raises ``ValueError``.
+        spec: a :class:`SpecConfig` (or an int k, ``SpecConfig(k=k)``)
+            enabling draft-verify speculative decoding: every decode
+            round becomes a verify round (plain slots ride it as one-row
+            candidates).  Without ``draft`` the drafter is the target's
+            int8 ``quantize()`` clone, running
+            ``spec.drafter_compute`` (``"dequant"``, ``"int8"``,
+            ``"auto"``); an int8 target drafts with its own weights
+            (for a non-dequant mode, a clone sharing every int8 tensor
+            with only the compute mode rewritten).
         max_cache_entries: LRU bound of each prefill cache (as the
             reference's ``CompileCache``).
         cuda_graphs: ``None`` (default) captures every device step as a
@@ -404,14 +427,11 @@ class LMServingEngine:
                                 ("placement", placement, "11")):
             if val is not None:
                 raise _not_ported(what, item)
+        if isinstance(spec, int) and not isinstance(spec, bool):
+            spec = SpecConfig(k=spec)
         if spec is not None and not isinstance(spec, SpecConfig):
-            raise TypeError(f"spec must be a SpecConfig, got {spec!r}")
-        if (spec is not None and spec.draft is None
-                and spec.drafter_compute != "ngram"):
-            raise _not_ported(
-                "the default drafter (the target's int8 quantize() clone; "
-                "pass SpecConfig(draft=<a TransformerLM>) or "
-                "drafter_compute='ngram')", "10")
+            raise TypeError(f"spec must be a SpecConfig or an int, got "
+                            f"{spec!r}")
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(f"engine on {self.device}, but the model lives "
@@ -463,6 +483,7 @@ class LMServingEngine:
                               num_blocks=num_blocks,
                               dtype=self._params["embed"].dtype,
                               device=self.device, kv_quant=kv_quant)
+        self.kv_quant = self.pool.kv_quant
         self.radix = RadixCache(self.pool) if enable_prefix_cache else None
         self._prefix_block_buckets = prefill_bucket_lengths(
             self.table_width, min_bucket=1)
@@ -473,7 +494,15 @@ class LMServingEngine:
         if decode_attn not in ("auto", "gather", "paged_kernel"):
             raise ValueError(f"decode_attn must be 'auto', 'gather' or "
                              f"'paged_kernel', got {decode_attn!r}")
-        if decode_attn == "auto":
+        if self.kv_quant is not None:
+            # the paged kernel reads raw float blocks: int8 arenas
+            # dequantize inside the gather
+            if decode_attn == "paged_kernel":
+                raise ValueError(
+                    "kv_quant='int8' requires decode_attn='gather' (the "
+                    "paged kernel reads raw float blocks)")
+            decode_attn = "gather"
+        elif decode_attn == "auto":
             # no autotune cache yet: the kernel wherever it can run
             decode_attn = ("paged_kernel" if self.device.type == "cuda"
                            else "gather")
@@ -487,7 +516,8 @@ class LMServingEngine:
             del buffers  # part of the CompileCache signature only
             logits, k, v = _prefill_parts(model, params, x["ids"],
                                           x["len"] - 1, attention_impl=attn)
-            _insert_blocks(pool.k, pool.v, k, v, x["insert"])
+            _insert_blocks(pool.k, pool.v, k, v, x["insert"], pool.ks,
+                           pool.vs)
             return logits
 
         self.prefill_cache = CompileCache(
@@ -497,8 +527,9 @@ class LMServingEngine:
             del buffers
             logits, k, v = _prefill_suffix_parts(
                 model, params, x["ids"], x["len"] - 1, x["prefix_len"],
-                x["blocks"], pool.k, pool.v)
-            _insert_blocks(pool.k, pool.v, k, v, x["insert"])
+                x["blocks"], pool.k, pool.v, pool.ks, pool.vs)
+            _insert_blocks(pool.k, pool.v, k, v, x["insert"], pool.ks,
+                           pool.vs)
             return logits
 
         self.prefix_prefill_cache = CompileCache(
@@ -506,10 +537,9 @@ class LMServingEngine:
             max_entries=max_cache_entries)
 
         def _decode_fn(x):
-            logits, _, _ = _decode_step_paged(
+            return _decode_step_paged(
                 model, self._params, x["token"], x["pos"], x["tables"],
-                pool.k, pool.v, attn_impl=decode_attn)
-            return logits
+                pool.k, pool.v, pool.ks, pool.vs, attn_impl=decode_attn)[0]
 
         self._decode_exec = StepGraph(_decode_fn, self.graphs)
 
@@ -525,6 +555,9 @@ class LMServingEngine:
                                           ngram_max=spec.ngram_max)
             else:
                 draft_lm = spec.draft
+                if draft_lm is None:
+                    draft_lm = self._default_drafter(model,
+                                                     spec.drafter_compute)
                 if draft_lm.vocab_size != model.vocab_size:
                     raise ValueError(
                         f"draft model vocab ({draft_lm.vocab_size}) differs "
@@ -540,6 +573,10 @@ class LMServingEngine:
                     sampling=spec.sampling, graphs=self.graphs)
             self.spec_metrics = SpecMetrics()
             self.spec_metrics.compute_mode = self.draft.compute_mode
+            if self.draft.compute_mode != "ngram":
+                report = getattr(draft_lm, "quant_report", None) or {}
+                self.spec_metrics.overflow_risk = float(
+                    report.get("overflow_risk") or 0.0)
             self._verify_execs = self._verify_steps(spec)
             if spec.tree:
                 # the accepted-path commit moves rows only for shapes
@@ -550,7 +587,7 @@ class LMServingEngine:
 
                 def _commit_fn(x):
                     _tree_commit_paged(x["src"], x["pos"], x["tables"],
-                                       pool.k, pool.v)
+                                       pool.k, pool.v, pool.ks, pool.vs)
 
                 self._commit_exec = StepGraph(_commit_fn, self.graphs)
 
@@ -567,16 +604,29 @@ class LMServingEngine:
             target=self._run, daemon=True, name=f"lm-serve-{name}")
         self._worker.start()
 
+    @staticmethod
+    def _default_drafter(model, compute: str):
+        """The reference's default drafter: the target's int8 clone
+        running ``compute``, or, for a target that is int8 already, the
+        target itself (dequant) or a clone whose params share every int8
+        tensor and differ in the compute mode only."""
+        if params_dtype_tag(model.params) != "int8":
+            return model.quantize("int8", compute=compute)
+        if compute == "dequant":
+            return model
+        draft = copy.copy(model)
+        draft.params = set_compute_mode(model.params, compute)
+        return draft
+
     def _verify_steps(self, spec) -> List[StepGraph]:
         """The verify steps: one at (S, k+1), or one per tree rung, each
         rung's depths and ancestor matrix on the device once, here."""
         model, pool = self.model, self.pool
         if not spec.tree:
             def _verify_fn(x):
-                logits, _, _ = _verify_step_paged(
+                return _verify_step_paged(
                     model, self._params, x["tokens"], x["pos"], x["ncand"],
-                    x["tables"], pool.k, pool.v)
-                return logits
+                    x["tables"], pool.k, pool.v, pool.ks, pool.vs)[0]
 
             return [StepGraph(_verify_fn, self.graphs)]
         self._tree_shapes = list(spec.shapes)
@@ -588,10 +638,10 @@ class LMServingEngine:
                                   device=self.device)
 
             def _tree_fn(x, depths=depths, anc=anc):
-                logits, _, _ = _tree_verify_step_paged(
+                return _tree_verify_step_paged(
                     model, self._params, x["tokens"], x["pos"], x["ncand"],
-                    x["tables"], pool.k, pool.v, depths=depths, anc=anc)
-                return logits
+                    x["tables"], pool.k, pool.v, pool.ks, pool.vs,
+                    depths=depths, anc=anc)[0]
 
             steps.append(StepGraph(_tree_fn, self.graphs))
         return steps
@@ -1297,6 +1347,8 @@ class LMServingEngine:
             "block_len": self.block_len,
             "attention_impl": self.attention_impl,
             "decode_attn": self.decode_attn,
+            "kv_quant": self.kv_quant,
+            "quant_dtype": params_dtype_tag(self._params),
             "prefill_buckets": list(self.prefill_buckets),
             "prefill_cache": self.prefill_cache.stats(),
             "prefix_prefill_cache": self.prefix_prefill_cache.stats(),

@@ -1,7 +1,8 @@
 """The drafter half of draft-verify speculation (port of
 ``bigdl_tpu/serving/spec/draft.py``).
 
-``DraftModel`` wraps a cheap float ``TransformerLM`` and runs it k
+``DraftModel`` wraps a cheap ``TransformerLM`` (float, or the target's
+int8 ``quantize()`` clone, the engine's default) and runs it k
 tokens ahead per slot against its OWN dense KV arena, (L, S, H,
 cache_len + 1, D) on the engine's device: one contiguous region per
 slot, no paging (the verifier never reads it).  Row ``cache_len`` is a
@@ -34,6 +35,8 @@ import torch
 
 from bigdl_tpu_torch.models.transformer.generate import (_decode_step_slots,
                                                          _prefill_parts)
+from bigdl_tpu_torch.quant.transform import (params_compute_tag,
+                                             params_dtype_tag)
 from bigdl_tpu_torch.serving.compile_cache import (CompileCache, GraphPool,
                                                    StepGraph)
 from bigdl_tpu_torch.serving.spec.verify import draft_pick
@@ -92,7 +95,7 @@ class _DraftSlot:
 
 
 class DraftModel:
-    """Runs a float drafter for every speculating slot of one engine."""
+    """Runs the drafter for every speculating slot of one engine."""
 
     def __init__(self, model, *, slots: int, cache_len: int,
                  prefill_buckets, max_cache_entries: int = 16,
@@ -114,7 +117,8 @@ class DraftModel:
             int(b) for b in prefill_buckets)))
         self.sampling = sampling
         self._params = model.params
-        self.compute_mode = "f32"
+        self.dtype_tag = params_dtype_tag(self._params)
+        self.compute_mode = params_compute_tag(self._params) or "f32"
         L = model.n_layers
         H, D = model._mha.n_head, model._mha.head_dim
         # scratch row at index cache_len: idle slots in a batched draft
@@ -292,7 +296,8 @@ class DraftModel:
 
     # -- reading -------------------------------------------------------- #
     def describe(self) -> dict:
-        return {"compute_mode": self.compute_mode,
+        return {"dtype_tag": self.dtype_tag,
+                "compute_mode": self.compute_mode,
                 "hidden": self.model.hidden_size,
                 "layers": self.model.n_layers,
                 "cache_len": self.cache_len,

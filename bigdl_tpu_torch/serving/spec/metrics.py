@@ -1,7 +1,7 @@
 """Speculation counters (port of ``bigdl_tpu/serving/spec/metrics.py``,
 without ``publish_to`` (the port has no metric registry yet, ROADMAP
-Queue 1 item 11) and without the counters of what is not ported: fault
-demotions and the int8 drafter's overflow risk).
+Queue 1 item 11) and without the fault demotions, which are not ported
+either).
 
 Thread-safe: the engine's worker records, ``stats()`` reads.  The two
 derived rates are the subsystem's health summary: ``acceptance_rate``
@@ -27,6 +27,7 @@ class SpecMetrics:
         self.demotions = 0        # EMA-collapse demotions
         self.reprobes = 0         # demoted slots re-probed
         self.compute_mode = "f32"  # the drafter's regime, set by the engine
+        self.overflow_risk = 0.0  # the drafter's quant_report, by the engine
         self.acceptance = Histogram()  # per-(slot, round) acceptance rate
         self.tree_rounds = 0      # (slot, round) pairs verified as a tree
         self.alt_accepts = 0      # accepted ALTERNATE (off-spine) nodes
@@ -88,6 +89,7 @@ class SpecMetrics:
                 "demotions": self.demotions,
                 "reprobes": self.reprobes,
                 "compute_mode": self.compute_mode,
+                "overflow_risk": self.overflow_risk,
                 "acceptance_rate":
                     (self.accepted / self.drafted) if self.drafted else None,
                 "draft_overhead":

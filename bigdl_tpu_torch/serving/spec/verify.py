@@ -157,16 +157,16 @@ class SpecConfig:
         k: draft tokens per verify round (the linear verify step scores
             ``k + 1`` candidate rows).
         draft: a built ``TransformerLM`` drafter on the engine's device.
-            ``None`` asks for the reference's default drafter, the
-            target's int8 clone, which needs quantization (not ported:
-            the engine refuses it); ``drafter_compute="ngram"`` needs
-            no model.
+            ``None`` asks for the default drafter: the target's int8
+            ``quantize()`` clone (the target itself when it is already
+            int8), running ``drafter_compute``; ``drafter_compute=
+            "ngram"`` needs no model.
         sampling: ``"replay"`` (bit-exact vs offline generate, the
             default) or ``"rejection"`` (distribution-exact speculative
             sampling).
-        drafter_compute: the default drafter's kernel regime
-            (``"dequant"``, ``"int8"``, ``"auto"``) or ``"ngram"``, the
-            zero-model prompt-lookup drafter.
+        drafter_compute: the default drafter's products
+            (``"dequant"``, ``"int8"``, ``"auto"``; ``quant.kernels``)
+            or ``"ngram"``, the zero-model prompt-lookup drafter.
         ema_alpha: weight of the newest round in the per-slot
             acceptance-rate EMA.
         demote_below: demote a slot to plain decode when its EMA falls

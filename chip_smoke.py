@@ -52,7 +52,27 @@ result line:
    greedy run must have a match accepted.  Arms 1, 2 and 4 hold every
    stream against offline generate, and the flash forward must launch
    in every arm.  Arm 2 runs once more with ``cuda_graphs=False``;
-7. train: the same model, full depth, trained by LocalOptimizer (Adam,
+7. quant: int8 quantization on the same model and requests, every step
+   a replayed graph.  Q1: the int8 target (``model.quantize("int8")``,
+   dequant compute) served greedily through both kernels, every stream
+   held against the quantized model's offline generate, its
+   ``quant_report`` bytes exactly the reference's for this model
+   (497,759,232 -> 243,237,888), printed beside the float serve run
+   (weight bytes, TTFT p50, decode tokens/s, peak memory, graph pool).
+   Q2: the float target on int8 KV arenas (``kv_quant="int8"``, the
+   gather decode), its streams with graphs equal, bitwise, to its
+   streams with ``cuda_graphs=False``; it prints the arena bytes against
+   a float pool's, the share of tokens equal to the float streams and
+   the first decode step's largest logit difference from float KV.  Q3:
+   the default drafter, ``spec=4`` (int8 dequant) and
+   ``SpecConfig(k=4, drafter_compute="int8")``, greedy and at 0.7,
+   every stream held against offline float32 generate; it prints the
+   accepted share, the drafter's compute mode and overflow risk.  The
+   kernels phase also times the int8 product (``qmatmul_i8``: per-token
+   quantization, ``torch._int_mm``, rescale) against the dequant one at
+   the served shapes, with the card's int32 accumulators held bitwise
+   against the CPU's: library calls, not kernels of the port;
+8. train: the same model, full depth, trained by LocalOptimizer (Adam,
    TimeDistributed(ClassNLL)) on a fixed 8 x 1024 batch through the
    flash forward and both flash backward kernels: step-0 loss and every
    gradient held against plain attention, every bf16-compute gradient
@@ -100,7 +120,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,        # CUDA-core float32 (no tensor cores)
               "float32_3xtf32": 495e12 / 3,  # float32 as three TF32 products
-              "bfloat16": 989e12}      # dense bf16 tensor cores
+              "bfloat16": 989e12,      # dense bf16 tensor cores
+              "int8": 1979e12}         # dense int8 tensor cores (TOP/s)
 TOL_F32 = 1e-4                         # float32: summation order only
 TOL_BF16_O, TOL_BF16_LSE = 2e-2, 1e-2  # bf16 rounding of p and o
 
@@ -131,6 +152,14 @@ TOL_BF16_GRAD = 6e-2  # each leaf's bf16-compute gradient: max abs error over
                       # the float32 leaf's max |g|, bf16 rounding of every
                       # product's inputs through 12 layers and back; about
                       # twice the worst leaf measured on an H100 (2.7e-2)
+# the JAX reference's quant_report for GPT2_SMALL quantized to int8 (its
+# byte counts do not depend on the weights)
+QUANT_REPORT_GPT2 = dict(bytes_orig=497_759_232, bytes_quant=243_237_888,
+                         quantized_leaves=8, skipped_leaves=12)
+# the int8 vs dequant product timings: the served rows (8 decode slots,
+# the 8 x 5 verify rows, a 1024-token prefill) by the served (k, n)
+QUANT_PRODUCT_ROWS = (8, 40, 1024)
+QUANT_PRODUCT_KN = ((768, 768), (768, 3072), (3072, 768))
 TRAIN_CLI = ["--synthetic", "-e", "1", "-b", "8", "--hiddenSize", "768",
              "--nHead", "12", "--nLayers", "2", "--seqLength", "128",
              "--packed", "--docIsolate"]
@@ -166,6 +195,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def log_allocated(phase: str) -> None:
+    """The device bytes allocated as ``phase`` starts (what earlier phases
+    left resident)."""
+    import torch
+    log(f"[memory] before {phase}: {torch.cuda.memory_allocated() / 2**20:.1f}"
+        " MiB allocated")
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -514,14 +551,25 @@ def serve_prompts(seed=SERVE["seed"]):
 class Oracle:
     """The port's offline ``generate`` at batch 1 on plain attention,
     on a model built from the served model's seed (so the same weights),
-    each stream computed once."""
+    or the one ``make_model()`` returns when first needed, each stream
+    computed once."""
 
-    def __init__(self, dev, config, seed):
+    def __init__(self, dev, config, seed, make_model=None):
         from bigdl_tpu_torch.models.transformer import TransformerLM
         self.dev = dev
-        self.model = TransformerLM(attention_impl="xla", device=dev,
-                                   **config).build(seed=seed)
+        self._make = make_model
+        self._model = None
+        if make_model is None:
+            self._model = TransformerLM(attention_impl="xla", device=dev,
+                                        **config).build(seed=seed)
         self._streams = {}
+
+    @property
+    def model(self):
+        """The plain-attention model (``make_model()``'s on first use)."""
+        if self._model is None:
+            self._model = self._make()
+        return self._model
 
     def stream(self, prompt, max_new, temperature=0.0, rng=None):
         from bigdl_tpu_torch.models.transformer.generate import generate
@@ -770,19 +818,26 @@ def build_lm(dev, config, seed, attention_impl="flash"):
 
 def make_engine(model, dev, serve, **kw):
     from bigdl_tpu_torch.serving import LMServingEngine
+    kw = {"attention_impl": "flash", "decode_attn": "paged_kernel", **kw}
     return LMServingEngine(
         model, slots=serve["slots"], cache_len=serve["cache_len"],
         block_len=serve["block_len"], max_new_tokens=serve["max_new"],
-        attention_impl="flash", decode_attn="paged_kernel", device=dev, **kw)
+        device=dev, **kw)
 
 
 def release(dev):
-    """Return a closed engine's memory (its graphs and pool) to the card."""
+    """Return a closed engine's memory (its graphs and pool) to the card,
+    with the cuBLAS workspaces PyTorch keeps for every stream it has seen
+    (an engine's graphs capture on a stream of their own), so that each
+    phase starts from the bytes the one before it found."""
     import gc
 
     import torch
     gc.collect()
     if dev.type == "cuda":
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
         torch.cuda.empty_cache()
 
 
@@ -793,6 +848,9 @@ def serve_once(dev, model, serve, prompts, oracle, label, profile_path=None,
     With ``profile_path``, one more run of fresh prompts is traced."""
     import torch
     max_new = serve["max_new"]
+    # device bytes held before the engine: the weights and whatever else
+    # the run finds resident
+    resident = torch.cuda.memory_allocated() if dev.type == "cuda" else None
     engine = make_engine(model, dev, serve, **engine_kw)
     try:
         warm = warm_engine(engine, prompts)
@@ -820,7 +878,8 @@ def serve_once(dev, model, serve, prompts, oracle, label, profile_path=None,
     hits = stats["kvcache"]["prefix_cache"]["hits"]
     if hits < 1:
         raise AssertionError("the shared-head prompts missed the radix cache")
-    out.update(peak_bytes=peak, ties=ties, radix_hits=hits, warm=warm,
+    out.update(peak_bytes=peak, resident_bytes=resident, ties=ties,
+               radix_hits=hits, warm=warm,
                matched_streams=len(prompts) - len(ties),
                prefix_prefill=stats["prefix_prefill_cache"])
     log(f"[{label}] {len(prompts)} requests, prompt lengths "
@@ -1037,6 +1096,233 @@ def phase_spec(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC, prompts=None,
         f"{alt_accepts}; n-gram hit rates {hits}")
     for out in runs.values():
         del out["results"]
+    return runs
+
+
+# --------------------------------------------------------------------------- #
+def quant_products(dev):
+    """The int8 product (``qmatmul_i8``: per-token quantization,
+    ``torch._int_mm``, one rescale) against the dequant one (``qmatmul``
+    on a dequant-mode QTensor: expand, float32 ``torch.matmul``) at the
+    served shapes.  Library calls, timed beside the kernels; the card's
+    int32 accumulators must equal the CPU's bitwise.  Returns one row a
+    shape."""
+    import torch
+    from bigdl_tpu_torch.quant import (int_mm, qmatmul, qmatmul_i8,
+                                       quantize_array, quantize_per_token)
+    g = torch.Generator().manual_seed(0)
+    rows = []
+    for k, n in QUANT_PRODUCT_KN:
+        w = torch.randn(k, n, generator=g) * k ** -0.5
+        dq = quantize_array(w, (0,))
+        i8 = dq.with_compute("int8")
+        dq_dev, i8_dev = dq.to(dev), i8.to(dev)
+        for m in QUANT_PRODUCT_ROWS:
+            x = torch.randn(m, k, generator=g)
+            xq, _ = quantize_per_token(x)
+            xq_dev = xq.to(dev)
+            acc = int_mm(xq_dev, i8_dev.q)
+            if not torch.equal(acc.cpu(), int_mm(xq, i8.q)):
+                raise AssertionError(f"int8 product ({m}, {k}) x ({k}, {n}):"
+                                     " the card's int32 accumulators differ "
+                                     "from the CPU's")
+            xd = x.to(dev)
+            err = (qmatmul_i8(xd, i8_dev) - qmatmul(xd, dq_dev)).abs().max()
+            nbytes = m * k * 4 + k * n + n * 4 + m * n * 4
+            flops = 2.0 * m * n * k
+            row = dict(m=m, k=k, n=n,
+                       i8_ms=cuda_ms(lambda: qmatmul_i8(xd, i8_dev), 50),
+                       int_mm_ms=cuda_ms(lambda: int_mm(xq_dev, i8_dev.q), 50),
+                       dequant_ms=cuda_ms(lambda: qmatmul(xd, dq_dev), 50),
+                       i8_vs_dequant_max_abs=float(err))
+            row["i8_bound_ms"], row["i8_bound_by"] = bound(nbytes, flops,
+                                                           "int8")
+            row["dequant_bound_ms"], row["dequant_bound_by"] = bound(
+                nbytes, flops, "float32")
+            rows.append(row)
+            log(f"[quant] product ({m}, {k}) x ({k}, {n}): qmatmul_i8 "
+                f"{row['i8_ms']:.4f} ms (of it torch._int_mm "
+                f"{row['int_mm_ms']:.4f}; bound {row['i8_bound_ms']:.4f}, "
+                f"{row['i8_bound_by']}), dequant qmatmul "
+                f"{row['dequant_ms']:.4f} ms (bound "
+                f"{row['dequant_bound_ms']:.4f}, {row['dequant_bound_by']}, "
+                f"float32 CUDA cores); accumulators bitwise the CPU's, "
+                f"|int8 - dequant| max {row['i8_vs_dequant_max_abs']:.3e}")
+    return rows
+
+
+def first_step_logit_gap(dev, model, prompts, block_len, first_tokens):
+    """The first decode step's largest logit difference between int8 and
+    float KV: every prompt prefilled once (flash) into a float pool and
+    an int8 pool, then one gather decode step over all of them on each,
+    the same tokens and positions."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.models.transformer.generate import (
+        _decode_step_paged, _insert_blocks, _prefill_parts)
+    from bigdl_tpu_torch.serving.kvcache import BlockPool
+    mha = model._mha
+    need = [-(-(len(p) + 1) // block_len) for p in prompts]
+    width = max(need)
+    pools = [BlockPool(n_layers=model.n_layers, n_heads=mha.n_head,
+                       head_dim=mha.head_dim, block_len=block_len,
+                       num_blocks=1 + sum(need), device=dev, kv_quant=q)
+             for q in (None, "int8")]
+    tables = np.zeros((len(prompts), width), np.int64)
+    nxt = 1
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            tables[i, :need[i]] = np.arange(nxt, nxt + need[i])
+            nxt += need[i]
+            ids0 = torch.as_tensor(p - 1, device=dev)[None]
+            _, k, v = _prefill_parts(model, model.params, ids0, len(p) - 1,
+                                     attention_impl="flash")
+            ids = torch.as_tensor(tables[i, :-(-len(p) // block_len)],
+                                  device=dev)
+            for pool in pools:
+                _insert_blocks(pool.k, pool.v, k, v, ids, pool.ks, pool.vs)
+        token = torch.as_tensor(np.asarray(first_tokens) - 1, device=dev)
+        pos = torch.as_tensor([len(p) for p in prompts], device=dev)
+        tab = torch.as_tensor(tables, device=dev)
+        logits = [_decode_step_paged(model, model.params, token, pos, tab,
+                                     pool.k, pool.v, pool.ks, pool.vs,
+                                     attn_impl="gather")[0]
+                  for pool in pools]
+    return float((logits[0] - logits[1]).abs().max())
+
+
+def quant_kv_run(dev, model, serve, prompts, label, **engine_kw):
+    """One greedy run of the prompts on a float target with int8 KV
+    arenas, warmed and checked for bounded captures; returns the run's
+    numbers with its streams."""
+    engine = make_engine(model, dev, serve, kv_quant="int8",
+                         decode_attn="auto", **engine_kw)
+    try:
+        warm = warm_engine(engine, prompts)
+        if engine.decode_attn != "gather":
+            raise AssertionError(f"{label}: kv_quant='int8' decodes through "
+                                 f"{engine.decode_attn}, not the gather")
+        out = serve_run(engine, prompts, serve["max_new"])
+        out.update(graphs=check_bounded(label, engine, warm), warm=warm,
+                   arena_bytes=engine.pool.arena_bytes,
+                   scale_bytes=engine.pool.scale_arena_bytes,
+                   float_arena_bytes=engine.pool.kv_arena_bytes * 4)
+    finally:
+        engine.close()
+        del engine
+        release(dev)
+    return out
+
+
+def phase_quant(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC, prompts=None,
+                oracle=None):
+    """Int8 quantization on the served model (see the module docstring):
+    Q1 the int8 target, Q2 int8 KV arenas, Q3 the default drafter.
+    Returns each run's numbers by name."""
+    import numpy as np
+    from bigdl_tpu_torch.quant import params_nbytes
+    from bigdl_tpu_torch.serving import SpecConfig
+    oracle = oracle or Oracle(dev, config, serve["seed"])
+    prompts = serve_prompts() if prompts is None else prompts
+    max_new = serve["max_new"]
+    runs = {}
+
+    # Q1: the int8 target; the float model goes before the run, so the
+    # peak holds the int8 weights where the float serve run held float
+    model = build_lm(dev, config, serve["seed"])
+    float_bytes = params_nbytes(model.params)
+    qmodel = model.quantize("int8")
+    del model
+    release(dev)
+    rep = qmodel.quant_report
+    if config == GPT2_SMALL:
+        for key, want in QUANT_REPORT_GPT2.items():
+            if rep[key] != want:
+                raise AssertionError(f"quant_report[{key!r}] {rep[key]}, the "
+                                     f"reference's {want}")
+    q_oracle = Oracle(dev, config, serve["seed"],
+                      make_model=lambda: oracle.model.quantize("int8"))
+    q1 = serve_once(dev, qmodel, serve, prompts, q_oracle, "quant Q1")
+    q1.update(report={k: rep[k] for k in (
+        "bytes_orig", "bytes_quant", "quantized_leaves", "skipped_leaves",
+        "payload_ratio", "max_abs_dequant_error", "overflow_risk")},
+        weight_bytes=params_nbytes(qmodel.params),
+        float_weight_bytes=float_bytes)
+    log(f"[quant] Q1 int8 target: quant_report {json.dumps(q1['report'])}")
+    runs["q1_int8_target"] = q1
+    del qmodel, q_oracle
+    release(dev)
+
+    # Q2: the float target on int8 KV arenas, graphs on and off
+    model = build_lm(dev, config, serve["seed"])
+    q2 = quant_kv_run(dev, model, serve, prompts, "quant Q2")
+    q2e = quant_kv_run(dev, model, serve, prompts, "quant Q2 eager",
+                       cuda_graphs=False)
+    if not all(np.array_equal(a, b)
+               for a, b in zip(q2["results"], q2e["results"])):
+        raise AssertionError("quant Q2: int8-KV streams with CUDA graphs "
+                             "differ from the eager engine's")
+    same = total = 0
+    for p, r in zip(prompts, q2["results"]):
+        want = oracle.stream(p, max_new)
+        same += int(np.sum(r[len(p):] == want[len(p):]))
+        total += max_new
+    q2["float_token_share"] = same / total
+    q2["first_step_logit_gap"] = first_step_logit_gap(
+        dev, model, prompts, serve["block_len"],
+        [oracle.stream(p, max_new)[len(p)] for p in prompts])
+    log(f"[quant] Q2 int8 KV: arenas {q2['arena_bytes']} bytes "
+        f"({q2['scale_bytes']} of them scales) vs a float pool's {q2['float_arena_bytes']} "
+        f"({q2['arena_bytes'] / q2['float_arena_bytes']:.4f}x); graphs on "
+        f"and off: every stream bitwise equal; tokens equal to the float "
+        f"streams {same}/{total} ({q2['float_token_share']:.4f}); first "
+        f"decode step's largest |logit difference| from float KV "
+        f"{q2['first_step_logit_gap']:.4e}; {graph_line(q2)}")
+    runs["q2_int8_kv"], runs["q2_int8_kv_eager"] = q2, q2e
+
+    # Q3: the default drafter, dequant (spec=k) and int8 compute
+    k = spec["k"]
+    arms = [("q3_dequant_greedy", k, 0.0),
+            ("q3_dequant_sampled", k, spec["temperature"]),
+            ("q3_int8_greedy", SpecConfig(k=k, drafter_compute="int8"), 0.0),
+            ("q3_int8_sampled", SpecConfig(k=k, drafter_compute="int8"),
+             spec["temperature"])]
+    for name, cfg, t in arms:
+        engine = make_engine(model, dev, serve, spec=cfg)
+        try:
+            warm = warm_engine(engine, prompts)
+            out = serve_run(engine, prompts, max_new, t)
+            st = engine.stats()["spec"]
+            out.update(graphs=check_bounded(f"quant {name}", engine, warm),
+                       warm=warm, stats=st)
+        finally:
+            engine.close()
+            del engine
+            release(dev)
+        out["ties"] = check_streams(f"quant {name}", oracle, prompts,
+                                    out["results"], max_new, t)
+        desc = (f"spec={cfg}" if isinstance(cfg, int) else
+                 f"SpecConfig(k={cfg.k}, drafter_compute="
+                 f"{cfg.drafter_compute!r})")
+        log(f"[quant] {name}: {desc}, temperature {t}: drafter {st['draft']['dtype_tag']}, compute "
+            f"{st['compute_mode']}, overflow_risk {st['overflow_risk']:.5f}; "
+            f"accepted {st['accepted']} of {st['drafted']} drafted (share "
+            f"{st['acceptance_rate']}), verify rounds {st['verify_rounds']}, "
+            f"demotions {st['demotions']}; TTFT p50 "
+            f"{out['ttft_p50_s'] * 1e3:.2f} ms, decode "
+            f"{out['decode_tokens_per_s']:.1f} tokens/s; launches "
+            f"{out['launches']}; {len(prompts) - len(out['ties'])} of "
+            f"{len(prompts)} streams identical to offline generate; "
+            f"{graph_line(out)}")
+        runs[name] = out
+    for name in ("q3_int8_greedy", "q3_int8_sampled"):
+        st = runs[name]["stats"]
+        if st["compute_mode"] != "int8" or not 0.0 <= st["overflow_risk"] < 1:
+            raise AssertionError(f"quant {name}: drafter compute "
+                                 f"{st['compute_mode']}, overflow risk "
+                                 f"{st['overflow_risk']}")
+    for out in runs.values():
+        out.pop("results", None)
     return runs
 
 
@@ -1303,7 +1589,10 @@ def main() -> int:
     phases["build"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     flash_main, paged_main, dkv_main, dq_main = phase_kernels(dev)
+    products = quant_products(dev)
+    log(f"[quant] products: {json.dumps(products)} | {smi}")
     phases["kernels"] = time.perf_counter() - t0
+    log_allocated("serve")
     t0 = time.perf_counter()
     oracle = Oracle(dev, GPT2_SMALL, SERVE["seed"])
     serve, serve_eager = phase_serve(dev, profile_path=args.profile,
@@ -1325,6 +1614,7 @@ def main() -> int:
             f"max_memory_allocated {run['peak_bytes'] / 2**20:.1f} MiB, "
             f"wall {run['wall_s']:.2f} s | {smi}")
     torch.cuda.empty_cache()
+    log_allocated("serve_sampled")
     t0 = time.perf_counter()
     sampled = phase_serve_sampled(dev, oracle=oracle)
     phases["serve_sampled"] = time.perf_counter() - t0
@@ -1334,6 +1624,7 @@ def main() -> int:
         f"decode {sampled['decode_tokens_per_s']:.1f} tokens/s (8 slots), "
         f"wall {sampled['wall_s']:.2f} s | {smi}")
     torch.cuda.empty_cache()
+    log_allocated("spec")
     t0 = time.perf_counter()
     spec = phase_spec(dev, oracle=oracle, profile_path=args.profile)
     phases["spec"] = time.perf_counter() - t0
@@ -1353,6 +1644,38 @@ def main() -> int:
             f"{run['graphs']['captures']} captures, {run['graphs']['replays']}"
             f" replays, device idle share {idle_text(run['idle_share'])} "
             f"| {smi}")
+    log_allocated("quant")
+    t0 = time.perf_counter()
+    quant = phase_quant(dev, oracle=oracle)
+    phases["quant"] = time.perf_counter() - t0
+    q1 = quant["q1_int8_target"]
+    check_launches("int8 target's serve path", q1["launches"],
+                   ("bigdl_flash_fwd", "bigdl_paged_decode"))
+    quant_launches = {}
+    for name, run in quant.items():
+        check_launches(f"quant run {name}", run["launches"],
+                       ("bigdl_flash_fwd",))
+        for symbol, n in run["launches"].items():
+            quant_launches[symbol] = quant_launches.get(symbol, 0) + n
+    for label, run, wbytes in (
+            ("float serve", serve, q1["float_weight_bytes"]),
+            ("Q1 int8 target", q1, q1["weight_bytes"])):
+        pool = run["warm"]["pool_bytes"]
+        log(f"[quant] {label}: weights {wbytes} bytes, TTFT p50 "
+            f"{run['ttft_p50_s'] * 1e3:.2f} ms, decode "
+            f"{run['decode_tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+            f"{run['peak_bytes'] / 2**20:.1f} MiB (allocated before the "
+            f"engine {run['resident_bytes'] / 2**20:.1f} MiB), graph pool "
+            f"{'none' if pool is None else f'{pool / 2**20:.1f} MiB'}, "
+            f"flash_fwd {run['launches']['bigdl_flash_fwd']} and "
+            f"paged_decode {run['launches']['bigdl_paged_decode']} launches "
+            f"| {smi}")
+    for name in ("q2_int8_kv", "q2_int8_kv_eager", "q3_dequant_greedy",
+                 "q3_dequant_sampled", "q3_int8_greedy", "q3_int8_sampled"):
+        run = quant[name]
+        log(f"[quant] {name}: TTFT p50 {run['ttft_p50_s'] * 1e3:.2f} ms, "
+            f"decode {run['decode_tokens_per_s']:.1f} tokens/s | {smi}")
+    log(f"[quant] launches over the quant runs: {quant_launches} | {smi}")
     del oracle
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1382,12 +1705,13 @@ def main() -> int:
     # launches: the serve path's (the training path's for the backward
     # pair); by_path: every path's own run, counted from 0
     paths = dict(serve=serve["launches"], serve_sampled=sampled["launches"],
-                 spec=spec_launches, train=train["launches"])
+                 spec=spec_launches, quant=quant_launches,
+                 train=train["launches"])
 
     def by_path(symbol, names):
         return {p: paths[p][symbol] for p in names}
 
-    serving = ("serve", "serve_sampled", "spec")
+    serving = ("serve", "serve_sampled", "spec", "quant")
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_fwd.cu",

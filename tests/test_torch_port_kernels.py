@@ -396,7 +396,7 @@ def test_engine_on_card_with_graphs_streams_equal_generate(card, kind):
 
 def _same(tag, got, want, diffs):
     """Bitwise equal, or within 1e-6 with the difference recorded."""
-    got, want = np.asarray(got), np.asarray(want)
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape, tag
     diff = float(np.abs(got - want).max()) if got.size else 0.0
     diffs[tag] = diff
@@ -417,8 +417,11 @@ def _replay_and_eager(graph, eager, fn, diffs, tag):
     if outs[0] is not None:
         _same(tag, outs[0], outs[1], diffs)
     assert counts[0] == counts[1], (tag, counts)
-    for a, b in ((graph.pool.k, eager.pool.k), (graph.pool.v, eager.pool.v)):
-        _same(f"{tag} arena", a[:, 1:].cpu(), b[:, 1:].cpu(), diffs)
+    for name in ("k", "v", "ks", "vs"):
+        a, b = getattr(graph.pool, name), getattr(eager.pool, name)
+        if a is not None:
+            _same(f"{tag} arena {name}", a[:, 1:].cpu(), b[:, 1:].cpu(),
+                  diffs)
     return counts[0]
 
 
@@ -502,6 +505,135 @@ def test_replayed_steps_equal_eager_steps(card, kind):
                   diffs)
         assert graph.graphs.captures == captures     # every step replayed
         assert eager.graphs.captures == 0
+        print(f"[{kind}] max |replay - eager|: {diffs}")
+    finally:
+        graph.close()
+        eager.close()
+
+
+# --------------------------------------------------------------------------- #
+# quantization on the card: the int8 and fp8 products, the int8 engines      #
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("m", [8, 40, 1024])
+@pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (3072, 768),
+                                 (60, 50)])
+def test_int8_product_on_card_equals_cpu(card, m, k, n):
+    """``torch._int_mm`` on the card (padded to its shapes: rows above 16,
+    k and n multiples of 8) gives the CPU's int32 accumulators bitwise,
+    and qmatmul_i8 the CPU's output."""
+    from bigdl_tpu_torch.quant import (int_mm, qmatmul_i8, quantize_array,
+                                       quantize_per_token)
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g)
+    qw = quantize_array(torch.randn(k, n, generator=g) * 0.05, (0,),
+                        compute="int8")
+    xq, _ = quantize_per_token(x)
+    xq_card, _ = quantize_per_token(x.to(card))
+    assert torch.equal(xq_card.cpu(), xq)
+    acc = int_mm(xq.to(card), qw.to(card).q)
+    assert acc.dtype == torch.int32 and acc.shape == (m, n)
+    assert torch.equal(acc.cpu(), int_mm(xq, qw.q))
+    y = qmatmul_i8(x.to(card), qw.to(card)).cpu()
+    torch.testing.assert_close(y, qmatmul_i8(x, qw), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("m", [8, 40])
+def test_fp8_product_on_card_matches_plain(card, m):
+    """``torch._scaled_mm`` on e4m3 operands against the float32 product
+    of the same e4m3 values: within 1e-3 of the output's max (Hopper's
+    fp8 products accumulate at reduced precision)."""
+    from bigdl_tpu_torch.quant import qmatmul_f8, quantize_array
+    g = torch.Generator().manual_seed(m)
+    x = torch.randn(m, 768, generator=g)
+    qw = quantize_array(torch.randn(768, 3072, generator=g), (0,))
+    want = qmatmul_f8(x, qw)
+    got = qmatmul_f8(x.to(card), qw.to(card)).cpu()
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+def _int8_engine(lm, kind, cuda_graphs=None):
+    """An int8 target (dequant), a float target on int8 KV arenas, or a
+    float target with the default int8-compute drafter."""
+    from bigdl_tpu_torch.serving import LMServingEngine, SpecConfig
+    kw = dict(ENGINE_KW, cuda_graphs=cuda_graphs, device=lm.device)
+    if kind == "int8_target":
+        return LMServingEngine(lm.quantize("int8"), **kw)
+    if kind == "int8_kv":
+        return LMServingEngine(lm, **dict(kw, kv_quant="int8",
+                                          decode_attn="gather"))
+    return LMServingEngine(lm, spec=SpecConfig(k=3, drafter_compute="int8"),
+                           **kw)
+
+
+@pytest.mark.parametrize("kind", ["int8_target", "int8_kv", "int8_drafter"])
+def test_int8_replayed_steps_equal_eager_steps(card, kind):
+    """The int8 engines' captured steps, replayed, against the same steps
+    run eagerly on the same arenas and inputs: host logits, written
+    arena rows (int8 rows and their scales) and kernel launches."""
+    lm = _engine_lm(card)
+    graph, eager = _int8_engine(lm, kind), _int8_engine(lm, kind, False)
+    diffs = {}
+    try:
+        for eng in (graph, eager):
+            eng.warmup()
+            eng.warmup_prefix(suffix_lens=[18], prefix_blocks=[2])
+        g = torch.Generator().manual_seed(7)
+        for name in ("k", "v", "ks", "vs"):
+            a = getattr(graph.pool, name)
+            if a is None:
+                continue
+            fill = (torch.randint(-127, 128, a.shape, generator=g,
+                                  dtype=torch.int8)
+                    if a.dtype == torch.int8
+                    else torch.rand(a.shape, generator=g) * 0.05)
+            a.copy_(fill)
+            getattr(eager.pool, name).copy_(fill)
+        captures = graph.graphs.captures
+        rng = np.random.RandomState(1)
+        S, M = graph.slots, graph.table_width
+        n = graph.pool.shape[1]
+        tables = rng.randint(1, n, size=(S, M)).astype(np.int32)
+        pos = np.asarray([0, 17, 70, 120], np.int32)
+        blocks = [int(i) for i in rng.choice(np.arange(1, n), 8, False)]
+        for b, ts in ((16, 9), (64, 50)):
+            ids = np.zeros((1, b), np.int64)
+            ids[0, :ts] = rng.randint(0, 97, size=ts)
+            x = graph._prefill_x(ids, ts, 0, blocks)
+            c = _replay_and_eager(graph, eager, lambda e: e.prefill_cache(
+                e._params, {}, x).cpu(), diffs, f"prefill {b}")
+            assert c["bigdl_flash_fwd"] == ENGINE_LM["n_layers"]
+        ids = np.zeros((1, 32), np.int64)
+        ids[0, :18] = rng.randint(0, 97, size=18)
+        xs = graph._prefill_x(ids, 18, 32, blocks)
+        _replay_and_eager(graph, eager, lambda e: e.prefix_prefill_cache(
+            e._params, {}, xs).cpu(), diffs, "suffix prefill")
+        if kind != "int8_drafter":
+            token = rng.randint(0, 97, size=S).astype(np.int64)
+            c = _replay_and_eager(graph, eager, lambda e: e._decode(
+                token, pos, tables), diffs, "decode")
+            want = ENGINE_LM["n_layers"] if kind == "int8_target" else 0
+            assert c["bigdl_paged_decode"] == want
+        else:
+            assert graph.draft.compute_mode == "int8"
+            tokens = rng.randint(0, 97, size=(S, 4)).astype(np.int32)
+            ncand = np.asarray([4, 1, 0, 4], np.int32)
+            _replay_and_eager(graph, eager, lambda e: e._verify(
+                tokens, pos, ncand, tables), diffs, "verify")
+            token = rng.randint(0, 97, size=S).astype(np.int64)
+            dpos = pos.astype(np.int64)
+            _replay_and_eager(graph, eager, lambda e: e.draft._decode(
+                token, dpos), diffs, "int8 drafter decode")
+            ids = np.zeros((1, 32), np.int64)
+            ids[0, :20] = rng.randint(0, 97, size=20)
+            xd = graph.draft._prefill_x(ids, 20, 2)
+            _replay_and_eager(graph, eager, lambda e: e.draft.prefill_cache(
+                e.draft._params, {}, xd), diffs, "int8 drafter prefill")
+            _same("drafter arena", graph.draft.k.cpu(), eager.draft.k.cpu(),
+                  diffs)
+        assert graph.graphs.captures == captures     # every step replayed
+        assert eager.graphs.captures == 0
+        assert all(d == 0.0 for d in diffs.values()), diffs
         print(f"[{kind}] max |replay - eager|: {diffs}")
     finally:
         graph.close()

@@ -133,14 +133,23 @@ def test_typed_rejections(pair):
 def test_unported_options_raise(pair):
     _, tm = pair
     for kw in (dict(kvtier=object()), dict(migrate=print),
-               dict(placement=object()), dict(kv_quant="int8")):
+               dict(placement=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LMServingEngine(tm, device="cpu", **kw)
-    # the default drafter is the target's int8 clone: quantization
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        LMServingEngine(tm, device="cpu", spec=SpecConfig(k=2))
+    # ported since quantization: int8 KV arenas (through the gather), the
+    # default drafter (the target's int8 clone) and the integer spec=k
+    with LMServingEngine(tm, cache_len=32, device="cpu",
+                         kv_quant="int8") as eng:
+        assert eng.pool.k.dtype == torch.int8 and eng.decode_attn == "gather"
+    with LMServingEngine(tm, cache_len=32, device="cpu",
+                         spec=SpecConfig(k=2)) as eng:
+        assert eng.draft.dtype_tag == "int8"
+        assert eng.draft.compute_mode == "dequant"
+    with LMServingEngine(tm, cache_len=32, device="cpu", spec=2) as eng:
+        assert isinstance(eng.spec, SpecConfig) and eng.spec.k == 2
+        assert eng.draft.dtype_tag == "int8"
     with pytest.raises(TypeError, match="SpecConfig"):
-        LMServingEngine(tm, device="cpu", spec=2)
+        LMServingEngine(tm, device="cpu", spec="2")
     with LMServingEngine(tm, cache_len=32, device="cpu") as eng:
         with pytest.raises(NotImplementedError):
             eng.submit([1, 2], deadline_s=1.0)

@@ -536,9 +536,11 @@ def test_spec_refusals(lm):
     with pytest.raises(ValueError, match="vocab"):
         LMServingEngine(lm, slots=1, cache_len=32, device="cpu",
                         spec=SpecConfig(k=2, draft=_drafter(lm, vocab=17)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        LMServingEngine(lm, slots=1, cache_len=32, device="cpu",
-                        spec=SpecConfig(k=2))
+    # no draft: the default drafter, the target's int8 clone (ported with
+    # quantization; refused before it)
+    with LMServingEngine(lm, slots=1, cache_len=32, device="cpu",
+                         spec=SpecConfig(k=2)) as eng:
+        assert eng.draft.dtype_tag == "int8" and eng.draft.model is not lm
     if not torch.cuda.is_available():
         # a spec engine asked for the card (the default) without one
         with pytest.raises(RuntimeError, match="no CUDA device"):
