@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.nn.normalization import layer_norm
+from bigdl_tpu_torch.obs.registry import get_registry
 from bigdl_tpu_torch.quant.kernels import qmatmul
 from bigdl_tpu_torch.quant.qtensor import is_qtensor
 from bigdl_tpu_torch.quant.transform import (QuantPolicy, dequantize_entry,
@@ -51,6 +52,21 @@ def apply_rope(x, positions, base: float = 10000.0):
     x2 = x[..., half:].float()
     return torch.cat([(x1 * cos - x2 * sin).to(x.dtype),
                       (x2 * cos + x1 * sin).to(x.dtype)], -1)
+
+
+def _publish_quant_report(report: dict) -> None:
+    """The reference's ``quant/*`` registry gauges of one report."""
+    reg = get_registry()
+    reg.gauge("quant/bytes_saved", unit="B").set(report["bytes_saved"])
+    reg.gauge("quant/payload_ratio").set(report["payload_ratio"])
+    reg.gauge("quant/max_abs_dequant_error").set(
+        report["max_abs_dequant_error"])
+    for path, err in report["per_layer_max_abs_err"].items():
+        reg.gauge(f"quant/max_abs_dequant_error/{path}").set(err)
+    if report.get("per_layer_overflow_risk"):
+        reg.gauge("quant/overflow_risk").set(report["overflow_risk"])
+        for path, risk in report["per_layer_overflow_risk"].items():
+            reg.gauge(f"quant/overflow_risk/{path}").set(risk)
 
 
 class TransformerLM:
@@ -160,8 +176,9 @@ class TransformerLM:
         explicit ``policy`` wins over it.  ``dtype="bf16"``: a plain
         cast.  The clone's ``quant_report`` holds the byte counts, the
         per-leaf max abs dequantization error and, for int8 compute, the
-        int32-accumulator overflow risk.  Inference only: train the
-        float model and quantize again."""
+        int32-accumulator overflow risk; they are also published as the
+        ``quant/*`` gauges of the metric registry.  Inference only:
+        train the float model and quantize again."""
         if self.params is None:
             raise ValueError("quantize() needs params: call build(seed) "
                              "or set params first")
@@ -172,6 +189,7 @@ class TransformerLM:
         new.params = quantize_params(self.params, dtype, policy=policy,
                                      report=report)
         new.quant_report = report
+        _publish_quant_report(report)
         return new
 
     # -------------------------------------------------------------- #

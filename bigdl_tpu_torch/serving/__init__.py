@@ -1,10 +1,15 @@
 from bigdl_tpu_torch.serving.errors import (PoolExhausted, RequestExceedsPool,
-                                            ServingClosed, ServingQueueFull)
+                                            ServingClosed,
+                                            ServingDeadlineExceeded,
+                                            ServingOverloaded,
+                                            ServingQueueFull)
+from bigdl_tpu_torch.serving.kvtier import HostBlockStore
 from bigdl_tpu_torch.serving.lm_engine import (LMMetrics, LMServingEngine,
-                                               LMStream,
+                                               LMStream, StreamTruncation,
                                                prefill_bucket_lengths)
 from bigdl_tpu_torch.serving.spec import SpecConfig
 
-__all__ = ["LMMetrics", "LMServingEngine", "LMStream", "PoolExhausted",
-           "RequestExceedsPool", "ServingClosed", "ServingQueueFull",
-           "SpecConfig", "prefill_bucket_lengths"]
+__all__ = ["HostBlockStore", "LMMetrics", "LMServingEngine", "LMStream",
+           "PoolExhausted", "RequestExceedsPool", "ServingClosed",
+           "ServingDeadlineExceeded", "ServingOverloaded", "ServingQueueFull",
+           "SpecConfig", "StreamTruncation", "prefill_bucket_lengths"]

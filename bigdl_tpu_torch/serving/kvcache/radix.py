@@ -1,6 +1,6 @@
 """Radix prefix cache: token-prefix trie over refcounted block chains
 (host-only port of ``bigdl_tpu/serving/kvcache/radix.py``; the router
-fingerprints and the host-tier eviction hook wait for their slices).
+fingerprints wait for their slice).
 
 The trie is **block-granular**: one node per full block of
 ``block_len`` tokens, keyed by that block's token tuple, so a match is
@@ -18,15 +18,25 @@ Reference protocol (one pool refcount per holder):
 - ``evict`` releases blocks whose ONLY reference is the trie
   (refcount 1), least recently used first, leaves first.
 
+Every eviction goes through one path: the optional ``on_evict(path,
+block)`` callback fires per victim, ``path`` the tuple of block
+token-keys from the root down to the victim, BEFORE the trie's
+reference is released, so the block's rows are still allocated and
+gatherable (the engine's host-tier demotion hook).  A callback that
+raises is logged and the eviction proceeds as a plain drop.
+
 The serving worker is the only mutator; counters are lock-guarded so
 stats reads from other threads are consistent.
 """
 from __future__ import annotations
 
+import logging
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from bigdl_tpu_torch.serving.kvcache.blocks import BlockPool
+
+log = logging.getLogger("bigdl_tpu_torch.serving")
 
 
 class _Node:
@@ -44,9 +54,14 @@ class _Node:
 class RadixCache:
     """Longest-prefix block reuse over a :class:`BlockPool`."""
 
-    def __init__(self, pool: BlockPool):
+    def __init__(self, pool: BlockPool,
+                 on_evict: Optional[Callable[[Tuple[Tuple[int, ...], ...],
+                                              int], None]] = None):
         self.pool = pool
         self.block_len = pool.block_len
+        #: the eviction funnel, ``on_evict(path, block)`` per victim
+        #: before release (reassignable live)
+        self.on_evict = on_evict
         self._lock = threading.Lock()
         self._root = _Node(None, None, None, 0)
         self._clock = 0
@@ -88,6 +103,12 @@ class RadixCache:
                 self.pool.retain(out)
         return out
 
+    def record_saved(self, n_tokens: int) -> None:
+        """Count ``n_tokens`` of prefill saved outside :meth:`match` (the
+        host tier's promoted blocks), as a trie hit counts them."""
+        with self._lock:
+            self.matched_tokens += int(n_tokens)
+
     def insert(self, tokens0, blocks: List[int]) -> int:
         """Register a prefilled chain: ``blocks[i]`` holds tokens
         ``[i*B, (i+1)*B)`` of ``tokens0``.  Returns the number of nodes
@@ -121,6 +142,32 @@ class RadixCache:
                 out.append(n)
         return out
 
+    @staticmethod
+    def _path_of(node: _Node) -> Tuple[Tuple[int, ...], ...]:
+        """Block token-keys from the root down to ``node``: the
+        host-tier identity of its block."""
+        keys: List[Tuple[int, ...]] = []
+        while node.key is not None:
+            keys.append(node.key)
+            node = node.parent
+        return tuple(reversed(keys))
+
+    def _evict_node(self, v: _Node) -> None:
+        """THE eviction path: ``on_evict`` while the block is still
+        allocated, then the trie's reference is released."""
+        hook = self.on_evict
+        if hook is not None:
+            try:
+                hook(self._path_of(v), int(v.block))
+            except Exception:  # noqa: BLE001 - a failing demotion
+                # target degrades the eviction to a plain drop
+                log.exception("radix on_evict hook failed; dropping "
+                              "block %d", v.block)
+        del v.parent.children[v.key]
+        self.pool.release([v.block])
+        self.nodes -= 1
+        self.evictions += 1
+
     def evict(self, n_blocks: int) -> int:
         """Free up to ``n_blocks`` pool blocks by dropping LRU leaf nodes
         whose block has no holder but the trie.  Returns how many blocks
@@ -133,13 +180,13 @@ class RadixCache:
                            if self.pool.refcount(n.block) == 1]
                 if not victims:
                     break
-                v = min(victims, key=lambda n: n.last_used)
-                del v.parent.children[v.key]
-                self.pool.release([v.block])
-                self.nodes -= 1
-                self.evictions += 1
+                self._evict_node(min(victims, key=lambda n: n.last_used))
                 freed += 1
         return freed
+
+    def hit_rate(self) -> Optional[float]:
+        with self._lock:
+            return (self.hits / self.lookups) if self.lookups else None
 
     def stats(self) -> dict:
         with self._lock:

@@ -53,16 +53,44 @@ stay outside every graph.
 One worker thread owns every launch and replay after warmup; it selects
 the engine's device before its first launch and brings logits to the
 host with ``.cpu()`` (which synchronises) before the next replay, since
-a graph's outputs live in a pool the next graph reuses.  Not ported
-yet, and refused with ``NotImplementedError`` when asked for:
-``kvtier``, ``migrate``/``adopt``, ``placement``, deadlines and
-cancellation.
+a graph's outputs live in a pool the next graph reuses.
+
+- **lifecycle**: ``submit(deadline_s=)`` arms a wall-clock budget at
+  enqueue and ``LMStream.cancel()`` asks to stop; both are honored at
+  the next scheduler round.  A request still queued when its budget
+  runs out is shed with :class:`ServingDeadlineExceeded`; a seated
+  stream is finished with a typed :class:`StreamTruncation` (its tokens
+  the exact prefix of the full answer), its slot and blocks recycled.
+  A cancel wakes an idle worker, and an idle worker still wakes for the
+  earliest deadline among queued, resuming and hibernated streams.
+- **host KV tier** (``kvtier=HostBlockStore(...)``): radix-tail eviction
+  demotes each victim block to host RAM instead of dropping it, an
+  admission promotes any surviving continuation of its matched prefix
+  back (prefilling only past it), and :meth:`LMServingEngine.hibernate`
+  / :meth:`LMServingEngine.resume` swap a whole stream out of its slot
+  and back, bit-exactly.  A lost payload re-prefills the prompt and
+  replays the emitted tokens through the decode step without emitting
+  them again (counted in ``resume_re_prefills``).  Every move is in
+  place on the arenas, whose addresses the graphs captured.
+- **observability**: ``LMMetrics`` (``serving/lm/*``), the KV plane
+  (``kvcache/*``), ``SpecMetrics`` (``serving/lm/spec/*``) and the
+  lifecycle counters (``serving/lifecycle/*``) publish into the
+  process-wide registry (``bigdl_tpu_torch.obs``); every request gets
+  an id, and a sampled one records ``lm/*`` spans and instants on the
+  host clock.  Fault sites: ``serving.enqueue`` (a transient becomes
+  :class:`ServingOverloaded`), ``serving.verify`` (a transient demotes
+  the speculating slots for the round) and ``serving.cancel`` (a fault
+  cancels the stream).
+
+Not ported yet, and refused with ``NotImplementedError`` when asked
+for: ``migrate`` (disaggregated serving) and ``placement``.
 """
 from __future__ import annotations
 
 import copy
 import threading
 import time
+import weakref
 from collections import deque
 from typing import List, Optional, Sequence
 
@@ -78,14 +106,24 @@ from bigdl_tpu_torch.quant.transform import (params_dtype_tag,
                                              set_compute_mode)
 from bigdl_tpu_torch.serving.compile_cache import (CompileCache, GraphPool,
                                                    StepGraph)
-from bigdl_tpu_torch.serving.errors import (PoolExhausted, RequestExceedsPool,
-                                            ServingClosed, ServingQueueFull)
-from bigdl_tpu_torch.serving.histogram import Histogram
+from bigdl_tpu_torch.obs import get_registry, get_tracer, mint_request_id
+from bigdl_tpu_torch.obs.registry import FnGauge, Histogram
+from bigdl_tpu_torch.resilience.faults import fault_point
+from bigdl_tpu_torch.serving.errors import (BackendLostError, PoolExhausted,
+                                            RequestExceedsPool, ServingClosed,
+                                            ServingDeadlineExceeded,
+                                            ServingOverloaded,
+                                            ServingQueueFull,
+                                            TransientBackendError,
+                                            count_rejection)
 from bigdl_tpu_torch.serving.kvcache import BlockPool, RadixCache
+from bigdl_tpu_torch.serving.kvtier.store import block_path
 from bigdl_tpu_torch.serving.spec import (DraftModel, NgramDrafter,
                                           SpecConfig, SpecMetrics)
 from bigdl_tpu_torch.serving.spec.verify import accept_row, pick_token
 from bigdl_tpu_torch.utils import keychain
+
+_tracer = get_tracer()
 
 
 def prefill_bucket_lengths(max_len: int, min_bucket: int = 8) -> tuple:
@@ -108,14 +146,44 @@ def _not_ported(what: str, item: str):
 
 
 # ---------------------------------------------------------------------- #
+class StreamTruncation:
+    """Why and where the lifecycle layer ended a stream early (attached
+    as ``LMStream.truncation``): a deadline that ran out mid-decode or a
+    cooperative cancel.  The tokens already emitted stay valid and
+    bit-exact; the stream completes without an error.  ``reason`` is
+    ``"deadline"`` or ``"cancelled"``."""
+
+    __slots__ = ("reason", "at_tokens", "deadline_s")
+
+    def __init__(self, reason: str, at_tokens: int,
+                 deadline_s: Optional[float] = None):
+        self.reason = str(reason)
+        self.at_tokens = int(at_tokens)  # generated length at truncation
+        self.deadline_s = deadline_s     # original budget, if any
+
+    def __repr__(self):
+        return (f"StreamTruncation(reason={self.reason!r}, "
+                f"at_tokens={self.at_tokens})")
+
+
 class LMStream:
     """Per-request handle: generated 1-based ids stream in as the engine
     decodes them.  ``tokens()`` iterates them as they land;
-    ``result()`` blocks for prompt + generated ids."""
+    ``result()`` blocks for prompt + generated ids.
 
-    def __init__(self, prompt_1b: np.ndarray, max_new: int):
+    Lifecycle: an optional wall-clock budget (``deadline_s``, armed at
+    enqueue; the absolute deadline rides every hibernate/resume hop) and
+    :meth:`cancel`.  Both are cooperative: the engine honors them at its
+    next scheduler round and finishes the stream with a
+    :class:`StreamTruncation` (``result()`` returns the tokens so far
+    without raising)."""
+
+    def __init__(self, prompt_1b: np.ndarray, max_new: int,
+                 request_id: Optional[str] = None,
+                 deadline_s: Optional[float] = None):
         self.prompt = prompt_1b
         self.max_new = int(max_new)
+        self.request_id = request_id    # trace and host-tier handle
         self._tokens: List[int] = []
         self._cond = threading.Condition()
         self._done = False
@@ -123,9 +191,58 @@ class LMStream:
         self.submitted_at = time.perf_counter()
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
+        self.deadline_s = (float(deadline_s)
+                           if deadline_s is not None else None)
+        self.deadline_at = ((time.monotonic() + self.deadline_s)
+                            if self.deadline_s is not None else None)
+        self.truncation: Optional[StreamTruncation] = None
+        self._cancel_requested = False
+        self._cancel_at_gen = 0         # generated length when cancelled
+        self._wake_cb = None            # engine nudge, set at enqueue
 
+    # lifecycle --------------------------------------------------------- #
     def cancel(self) -> bool:
-        raise _not_ported("cooperative cancellation", "11")
+        """Ask the engine to stop this request (the client went away).
+        Returns True if the request was still live; the engine honors it
+        at its next scheduler round.  Idempotent, safe from any
+        thread."""
+        with self._cond:
+            if self._done:
+                return False
+            if not self._cancel_requested:
+                self._cancel_requested = True
+                self._cancel_at_gen = len(self._tokens)
+            cb = self._wake_cb
+        if cb is not None:
+            try:
+                cb()
+            except Exception:   # a closing engine must not fail cancel
+                pass
+        return True
+
+    @property
+    def cancel_requested(self) -> bool:
+        with self._cond:
+            return self._cancel_requested
+
+    def expired(self, now: Optional[float] = None) -> bool:
+        """True once the wall-clock budget is spent."""
+        if self.deadline_at is None:
+            return False
+        return (now if now is not None else time.monotonic()) \
+            >= self.deadline_at
+
+    def dead(self, now: Optional[float] = None) -> bool:
+        """True once cancelled or past its deadline: the engine retires
+        the stream at its next round boundary."""
+        return self.cancel_requested or self.expired(now)
+
+    def remaining_s(self, now: Optional[float] = None) -> Optional[float]:
+        """Budget left (seconds; may be negative), or None if unbounded."""
+        if self.deadline_at is None:
+            return None
+        return self.deadline_at - (now if now is not None
+                                   else time.monotonic())
 
     # engine-side ------------------------------------------------------- #
     def _emit(self, token_1b: int) -> None:
@@ -142,7 +259,20 @@ class LMStream:
             self._done = True
             self._error = error
             self.finished_at = time.perf_counter()
+            # a finished stream wakes nothing: a client holding it must
+            # not keep a closed engine (and its arenas) alive
+            self._wake_cb = None
             self._cond.notify_all()
+
+    def _finish_truncated(self, reason: str) -> None:
+        """Finish early with a truncation marker (no error)."""
+        with self._cond:
+            if self._done:
+                return
+            if self.truncation is None:
+                self.truncation = StreamTruncation(
+                    reason, len(self._tokens), self.deadline_s)
+        self._finish()
 
     # client-side ------------------------------------------------------- #
     def tokens(self, timeout: Optional[float] = None):
@@ -195,13 +325,19 @@ class LMStream:
 # ---------------------------------------------------------------------- #
 class LMMetrics:
     """Serving counters and latency histograms; thread-safe (the
-    decode worker records, callers read ``snapshot()``)."""
+    decode worker records, callers and the registry read).
+
+    ITL is split by phase: ``itl`` holds every gap, ``itl_decode`` the
+    gaps between back-to-back decode rounds, ``itl_prefill_gap`` those a
+    prefill or a resume interrupted."""
 
     def __init__(self, slots: int, throughput_window_s: float = 60.0):
         self._lock = threading.Lock()
         self.slots = int(slots)
         self.ttft = Histogram()
         self.itl = Histogram()
+        self.itl_decode = Histogram()
+        self.itl_prefill_gap = Histogram()
         self.requests = 0
         self.rejected = 0
         self.completed = 0
@@ -215,6 +351,22 @@ class LMMetrics:
         self.started_at = time.perf_counter()
         self._window_s = float(throughput_window_s)
         self._recent: deque = deque()  # (t, n_tokens) per decode step
+
+    def publish_to(self, registry,
+                   prefix: str = "serving/lm/") -> "LMMetrics":
+        for key in ("ttft", "itl", "itl_decode", "itl_prefill_gap"):
+            registry.register(prefix + key, getattr(self, key),
+                              replace=True)
+        for key in ("requests", "rejected", "completed", "tokens",
+                    "prefills", "decode_steps"):
+            registry.register(prefix + key,
+                              FnGauge(lambda k=key: getattr(self, k)),
+                              replace=True)
+        for key in ("tokens_per_s", "slot_occupancy", "slot_occupancy_peak"):
+            registry.register(prefix + key,
+                              FnGauge(lambda k=key: self.snapshot()[k]),
+                              replace=True)
+        return self
 
     def record_submit(self) -> None:
         with self._lock:
@@ -231,7 +383,8 @@ class LMMetrics:
             self.ttft.observe(ttft_s)
             self._recent.append((time.perf_counter(), 1))
 
-    def record_step(self, n_active: int, itls_s: Sequence[float]) -> None:
+    def record_step(self, n_active: int, itls_s: Sequence[float],
+                    prefill_interrupted: bool = False) -> None:
         with self._lock:
             now = time.perf_counter()
             self.decode_steps += 1
@@ -243,8 +396,11 @@ class LMMetrics:
             horizon = now - self._window_s
             while self._recent and self._recent[0][0] < horizon:
                 self._recent.popleft()
+            split = (self.itl_prefill_gap if prefill_interrupted
+                     else self.itl_decode)
             for itl in itls_s:
                 self.itl.observe(itl)
+                split.observe(itl)
 
     def record_complete(self) -> None:
         with self._lock:
@@ -274,6 +430,8 @@ class LMMetrics:
                     if self.slot_steps else None,
                 "ttft": self.ttft.snapshot(),
                 "itl": self.itl.snapshot(),
+                "itl_decode": self.itl_decode.snapshot(),
+                "itl_prefill_gap": self.itl_prefill_gap.snapshot(),
                 "spec": (self.spec.snapshot()
                          if self.spec is not None else None),
             }
@@ -282,10 +440,10 @@ class LMMetrics:
 # ---------------------------------------------------------------------- #
 class _Request:
     __slots__ = ("stream", "prompt0", "max_new", "temperature", "eos0",
-                 "first_key", "step_keys")
+                 "first_key", "step_keys", "rid")
 
     def __init__(self, stream, prompt0, max_new, temperature, eos0,
-                 first_key, step_keys):
+                 first_key, step_keys, rid):
         self.stream = stream
         self.prompt0 = prompt0          # (t,) int32, 0-based
         self.max_new = max_new
@@ -293,17 +451,19 @@ class _Request:
         self.eos0 = eos0                # 0-based eos id or None
         self.first_key = first_key      # (2,) uint32 or None
         self.step_keys = step_keys      # (max_new - 1, 2) uint32 or None
+        self.rid = rid                  # request id
 
 
 class _Slot:
     __slots__ = ("stream", "pos_next", "last0", "remaining", "step_idx",
                  "temperature", "eos0", "step_keys", "last_emit_at",
                  "blocks", "table", "draft_ok", "demoted", "accept_ema",
-                 "spec_rounds", "probe_in", "tree_rung")
+                 "spec_rounds", "probe_in", "tree_rung", "rid", "replay")
 
     def __init__(self, req: _Request, prompt_len: int, first0: int,
                  blocks: List[int], table: np.ndarray):
         self.stream = req.stream
+        self.rid = req.rid
         self.pos_next = prompt_len      # next cache position to write
         self.last0 = first0             # last emitted token, 0-based
         self.remaining = req.max_new - 1
@@ -314,6 +474,10 @@ class _Slot:
         self.last_emit_at = time.perf_counter()
         self.blocks = blocks            # one pool ref per block
         self.table = table              # (M,) int32, scratch-padded
+        # already-emitted 0-based tokens whose KV the decode step must
+        # rebuild (a resume whose payload was lost): fed through decode
+        # without being emitted again
+        self.replay: deque = deque()
         # speculation state (spec engines only)
         self.draft_ok = False           # the drafter holds this slot
         self.demoted = False            # plain decode until re-probe
@@ -326,6 +490,34 @@ class _Slot:
         """The chain key of the slot's next token (None when greedy)."""
         return (self.step_keys[self.step_idx]
                 if self.step_keys is not None else None)
+
+
+class _Hibernated:
+    """A stream swapped out of its decode slot into the host KV tier,
+    with its full sampling state (``pos_next``, ``last0``,
+    ``remaining``, ``step_idx``, ``step_keys``) so a resume re-enters
+    decode at the exact token it left off.  The chain lives in the
+    tier under ``("session", rid)`` until resume pops it into
+    ``payload`` (kept across a pool-pressure deferral)."""
+
+    __slots__ = ("stream", "rid", "pos_next", "last0", "remaining",
+                 "step_idx", "temperature", "eos0", "step_keys",
+                 "n_used", "payload", "fetched", "hibernated_at")
+
+    def __init__(self, st: _Slot, n_used: int):
+        self.stream = st.stream
+        self.rid = st.rid
+        self.pos_next = int(st.pos_next)
+        self.last0 = int(st.last0)
+        self.remaining = int(st.remaining)
+        self.step_idx = int(st.step_idx)
+        self.temperature = st.temperature
+        self.eos0 = st.eos0
+        self.step_keys = st.step_keys
+        self.n_used = int(n_used)       # exported blocks (written KV)
+        self.payload = None             # wire payload once fetched
+        self.fetched = False            # the tier lookup happened
+        self.hibernated_at = time.perf_counter()
 
 
 class _Prefill:
@@ -399,6 +591,14 @@ class LMServingEngine:
             CUDA graph on a CUDA device and runs eagerly on the CPU;
             ``False`` runs eagerly on the card too (to measure what
             capture returns); ``True`` off a CUDA device raises.
+        kvtier: optional :class:`~bigdl_tpu_torch.serving.kvtier.\
+HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
+            into it (int8 pools with their scales), admission promotes a
+            surviving continuation of a matched prefix back, and
+            :meth:`hibernate` / :meth:`resume` swap whole streams out of
+            their slots and back.
+        honor_lifecycle: ``False`` records deadlines and cancels (and the
+            decode slot-steps wasted on them) without acting on them.
         device: must be the model's device (default ``"cuda"``).
     """
 
@@ -419,12 +619,12 @@ class LMServingEngine:
                  spec=None, kvtier=None, migrate=None, placement=None,
                  max_cache_entries: int = 16,
                  cuda_graphs: Optional[bool] = None,
+                 honor_lifecycle: bool = True,
                  name: str = "lm",
                  device=None):
-        for what, val, item in (("kvtier", kvtier, "11"),
-                                ("migrate (disaggregated serving)",
-                                 migrate, "11"),
-                                ("placement", placement, "11")):
+        for what, val, item in (("migrate (disaggregated serving)",
+                                 migrate, "11.4"),
+                                ("placement", placement, "11.7")):
             if val is not None:
                 raise _not_ported(what, item)
         if isinstance(spec, int) and not isinstance(spec, bool):
@@ -485,6 +685,11 @@ class LMServingEngine:
                               device=self.device, kv_quant=kv_quant)
         self.kv_quant = self.pool.kv_quant
         self.radix = RadixCache(self.pool) if enable_prefix_cache else None
+        self.kvtier = kvtier
+        if kvtier is not None and self.radix is not None:
+            # radix-tail eviction hands each victim block to the host
+            # tier (with its scales when quantized) instead of dropping it
+            self.radix.on_evict = self._demote_block
         self._prefix_block_buckets = prefill_bucket_lengths(
             self.table_width, min_bucket=1)
 
@@ -571,7 +776,7 @@ class LMServingEngine:
                     prefill_buckets=self.prefill_buckets,
                     max_cache_entries=max_cache_entries,
                     sampling=spec.sampling, graphs=self.graphs)
-            self.spec_metrics = SpecMetrics()
+            self.spec_metrics = SpecMetrics().publish_to(get_registry())
             self.spec_metrics.compute_mode = self.draft.compute_mode
             if self.draft.compute_mode != "ngram":
                 report = getattr(draft_lm, "quant_report", None) or {}
@@ -591,8 +796,10 @@ class LMServingEngine:
 
                 self._commit_exec = StepGraph(_commit_fn, self.graphs)
 
-        self.metrics = LMMetrics(self.slots)
+        reg = get_registry()
+        self.metrics = LMMetrics(self.slots).publish_to(reg)
         self.metrics.spec = self.spec_metrics
+        self._publish_kv_metrics(reg)
         self._cv = threading.Condition()
         self._queue: deque = deque()
         self._free = list(range(self.slots))
@@ -600,9 +807,62 @@ class LMServingEngine:
         self._n_active = 0
         self._closing = False
         self._abort = False
+        self._prefill_since_step = False     # splits the ITL histograms
+        # -- hibernation (host KV tier) --------------------------------- #
+        self._hibernate_req: set = set()     # rids awaiting swap-out
+        self._hibernating: set = set()       # rids the worker is swapping
+        self._seating: set = set()           # rids the worker is admitting
+        self._hibernated: dict = {}          # rid -> _Hibernated
+        self._resume_q: deque = deque()      # _Hibernated awaiting seats
+        self.hibernations = 0   # streams swapped out to the host tier
+        self.resumes = 0        # streams seated back from hibernation
+        self.resume_re_prefills = 0  # lost payloads rebuilt by replay
+        # -- request lifecycle (deadlines, cooperative cancel) ---------- #
+        self.honor_lifecycle = bool(honor_lifecycle)
+        self._lc_nudge = False    # a cancel or a deadline wants a sweep
+        self._lc_lock = threading.Lock()
+        self.lifecycle = {
+            "expired_preadmission": 0,   # shed before prefill
+            "expired_midstream": 0,      # truncated while decoding
+            "cancelled": 0,              # cooperative cancels honored
+            "wasted_decode_steps": 0,    # slot-steps past cancel/deadline
+        }
+        self._lc_counters = {k: reg.counter(f"serving/lifecycle/{k}")
+                             for k in self.lifecycle}
         self._worker = threading.Thread(
             target=self._run, daemon=True, name=f"lm-serve-{name}")
         self._worker.start()
+
+    def _publish_kv_metrics(self, registry) -> None:
+        """The KV plane's gauges.  Each reads host state only (the free
+        list and the trie's counters), never a device tensor, and holds
+        the engine weakly: the process-wide registry must not keep a
+        closed engine's arenas alive."""
+        ref = weakref.ref(self)
+
+        def gauge(read, idle=None):
+            def value():
+                eng = ref()
+                return read(eng) if eng is not None else idle
+            return FnGauge(value)
+
+        registry.register("kvcache/block_utilization",
+                          gauge(lambda e: e.pool.utilization()),
+                          replace=True)
+        registry.register(
+            "kvcache/prefix_hit_rate",
+            gauge(lambda e: e.radix.hit_rate() if e.radix is not None
+                  else None), replace=True)
+        registry.register(
+            "kvcache/prefill_tokens_saved",
+            gauge(lambda e: e.radix.matched_tokens if e.radix is not None
+                  else 0), replace=True)
+        registry.register(
+            "kvcache/evictions",
+            gauge(lambda e: e.radix.evictions if e.radix is not None
+                  else 0), replace=True)
+        registry.gauge("kvcache/arena_bytes",
+                       unit="bytes").set(self.pool.arena_bytes)
 
     @staticmethod
     def _default_drafter(model, compute: str):
@@ -757,9 +1017,14 @@ class LMServingEngine:
         :class:`LMStream` of its continuation.  A sampled request
         (``temperature > 0``) draws from the key chain of ``rng`` (an int
         seed or a (2,) uint32 key, default seed 0), exactly as offline
-        ``generate`` at batch 1 does."""
-        if deadline_s is not None:
-            raise _not_ported("deadline_s (request deadlines)", "11")
+        ``generate`` at batch 1 does.
+
+        ``deadline_s`` is a wall-clock budget armed here: a budget of 0
+        or less raises :class:`ServingDeadlineExceeded` at once; a
+        request still queued when it runs out is shed with that error
+        before any prefill; a stream past it mid-decode is finished with
+        a :class:`StreamTruncation` and its slot and blocks recycled in
+        the same scheduler round."""
         prompt = np.asarray(prompt_ids).reshape(-1).astype(np.int32)
         t = prompt.shape[0]
         if t == 0:
@@ -775,6 +1040,7 @@ class LMServingEngine:
         need = self.pool.blocks_for(t + max_new)
         if need > self.pool.capacity:
             self.metrics.record_reject()
+            count_rejection()
             raise RequestExceedsPool(
                 f"request needs {need} KV blocks ({t} prompt + {max_new} "
                 f"new tokens at block_len {self.block_len}); the whole "
@@ -792,19 +1058,46 @@ class LMServingEngine:
             key, first_key = keychain.split(keychain.as_key(rng))
             if max_new > 1:
                 step_keys = keychain.split(key, max_new - 1)
-        stream = LMStream(prompt, max_new)
+        # the admission fault site: an injected transient is the typed shed
+        try:
+            fault_point("serving.enqueue", name=self.name, n=t)
+        except ServingOverloaded:
+            raise
+        except TransientBackendError as e:
+            self.metrics.record_reject()
+            count_rejection()
+            raise ServingOverloaded(
+                f"admission shed (injected at serving.enqueue): {e}") from e
+        rid = mint_request_id()
+        stream = LMStream(prompt, max_new, request_id=rid,
+                          deadline_s=deadline_s)
+        stream._wake_cb = self._lc_wake
+        if (self.honor_lifecycle and deadline_s is not None
+                and float(deadline_s) <= 0.0):
+            # dead on arrival: shed at once, typed
+            self.metrics.record_reject()
+            count_rejection()
+            self._lc_count("expired_preadmission")
+            raise ServingDeadlineExceeded(
+                f"deadline_s={deadline_s} already expired at enqueue")
         req = _Request(stream, prompt - 1, max_new, temp, eos0, first_key,
-                       step_keys)
+                       step_keys, rid)
         with self._cv:
             if self._closing:
                 raise ServingClosed("LMServingEngine is closed")
             if len(self._queue) >= self._max_queue:
                 self.metrics.record_reject()
+                count_rejection()
                 raise ServingQueueFull(
                     f"admission queue full ({self._max_queue})")
             self._queue.append(req)
+            depth = len(self._queue)
             self._cv.notify_all()
         self.metrics.record_submit()
+        if _tracer.sampled(rid):
+            _tracer.instant("lm/enqueue", cat="serve", request_id=rid,
+                            prompt_len=t, max_new=max_new,
+                            queue_depth=depth)
         return stream
 
     def generate(self, prompt_ids, *, timeout: Optional[float] = None,
@@ -829,16 +1122,44 @@ class LMServingEngine:
     def _loop(self):
         while True:
             with self._cv:
-                while (not self._queue and not self._n_active
-                       and not self._closing and not self._abort):
-                    self._cv.wait()
+                while (not self._queue and not self._resume_q
+                       and not self._n_active and not self._hibernate_req
+                       and not self._closing and not self._abort
+                       and not self._lc_nudge):
+                    if not self._cv.wait(self._lc_wait_timeout()):
+                        # a holding station's deadline came due while
+                        # the engine idled (a hibernated stream, say)
+                        self._lc_nudge = True
                 if self._abort:
                     return
-                if self._closing and not self._queue and not self._n_active:
+                if (self._closing and not self._queue and not self._resume_q
+                        and not self._n_active):
+                    # the caller's _fail_all resolves streams still
+                    # hibernated with ServingClosed
                     return
+                # cancelled or expired requests leave their holding
+                # stations before this round admits anything
+                self._lifecycle_sweep_locked()
+                # resumes rank ahead of fresh admissions (their first
+                # token is paid)
+                resumes = []
+                while self._free and self._resume_q:
+                    resumes.append((self._free.pop(),
+                                    self._resume_q.popleft()))
                 admits = []
                 while self._free and self._queue:
                     admits.append((self._free.pop(), self._queue.popleft()))
+            deferred_resumes = []
+            for slot, hib in resumes:
+                try:
+                    seated = self._resume_into(slot, hib)
+                except Exception as e:  # noqa: BLE001 - fail this stream
+                    hib.stream._finish(error=e)
+                    with self._cv:
+                        self._free.append(slot)
+                else:
+                    if not seated:
+                        deferred_resumes.append((slot, hib))
             deferred = []
             for slot, req in admits:
                 try:
@@ -850,15 +1171,21 @@ class LMServingEngine:
                 else:
                     if not admitted:
                         deferred.append((slot, req))
-            if deferred:
+            if deferred or deferred_resumes:
                 # pool pressure: requeue at the FRONT (FIFO order kept)
                 # and return the slots; blocks free as streams finish
                 with self._cv:
                     for slot, req in reversed(deferred):
                         self._free.append(slot)
                         self._queue.appendleft(req)
+                    for slot, hib in reversed(deferred_resumes):
+                        self._free.append(slot)
+                        self._resume_q.appendleft(hib)
                     if not self._n_active:
                         self._cv.wait(0.05)
+            self._lifecycle_round()
+            if self._hibernate_req:
+                self._service_hibernations()
             if self._n_active:
                 if self.draft is None:
                     self._step()
@@ -866,6 +1193,160 @@ class LMServingEngine:
                     self._step_spec_tree()
                 else:
                     self._step_spec()
+
+    # -- request lifecycle (deadlines, cooperative cancel) -------------- #
+    def _lc_wake(self):
+        """``LMStream._wake_cb``: a cancel wakes an idle worker so it is
+        honored at the next scheduler round."""
+        with self._cv:
+            self._lc_nudge = True
+            self._cv.notify_all()
+
+    def _lc_count(self, key: str, n: int = 1) -> None:
+        if n <= 0:
+            return
+        with self._lc_lock:
+            self.lifecycle[key] += n
+        self._lc_counters[key].add(n)
+
+    def _lc_wait_timeout(self) -> Optional[float]:
+        """The earliest pending deadline among the slot-less holding
+        stations (queued, resuming, hibernated), as a wait bound: an
+        idle engine must still wake to shed an expiring hibernated
+        stream.  Caller holds ``_cv``; None when no deadline is
+        pending."""
+        if not self.honor_lifecycle:
+            return None
+        dls = [r.stream.deadline_at for r in self._queue]
+        dls += [h.stream.deadline_at for h in self._resume_q]
+        dls += [h.stream.deadline_at for h in self._hibernated.values()]
+        dls = [d for d in dls if d is not None]
+        if not dls:
+            return None
+        return max(0.0, min(dls) - time.monotonic()) + 0.005
+
+    def _lc_shed_queued(self, stream: LMStream, rid) -> None:
+        """A queued, never-prefilled request left: a cancel truncates
+        quietly; a blown deadline is the typed pre-admission shed,
+        counted like an admission-control rejection."""
+        if stream.cancel_requested:
+            reason = "cancelled"
+            self._lc_count("cancelled")
+            stream._finish_truncated("cancelled")
+        else:
+            reason = "deadline"
+            self.metrics.record_reject()
+            count_rejection()
+            self._lc_count("expired_preadmission")
+            stream._finish(error=ServingDeadlineExceeded(
+                f"deadline ({stream.deadline_s}s) expired before "
+                "prefill; request shed pre-admission"))
+        if _tracer.sampled(rid):
+            _tracer.instant("lm/lifecycle_shed", cat="serve",
+                            request_id=rid, reason=reason, station="queue")
+
+    def _lc_truncate(self, stream: LMStream, rid, *,
+                     station: str = "seated") -> None:
+        """Finish a request that got past admission with the truncation
+        marker; the tokens already emitted stay valid."""
+        if stream.cancel_requested:
+            reason = "cancelled"
+            self._lc_count("cancelled")
+        else:
+            reason = "deadline"
+            self._lc_count("expired_midstream")
+        stream._finish_truncated(reason)
+        self.metrics.record_complete()
+        if _tracer.sampled(rid):
+            _tracer.instant("lm/lifecycle_truncate", cat="serve",
+                            request_id=rid, reason=reason, station=station,
+                            at_tokens=len(stream.generated))
+
+    def _lifecycle_sweep_locked(self) -> None:
+        """Shed cancelled or expired requests from every station that
+        holds no decode slot: the admission queue (before prefill), the
+        resume queue and the hibernated set (a hibernated stream is
+        cancellable without a resume: its chain drops out of the host
+        tier, no transfer).  Caller holds ``_cv``."""
+        self._lc_nudge = False
+        if not self.honor_lifecycle:
+            return
+        now = time.monotonic()
+        if any(r.stream.dead(now) for r in self._queue):
+            live = []
+            while self._queue:
+                r = self._queue.popleft()
+                if r.stream.dead(now):
+                    self._lc_shed_queued(r.stream, r.rid)
+                else:
+                    live.append(r)
+            self._queue.extend(live)
+        if any(h.stream.dead(now) for h in self._resume_q):
+            live = []
+            while self._resume_q:
+                hib = self._resume_q.popleft()
+                if hib.stream.dead(now):
+                    # a fetched payload rides the handle: dropping the
+                    # handle drops the chain
+                    self._lc_truncate(hib.stream, hib.rid,
+                                      station="resume_q")
+                else:
+                    live.append(hib)
+            self._resume_q.extend(live)
+        for rid in [rid for rid, hib in self._hibernated.items()
+                    if hib.stream.dead(now)]:
+            hib = self._hibernated.pop(rid)
+            if self.kvtier is not None:
+                self.kvtier.get(("session", rid), pop=True)
+            self._lc_truncate(hib.stream, rid, station="hibernated")
+
+    def _lifecycle_round(self) -> None:
+        """The per-round pass over seated streams, at a round boundary
+        (never inside a step).  The ``serving.cancel`` fault site is
+        crossed once per seated stream, and a fault there IS that client
+        disconnecting; then cancelled or expired streams are retired
+        like a finished one (slot freed, blocks released, drafter state
+        dropped) and finished with the truncation marker.  With
+        ``honor_lifecycle=False`` nothing is freed: every dead seated
+        stream counts one wasted decode slot-step per round."""
+        with self._cv:
+            seated = [st.stream for st in self._slots if st is not None]
+        for s in seated:
+            try:
+                fault_point("serving.cancel", name=self.name,
+                            rid=s.request_id)
+            except (TransientBackendError, BackendLostError):
+                s.cancel()
+        now = time.monotonic()
+        if not self.honor_lifecycle:
+            with self._cv:
+                n_dead = sum(1 for st in self._slots
+                             if st is not None and st.stream.dead(now))
+            self._lc_count("wasted_decode_steps", n_dead)
+            return
+        with self._cv:
+            freed = False
+            for i, st in enumerate(self._slots):
+                if st is None or not st.stream.dead(now):
+                    continue
+                s = st.stream
+                if s.cancel_requested:
+                    # decode steps between the cancel landing and this
+                    # round were wasted
+                    self._lc_count(
+                        "wasted_decode_steps",
+                        max(0, len(s._tokens) - s._cancel_at_gen))
+                self._trace_done(s, st.rid)
+                self.pool.release(st.blocks)
+                self._slots[i] = None
+                if self.draft is not None:
+                    self.draft.release(i)
+                self._free.append(i)
+                self._n_active -= 1
+                self._lc_truncate(s, st.rid)
+                freed = True
+            if freed:
+                self._cv.notify_all()
 
     def _admit(self, slot: int, req: _Request) -> bool:
         """Prefill + insert one request into ``slot``.  Returns False
@@ -876,20 +1357,35 @@ class LMServingEngine:
         matched: List[int] = []
         if self.radix is not None:
             matched = self.radix.match(req.prompt0)  # retains for us
-        n_new = need_total - len(matched)
-        try:
-            fresh = self.pool.alloc(n_new)
-        except PoolExhausted:
-            if self.radix is not None:
-                self.radix.evict(n_new - self.pool.free_count)
-            try:
-                fresh = self.pool.alloc(n_new)
-            except PoolExhausted:
-                if matched:
-                    self.pool.release(matched)
-                return False
+            if self.kvtier is not None:
+                # a prefix that fell out of the arenas may survive in the
+                # host tier: promote its continuation, prefill past it
+                matched = self._promote_extend(req.prompt0, matched,
+                                               rid=req.rid)
+        traced = _tracer.sampled(req.rid)
+        if traced and self.radix is not None:
+            _tracer.instant("lm/radix_match", cat="serve",
+                            request_id=req.rid, matched_blocks=len(matched),
+                            matched_tokens=len(matched) * self.block_len,
+                            prompt_len=t)
+        fresh = self._alloc_or_evict(need_total - len(matched))
+        if fresh is None:
+            if matched:
+                self.pool.release(matched)
+            return False
         blocks = matched + fresh
+        if traced:
+            # the queue wait is known only now, at admission
+            _tracer.add_complete("lm/queue_wait", req.stream.submitted_at,
+                                 time.perf_counter()
+                                 - req.stream.submitted_at, cat="serve",
+                                 args={"request_id": req.rid, "slot": slot})
         pf = _Prefill(req, blocks, slot, len(matched) * self.block_len)
+        # the first token is streamed before the slot is seated (a spec
+        # engine admits the drafter in between): a hibernate asked for in
+        # that window waits for the seat
+        with self._cv:
+            self._seating.add(req.rid)
         try:
             while not self._prefill_chunk(pf):
                 pass
@@ -897,6 +1393,9 @@ class LMServingEngine:
         except BaseException:
             self.pool.release(blocks)
             raise
+        finally:
+            with self._cv:
+                self._seating.discard(req.rid)
         return True
 
     def _prefill_x(self, ids: np.ndarray, ts: int, p: int,
@@ -933,7 +1432,12 @@ class LMServingEngine:
         ids[0, :ts] = req.prompt0[p:p + ts]
         x = self._prefill_x(ids, ts, p, pf.blocks)
         cache = self.prefill_cache if p == 0 else self.prefix_prefill_cache
-        logits = cache(self._params, self.model.buffers, x)
+        rid_args = ({"request_id": req.rid}
+                    if _tracer.sampled(req.rid) else {})
+        with _tracer.span("lm/prefill", cat="serve", bucket=ids.shape[1],
+                          prompt_len=t, prefix_len=p, **rid_args):
+            logits = cache(self._params, self.model.buffers, x)
+        self._prefill_since_step = True
         pf.p = p + ts
         if pf.p >= t:
             # only the last chunk's logits are read, before any other
@@ -957,6 +1461,7 @@ class LMServingEngine:
                                 and first0 == req.eos0):
             req.stream._finish()
             self.metrics.record_complete()
+            self._trace_done(req.stream, req.rid)
             self.pool.release(blocks)
             with self._cv:
                 self._free.append(slot)
@@ -995,12 +1500,59 @@ class LMServingEngine:
             return True
         return False
 
+    @staticmethod
+    def _replay_one(st: _Slot) -> None:
+        """A resumed slot whose payload was lost: this step rebuilt
+        ``last0``'s k/v row; the next token was emitted before the
+        hibernation, so it comes from the replay queue instead of the
+        logits (no emit, no ITL sample; the key chain stays aligned)."""
+        st.last0 = st.replay.popleft()
+        st.pos_next += 1
+        st.step_idx += 1
+        st.remaining -= 1
+
+    def _record_step(self, n_active: int, itls: list) -> None:
+        self.metrics.record_step(n_active, itls,
+                                 prefill_interrupted=self._prefill_since_step)
+        self._prefill_since_step = False
+
+    def _trace_rounds(self, name: str, active, t0: float, now: float,
+                      **extra) -> None:
+        """One retroactive span per sampled slot of a batched step."""
+        if not _tracer.enabled:
+            return
+        for i in active:
+            st = self._slots[i]
+            if _tracer.sampled(st.rid):
+                args = {"request_id": st.rid, "slot": i,
+                        "step": st.step_idx}
+                args.update({k: v(i) for k, v in extra.items()})
+                _tracer.add_complete(name, t0, now - t0, cat="serve",
+                                     args=args)
+
+    @staticmethod
+    def _trace_done(stream: LMStream, rid: Optional[str]) -> None:
+        """The request's root span (submit to finish), recorded when its
+        extent is known."""
+        if not _tracer.sampled(rid):
+            return
+        end = stream.finished_at
+        if end is None:
+            end = time.perf_counter()
+        _tracer.add_complete(
+            "lm/request", stream.submitted_at, end - stream.submitted_at,
+            cat="serve",
+            args={"request_id": rid, "prompt_len": int(len(stream.prompt)),
+                  "max_new": stream.max_new,
+                  "emitted": len(stream.generated)})
+
     def _retire(self, freed: List[int]) -> None:
         """Return finished slots and their blocks."""
         if not freed:
             return
         with self._cv:
             for i in freed:
+                self._trace_done(self._slots[i].stream, self._slots[i].rid)
                 self.pool.release(self._slots[i].blocks)
                 self._slots[i] = None
                 if self.draft is not None:
@@ -1022,16 +1574,22 @@ class LMServingEngine:
                 tables[i] = st.table
         if not active:
             return
-        logits = self._decode(token, pos, tables)
+        t0 = time.perf_counter()
+        with _tracer.span("lm/decode_step", cat="serve", active=len(active)):
+            logits = self._decode(token, pos, tables)
         now = time.perf_counter()
+        self._trace_rounds("lm/decode_round", active, t0, now)
         itls = []
         freed = []
         for i in active:
             st = self._slots[i]
+            if st.replay:
+                self._replay_one(st)
+                continue
             nxt0 = pick_token(logits[i], st.temperature, st.key(), clamp=True)
             if self._emit(st, nxt0, now, itls):
                 freed.append(i)
-        self.metrics.record_step(len(active), itls)
+        self._record_step(len(active), itls)
         self._retire(freed)
 
     def _decode(self, token, pos, tables) -> np.ndarray:
@@ -1070,6 +1628,30 @@ class LMServingEngine:
         self.spec_metrics.record_reprobe()
         return True
 
+    def _verify_fault(self, jobs, **ctx) -> bool:
+        """The ``serving.verify`` fault site, crossed once per round
+        after drafting: an injected transient demotes every speculating
+        slot to plain decode for this round (drafts discarded, the
+        drafter rewound) instead of failing its stream; a lost backend
+        keeps its fatal meaning.  True when the round's drafts are
+        dropped."""
+        try:
+            fault_point("serving.verify", name=self.name, k=self.spec.k,
+                        speculating=len(jobs), **ctx)
+        except TransientBackendError:
+            for i in jobs:
+                st = self._slots[i]
+                self.draft.commit(i, 0, [])
+                st.demoted = True
+                st.probe_in = self.spec.probe_interval
+                self.spec_metrics.record_demotion(fault=True)
+                if _tracer.sampled(st.rid):
+                    _tracer.instant("lm/demote", cat="serve",
+                                    request_id=st.rid, slot=i,
+                                    reason="verify_fault")
+            return True
+        return False
+
     def _track_acceptance(self, st: _Slot, rate: float,
                           finished: bool) -> bool:
         """Fold one round's acceptance rate into the slot's EMA; demote
@@ -1085,6 +1667,10 @@ class LMServingEngine:
             st.demoted = True
             st.probe_in = cfg.probe_interval
             self.spec_metrics.record_demotion()
+            if _tracer.sampled(st.rid):
+                _tracer.instant("lm/demote", cat="serve", request_id=st.rid,
+                                reason="acceptance_collapse",
+                                accept_ema=round(st.accept_ema, 4))
             return True
         return False
 
@@ -1113,6 +1699,8 @@ class LMServingEngine:
             jobs[i] = (k_eff, st.temperature, keys)
         steps_before = self.draft.steps
         drafts = self.draft.draft_round(jobs)
+        if self._verify_fault(jobs):
+            drafts, jobs = {}, {}
 
         tokens = np.zeros((self.slots, cfg.k + 1), np.int32)
         pos = np.zeros((self.slots,), np.int32)
@@ -1131,13 +1719,23 @@ class LMServingEngine:
             tables[i] = st.table
         if not active:
             return
-        logits = self._verify(tokens, pos, ncand, tables)  # (S, W, V)
+        t0 = time.perf_counter()
+        with _tracer.span("lm/verify_step", cat="serve", active=len(active),
+                          speculating=len(jobs)):
+            logits = self._verify(tokens, pos, ncand, tables)  # (S, W, V)
         now = time.perf_counter()
+        self._trace_rounds("lm/verify_round", active, t0, now,
+                           speculating=lambda i: i in jobs)
         itls = []
         freed = []
         n_emitted = 0
         for i in active:
             st = self._slots[i]
+            if st.replay:
+                # a lost-payload resume rides the round as a one-row
+                # candidate (its draft_ok is False)
+                self._replay_one(st)
+                continue
             ds, qrows, _ = drafts.get(i, ((), None, ()))
             k_eff = len(ds)
             emitted = []
@@ -1168,7 +1766,7 @@ class LMServingEngine:
                     self.draft.push(i, emitted[0])
         self.spec_metrics.record_verify_round(
             bool(jobs), n_emitted, self.draft.steps - steps_before)
-        self.metrics.record_step(len(active), itls)
+        self._record_step(len(active), itls)
         self._retire(freed)
 
     def _step_spec_tree(self):
@@ -1212,6 +1810,8 @@ class LMServingEngine:
             djobs[i] = (shp.spine, st.temperature, keys, shp.alt_counts)
         steps_before = self.draft.steps
         drafts = self.draft.draft_round(djobs)
+        if self._verify_fault(jobs, tree=True):
+            drafts, jobs = {}, {}
 
         round_rung = max(jobs.values(), default=0)
         w = shapes[round_rung].width
@@ -1245,14 +1845,22 @@ class LMServingEngine:
                 ncand[i] = shp.width
         if not active:
             return
-        logits = self._verify(tokens, pos, ncand, tables, round_rung)
+        t0 = time.perf_counter()
+        with _tracer.span("lm/verify_step", cat="serve", active=len(active),
+                          speculating=len(jobs), tree_w=w):
+            logits = self._verify(tokens, pos, ncand, tables, round_rung)
         now = time.perf_counter()
+        self._trace_rounds("lm/verify_round", active, t0, now,
+                           speculating=lambda i: i in jobs)
         itls = []
         freed = []
         n_emitted = 0
         commit_src = None     # built when some slot accepts an alternate
         for i in active:
             st = self._slots[i]
+            if st.replay:
+                self._replay_one(st)
+                continue
             shp = shapes[jobs[i]] if i in jobs else None
             emitted = []
             node = 0
@@ -1305,11 +1913,276 @@ class LMServingEngine:
                 else:
                     self.draft.push(i, emitted[0])
         if commit_src is not None:
-            self._commit(commit_src, pos, tables)
+            with _tracer.span("lm/tree_commit", cat="serve"):
+                self._commit(commit_src, pos, tables)
         self.spec_metrics.record_verify_round(
             bool(jobs), n_emitted, self.draft.steps - steps_before)
-        self.metrics.record_step(len(active), itls)
+        self._record_step(len(active), itls)
         self._retire(freed)
+
+    # -- tiered KV memory (host tier + hibernation) --------------------- #
+    def _demote_block(self, path, block: int) -> None:
+        """Radix ``on_evict`` hook: export the victim block's rows (with
+        its scales when quantized) and demote them into the host tier
+        keyed by the block's token-prefix path.  Runs on the worker,
+        after the last step that wrote the block, while it is still
+        allocated."""
+        self.kvtier.put(("radix",) + tuple(path),
+                        self.pool.export_chain([block]))
+        _tracer.instant("kvtier/demote", cat="serve", block=int(block),
+                        depth=len(path))
+
+    def _promote_extend(self, prompt0, matched: List[int], *,
+                        rid=None) -> List[int]:
+        """Extend a radix-matched head with consecutive host-tier
+        blocks: each surviving continuation block is adopted back into
+        the arenas, registered in the trie and appended to the match, so
+        the admission prefills only past the combined prefix.
+        Opportunistic: pool pressure or a tier miss returns the match as
+        it was."""
+        B = self.block_len
+        cap = max(0, (prompt0.shape[0] - 1) // B)
+        m = len(matched)
+        if m >= cap or self.radix is None:
+            return matched
+        keys = block_path(prompt0, B, cap)
+        payloads = []
+        for i in range(m, cap):
+            p = self.kvtier.get(("radix",) + keys[:i + 1])
+            if p is None:
+                break
+            payloads.append(p)
+        if not payloads:
+            return matched
+        quant = self.kv_quant is not None
+        L, _, H, Bl, D = self.pool.shape
+        if (payloads[0]["k"].shape[1:] != (L, H, Bl, D)
+                or quant != ("ks" in payloads[0])):
+            # entries of another geometry or precision under the same
+            # store name: not promotable into this pool
+            return matched
+        wire = {kk: np.concatenate([p[kk] for p in payloads], axis=0)
+                for kk in payloads[0] if kk in ("k", "v", "ks", "vs")}
+        nbytes = sum(int(a.nbytes) for a in wire.values())
+        rid_args = {"request_id": rid} if _tracer.sampled(rid) else {}
+        t0 = time.perf_counter()
+        with _tracer.span("kvtier/promote", cat="serve",
+                          blocks=len(payloads), bytes=nbytes, **rid_args):
+            try:
+                fresh = self.pool.adopt_chain(
+                    wire["k"], wire["v"], wire.get("ks"), wire.get("vs"))
+            except PoolExhausted:
+                # never deepen the pressure promotion tries to relieve
+                return matched
+        self.kvtier.record_promote(nbytes, time.perf_counter() - t0)
+        out = list(matched) + fresh
+        # future admissions share the promoted blocks from the arenas,
+        # and the trie's reference keeps them demotable again
+        self.radix.insert(prompt0[:len(out) * B], out)
+        self.radix.record_saved(len(fresh) * B)
+        return out
+
+    def hibernate(self, stream: LMStream, *,
+                  timeout: Optional[float] = 30.0) -> bool:
+        """Swap an idle stream out of its decode slot: its written KV
+        chain moves to the host tier (``("session", rid)``), its slot and
+        every block free, and its sampling state is kept so
+        :meth:`resume` continues it bit-exactly.  Blocks until the worker
+        performs the swap at a round boundary.  True once hibernated;
+        False when the stream is not seated in a decode slot (queued,
+        replaying, or finished; a stream whose first token has just
+        landed counts as seated).  ``timeout`` bounds the wait for the
+        worker to take the request; once taken, the answer waits for the
+        swap itself, so True and False are what happened."""
+        if self.kvtier is None:
+            raise ValueError("hibernate requires a kvtier (HostBlockStore)")
+        rid = stream.request_id
+        with self._cv:
+            if rid in self._hibernated:
+                return True
+            seated = rid in self._seating or any(
+                st is not None and st.rid == rid and not st.replay
+                for st in self._slots)
+            if not seated or stream.done():
+                return False
+            self._hibernate_req.add(rid)
+            self._cv.notify_all()
+            self._cv.wait_for(lambda: rid not in self._hibernate_req,
+                              timeout)
+            if rid in self._hibernate_req:
+                # withdrawn before the worker took it: nothing happened
+                self._hibernate_req.discard(rid)
+                return False
+            self._cv.wait_for(lambda: rid not in self._hibernating)
+            return rid in self._hibernated
+
+    def resume(self, stream: LMStream) -> bool:
+        """Re-admit a hibernated stream: its chain is adopted back into
+        the arenas (or, when the tier lost it, the prompt re-prefills and
+        the emitted tokens replay through decode) and decode continues
+        at the exact token it left off.  Resumes rank ahead of fresh
+        admissions.  False when the stream is not hibernated."""
+        rid = stream.request_id
+        with self._cv:
+            if self._closing:
+                raise ServingClosed("LMServingEngine is closed")
+            hib = self._hibernated.pop(rid, None)
+            if hib is None:
+                return False
+            self._resume_q.append(hib)
+            self._cv.notify_all()
+        if _tracer.sampled(rid):
+            _tracer.instant("lm/resume_enqueue", cat="serve", request_id=rid,
+                            hibernated_s=round(
+                                time.perf_counter() - hib.hibernated_at, 4))
+        return True
+
+    def _service_hibernations(self) -> None:
+        """Worker-side swap-out of each requested seated slot; requests
+        for streams no longer seated are dropped so their waiters
+        unblock."""
+        with self._cv:
+            todo = [(i, st) for i, st in enumerate(self._slots)
+                    if st is not None and st.rid in self._hibernate_req
+                    and not st.replay]
+            self._hibernating.update(st.rid for _, st in todo)
+            self._hibernate_req.clear()     # taken, or stale: not seated
+            self._cv.notify_all()
+        for i, st in todo:
+            try:
+                self._hibernate_one(i, st)
+            finally:
+                with self._cv:
+                    self._hibernating.discard(st.rid)
+                    self._cv.notify_all()
+
+    def _hibernate_one(self, slot: int, st: _Slot) -> None:
+        n_used = self.pool.blocks_for(st.pos_next)
+        rid_args = ({"request_id": st.rid}
+                    if _tracer.sampled(st.rid) else {})
+        with _tracer.span("kvtier/hibernate", cat="serve", slot=slot,
+                          blocks=n_used, **rid_args):
+            # the export's copies finish before the payload is stored
+            self.kvtier.put(("session", st.rid),
+                            self.pool.export_chain(st.blocks[:n_used]))
+        hib = _Hibernated(st, n_used)
+        self.pool.release(st.blocks)
+        if self.draft is not None:
+            # the drafter's per-slot cache does not hibernate: the
+            # resumed stream rides plain decode (still exact)
+            self.draft.release(slot)
+        with self._cv:
+            self._slots[slot] = None
+            self._free.append(slot)
+            self._n_active -= 1
+            self._hibernated[st.rid] = hib
+            self.hibernations += 1
+
+    def _alloc_or_evict(self, n: int, take=None) -> Optional[List[int]]:
+        """``n`` fresh blocks from ``take()`` (default ``pool.alloc(n)``;
+        an adopt passes its own), evicting radix tails once under pool
+        pressure; None if they still do not fit."""
+        take = take or (lambda: self.pool.alloc(n))
+        try:
+            return take()
+        except PoolExhausted:
+            if self.radix is not None:
+                self.radix.evict(n - self.pool.free_count)
+            try:
+                return take()
+            except PoolExhausted:
+                return None
+
+    def _resume_into(self, slot: int, hib: _Hibernated) -> bool:
+        """Seat a hibernated stream back into ``slot``.  False (defer)
+        under pool pressure; a fetched payload stays on the handle
+        across deferrals, never re-read or lost."""
+        stream = hib.stream
+        t = int(stream.prompt.shape[0])
+        prompt0 = stream.prompt.astype(np.int32) - 1
+        max_new = int(stream.max_new)
+        need_total = self.pool.blocks_for(t + max_new)
+        B = self.block_len
+        rid_args = ({"request_id": hib.rid}
+                    if _tracer.sampled(hib.rid) else {})
+        req = _Request(stream, prompt0, max_new, hib.temperature, hib.eos0,
+                       None, hib.step_keys, hib.rid)
+        if not hib.fetched:
+            hib.payload = self.kvtier.get(("session", hib.rid), pop=True)
+            hib.fetched = True
+        if hib.payload is not None:
+            payload = hib.payload
+            n_wire = int(payload["k"].shape[0])
+            extra = need_total - n_wire
+            nbytes = sum(int(a.nbytes) for a in payload.values())
+            t0 = time.perf_counter()
+            with _tracer.span("kvtier/promote", cat="serve", blocks=n_wire,
+                              bytes=nbytes, session=1, **rid_args):
+                fresh = self._alloc_or_evict(
+                    n_wire + extra, lambda: self.pool.adopt_chain(
+                        payload["k"], payload["v"], payload.get("ks"),
+                        payload.get("vs"), extra_blocks=extra))
+                if fresh is None:
+                    return False
+            self.kvtier.record_promote(nbytes, time.perf_counter() - t0)
+            if self.radix is not None and t // B:
+                self.radix.insert(prompt0[:(t // B) * B], fresh[:t // B])
+            self._seat_resumed(req, fresh, slot, pos_next=hib.pos_next,
+                               last0=hib.last0, remaining=hib.remaining,
+                               step_idx=hib.step_idx, replay=())
+            _tracer.instant("lm/resume", cat="serve", slot=slot,
+                            wire_blocks=n_wire, **rid_args)
+            return True
+        # the payload was lost (dropped for capacity, or a corrupt
+        # spill): the prompt's KV recomputes through the same prefill
+        # admission ran, the generated tokens' KV by replaying them
+        # through the decode step that wrote the originals; nothing is
+        # emitted again
+        emitted0 = np.asarray(stream.generated, np.int32) - 1
+        matched: List[int] = []
+        if self.radix is not None:
+            matched = self.radix.match(prompt0)
+            matched = self._promote_extend(prompt0, matched, rid=hib.rid)
+        fresh = self._alloc_or_evict(need_total - len(matched))
+        if fresh is None:
+            if matched:
+                self.pool.release(matched)
+            return False
+        blocks = matched + fresh
+        self.resume_re_prefills += 1
+        pf = _Prefill(req, blocks, slot, len(matched) * B)
+        try:
+            while not self._prefill_chunk(pf):
+                pass
+        except BaseException:
+            self.pool.release(blocks)
+            raise
+        if self.radix is not None and t // B:
+            self.radix.insert(prompt0[:(t // B) * B], blocks[:t // B])
+        self._seat_resumed(req, blocks, slot, pos_next=t,
+                           last0=int(emitted0[0]), remaining=max_new - 1,
+                           step_idx=0,
+                           replay=tuple(int(x) for x in emitted0[1:]))
+        _tracer.instant("lm/resume", cat="serve", slot=slot, re_prefill=1,
+                        replay=len(emitted0) - 1, **rid_args)
+        return True
+
+    def _seat_resumed(self, req: _Request, blocks: List[int], slot: int, *,
+                      pos_next: int, last0: int, remaining: int,
+                      step_idx: int, replay) -> None:
+        table = np.zeros((self.table_width,), np.int32)
+        table[:len(blocks)] = blocks
+        st = _Slot(req, pos_next, last0, blocks, table)
+        st.remaining = int(remaining)
+        st.step_idx = int(step_idx)
+        st.replay = deque(replay)
+        # a resumed stream rides plain decode (draft_ok stays False) and
+        # interrupts the ITL stream the way a prefill does
+        self._prefill_since_step = True
+        with self._cv:
+            self._slots[slot] = st
+            self._n_active += 1
+            self.resumes += 1
 
     def _fail_all(self, error: BaseException) -> None:
         with self._cv:
@@ -1324,6 +2197,14 @@ class LMServingEngine:
             self._n_active = 0
             if self.draft is not None:
                 self.draft.release_all()
+            # hibernated and resuming streams hold no blocks (their
+            # chains live in the host tier), but their clients wait too
+            pending.extend(h.stream for h in self._hibernated.values())
+            self._hibernated.clear()
+            pending.extend(h.stream for h in self._resume_q)
+            self._resume_q.clear()
+            self._hibernate_req.clear()
+            self._hibernating.clear()
             self._cv.notify_all()
         for s in pending:
             s._finish(error=error)
@@ -1333,6 +2214,7 @@ class LMServingEngine:
         with self._cv:
             queued = len(self._queue)
             active = self._n_active
+            hibernated = len(self._hibernated)
         kv = self.pool.stats()
         kv["table_width"] = self.table_width
         kv["prefix_cache"] = (self.radix.stats()
@@ -1354,9 +2236,21 @@ class LMServingEngine:
             "prefix_prefill_cache": self.prefix_prefill_cache.stats(),
             "cuda_graphs": self.graphs.stats(),
             "kvcache": kv,
+            "kvtier": (self.kvtier.stats()
+                       if self.kvtier is not None else None),
+            "hibernated": hibernated,
+            "hibernations": self.hibernations,
+            "resumes": self.resumes,
+            "resume_re_prefills": self.resume_re_prefills,
+            "honor_lifecycle": self.honor_lifecycle,
+            "lifecycle": self.lifecycle_stats(),
             "metrics": self.metrics.snapshot(),
             "spec": self._spec_stats(),
         }
+
+    def lifecycle_stats(self) -> dict:
+        with self._lc_lock:
+            return dict(self.lifecycle)
 
     def _spec_stats(self) -> Optional[dict]:
         if self.spec is None:
@@ -1377,13 +2271,18 @@ class LMServingEngine:
         return out
 
     def cache_buffer_pointers(self) -> tuple:
-        """Device addresses of the k/v arenas: the graphs captured them,
-        so they stay fixed across steps and requests."""
-        return self.pool.k.data_ptr(), self.pool.v.data_ptr()
+        """Device addresses of the k/v arenas (and of the int8 pool's
+        scale arenas after them): the graphs captured them, so they stay
+        fixed across steps, requests and every tier move."""
+        arenas = [self.pool.k, self.pool.v]
+        if self.pool.ks is not None:
+            arenas += [self.pool.ks, self.pool.vs]
+        return tuple(a.data_ptr() for a in arenas)
 
     def close(self, timeout: Optional[float] = 30.0) -> None:
         """Drain: stop admitting, finish queued + in-flight requests;
-        after ``timeout`` the remainder resolve with ServingClosed."""
+        after ``timeout`` the remainder resolve with ServingClosed, as do
+        streams still hibernated."""
         with self._cv:
             self._closing = True
             self._cv.notify_all()

@@ -1,17 +1,17 @@
-"""Speculation counters (port of ``bigdl_tpu/serving/spec/metrics.py``,
-without ``publish_to`` (the port has no metric registry yet, ROADMAP
-Queue 1 item 11) and without the fault demotions, which are not ported
-either).
+"""Speculation counters, published as ``serving/lm/spec/*`` (port of
+``bigdl_tpu/serving/spec/metrics.py``).
 
-Thread-safe: the engine's worker records, ``stats()`` reads.  The two
-derived rates are the subsystem's health summary: ``acceptance_rate``
-(accepted drafts over drafted) and ``draft_overhead`` (drafter decode
-steps per emitted token)."""
+Thread-safe: the engine's worker records, ``stats()`` and the registry
+read.  The two derived rates are the subsystem's health summary:
+``acceptance_rate`` (accepted drafts over drafted) and
+``draft_overhead`` (drafter decode steps per emitted token).
+``fault_demotions`` counts the slots an injected transient at the
+``serving.verify`` fault site demoted to plain decode."""
 from __future__ import annotations
 
 import threading
 
-from bigdl_tpu_torch.serving.histogram import Histogram
+from bigdl_tpu_torch.obs.registry import FnGauge, Histogram
 
 
 class SpecMetrics:
@@ -25,6 +25,7 @@ class SpecMetrics:
         self.spec_rounds = 0      # verify steps with >= 1 speculating slot
         self.emitted = 0          # tokens emitted by the spec engine
         self.demotions = 0        # EMA-collapse demotions
+        self.fault_demotions = 0  # injected-transient demotions
         self.reprobes = 0         # demoted slots re-probed
         self.compute_mode = "f32"  # the drafter's regime, set by the engine
         self.overflow_risk = 0.0  # the drafter's quant_report, by the engine
@@ -35,6 +36,33 @@ class SpecMetrics:
         self.tree_width = Histogram()    # chosen shape width per slot
         self.accepted_per_step = Histogram()  # tokens emitted per
         #                                       (slot, verify round)
+
+    def publish_to(self, registry,
+                   prefix: str = "serving/lm/spec/") -> "SpecMetrics":
+        for key in ("drafted", "accepted", "rolled_back", "draft_steps",
+                    "verify_rounds", "spec_rounds", "emitted", "demotions",
+                    "fault_demotions", "reprobes", "tree_rounds",
+                    "alt_accepts"):
+            registry.register(prefix + key,
+                              FnGauge(lambda k=key: getattr(self, k)),
+                              replace=True)
+        for key, snap_key in (("accept_rate", "acceptance_rate"),
+                              ("draft_overhead", "draft_overhead"),
+                              ("accepted_per_verify_step",
+                               "accepted_per_verify_step")):
+            registry.register(
+                prefix + key,
+                FnGauge(lambda k=snap_key: self.snapshot()[k]),
+                replace=True)
+        for key in ("acceptance", "tree_depth", "tree_width",
+                    "accepted_per_step"):
+            registry.register(prefix + key, getattr(self, key),
+                              replace=True)
+        registry.register(prefix + "compute_mode",
+                          FnGauge(lambda: self.compute_mode), replace=True)
+        registry.register(prefix + "overflow_risk",
+                          FnGauge(lambda: self.overflow_risk), replace=True)
+        return self
 
     # -- recording ------------------------------------------------------ #
     def record_round(self, drafted: int, accepted: int) -> None:
@@ -67,9 +95,11 @@ class SpecMetrics:
             self.tree_width.observe(width)
             self.accepted_per_step.observe(emitted)
 
-    def record_demotion(self) -> None:
+    def record_demotion(self, fault: bool = False) -> None:
         with self._lock:
             self.demotions += 1
+            if fault:
+                self.fault_demotions += 1
 
     def record_reprobe(self) -> None:
         with self._lock:
@@ -87,6 +117,7 @@ class SpecMetrics:
                 "spec_rounds": self.spec_rounds,
                 "emitted": self.emitted,
                 "demotions": self.demotions,
+                "fault_demotions": self.fault_demotions,
                 "reprobes": self.reprobes,
                 "compute_mode": self.compute_mode,
                 "overflow_risk": self.overflow_risk,

@@ -72,7 +72,31 @@ result line:
    quantization, ``torch._int_mm``, rescale) against the dequant one at
    the served shapes, with the card's int32 accumulators held bitwise
    against the CPU's: library calls, not kernels of the port;
-8. train: the same model, full depth, trained by LocalOptimizer (Adam,
+8. tier: the request lifecycle and the host KV tier on the same model
+   and requests, every step a replayed graph, each engine's arena
+   addresses held across every tier move and no capture after warmup.
+   T1: one request at ``deadline_s=60`` equal to offline generate, one
+   at ``deadline_s=0`` shed at enqueue (``ServingDeadlineExceeded``),
+   one cancelled after its 4th token (truncated, a prefix of generate's),
+   one queued behind the full engine shed when its 2 ms budget runs out;
+   ``lifecycle_stats()`` exact and, idle, free blocks plus the trie's
+   equal to the pool.  T2: every stream hibernated after its 8th token
+   (all at once, into a ``HostBlockStore``) and resumed, greedy and at
+   0.7, bitwise equal to the same engine's uninterrupted run and to
+   offline generate; the bytes moved exactly the hibernated blocks x
+   1,179,648; hibernate and resume ms per session from the tracer's
+   spans; ``promote_bandwidth_mbs``.  T3: a tier too small to keep a
+   session (every resume re-prefills and replays: 8 re-prefills), then
+   a spill directory with one file corrupted (a counted miss), streams
+   bitwise unchanged.  T4: int8 KV arenas, 313,344 bytes a block,
+   streams bitwise equal to the int8 engine's uninterrupted run.  T5: a
+   17-block pool in which the 128-token prompt's blocks are evicted
+   (demoted) by a 33-token prompt with 239 new tokens; the 200-token
+   prompt then promotes the shared 64-token head and prefills from 64.
+   T6: ``serving.verify`` transient at p 0.5 (seed 0) on spec arm 2:
+   slots demoted, streams exact; ``serving.enqueue`` transient ->
+   ``ServingOverloaded``; the registry's keys by prefix;
+9. train: the same model, full depth, trained by LocalOptimizer (Adam,
    TimeDistributed(ClassNLL)) on a fixed 8 x 1024 batch through the
    flash forward and both flash backward kernels: step-0 loss and every
    gradient held against plain attention, every bf16-compute gradient
@@ -111,6 +135,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -160,6 +185,10 @@ QUANT_REPORT_GPT2 = dict(bytes_orig=497_759_232, bytes_quant=243_237_888,
 # the 8 x 5 verify rows, a 1024-token prefill) by the served (k, n)
 QUANT_PRODUCT_ROWS = (8, 40, 1024)
 QUANT_PRODUCT_KN = ((768, 768), (768, 3072), (3072, 768))
+# the tier phase: hibernation after the 8th token; one block's wire
+# payload (k and v, float32 and int8 with its scales) at GPT-2-small width
+TIER = dict(hibernate_at=8, cancel_at=4, queued_deadline_s=0.002,
+            wire_block_bytes=1_179_648, wire_block_bytes_int8=313_344)
 TRAIN_CLI = ["--synthetic", "-e", "1", "-b", "8", "--hiddenSize", "768",
              "--nHead", "12", "--nLayers", "2", "--seqLength", "128",
              "--packed", "--docIsolate"]
@@ -1327,6 +1356,503 @@ def phase_quant(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC, prompts=None,
 
 
 # --------------------------------------------------------------------------- #
+class _PathLaunches:
+    """The kernels' launch counters summed over a path's runs, each run
+    counted from 0 (warmups and checks outside ``run`` do not count)."""
+
+    def __init__(self):
+        self.total = {}
+
+    def run(self, fn):
+        _reset_launches()
+        out = fn()
+        for symbol, n in _launches().items():
+            self.total[symbol] = self.total.get(symbol, 0) + n
+        return out
+
+
+def _spans(tracer, name, **match):
+    """The tracer's complete events called ``name`` whose args hold
+    ``match``."""
+    return [e for e in tracer.events()
+            if e.get("ph") == "X" and e.get("name") == name
+            and all(e.get("args", {}).get(k) == v for k, v in match.items())]
+
+
+def tier_store(name, **kw):
+    from bigdl_tpu_torch.serving.kvtier import HostBlockStore
+    kw.setdefault("host_bytes", 1 << 30)
+    return HostBlockStore(name=name, **kw)
+
+
+def hibernate_run(engine, prompts, max_new, temperature, at, between=None):
+    """Submit every prompt (request i from seed i), hibernate each stream
+    after its ``at``-th token from a thread of its own, call
+    ``between(streams)`` once all are hibernated, resume them all and
+    wait; the arena addresses must hold after the hibernations and after
+    the resumes.  Returns the results, each session's hibernated blocks
+    and the tier's byte counters moved by the run."""
+    import threading
+    tier = engine.kvtier
+    ptrs = engine.cache_buffer_pointers()
+    demoted0 = tier.demoted_bytes.get()[0]
+    promoted0 = tier.promoted_bytes.get()[0]
+    streams = [engine.submit(p, max_new_tokens=max_new,
+                             temperature=temperature, rng=i)
+               for i, p in enumerate(prompts)]
+    swapped = [None] * len(streams)
+
+    def hold(i):
+        it = streams[i].tokens(timeout=600)
+        for _ in range(at):
+            next(it)
+        swapped[i] = engine.hibernate(streams[i], timeout=600)
+
+    threads = [threading.Thread(target=hold, args=(i,))
+               for i in range(len(streams))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if not all(swapped):
+        raise AssertionError(f"hibernate refused for streams "
+                             f"{[i for i, ok in enumerate(swapped) if not ok]}"
+                             f" (finished before their {at}th token?)")
+    with engine._cv:
+        n_used = [engine._hibernated[s.request_id].n_used for s in streams]
+        paused = [len(s.generated) for s in streams]
+    if engine.cache_buffer_pointers() != ptrs:
+        raise AssertionError("hibernation moved an arena")
+    if between is not None:
+        between(streams)
+    for s in streams:
+        if not engine.resume(s):
+            raise AssertionError("resume refused for a hibernated stream")
+    results = [s.result(timeout=600) for s in streams]
+    if engine.cache_buffer_pointers() != ptrs:
+        raise AssertionError("a resume moved an arena")
+    return dict(results=results, n_used=n_used, paused_at=paused,
+                demoted_bytes=tier.demoted_bytes.get()[0] - demoted0,
+                promoted_bytes=tier.promoted_bytes.get()[0] - promoted0)
+
+
+def phase_tier(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC, prompts=None,
+               oracle=None, tier=TIER):
+    """The request lifecycle and the host KV tier on the served model
+    (see the module docstring): T1 lifecycle, T2 hibernate and resume
+    (greedy and sampled), T3 lost payloads (a tier too small to keep a
+    session; a corrupted spill file), T4 int8 KV, T5 radix demote and
+    promote, T6 fault sites and the registry.  Every arena address is
+    held across every tier move and no engine captures after warmup.
+    Returns the phase's numbers and its launches."""
+    import tempfile
+
+    import numpy as np
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.obs import get_registry, get_tracer
+    from bigdl_tpu_torch.resilience import faults
+    from bigdl_tpu_torch.serving import (ServingDeadlineExceeded,
+                                         ServingOverloaded, SpecConfig)
+    oracle = oracle or Oracle(dev, config, serve["seed"])
+    prompts = serve_prompts() if prompts is None else prompts
+    max_new, at = serve["max_new"], tier["hibernate_at"]
+    temp = spec["temperature"]
+    model = build_lm(dev, config, serve["seed"])
+    tracer = get_tracer()
+    acc = _PathLaunches()
+    out = {}
+
+    def open_engine(label, prompts_warm, **kw):
+        engine = make_engine(model, dev, serve, **kw)
+        warm = warm_engine(engine, prompts_warm)
+        return engine, warm, engine.cache_buffer_pointers()
+
+    def close_engine(label, engine, warm, ptrs):
+        """Check and close; the caller drops its reference and calls
+        ``release`` so the next engine starts from the same bytes."""
+        try:
+            if engine.cache_buffer_pointers() != ptrs:
+                raise AssertionError(f"{label}: arena addresses moved")
+            return check_bounded(label, engine, warm)
+        finally:
+            engine.close()
+
+    def exact(label, results, want, temperature, ps=prompts, new=max_new):
+        """Bitwise equal to ``want`` (the same engine kind's
+        uninterrupted streams) and to offline generate (ties as
+        Oracle.check defines them)."""
+        for i, (p, r) in enumerate(zip(ps, results)):
+            if want is not None and not np.array_equal(r, want[i]):
+                raise AssertionError(f"{label}: stream {i} differs from the "
+                                     "uninterrupted run")
+        return check_streams(label, oracle, ps, results, new, temperature)
+
+    # -- T1: deadlines, cancel, the queued shed ----------------------- #
+    engine, warm, ptrs = open_engine("tier T1", prompts)
+    t1_capacity = engine.pool.capacity
+    try:
+
+        def t1():
+            import threading
+            streams = [engine.submit(p, max_new_tokens=max_new,
+                                     deadline_s=60.0 if i == 0 else None)
+                       for i, p in enumerate(prompts)]
+            try:
+                engine.submit(prompts[0], max_new_tokens=max_new,
+                              deadline_s=0.0)
+                raise AssertionError("deadline_s=0 was not shed at enqueue")
+            except ServingDeadlineExceeded:
+                pass
+            queued = engine.submit(prompts[2], max_new_tokens=max_new,
+                                   deadline_s=tier["queued_deadline_s"])
+
+            def cancel_after():
+                it = streams[1].tokens(timeout=600)
+                for _ in range(tier["cancel_at"]):
+                    next(it)
+                streams[1].cancel()
+
+            th = threading.Thread(target=cancel_after)
+            th.start()
+            th.join()
+            results = [s.result(timeout=600) for s in streams]
+            try:
+                queued.result(timeout=600)
+                raise AssertionError("the queued request outlived its "
+                                     "deadline")
+            except ServingDeadlineExceeded:
+                pass
+            return streams, results
+
+        streams, results = acc.run(t1)
+        cut = streams[1].truncation
+        if cut is None or cut.reason != "cancelled":
+            raise AssertionError(f"tier T1: the cancelled stream finished "
+                                 f"with truncation {cut}")
+        full = oracle.stream(prompts[1], max_new)
+        if not np.array_equal(results[1], full[:len(results[1])]) or \
+                cut.at_tokens < tier["cancel_at"]:
+            raise AssertionError("tier T1: the cancelled stream is not a "
+                                 "prefix of offline generate's")
+        whole = [r for i, r in enumerate(results) if i != 1]
+        ties = exact("tier T1", whole, None, 0.0,
+                     ps=[p for i, p in enumerate(prompts) if i != 1])
+        if streams[0].truncation is not None:
+            raise AssertionError("tier T1: the 60 s stream was truncated")
+        lc = engine.lifecycle_stats()
+        want_lc = dict(expired_preadmission=2, expired_midstream=0,
+                       cancelled=1)
+        if any(lc[k] != v for k, v in want_lc.items()):
+            raise AssertionError(f"tier T1: lifecycle_stats {lc}, wanted "
+                                 f"{want_lc}")
+        deadline = time.perf_counter() + 60
+        while engine.stats()["active"] and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        free, held = engine.pool.free_count, engine.radix.stats()["nodes"]
+        if free + held != t1_capacity:
+            raise AssertionError(f"tier T1: {free} free + {held} trie "
+                                 f"blocks != capacity {t1_capacity}")
+    finally:
+        t1_graphs = close_engine("tier T1", engine, warm, ptrs)
+    del engine
+    release(dev)
+    out["t1"] = dict(lifecycle=lc, cancelled_at=cut.at_tokens,
+                     ties=len(ties))
+    log(f"[tier] T1 lifecycle: {len(prompts)} requests (one at deadline_s "
+        f"60, one cancelled after its {tier['cancel_at']}th token: "
+        f"truncated at {cut.at_tokens}, a prefix of offline generate's), "
+        f"deadline_s=0 shed at enqueue, one queued behind the full engine "
+        f"at deadline_s={tier['queued_deadline_s']} shed typed; "
+        f"lifecycle_stats {json.dumps(lc)}; {len(prompts) - 1 - len(ties)} "
+        f"of {len(prompts) - 1} whole streams identical to offline "
+        f"generate; free + trie blocks == capacity {t1_capacity}; "
+        f"{t1_graphs['captures']} captures, none after warmup")
+
+    # -- T2: hibernate and resume, greedy then sampled ---------------- #
+    tier_kw = dict(enable_prefix_cache=False)
+    engine, warm, ptrs = open_engine(
+        "tier T2", prompts, kvtier=tier_store("smoke-t2"), **tier_kw)
+    wire = 2 * engine.pool.wire_block_bytes
+    if config == GPT2_SMALL and wire != tier["wire_block_bytes"]:
+        raise AssertionError(f"one block's wire payload is {wire} bytes, "
+                             f"not {tier['wire_block_bytes']}")
+    uninterrupted = {}
+    try:
+        for label, t in (("greedy", 0.0), ("sampled", temp)):
+            uninterrupted[label] = acc.run(
+                lambda: serve_run(engine, prompts, max_new, t))["results"]
+            tracer.clear()
+            tracer.enable()
+            try:
+                run = acc.run(lambda: hibernate_run(engine, prompts, max_new,
+                                                    t, at))
+            finally:
+                tracer.disable()
+            hib_ms = [e["dur"] / 1e3 for e in _spans(tracer,
+                                                     "kvtier/hibernate")]
+            res_ms = [e["dur"] / 1e3 for e in _spans(tracer, "kvtier/promote",
+                                                     session=1)]
+            blocks = sum(run["n_used"])
+            for key in ("demoted_bytes", "promoted_bytes"):
+                if run[key] != blocks * wire:
+                    raise AssertionError(f"tier T2 {label}: {key} "
+                                         f"{run[key]}, not {blocks} blocks x "
+                                         f"{wire}")
+            if len(hib_ms) != len(prompts) or len(res_ms) != len(prompts):
+                raise AssertionError(f"tier T2 {label}: {len(hib_ms)} "
+                                     f"hibernate and {len(res_ms)} resume "
+                                     "spans")
+            ties = exact(f"tier T2 {label}", run["results"],
+                         uninterrupted[label], t)
+            bw = engine.kvtier.promote_bandwidth_mbs()
+            out[f"t2_{label}"] = dict(
+                blocks=blocks, bytes=blocks * wire, paused_at=run["paused_at"],
+                hibernate_ms=hib_ms, resume_ms=res_ms,
+                promote_bandwidth_mbs=bw, ties=len(ties))
+            log(f"[tier] T2 {label}: {len(prompts)} sessions hibernated "
+                f"after {run['paused_at']} tokens and resumed; blocks "
+                f"{run['n_used']} = {blocks}, {blocks * wire} bytes each way "
+                f"({wire} a block); hibernate ms {_ms_list(hib_ms)} (median "
+                f"{float(np.median(hib_ms)):.3f}), resume ms "
+                f"{_ms_list(res_ms)} (median {float(np.median(res_ms)):.3f}); "
+                f"promote_bandwidth_mbs {bw:.1f}; every stream bitwise equal "
+                f"to the uninterrupted run, {len(prompts) - len(ties)} of "
+                f"{len(prompts)} identical to offline generate")
+        if engine.resume_re_prefills:
+            raise AssertionError("tier T2: a payload was lost")
+    finally:
+        t2_graphs = close_engine("tier T2", engine, warm, ptrs)
+    del engine
+    release(dev)
+    log(f"[tier] T2 arena addresses unchanged over {2 * len(prompts)} "
+        f"hibernations and resumes; {t2_graphs['captures']} captures, none "
+        f"after warmup, {t2_graphs['replays']} replays")
+
+    # -- T3: lost payloads -------------------------------------------- #
+    engine, warm, ptrs = open_engine(
+        "tier T3 small", prompts,
+        kvtier=tier_store("smoke-t3", host_bytes=wire // 2), **tier_kw)
+    try:
+        run = acc.run(lambda: hibernate_run(engine, prompts, max_new, 0.0, at))
+        exact("tier T3 small", run["results"], uninterrupted["greedy"], 0.0)
+        small = dict(resume_re_prefills=engine.resume_re_prefills,
+                     tier=engine.kvtier.stats())
+        if engine.resume_re_prefills != len(prompts):
+            raise AssertionError(f"tier T3: {engine.resume_re_prefills} "
+                                 f"re-prefills, not {len(prompts)}")
+    finally:
+        close_engine("tier T3 small", engine, warm, ptrs)
+    del engine
+    release(dev)
+    log(f"[tier] T3 a tier of {wire // 2} bytes with no spill directory: "
+        f"every session dropped ({small['tier']['drops']:.0f} drops), "
+        f"resume_re_prefills {small['resume_re_prefills']}, every stream "
+        "bitwise equal to the uninterrupted run")
+    with tempfile.TemporaryDirectory() as spill:
+        engine, warm, ptrs = open_engine(
+            "tier T3 spill", prompts,
+            kvtier=tier_store("smoke-t3-spill", host_bytes=1,
+                              spill_dir=spill, disk_bytes=1 << 30),
+            **tier_kw)
+
+        def corrupt(streams):
+            entry = engine.kvtier._entries[("session",
+                                            streams[0].request_id)]
+            if entry.where != "disk":
+                raise AssertionError("tier T3: session 0 is not on disk")
+            with open(entry.path, "wb") as f:
+                f.write(b"not a kv block")
+
+        try:
+            run = acc.run(lambda: hibernate_run(engine, prompts, max_new,
+                                                0.0, at, between=corrupt))
+            exact("tier T3 spill", run["results"], uninterrupted["greedy"],
+                  0.0)
+            spilled = engine.kvtier.stats()
+            spilled["resume_re_prefills"] = engine.resume_re_prefills
+            if (spilled["corrupt_reads"] != 1
+                    or engine.resume_re_prefills != 1
+                    or spilled["spills"] != len(prompts)):
+                raise AssertionError(f"tier T3 spill: {spilled}")
+        finally:
+            close_engine("tier T3 spill", engine, warm, ptrs)
+        del engine
+        release(dev)
+    out["t3"] = dict(small=small, spill=spilled)
+    log(f"[tier] T3 spill to disk: {spilled['spills']:.0f} sessions spilled, "
+        f"one file corrupted: corrupt_reads {spilled['corrupt_reads']:.0f}, "
+        f"resume_re_prefills {spilled['resume_re_prefills']}, every stream "
+        "bitwise equal to the uninterrupted run")
+
+    # -- T4: int8 KV --------------------------------------------------- #
+    engine, warm, ptrs = open_engine(
+        "tier T4", prompts, kvtier=tier_store("smoke-t4"), kv_quant="int8",
+        decode_attn="auto", **tier_kw)
+    try:
+        wire8 = 2 * engine.pool.wire_block_bytes
+        if config == GPT2_SMALL and wire8 != tier["wire_block_bytes_int8"]:
+            raise AssertionError(f"an int8 block's wire payload is {wire8} "
+                                 f"bytes, not {tier['wire_block_bytes_int8']}")
+        want = acc.run(lambda: serve_run(engine, prompts, max_new))["results"]
+        run = acc.run(lambda: hibernate_run(engine, prompts, max_new, 0.0,
+                                            at))
+        blocks = sum(run["n_used"])
+        if run["demoted_bytes"] != blocks * wire8 or \
+                run["promoted_bytes"] != blocks * wire8:
+            raise AssertionError(f"tier T4: bytes {run['demoted_bytes']} / "
+                                 f"{run['promoted_bytes']}, not {blocks} x "
+                                 f"{wire8}")
+        for i, (a, b) in enumerate(zip(run["results"], want)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"tier T4: int8 stream {i} differs "
+                                     "from the uninterrupted int8 run")
+    finally:
+        t4_graphs = close_engine("tier T4", engine, warm, ptrs)
+    del engine
+    release(dev)
+    out["t4"] = dict(blocks=blocks, bytes=blocks * wire8, wire_block=wire8,
+                     ratio=wire8 / wire)
+    log(f"[tier] T4 int8 KV: {blocks} blocks, {blocks * wire8} bytes each way "
+        f"({wire8} a block, {wire8 / wire:.4f}x float's), scale arenas "
+        f"moved with their rows; every stream bitwise equal to the same "
+        f"engine's uninterrupted run; arena and scale addresses unchanged; "
+        f"{t4_graphs['captures']} captures, none after warmup")
+
+    # -- T5: radix demote and promote --------------------------------- #
+    bl = serve["block_len"]
+    a_p, b_p, f_p = prompts[3], prompts[4], prompts[1]
+    head_blocks = serve["shared_head"] // bl
+
+    def need(n):
+        return -(-n // bl)
+
+    capacity = max(need(len(a_p) + max_new),
+                   need(len(b_p) + max_new) + len(f_p) // bl)
+    f_new = capacity * bl - len(f_p)
+    engine, warm, ptrs = open_engine(
+        "tier T5", [a_p, f_p, b_p], kvtier=tier_store("smoke-t5"),
+        num_blocks=1 + capacity)
+    try:
+        saved0 = engine.radix.matched_tokens
+        tracer.clear()
+        tracer.enable()
+        try:
+            a_out = acc.run(lambda: engine.generate(
+                a_p, max_new_tokens=max_new, timeout=600))
+            f_out = acc.run(lambda: engine.generate(
+                f_p, max_new_tokens=f_new, timeout=600))
+            b_streams = []
+
+            def b_run():
+                # submit and result in one counted run: the worker
+                # promotes and prefills while the caller waits
+                b_streams.append(engine.submit(b_p, max_new_tokens=max_new))
+                return b_streams[0].result(timeout=600)
+
+            b_out = acc.run(b_run)
+        finally:
+            tracer.disable()
+        ts = engine.kvtier.stats()
+        promoted = engine.kvtier.promoted_bytes.get()[0]
+        prefills = _spans(tracer, "lm/prefill", request_id=b_streams[0].request_id)
+        starts = [e["args"]["prefix_len"] for e in prefills]
+        saved = engine.radix.matched_tokens - saved0
+        if (ts["demotions"] < head_blocks or ts["hits"] < head_blocks
+                or promoted != head_blocks * wire
+                or starts[:1] != [head_blocks * bl]
+                or saved != head_blocks * bl):
+            raise AssertionError(f"tier T5: tier {ts}, promoted bytes "
+                                 f"{promoted}, B's prefills start at "
+                                 f"{starts}, tokens saved {saved}")
+        ties = check_streams("tier T5", oracle, [a_p, b_p], [a_out, b_out],
+                             max_new)
+        ties += check_streams("tier T5", oracle, [f_p], [f_out], f_new)
+    finally:
+        t5_graphs = close_engine("tier T5", engine, warm, ptrs)
+    del engine
+    release(dev)
+    out["t5"] = dict(tier=ts, pool_blocks=capacity, filler_new=f_new,
+                     b_prefill_starts=starts, ties=len(ties))
+    log(f"[tier] T5 demote/promote: pool of {capacity} blocks; the "
+        f"{len(a_p)}-token prompt, then the {len(f_p)}-token one with "
+        f"max_new {f_new} (evicts and demotes the first's "
+        f"{len(a_p) // bl} blocks), then the {len(b_p)}-token prompt "
+        f"sharing its {serve['shared_head']}-token head: demotions "
+        f"{ts['demotions']:.0f}, hits {ts['hits']:.0f}, promotions "
+        f"{ts['promotions']:.0f} ({promoted:.0f} bytes = {head_blocks} "
+        f"blocks), its prefill starts at {starts}; streams identical to "
+        f"offline generate: {3 - len(ties)} of 3; {t5_graphs['captures']} "
+        "captures, none after warmup")
+
+    # -- T6: fault sites and the registry ----------------------------- #
+    small_lm = TransformerLM(attention_impl="flash", device=dev,
+                             **dict(config, n_layers=spec["draft_layers"]))
+    small_lm.params = dict(model.params, blocks=_first_layers(
+        model.params["blocks"], spec["draft_layers"]))
+    env = {faults.ENV_SPEC: "serving.verify:transient:p=0.5",
+           faults.ENV_SEED: "0"}
+    engine, warm, ptrs = open_engine(
+        "tier T6", prompts, spec=SpecConfig(k=spec["k"], draft=small_lm))
+    try:
+        os.environ.update(env)
+        faults.refresh_from_env()
+        try:
+            run = acc.run(lambda: serve_run(engine, prompts, max_new, temp))
+            fired = faults.active().stats()
+        finally:
+            for key in env:
+                os.environ.pop(key, None)
+            faults.refresh_from_env()
+        st = engine.stats()["spec"]
+        if not st["fault_demotions"] > 0:
+            raise AssertionError("tier T6: no verify fault demoted a slot")
+        ties = exact("tier T6", run["results"], None, temp)
+        os.environ[faults.ENV_SPEC] = "serving.enqueue:transient:count=1"
+        faults.refresh_from_env()
+        try:
+            engine.submit(prompts[0], max_new_tokens=max_new)
+            raise AssertionError("tier T6: an injected serving.enqueue "
+                                 "transient did not shed")
+        except ServingOverloaded:
+            pass
+        finally:
+            os.environ.pop(faults.ENV_SPEC, None)
+            faults.refresh_from_env()
+    finally:
+        close_engine("tier T6", engine, warm, ptrs)
+    del engine, small_lm
+    release(dev)
+    snap = get_registry().snapshot()
+    by_prefix = {p: sorted(k for k in snap if k.startswith(p))
+                 for p in ("serving/lm/", "serving/lm/spec/", "kvcache/",
+                           "kvtier/", "quant/", "serving/lifecycle/",
+                           "resilience/")}
+    missing = [p for p, keys in by_prefix.items() if not keys]
+    if missing:
+        raise AssertionError(f"tier T6: no registry key under {missing}")
+    out["t6"] = dict(fault_demotions=st["fault_demotions"],
+                     reprobes=st["reprobes"], fired=fired, ties=len(ties),
+                     registry={p: len(k) for p, k in by_prefix.items()})
+    log(f"[tier] T6 serving.verify transient p 0.5 seed 0 on spec arm 2: "
+        f"fired {json.dumps(fired)}, fault_demotions "
+        f"{st['fault_demotions']}, reprobes {st['reprobes']}, "
+        f"{len(prompts) - len(ties)} of {len(prompts)} streams identical to "
+        f"offline generate; serving.enqueue transient -> ServingOverloaded")
+    for p, keys in by_prefix.items():
+        log(f"[tier] T6 registry {p}: {len(keys)} keys "
+            f"{', '.join(k[len(p):] for k in keys[:12])}"
+            + (" ..." if len(keys) > 12 else ""))
+    del model
+    release(dev)
+    out["launches"] = acc.total
+    return out
+
+
+def _ms_list(ms):
+    return "[" + ", ".join(f"{m:.3f}" for m in ms) + "]"
+
+
+# --------------------------------------------------------------------------- #
 def _named_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for key, sub in tree.items():
@@ -1676,8 +2202,24 @@ def main() -> int:
         log(f"[quant] {name}: TTFT p50 {run['ttft_p50_s'] * 1e3:.2f} ms, "
             f"decode {run['decode_tokens_per_s']:.1f} tokens/s | {smi}")
     log(f"[quant] launches over the quant runs: {quant_launches} | {smi}")
+    log_allocated("tier")
+    t0 = time.perf_counter()
+    tier = phase_tier(dev, oracle=oracle)
+    phases["tier"] = time.perf_counter() - t0
+    check_launches("tier path", tier["launches"],
+                   ("bigdl_flash_fwd", "bigdl_paged_decode"))
+    for label in ("greedy", "sampled"):
+        run = tier[f"t2_{label}"]
+        log(f"[tier] T2 {label}: hibernate ms median "
+            f"{statistics.median(run['hibernate_ms']):.3f}, resume ms median "
+            f"{statistics.median(run['resume_ms']):.3f}, "
+            f"{run['blocks']} blocks, {run['bytes']} bytes each way, "
+            f"promote_bandwidth_mbs {run['promote_bandwidth_mbs']:.1f} "
+            f"| {smi}")
+    log(f"[tier] launches over the tier runs: {tier['launches']} | {smi}")
     del oracle
-    torch.cuda.empty_cache()
+    release(dev)
+    log_allocated("train")
     t0 = time.perf_counter()
     train = phase_train(dev, profile_path=args.profile)
     phases["train"] = time.perf_counter() - t0
@@ -1706,12 +2248,12 @@ def main() -> int:
     # pair); by_path: every path's own run, counted from 0
     paths = dict(serve=serve["launches"], serve_sampled=sampled["launches"],
                  spec=spec_launches, quant=quant_launches,
-                 train=train["launches"])
+                 tier=tier["launches"], train=train["launches"])
 
     def by_path(symbol, names):
         return {p: paths[p][symbol] for p in names}
 
-    serving = ("serve", "serve_sampled", "spec", "quant")
+    serving = ("serve", "serve_sampled", "spec", "quant", "tier")
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_fwd.cu",

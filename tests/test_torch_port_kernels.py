@@ -638,3 +638,104 @@ def test_int8_replayed_steps_equal_eager_steps(card, kind):
     finally:
         graph.close()
         eager.close()
+
+
+# --------------------------------------------------------------------------- #
+# the host KV tier on the card: hibernate/resume through graphs, export/adopt #
+# --------------------------------------------------------------------------- #
+
+def _tier_engine(lm, kv_quant, cuda_graphs=None):
+    from bigdl_tpu_torch.serving import HostBlockStore, LMServingEngine
+    # no prefix cache: every run of the prompts takes the same graphs
+    kw = dict(ENGINE_KW, cuda_graphs=cuda_graphs, device=lm.device,
+              enable_prefix_cache=False,
+              kvtier=HostBlockStore(host_bytes=1 << 28,
+                                    name=f"card-{kv_quant}-{cuda_graphs}"))
+    if kv_quant:
+        kw.update(kv_quant="int8", decode_attn="gather")
+    return LMServingEngine(lm, **kw)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_hibernate_resume_on_card_equals_eager(card, kv_quant):
+    """Each stream hibernated after its first token and resumed (one of
+    them after losing its payload) on a graphed engine: the arena
+    addresses hold (scales too), nothing is captured after warmup, and
+    every stream is bitwise the eager engine's uninterrupted stream, so
+    every replayed step after a resume produced the eager step's
+    token."""
+    lm = _engine_lm(card)
+    prompts = _engine_prompts()
+    new = 60                         # prompt + 60 <= cache_len 128
+    graph, eager = _tier_engine(lm, kv_quant), \
+        _tier_engine(lm, kv_quant, cuda_graphs=False)
+    try:
+        for eng in (graph, eager):
+            eng.warmup()
+        want = [eager.generate(p, max_new_tokens=new, timeout=120)
+                for p in prompts]
+        ptrs = graph.cache_buffer_pointers()
+        assert len(ptrs) == (4 if kv_quant else 2)
+        captures = graph.graphs.captures
+        got = [graph.generate(p, max_new_tokens=new, timeout=120)
+               for p in prompts]
+        streams = []
+        for p in prompts:
+            s = graph.submit(p, max_new_tokens=new)
+            next(s.tokens(timeout=120))
+            assert graph.hibernate(s, timeout=120)
+            streams.append(s)
+        graph.kvtier.get(("session", streams[1].request_id), pop=True)
+        for s in streams:
+            assert graph.resume(s)
+        resumed = [s.result(timeout=120) for s in streams]
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, resumed, want):
+            np.testing.assert_array_equal(a, c)
+            np.testing.assert_array_equal(b, c)
+        assert graph.resume_re_prefills == 1 and graph.resumes == 4
+        assert graph.cache_buffer_pointers() == ptrs
+        assert graph.graphs.captures == captures
+    finally:
+        graph.close()
+        eager.close()
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_export_adopt_on_card_equals_cpu(card, kv_quant):
+    """The same arena contents exported from a pool on the card and one
+    on the host give bitwise the same wire payload, and adopting it
+    writes bitwise the same rows, in place, through pinned staging in
+    slices of one block."""
+    from bigdl_tpu_torch.serving.kvcache import BlockPool
+    geom = dict(n_layers=2, n_heads=3, head_dim=64, block_len=16,
+                num_blocks=12, kv_quant=kv_quant)
+    pools = [BlockPool(device=d, **geom) for d in (card, "cpu")]
+    g = torch.Generator().manual_seed(3)
+    for name in ("k", "v", "ks", "vs"):
+        a = getattr(pools[1], name)
+        if a is None:
+            continue
+        fill = (torch.randint(-127, 128, a.shape, generator=g,
+                              dtype=torch.int8) if a.dtype == torch.int8
+                else torch.randn(a.shape, generator=g))
+        for p in pools:
+            getattr(p, name).copy_(fill)
+    ids = [3, 7, 1, 9]
+    wires = [p.export_chain(ids, chunk_bytes=p.wire_block_bytes)
+             for p in pools]
+    for key in wires[1]:
+        np.testing.assert_array_equal(wires[0][key], wires[1][key])
+    dst = [BlockPool(device=d, **geom) for d in (card, "cpu")]
+    ptr = dst[0].k.data_ptr()
+    w = wires[1]
+    fresh = [p.adopt_chain(w["k"], w["v"], w.get("ks"), w.get("vs"),
+                           extra_blocks=2, chunk_bytes=p.block_bytes)
+             for p in dst]
+    assert fresh[0] == fresh[1]
+    torch.cuda.synchronize()
+    for name in ("k", "v", "ks", "vs"):
+        a = getattr(dst[0], name)
+        if a is not None:
+            assert torch.equal(a.cpu(), getattr(dst[1], name))
+    assert dst[0].k.data_ptr() == ptr

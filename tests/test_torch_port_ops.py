@@ -634,6 +634,13 @@ def test_port_never_imports_jax_or_the_jax_package():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     assert REPO / "bigdl_tpu_torch/serving/compile_cache.py" in files
+    # the registry, tracer, fault injector, transfer and host KV tier are
+    # copies of JAX-free reference modules: the port keeps its own
+    for mod in ("obs/__init__.py", "obs/registry.py", "obs/tracer.py",
+                "resilience/__init__.py", "resilience/errors.py",
+                "resilience/faults.py", "utils/transfer.py",
+                "serving/kvtier/__init__.py", "serving/kvtier/store.py"):
+        assert REPO / "bigdl_tpu_torch" / mod in files, mod
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]

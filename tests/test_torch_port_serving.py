@@ -132,8 +132,7 @@ def test_typed_rejections(pair):
 
 def test_unported_options_raise(pair):
     _, tm = pair
-    for kw in (dict(kvtier=object()), dict(migrate=print),
-               dict(placement=object())):
+    for kw in (dict(migrate=print), dict(placement=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LMServingEngine(tm, device="cpu", **kw)
     # ported since quantization: int8 KV arenas (through the gather), the
@@ -150,13 +149,15 @@ def test_unported_options_raise(pair):
         assert eng.draft.dtype_tag == "int8"
     with pytest.raises(TypeError, match="SpecConfig"):
         LMServingEngine(tm, device="cpu", spec="2")
-    with LMServingEngine(tm, cache_len=32, device="cpu") as eng:
-        with pytest.raises(NotImplementedError):
-            eng.submit([1, 2], deadline_s=1.0)
-        s = eng.submit([1, 2], max_new_tokens=1)
-        with pytest.raises(NotImplementedError):
-            s.cancel()
+    # ported since the request lifecycle and the host KV tier: kvtier=,
+    # submit(deadline_s=) and LMStream.cancel()
+    from bigdl_tpu_torch.serving.kvtier import HostBlockStore
+    with LMServingEngine(tm, cache_len=32, device="cpu",
+                         kvtier=HostBlockStore(host_bytes=1 << 20)) as eng:
+        assert eng.radix.on_evict == eng._demote_block
+        s = eng.submit([1, 2], max_new_tokens=1, deadline_s=60.0)
         s.result(timeout=60)
+        assert s.cancel() is False and s.truncation is None
     with pytest.raises(ValueError, match="model lives"):
         other = TransformerLM(vocab_size=VOCAB, hidden_size=32, n_head=2,
                               n_layers=2, max_len=64, device="cpu")
