@@ -105,16 +105,45 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
     return out
 
 
+_counting = threading.local()   # per thread: .capture and .tally dicts
+_count_lock = threading.Lock()
+
+
+class recording_launches:
+    """Context manager: the launches this thread makes inside it go into
+    the yielded dict (kernel -> count) instead of the counters.  The
+    graph cache wraps each capture in it (a capture runs nothing; the
+    graph adds its recorded counts on every replay), so a capture on one
+    thread never takes back launches another thread made meanwhile."""
+
+    def __enter__(self) -> dict:
+        self._prev = getattr(_counting, "capture", None)
+        _counting.capture = {}
+        return _counting.capture
+
+    def __exit__(self, *exc) -> None:
+        _counting.capture = self._prev
+
+
+def tally_launches(tally) -> None:
+    """Count every launch this thread makes from now on into ``tally``
+    (symbol -> count) too, beside the kernel's own counter: a serving
+    worker's launches are its engine's (``None`` stops the tally)."""
+    _counting.tally = tally
+
+
 class Kernel:
     """One hand-written CUDA kernel behind a C entry point.
 
     ``launches`` counts successful launches; the wrapper that owns the
     kernel is the only caller of :meth:`launch`.  A launch made while a
     CUDA graph is captured runs nothing then: the graph cache
-    (``serving/compile_cache.py``) takes such counts back and adds them
+    (``serving/compile_cache.py``) records such counts in
+    :class:`recording_launches` instead and adds them (:meth:`count`)
     on every replay, so ``launches`` counts what the device ran.  The
-    library must be built and loaded before a capture: a first launch
-    inside one raises.
+    counters are safe to bump from several threads (one serving worker
+    an engine).  The library must be built and loaded before a capture:
+    a first launch inside one raises.
     """
 
     def __init__(self, source: str, symbol: str,
@@ -153,4 +182,17 @@ class Kernel:
             raise RuntimeError(
                 f"{self.symbol} failed to launch: CUDA error {code} "
                 f"({self._err(code).decode()})")
-        self.launches += 1
+        self.count(1)
+
+    def count(self, n: int) -> None:
+        """Book ``n`` launches: into this thread's capture record while
+        one is open, else into ``launches`` and this thread's tally."""
+        rec = getattr(_counting, "capture", None)
+        if rec is not None:
+            rec[self] = rec.get(self, 0) + n
+            return
+        with _count_lock:
+            self.launches += n
+        tally = getattr(_counting, "tally", None)
+        if tally is not None:
+            tally[self.symbol] = tally.get(self.symbol, 0) + n

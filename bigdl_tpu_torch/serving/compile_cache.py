@@ -36,15 +36,21 @@ and replays on one thread, one at a time, so a graph's outputs are valid
 only until the next replay: callers copy them to the host first.  A
 capture that fails raises; nothing falls back to running eagerly.
 
+Several owners (engines) may share one card and one process: captures
+are serialized process-wide, run with garbage collection paused, and
+use side streams of PyTorch's high-priority stream pool, so a capture
+stream is never the stream another engine's worker replays on.
+
 On the CPU (or with capture off) an entry is the eager function, run
 once when it is made, as the warm pass; the bookkeeping is the same, so
 the counts can be held against the JAX package's.
 
 The kernels' launch counters (``bigdl_tpu_torch.ops.KERNELS``) tick in
-Python, which a replay never reaches: each graph records the counters'
-deltas during its capture, takes them back (a capture runs nothing), and
-adds them on every replay, so a counter reads the launches the device
-ran.
+Python, which a replay never reaches: each graph records the launches
+its capture made on the capturing thread instead of counting them (a
+capture runs nothing; another thread's launches meanwhile still count)
+and adds them on every replay, so a counter reads the launches the
+device ran.
 
 Not ported: the reference files each executable's cost and memory rows
 with the memory ledger (``obs/ledger``); that waits for the ledger's
@@ -52,6 +58,8 @@ port (ROADMAP Queue 1 item 11.6).
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 import time
 from collections import OrderedDict
@@ -126,12 +134,26 @@ class _Eager:
             return self._fn(_on_device(x, self._device))
 
 
+_CAPTURE_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class _Graph:
     """A captured entry: static inputs, pinned staging, the graph and
     references to its outputs."""
 
     def __init__(self, owner: "GraphPool", fn: Callable, x):
-        from bigdl_tpu_torch.ops import KERNELS
+        from bigdl_tpu_torch.ops._build import recording_launches
         dev = owner.device
         self._owner = owner
         self._dict = isinstance(x, dict)
@@ -150,21 +172,18 @@ class _Graph:
         with torch.no_grad(), torch.cuda.stream(side):
             first = fn(arg)                 # the warm pass, a real run
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = [k.launches for k in KERNELS]
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.no_grad(), torch.cuda.graph(
+        # one capture at a time in the process, and no garbage collection
+        # inside one (a collected object's CUDA teardown must not land in
+        # it); a capture launches nothing: its counts are kept for the
+        # replays
+        with _CAPTURE_LOCK, _gc_paused(), recording_launches() as rec, \
+                torch.no_grad(), torch.cuda.graph(
                     graph, pool=owner.pool, stream=side,
                     capture_error_mode="thread_local"):
-                self._out = fn(arg)
-        finally:
-            # a capture launches nothing: keep its counts for the replays
-            self._deltas = [(k, k.launches - b)
-                            for k, b in zip(KERNELS, before)
-                            if k.launches != b]
-            for k, b in zip(KERNELS, before):
-                k.launches = b
+            self._out = fn(arg)
+        self._deltas = list(rec.items())
         self._graph = graph
         self.first = first
         owner._captured(time.perf_counter() - t0)
@@ -188,7 +207,7 @@ class _Graph:
         self._stage(leaves)
         self._graph.replay()
         for kernel, n in self._deltas:
-            kernel.launches += n
+            kernel.count(n)
         self._owner._replayed()
         return self._out
 
@@ -206,7 +225,10 @@ class GraphPool:
                              f"{self.device}")
         self.capture = bool(capture)
         self.pool = torch.cuda.graph_pool_handle() if capture else None
-        self.stream = torch.cuda.Stream(self.device) if capture else None
+        # captures run on a stream of the high-priority pool, which no
+        # engine's worker stream (the default pool) can ever be
+        self.stream = (torch.cuda.Stream(self.device, priority=-1)
+                       if capture else None)
         self._lock = threading.Lock()
         self.captures = 0
         self.replays = 0

@@ -30,8 +30,10 @@ all-or-nothing and writes a payload back over
 :func:`~bigdl_tpu_torch.utils.transfer.chunked_device_put`.  Both work
 IN PLACE on the arenas (``index_select`` and ``index_copy_``): the
 arena tensors are never rebound, since captured CUDA graphs hold their
-addresses.  The host KV tier (``serving/kvtier``) moves chains this
-way.
+addresses.  The host KV tier (``serving/kvtier``) and the disaggregated
+coordinator's migration (``serving/disagg``) move chains this way;
+:meth:`BlockPool.warmup_adopt` runs the adopt path once per wire width
+before traffic.
 """
 from __future__ import annotations
 
@@ -246,6 +248,34 @@ class BlockPool:
         out = dict(host)
         out["blocks"] = n
         return out
+
+    def warmup_adopt(self, widths: Sequence[int]) -> int:
+        """Run the adopt path once per wire width in ``widths`` (the
+        pinned staging, the copies and the in-place ``index_copy_``)
+        with a zero payload aimed entirely at the scratch block, whose
+        rows are always masked, so the first real migration of that
+        width pays no first use.  No block is allocated and the arenas
+        keep their addresses.  Returns the number of widths run."""
+        L, _, H, B, D = self.shape
+        dev = self.k.device
+        legs = [(self.k, (L, H, B, D), self.dtype),
+                (self.v, (L, H, B, D), self.dtype)]
+        if self.kv_quant is not None:
+            legs += [(self.ks, (L, H, B), torch.float32),
+                     (self.vs, (L, H, B), torch.float32)]
+        n = 0
+        for w in widths:
+            w = int(w)
+            if w < 1:
+                continue
+            idx = torch.full((w,), SCRATCH_BLOCK, dtype=torch.long,
+                             device=dev)
+            for arena, row, dt in legs:
+                wire = self._to_host(torch.zeros((w,) + row, dtype=dt))
+                staged = chunked_device_put(wire, dt, device=dev)
+                arena.index_copy_(1, idx, staged.movedim(0, 1))
+            n += 1
+        return n
 
     def adopt_chain(self, k_wire, v_wire, ks_wire=None, vs_wire=None, *,
                     extra_blocks: int = 0,

@@ -1,6 +1,5 @@
 """Radix prefix cache: token-prefix trie over refcounted block chains
-(host-only port of ``bigdl_tpu/serving/kvcache/radix.py``; the router
-fingerprints wait for their slice).
+(host-only port of ``bigdl_tpu/serving/kvcache/radix.py``).
 
 The trie is **block-granular**: one node per full block of
 ``block_len`` tokens, keyed by that block's token tuple, so a match is
@@ -25,8 +24,15 @@ reference is released, so the block's rows are still allocated and
 gatherable (the engine's host-tier demotion hook).  A callback that
 raises is logged and the eviction proceeds as a plain drop.
 
+Every node also carries a 64-bit FNV-1a fingerprint of its whole
+root-to-node block-key path (:func:`prefix_signatures`), plain integer
+arithmetic, so the port's fingerprints equal the reference's bit for
+bit.  An attached router summary (:meth:`RadixCache.attach_summary`)
+gets ``on_insert(sig)`` / ``on_evict(sig)`` for every node added or
+dropped, under the trie lock, so it never advertises an evicted chain.
+
 The serving worker is the only mutator; counters are lock-guarded so
-stats reads from other threads are consistent.
+stats reads (and a foreign thread's ``match``) are consistent.
 """
 from __future__ import annotations
 
@@ -38,17 +44,49 @@ from bigdl_tpu_torch.serving.kvcache.blocks import BlockPool
 
 log = logging.getLogger("bigdl_tpu_torch.serving")
 
+_SIG_ROOT = 0xCBF29CE484222325     # FNV-1a 64-bit offset basis
+_FNV_PRIME = 0x100000001B3
+_U64 = (1 << 64) - 1
+
+
+def _sig_extend(sig: int, key: Tuple[int, ...]) -> int:
+    """Fold one block's token tuple into a cumulative prefix
+    fingerprint (block keys have a fixed length, so no separator)."""
+    h = sig
+    for tok in key:
+        h = ((h ^ (int(tok) & _U64)) * _FNV_PRIME) & _U64
+    return h
+
+
+def prefix_signatures(tokens0, block_len: int,
+                      cap: Optional[int] = None) -> List[int]:
+    """Cumulative block-prefix fingerprints of a prompt (0-based ids):
+    ``out[i]`` covers blocks ``[0, i]``, at most ``(t - 1) // block_len``
+    of them (the bound :meth:`RadixCache.match` uses) or ``cap``."""
+    n = max(0, (len(tokens0) - 1) // block_len)
+    if cap is not None:
+        n = min(n, int(cap))
+    out: List[int] = []
+    sig = _SIG_ROOT
+    for i in range(n):
+        sig = _sig_extend(sig, tuple(
+            int(x) for x in tokens0[i * block_len:(i + 1) * block_len]))
+        out.append(sig)
+    return out
+
 
 class _Node:
-    __slots__ = ("key", "block", "children", "parent", "last_used")
+    __slots__ = ("key", "block", "children", "parent", "last_used", "sig")
 
     def __init__(self, key: Optional[Tuple[int, ...]], block: Optional[int],
-                 parent: Optional["_Node"], last_used: int):
+                 parent: Optional["_Node"], last_used: int,
+                 sig: int = _SIG_ROOT):
         self.key = key
         self.block = block
         self.children: Dict[Tuple[int, ...], "_Node"] = {}
         self.parent = parent
         self.last_used = last_used
+        self.sig = sig              # fingerprint of the root->node path
 
 
 class RadixCache:
@@ -62,6 +100,9 @@ class RadixCache:
         #: the eviction funnel, ``on_evict(path, block)`` per victim
         #: before release (reassignable live)
         self.on_evict = on_evict
+        #: the router's summary (``on_insert(sig)``/``on_evict(sig)``
+        #: per node), wired by :meth:`attach_summary`
+        self.summary = None
         self._lock = threading.Lock()
         self._root = _Node(None, None, None, 0)
         self._clock = 0
@@ -121,12 +162,15 @@ class RadixCache:
                 key = self._block_key(tokens0, i)
                 child = node.children.get(key)
                 if child is None:
-                    child = _Node(key, int(blk), node, now)
+                    child = _Node(key, int(blk), node, now,
+                                  sig=_sig_extend(node.sig, key))
                     node.children[key] = child
                     self.pool.retain([int(blk)])
                     self.nodes += 1
                     self.inserted_blocks += 1
                     added += 1
+                    if self.summary is not None:
+                        self.summary.on_insert(child.sig)
                 else:
                     child.last_used = now
                 node = child
@@ -167,6 +211,8 @@ class RadixCache:
         self.pool.release([v.block])
         self.nodes -= 1
         self.evictions += 1
+        if self.summary is not None:
+            self.summary.on_evict(v.sig)
 
     def evict(self, n_blocks: int) -> int:
         """Free up to ``n_blocks`` pool blocks by dropping LRU leaf nodes
@@ -183,6 +229,17 @@ class RadixCache:
                 self._evict_node(min(victims, key=lambda n: n.last_used))
                 freed += 1
         return freed
+
+    def attach_summary(self, summary) -> None:
+        """Attach a router summary and replay the current trie into it
+        (one walk here; every later change is the per-node hook)."""
+        with self._lock:
+            self.summary = summary
+            stack = list(self._root.children.values())
+            while stack:
+                n = stack.pop()
+                summary.on_insert(n.sig)
+                stack.extend(n.children.values())
 
     def hit_rate(self) -> Optional[float]:
         with self._lock:

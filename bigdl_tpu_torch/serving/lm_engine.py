@@ -82,8 +82,39 @@ a graph's outputs live in a pool the next graph reuses.
   the speculating slots for the round) and ``serving.cancel`` (a fault
   cancels the stream).
 
+- **chunked-prefill interleave** (``max_prefill_chunk_tokens``): an
+  admitted prompt prefills in block-aligned chunks of at most that many
+  tokens, ONE chunk per scheduler round between decode rounds, so a
+  long prompt arriving mid-decode stalls every active stream by one
+  chunk, not one prompt (Sarathi).  Chunks after the first run the
+  suffix prefill against the chain written so far; streams do not
+  change.
+- **disaggregated phases** (``serving/disagg``): an engine built with
+  ``migrate=callback`` is a prefill replica: after a request's first
+  token it builds a :class:`KVHandoff` and calls ``migrate(handoff,
+  blocks, pool)`` on its worker (the chain still referenced), and the
+  request leaves it.  A decode replica takes it through :meth:`adopt`:
+  its worker adopts the wire payload into its own arenas (or
+  re-prefills the prompt when the payload was lost, never emitting the
+  first token again) and decodes on from the handoff's state.
+  Adoptions rank ahead of resumes and fresh admissions.
+- **replica sets**: engines of one model share its parameter tensors
+  (read-only; each engine's graphs captured their addresses);
+  ``metrics=``/``metrics_prefix=`` let replicas publish one shared
+  :class:`LMMetrics`; ``set_slot_limit``/``set_max_queue`` are the SLO
+  controller's actuators; :meth:`attach_radix_summary` publishes the
+  trie's prefix fingerprints to a router.
+
+On a CUDA device every engine's worker launches on a stream of its own
+(never the legacy default stream), made to wait for the constructing
+thread's stream at construction and for the caller's after ``warmup()``
+and ``warmup_prefix()``: several engines on one card replay and copy
+side by side while another captures.  The kernels' launches made by a
+worker are also counted per engine (:meth:`LMServingEngine.\
+kernel_launches`).
+
 Not ported yet, and refused with ``NotImplementedError`` when asked
-for: ``migrate`` (disaggregated serving) and ``placement``.
+for: ``placement`` (ROADMAP Queue 1 item 11.7).
 """
 from __future__ import annotations
 
@@ -108,6 +139,8 @@ from bigdl_tpu_torch.serving.compile_cache import (CompileCache, GraphPool,
                                                    StepGraph)
 from bigdl_tpu_torch.obs import get_registry, get_tracer, mint_request_id
 from bigdl_tpu_torch.obs.registry import FnGauge, Histogram
+from bigdl_tpu_torch.ops import KERNELS
+from bigdl_tpu_torch.ops._build import tally_launches
 from bigdl_tpu_torch.resilience.faults import fault_point
 from bigdl_tpu_torch.serving.errors import (BackendLostError, PoolExhausted,
                                             RequestExceedsPool, ServingClosed,
@@ -492,6 +525,34 @@ class _Slot:
                 if self.step_keys is not None else None)
 
 
+class KVHandoff:
+    """One request between phase replicas.  The prefill replica builds
+    it after emitting the first token; the coordinator fills
+    ``payload`` (the exported wire arrays, or None to re-prefill on the
+    decode side) and ``matched`` (blocks the decode pool's radix already
+    held for this prompt, retained for the adoption, so only the
+    unmatched tail travels); the decode replica takes it through
+    :meth:`LMServingEngine.adopt`.  The sampling state (``step_keys``,
+    the position, the last token) crosses intact."""
+
+    __slots__ = ("stream", "prompt0", "max_new", "temperature", "eos0",
+                 "step_keys", "rid", "first0", "payload", "matched",
+                 "src_name")
+
+    def __init__(self, req: _Request, first0: int, src_name: str):
+        self.stream = req.stream
+        self.prompt0 = req.prompt0
+        self.max_new = req.max_new
+        self.temperature = req.temperature
+        self.eos0 = req.eos0
+        self.step_keys = req.step_keys
+        self.rid = req.rid
+        self.first0 = int(first0)       # already emitted; never again
+        self.payload = None             # {"k", "v", "blocks"} or None
+        self.matched = []               # decode-pool blocks, retained
+        self.src_name = src_name
+
+
 class _Hibernated:
     """A stream swapped out of its decode slot into the host KV tier,
     with its full sampling state (``pos_next``, ``last0``,
@@ -521,20 +582,21 @@ class _Hibernated:
 
 
 class _Prefill:
-    """An admitted request's prefill in progress: blocks are allocated,
-    ``p`` tokens are in the arena; ``logits`` (host) once the last chunk
-    ran."""
+    """An admitted request's prefill in progress (possibly chunk by
+    chunk between decode rounds): blocks are allocated, ``p`` tokens are
+    in the arena; ``logits`` (host) once the last chunk ran."""
 
-    __slots__ = ("req", "blocks", "slot", "p", "t", "logits")
+    __slots__ = ("req", "blocks", "slot", "p", "t", "logits", "handoff")
 
     def __init__(self, req: _Request, blocks: List[int], slot: int,
-                 matched_len: int):
+                 matched_len: int, handoff: Optional[KVHandoff] = None):
         self.req = req
         self.blocks = blocks
         self.slot = slot
         self.p = matched_len
         self.t = req.prompt0.shape[0]
         self.logits = None
+        self.handoff = handoff          # set: a re-prefill, no emit
 
 
 # ---------------------------------------------------------------------- #
@@ -599,6 +661,19 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             their slots and back.
         honor_lifecycle: ``False`` records deadlines and cancels (and the
             decode slot-steps wasted on them) without acting on them.
+        max_prefill_chunk_tokens: chunked-prefill interleave: the worker
+            advances at most one block-aligned chunk of at most this
+            many prompt tokens between decode rounds.  Needs a
+            block-aligned prefill bucket (``ValueError`` otherwise).
+            None (default) prefills each admission to completion.
+        migrate: makes this engine a prefill replica: after a request's
+            first token, ``migrate(handoff, blocks, pool)`` runs on the
+            worker with the chain still referenced, and the request
+            leaves this engine (see ``serving/disagg``).  Excludes
+            ``spec`` and ``kv_quant``.
+        metrics / metrics_prefix: a shared :class:`LMMetrics` (replicas
+            of one phase or one set record into one) and the registry
+            prefix it publishes under (default ``"serving/lm/"``).
         device: must be the model's device (default ``"cuda"``).
     """
 
@@ -620,18 +695,29 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                  max_cache_entries: int = 16,
                  cuda_graphs: Optional[bool] = None,
                  honor_lifecycle: bool = True,
+                 max_prefill_chunk_tokens: Optional[int] = None,
+                 metrics: Optional[LMMetrics] = None,
+                 metrics_prefix: str = "serving/lm/",
                  name: str = "lm",
                  device=None):
-        for what, val, item in (("migrate (disaggregated serving)",
-                                 migrate, "11.4"),
-                                ("placement", placement, "11.7")):
-            if val is not None:
-                raise _not_ported(what, item)
+        if placement is not None:
+            raise _not_ported("placement", "11.7")
         if isinstance(spec, int) and not isinstance(spec, bool):
             spec = SpecConfig(k=spec)
         if spec is not None and not isinstance(spec, SpecConfig):
             raise TypeError(f"spec must be a SpecConfig or an int, got "
                             f"{spec!r}")
+        if migrate is not None and spec is not None:
+            raise ValueError(
+                "a prefill-phase replica (migrate=...) cannot speculate: "
+                "it never decodes; speculation belongs on the decode "
+                "replicas")
+        if migrate is not None and kv_quant is not None:
+            raise ValueError(
+                "kv_quant='int8' excludes disaggregated serving: the "
+                "handoff protocol carries full-precision wire payloads "
+                "(the host KV tier, not the coordinator, is the "
+                "quantized-chain migration path)")
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(f"engine on {self.device}, but the model lives "
@@ -674,6 +760,22 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         # largest bucket; 0 means buckets are sub-block (no chunking)
         self._chunk_full = (self.prefill_buckets[-1]
                             // self.block_len) * self.block_len
+        self.migrate = migrate
+        self.phase = "prefill" if migrate is not None else "colocated"
+        self._chunk_cap = None
+        if max_prefill_chunk_tokens is not None:
+            if self._chunk_full == 0:
+                raise ValueError(
+                    "max_prefill_chunk_tokens needs at least one "
+                    f"block-aligned prefill bucket (block_len "
+                    f"{self.block_len}, largest bucket "
+                    f"{self.prefill_buckets[-1]})")
+            # chunk boundaries stay block-aligned so the suffix prefill's
+            # prefix_len is a whole number of blocks
+            self._chunk_cap = max(
+                self.block_len,
+                (int(max_prefill_chunk_tokens) // self.block_len)
+                * self.block_len)
         if num_blocks is None:
             num_blocks = 1 + (self.slots + 4) * self.table_width
         mha = model._mha
@@ -685,6 +787,7 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                               device=self.device, kv_quant=kv_quant)
         self.kv_quant = self.pool.kv_quant
         self.radix = RadixCache(self.pool) if enable_prefix_cache else None
+        self.radix_summary = None   # see attach_radix_summary
         self.kvtier = kvtier
         if kvtier is not None and self.radix is not None:
             # radix-tail eviction hands each victim block to the host
@@ -797,11 +900,21 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                 self._commit_exec = StepGraph(_commit_fn, self.graphs)
 
         reg = get_registry()
-        self.metrics = LMMetrics(self.slots).publish_to(reg)
+        self.metrics = (metrics if metrics is not None
+                        else LMMetrics(self.slots)).publish_to(
+            reg, prefix=metrics_prefix)
         self.metrics.spec = self.spec_metrics
         self._publish_kv_metrics(reg)
         self._cv = threading.Condition()
         self._queue: deque = deque()
+        self._adopt_q: deque = deque()       # KVHandoffs awaiting seats
+        self._prefilling: deque = deque()    # chunk-interleaved _Prefills
+        self.migrated = 0       # prefill phase: chains handed off
+        self.adopted = 0        # decode phase: chains seated
+        self.re_prefills = 0    # decode phase: lost payloads recomputed
+        # the SLO controller's concurrency actuator: the decode step
+        # always runs all S slots, admission fills at most this many
+        self._slot_limit = self.slots
         self._free = list(range(self.slots))
         self._slots: List[Optional[_Slot]] = [None] * self.slots
         self._n_active = 0
@@ -829,6 +942,13 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         }
         self._lc_counters = {k: reg.counter(f"serving/lifecycle/{k}")
                              for k in self.lifecycle}
+        # the worker's own stream, ordered after everything the
+        # constructing thread enqueued (the params, the zeroed arenas)
+        self._stream = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._follow_caller()
+        self._launches = {k.symbol: 0 for k in KERNELS}
         self._worker = threading.Thread(
             target=self._run, daemon=True, name=f"lm-serve-{name}")
         self._worker.start()
@@ -924,8 +1044,22 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
     def _before_traffic(self, what: str):
         # holding the scheduler's lock keeps the worker from admitting
         # anything while the arenas are touched here
-        if self._queue or self._n_active:
+        if (self._queue or self._n_active or self._adopt_q
+                or self._prefilling):
             raise RuntimeError(f"{what} runs before traffic")
+
+    def _follow_caller(self) -> None:
+        """Order the worker's stream after the calling thread's current
+        stream: work enqueued outside the worker (construction, warmup)
+        lands before the worker's next launch."""
+        if self._stream is not None:
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def kernel_launches(self) -> dict:
+        """Launches of each kernel (by C symbol) that this engine's
+        worker made, through replays included; warmup, which runs on the
+        caller's thread, is not counted."""
+        return dict(self._launches)
 
     def warmup(self) -> int:
         """Make every prefill bucket's entry and the decode step (a spec
@@ -942,8 +1076,14 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                  for b in self.prefill_buckets])
             zeros = np.zeros((self.slots,), np.int32)
             tables = np.zeros((self.slots, self.table_width), np.int32)
+            if self.migrate is not None:
+                # a prefill replica never decodes: its requests migrate
+                # after the first token
+                self._follow_caller()
+                return n
             if self.draft is None:
                 self._decode(np.zeros((self.slots,), np.int64), zeros, tables)
+                self._follow_caller()
                 return n
             # a spec engine decodes through its verify steps only; idle
             # rows (n_cand 0) write the scratch block
@@ -959,6 +1099,7 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                 self._verify(np.zeros((self.slots, self.spec.k + 1),
                                       np.int32), zeros, zeros, tables)
             self.draft.warmup()
+            self._follow_caller()
         return n
 
     def warmup_prefix(self, suffix_lens: Optional[Sequence[int]] = None,
@@ -987,8 +1128,10 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                   for b in sb for pb in pbs]
         with self._cv, torch.no_grad():
             self._before_traffic("warmup_prefix()")
-            return self.prefix_prefill_cache.warmup_inputs(
+            n = self.prefix_prefill_cache.warmup_inputs(
                 self._params, self.model.buffers, inputs)
+            self._follow_caller()
+            return n
 
     def bucket_for(self, prompt_len: int) -> int:
         """Smallest configured prefill bucket >= prompt_len."""
@@ -1106,24 +1249,90 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         1-based ids for one prompt."""
         return self.submit(prompt_ids, **kw).result(timeout=timeout)
 
+    def adopt(self, handoff: KVHandoff) -> None:
+        """Accept a migrated request (the decode phase's entry point):
+        the worker seats the handoff's chain (the wire payload plus the
+        blocks the local radix already held) into a slot and decodes on
+        from the token the prefill replica emitted.  Adoptions rank
+        ahead of queued submissions and defer under pool pressure like
+        them."""
+        # a cancel now has to wake THIS worker
+        handoff.stream._wake_cb = self._lc_wake
+        with self._cv:
+            if self._closing:
+                raise ServingClosed("LMServingEngine is closed")
+            self._adopt_q.append(handoff)
+            self._cv.notify_all()
+        self.metrics.record_submit()
+        if _tracer.sampled(handoff.rid):
+            _tracer.instant("lm/adopt_enqueue", cat="serve",
+                            request_id=handoff.rid, src=handoff.src_name,
+                            wire_blocks=(handoff.payload["blocks"]
+                                         if handoff.payload else None),
+                            matched_blocks=len(handoff.matched))
+
+    # -- live control knobs (the SLO controller's actuators) ----------- #
+    def set_slot_limit(self, n: int) -> int:
+        """Cap decode concurrency at ``n`` of the S slots (clamped to
+        [1, slots]); the decode step keeps its shape, only admission
+        stops filling slots past the cap.  Returns the applied value."""
+        with self._cv:
+            self._slot_limit = max(1, min(int(n), self.slots))
+            self._cv.notify_all()
+            return self._slot_limit
+
+    @property
+    def slot_limit(self) -> int:
+        with self._cv:
+            return self._slot_limit
+
+    def set_max_queue(self, n: int) -> None:
+        """Rebind the admission queue bound live (new arrivals past it
+        get ``ServingQueueFull``; queued requests stay)."""
+        with self._cv:
+            self._max_queue = max(0, int(n))
+
+    @property
+    def max_queue(self) -> int:
+        with self._cv:
+            return self._max_queue
+
+    def attach_radix_summary(self, summary) -> None:
+        """Publish this engine's radix trie to a router: ``summary``
+        mirrors the trie's prefix fingerprints through the per-node
+        hooks (see ``serving/router/summary.py``)."""
+        if self.radix is None:
+            raise ValueError(
+                "attach_radix_summary requires enable_prefix_cache=True")
+        self.radix.attach_summary(summary)
+        self.radix_summary = summary
+
     # -- worker -------------------------------------------------------- #
     def _run(self):
         try:
+            tally_launches(self._launches)
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
+                # every launch, copy and replay of this worker
+                torch.cuda.set_stream(self._stream)
             with torch.no_grad():  # grad mode is per thread
                 self._loop()
         except Exception as e:  # noqa: BLE001 - the worker's boundary:
             # every waiting client gets the error instead of hanging
             self._fail_all(e)
             return
+        finally:
+            if self._stream is not None:
+                # nothing of this engine's stays in flight past its worker
+                self._stream.synchronize()
         self._fail_all(ServingClosed("engine closed before completion"))
 
     def _loop(self):
         while True:
             with self._cv:
-                while (not self._queue and not self._resume_q
-                       and not self._n_active and not self._hibernate_req
+                while (not self._queue and not self._adopt_q
+                       and not self._resume_q and not self._n_active
+                       and not self._prefilling and not self._hibernate_req
                        and not self._closing and not self._abort
                        and not self._lc_nudge):
                     if not self._cv.wait(self._lc_wait_timeout()):
@@ -1132,60 +1341,80 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                         self._lc_nudge = True
                 if self._abort:
                     return
-                if (self._closing and not self._queue and not self._resume_q
-                        and not self._n_active):
+                if (self._closing and not self._queue and not self._adopt_q
+                        and not self._resume_q and not self._n_active
+                        and not self._prefilling):
                     # the caller's _fail_all resolves streams still
                     # hibernated with ServingClosed
                     return
                 # cancelled or expired requests leave their holding
                 # stations before this round admits anything
                 self._lifecycle_sweep_locked()
-                # resumes rank ahead of fresh admissions (their first
-                # token is paid)
-                resumes = []
-                while self._free and self._resume_q:
-                    resumes.append((self._free.pop(),
-                                    self._resume_q.popleft()))
-                admits = []
-                while self._free and self._queue:
-                    admits.append((self._free.pop(), self._queue.popleft()))
-            deferred_resumes = []
-            for slot, hib in resumes:
-                try:
-                    seated = self._resume_into(slot, hib)
-                except Exception as e:  # noqa: BLE001 - fail this stream
-                    hib.stream._finish(error=e)
-                    with self._cv:
-                        self._free.append(slot)
-                else:
-                    if not seated:
-                        deferred_resumes.append((slot, hib))
-            deferred = []
-            for slot, req in admits:
-                try:
-                    admitted = self._admit(slot, req)
-                except Exception as e:  # noqa: BLE001 - fail this request
-                    req.stream._finish(error=e)
-                    with self._cv:
-                        self._free.append(slot)
-                else:
-                    if not admitted:
-                        deferred.append((slot, req))
-            if deferred or deferred_resumes:
+                # in flight = decoding + mid-prefill: both hold slots
+                inflight = self._n_active + len(self._prefilling)
+
+                def take(q, taken):
+                    out = []
+                    while (self._free and q
+                           and inflight + taken + len(out)
+                           < self._slot_limit):
+                        out.append((self._free.pop(), q.popleft()))
+                    return out
+
+                # adoptions and resumes rank ahead of fresh admissions
+                # (their first token is paid), adoptions first
+                adopts = take(self._adopt_q, 0)
+                resumes = take(self._resume_q, len(adopts))
+                admits = take(self._queue, len(adopts) + len(resumes))
+            if self.migrate is not None:
+                # a prefill replica's occupancy, one sample a round (it
+                # has no decode steps)
+                self.metrics.record_step(
+                    min(self.slots, inflight + len(adopts) + len(admits)),
+                    [])
+            deferred = [], [], []
+            for (seat, items), out in zip(
+                    ((self._adopt_into, adopts), (self._resume_into, resumes),
+                     (self._admit, admits)), deferred):
+                for slot, item in items:
+                    try:
+                        seated = seat(slot, item)
+                    except Exception as e:  # noqa: BLE001 - fail this one
+                        item.stream._finish(error=e)
+                        with self._cv:
+                            self._free.append(slot)
+                    else:
+                        if not seated:
+                            out.append((slot, item))
+            if any(deferred):
                 # pool pressure: requeue at the FRONT (FIFO order kept)
                 # and return the slots; blocks free as streams finish
                 with self._cv:
-                    for slot, req in reversed(deferred):
-                        self._free.append(slot)
-                        self._queue.appendleft(req)
-                    for slot, hib in reversed(deferred_resumes):
-                        self._free.append(slot)
-                        self._resume_q.appendleft(hib)
-                    if not self._n_active:
+                    for q, items in zip((self._adopt_q, self._resume_q,
+                                         self._queue), deferred):
+                        for slot, item in reversed(items):
+                            self._free.append(slot)
+                            q.appendleft(item)
+                    if not self._n_active and not self._prefilling:
                         self._cv.wait(0.05)
             self._lifecycle_round()
             if self._hibernate_req:
                 self._service_hibernations()
+            if self._prefilling:
+                # the interleave: ONE chunk of the oldest prefill in
+                # progress a round, then back to decoding
+                pf = self._prefilling[0]
+                try:
+                    if self._prefill_chunk(pf):
+                        self._prefilling.popleft()
+                        self._complete_prefill(pf)
+                except Exception as e:  # noqa: BLE001 - fail this one
+                    if self._prefilling and self._prefilling[0] is pf:
+                        self._prefilling.popleft()
+                    self.pool.release(pf.blocks)
+                    pf.req.stream._finish(error=e)
+                    with self._cv:
+                        self._free.append(pf.slot)
             if self._n_active:
                 if self.draft is None:
                     self._step()
@@ -1218,6 +1447,7 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         if not self.honor_lifecycle:
             return None
         dls = [r.stream.deadline_at for r in self._queue]
+        dls += [h.stream.deadline_at for h in self._adopt_q]
         dls += [h.stream.deadline_at for h in self._resume_q]
         dls += [h.stream.deadline_at for h in self._hibernated.values()]
         dls = [d for d in dls if d is not None]
@@ -1265,7 +1495,8 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
     def _lifecycle_sweep_locked(self) -> None:
         """Shed cancelled or expired requests from every station that
         holds no decode slot: the admission queue (before prefill), the
-        resume queue and the hibernated set (a hibernated stream is
+        adoption queue, the resume queue and the hibernated set (a
+        hibernated stream is
         cancellable without a resume: its chain drops out of the host
         tier, no transfer).  Caller holds ``_cv``."""
         self._lc_nudge = False
@@ -1281,6 +1512,18 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                 else:
                     live.append(r)
             self._queue.extend(live)
+        if any(h.stream.dead(now) for h in self._adopt_q):
+            live = []
+            while self._adopt_q:
+                h = self._adopt_q.popleft()
+                if h.stream.dead(now):
+                    # its retained decode-pool blocks go back
+                    if h.matched:
+                        self.pool.release(h.matched)
+                    self._lc_truncate(h.stream, h.rid, station="adopt_q")
+                else:
+                    live.append(h)
+            self._adopt_q.extend(live)
         if any(h.stream.dead(now) for h in self._resume_q):
             live = []
             while self._resume_q:
@@ -1301,8 +1544,8 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             self._lc_truncate(hib.stream, rid, station="hibernated")
 
     def _lifecycle_round(self) -> None:
-        """The per-round pass over seated streams, at a round boundary
-        (never inside a step).  The ``serving.cancel`` fault site is
+        """The per-round pass over seated (and mid-prefill) streams, at a
+        round boundary (never inside a step).  The ``serving.cancel`` fault site is
         crossed once per seated stream, and a fault there IS that client
         disconnecting; then cancelled or expired streams are retired
         like a finished one (slot freed, blocks released, drafter state
@@ -1311,6 +1554,7 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         stream counts one wasted decode slot-step per round."""
         with self._cv:
             seated = [st.stream for st in self._slots if st is not None]
+            seated += [pf.req.stream for pf in self._prefilling]
         for s in seated:
             try:
                 fault_point("serving.cancel", name=self.name,
@@ -1325,6 +1569,18 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             self._lc_count("wasted_decode_steps", n_dead)
             return
         with self._cv:
+            if any(pf.req.stream.dead(now) for pf in self._prefilling):
+                live = []
+                while self._prefilling:
+                    pf = self._prefilling.popleft()
+                    if pf.req.stream.dead(now):
+                        self.pool.release(pf.blocks)
+                        self._free.append(pf.slot)
+                        self._lc_truncate(pf.req.stream, pf.req.rid,
+                                          station="prefilling")
+                    else:
+                        live.append(pf)
+                self._prefilling.extend(live)
             freed = False
             for i, st in enumerate(self._slots):
                 if st is None or not st.stream.dead(now):
@@ -1381,22 +1637,36 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                                  - req.stream.submitted_at, cat="serve",
                                  args={"request_id": req.rid, "slot": slot})
         pf = _Prefill(req, blocks, slot, len(matched) * self.block_len)
-        # the first token is streamed before the slot is seated (a spec
-        # engine admits the drafter in between): a hibernate asked for in
-        # that window waits for the seat
-        with self._cv:
-            self._seating.add(req.rid)
+        self._run_prefill(pf)
+        return True
+
+    def _run_prefill(self, pf: _Prefill) -> None:
+        """An admitted prefill: queued for the interleave (one chunk a
+        round, see ``_loop``) under a chunk cap, else run to completion
+        here; on failure its blocks are released."""
+        if self._chunk_cap is not None:
+            self._prefilling.append(pf)
+            return
         try:
             while not self._prefill_chunk(pf):
                 pass
-            self._finish_prefill(pf)
+            self._complete_prefill(pf)
         except BaseException:
-            self.pool.release(blocks)
+            self.pool.release(pf.blocks)
             raise
+
+    def _complete_prefill(self, pf: _Prefill) -> None:
+        """Finish a prefill whose prompt is all in the arena.  The first
+        token is streamed before the slot is seated (a spec engine admits
+        the drafter in between): a hibernate asked for in that window
+        waits for the seat."""
+        with self._cv:
+            self._seating.add(pf.req.rid)
+        try:
+            self._finish_prefill(pf)
         finally:
             with self._cv:
-                self._seating.discard(req.rid)
-        return True
+                self._seating.discard(pf.req.rid)
 
     def _prefill_x(self, ids: np.ndarray, ts: int, p: int,
                    blocks: Sequence[int]) -> dict:
@@ -1426,8 +1696,13 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         the final remainder) so the suffix path's prefix_len is always a
         whole number of blocks."""
         req, t, p = pf.req, pf.t, pf.p
+        largest, chunk_full = self.prefill_buckets[-1], self._chunk_full
+        if self._chunk_cap is not None:
+            # the cap only lowers the per-chunk ceiling
+            largest = min(largest, self._chunk_cap)
+            chunk_full = min(chunk_full, self._chunk_cap)
         rem = t - p
-        ts = rem if rem <= self.prefill_buckets[-1] else self._chunk_full
+        ts = rem if rem <= largest else chunk_full
         ids = np.zeros((1, self.bucket_for(ts)), np.int64)
         ids[0, :ts] = req.prompt0[p:p + ts]
         x = self._prefill_x(ids, ts, p, pf.blocks)
@@ -1452,6 +1727,12 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         # matched head is already in the trie; only novel tails add)
         if self.radix is not None and t // B:
             self.radix.insert(req.prompt0[:(t // B) * B], blocks[:t // B])
+        if pf.handoff is not None:
+            # the re-prefill of a migrated request whose payload was
+            # lost: the first token was emitted on the prefill replica;
+            # the rows are rebuilt and the logits dropped
+            self._seat(req, t, pf.handoff.first0, blocks, slot)
+            return
         first0 = pick_token(pf.logits[0], req.temperature, req.first_key,
                             clamp=False)
         req.stream._emit(first0 + 1)
@@ -1466,6 +1747,32 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             with self._cv:
                 self._free.append(slot)
             return
+        if self.migrate is not None:
+            # a prefill replica: the chain and the sampling state hop to
+            # a decode replica; the slot and blocks free once the
+            # callback returns (it runs with the references held)
+            h = KVHandoff(req, first0, self.name)
+            rid_args = ({"request_id": req.rid}
+                        if _tracer.sampled(req.rid) else {})
+            try:
+                with _tracer.span("lm/migrate", cat="serve", prompt_len=t,
+                                  **rid_args):
+                    self.migrate(h, blocks, self.pool)
+                self.migrated += 1
+            except Exception as e:  # noqa: BLE001 - fail this request
+                req.stream._finish(error=e)
+                self._trace_done(req.stream, req.rid)
+            finally:
+                self.pool.release(blocks)
+                with self._cv:
+                    self._free.append(slot)
+            return
+        self._seat(req, t, first0, blocks, slot)
+
+    def _seat(self, req: _Request, t: int, first0: int, blocks: List[int],
+              slot: int) -> None:
+        """Seat a request whose prompt is in the arena and whose first
+        token ``first0`` is emitted into its decode slot."""
         table = np.zeros((self.table_width,), np.int32)
         table[:len(blocks)] = blocks
         st = _Slot(req, t, first0, blocks, table)
@@ -1482,6 +1789,65 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         with self._cv:
             self._slots[slot] = st
             self._n_active += 1
+
+    def _adopt_into(self, slot: int, h: KVHandoff) -> bool:
+        """Seat a migrated request into ``slot``: adopt its wire payload
+        into this pool (or re-prefill the prompt when the payload was
+        lost) and enter decode where the prefill replica left off.
+        False (defer) under pool pressure; the handoff's retained
+        ``matched`` blocks stay held across a deferral."""
+        t = h.prompt0.shape[0]
+        B = self.block_len
+        need_total = self.pool.blocks_for(t + h.max_new)
+        matched = list(h.matched)
+        if need_total > self.pool.capacity:
+            if matched:
+                self.pool.release(matched)
+            raise RequestExceedsPool(
+                f"migrated request needs {need_total} blocks; the decode "
+                f"pool holds {self.pool.capacity}")
+        req = _Request(h.stream, h.prompt0, h.max_new, h.temperature,
+                       h.eos0, None, h.step_keys, h.rid)
+        if h.payload is None:
+            # the payload was lost in transit: recompute the rows here
+            # (deterministic prefill, bitwise the same); the first token
+            # rides the handoff and is never picked or emitted again
+            fresh = self._alloc_or_evict(need_total - len(matched))
+            if fresh is None:
+                return False
+            self.re_prefills += 1
+            self._run_prefill(_Prefill(req, matched + fresh, slot,
+                                       len(matched) * B, handoff=h))
+            return True
+        n_wire = int(h.payload["blocks"])
+        extra = need_total - len(matched) - n_wire
+        if extra < 0:
+            if matched:
+                self.pool.release(matched)
+            raise ValueError(f"wire carries {n_wire} blocks but only "
+                             f"{need_total - len(matched)} are unmatched")
+        try:
+            fresh = self._alloc_or_evict(
+                n_wire + extra, lambda: self.pool.adopt_chain(
+                    h.payload["k"], h.payload["v"], extra_blocks=extra))
+        except BaseException:
+            if matched:
+                self.pool.release(matched)
+            raise
+        if fresh is None:
+            return False
+        blocks = matched + fresh
+        self.adopted += 1
+        self._prefill_since_step = True   # an adoption interrupts decode
+        if self.radix is not None and t // B:
+            # future prefix hits on THIS pool share the adopted chain
+            self.radix.insert(h.prompt0[:(t // B) * B], blocks[:t // B])
+        if _tracer.sampled(h.rid):
+            _tracer.instant("lm/adopt", cat="serve", request_id=h.rid,
+                            slot=slot, wire_blocks=n_wire,
+                            matched_blocks=len(matched), src=h.src_name)
+        self._seat(req, t, h.first0, blocks, slot)
+        return True
 
     # -- decode rounds ------------------------------------------------- #
     def _emit(self, st: _Slot, token0: int, now: float, itls: list) -> bool:
@@ -2188,6 +2554,16 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         with self._cv:
             pending = [r.stream for r in self._queue]
             self._queue.clear()
+            for h in self._adopt_q:
+                pending.append(h.stream)
+                if h.matched:
+                    self.pool.release(h.matched)
+            self._adopt_q.clear()
+            for pf in self._prefilling:
+                pending.append(pf.req.stream)
+                self.pool.release(pf.blocks)
+                self._free.append(pf.slot)
+            self._prefilling.clear()
             for i, st in enumerate(self._slots):
                 if st is not None:
                     pending.append(st.stream)
@@ -2210,21 +2586,44 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             s._finish(error=error)
 
     # ------------------------------------------------------------------ #
+    def kvcache_stats(self) -> dict:
+        """The pool's and the trie's state."""
+        out = self.pool.stats()
+        out["table_width"] = self.table_width
+        out["prefix_cache"] = (self.radix.stats()
+                               if self.radix is not None else None)
+        return out
+
+    def kvcache_headroom(self) -> int:
+        """How many more worst-case requests (a full ``cache_len`` chain
+        each) the free blocks hold now: the scale-up check's gate, so
+        added capacity is backed by KV memory."""
+        return self.pool.free_count // self.table_width
+
     def stats(self) -> dict:
         with self._cv:
             queued = len(self._queue)
             active = self._n_active
             hibernated = len(self._hibernated)
-        kv = self.pool.stats()
-        kv["table_width"] = self.table_width
-        kv["prefix_cache"] = (self.radix.stats()
-                              if self.radix is not None else None)
+            slot_limit = self._slot_limit
+            max_queue = self._max_queue
+            prefilling = len(self._prefilling)
+            adopt_q = len(self._adopt_q)
         return {
             "name": self.name,
             "device": str(self.device),
             "slots": self.slots,
+            "slot_limit": slot_limit,
+            "max_queue": max_queue,
             "active": active,
             "queued": queued,
+            "phase": self.phase,
+            "prefilling": prefilling,
+            "adopt_queue": adopt_q,
+            "max_prefill_chunk_tokens": self._chunk_cap,
+            "migrated": self.migrated,
+            "adopted": self.adopted,
+            "re_prefills": self.re_prefills,
             "cache_len": self.cache_len,
             "block_len": self.block_len,
             "attention_impl": self.attention_impl,
@@ -2235,9 +2634,11 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             "prefill_cache": self.prefill_cache.stats(),
             "prefix_prefill_cache": self.prefix_prefill_cache.stats(),
             "cuda_graphs": self.graphs.stats(),
-            "kvcache": kv,
+            "kvcache": self.kvcache_stats(),
             "kvtier": (self.kvtier.stats()
                        if self.kvtier is not None else None),
+            "radix_summary": (self.radix_summary.stats()
+                              if self.radix_summary is not None else None),
             "hibernated": hibernated,
             "hibernations": self.hibernations,
             "resumes": self.resumes,

@@ -9,12 +9,15 @@ completed.  Device work the caller enqueues later on the same stream
 (a scatter into the KV arenas, a graph replay) is ordered after the
 copies.
 
-Nothing falls back: a staging buffer that cannot be pinned, or a copy
-that fails, raises.  Each slice crosses the ``transfer.chunk`` fault
-site.  (The reference wraps every slice in its retry-with-backoff
-policy and halves the chunk on a transient; the port has no retry
-policy yet, so an injected fault raises to the caller, which releases
-what it allocated.)
+Each slice crosses the ``transfer.chunk`` fault site under
+:func:`~bigdl_tpu_torch.resilience.retry.with_backoff`: a transient
+retries with backoff and halves the working chunk toward
+``min_chunk_bytes`` (8 MB by default; each halving counted in
+``resilience/transfer_downshifts``, later slices keep the smaller
+size), and exhausted retries or a lost backend raise
+:class:`~bigdl_tpu_torch.resilience.errors.BackendLostError` to the
+caller, which releases what it allocated.  Nothing falls back: a
+staging buffer that cannot be pinned raises.
 """
 from __future__ import annotations
 
@@ -23,9 +26,13 @@ import torch
 
 from bigdl_tpu_torch.obs.tracer import get_tracer
 from bigdl_tpu_torch.resilience.faults import fault_point
+from bigdl_tpu_torch.resilience.retry import with_backoff
 
 #: per-transfer ceiling: the reference's shared 32 MB slice
 DEFAULT_CHUNK_BYTES = 32 << 20
+
+#: the floor a transient halves the chunk toward
+MIN_CHUNK_BYTES = 8 << 20
 
 
 def _host_tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
@@ -38,11 +45,15 @@ def _host_tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 
 
 def chunked_device_put(x_host, dtype: torch.dtype, *, device,
-                       chunk_bytes: int = DEFAULT_CHUNK_BYTES
+                       chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                       max_retries: int = 4,
+                       min_chunk_bytes: int = MIN_CHUNK_BYTES
                        ) -> torch.Tensor:
     """Stage ``x_host`` (numpy) onto ``device`` as a ``dtype`` tensor in
     slices of at most ``chunk_bytes`` along dim 0, one in flight at a
-    time, and return the assembled device tensor.  On the CPU the slices
+    time, and return the assembled device tensor.  A slice that fails
+    transiently retries up to ``max_retries`` times, the chunk halved
+    toward ``min_chunk_bytes`` before each retry.  On the CPU the slices
     are plain copies."""
     device = torch.device(device)
     src = _host_tensor(np.asarray(x_host), dtype)
@@ -53,34 +64,53 @@ def chunked_device_put(x_host, dtype: torch.dtype, *, device,
     flat_src = src.reshape(n, -1)
     flat_out = out.view(n, -1)
     per_row = max(1, flat_src.shape[1] * src.element_size())
-    rows = max(1, int(chunk_bytes) // per_row)
+    # mutable: a transient downshifts it for this slice and the rest
+    state = {"chunk": max(int(chunk_bytes), per_row)}
+    floor = max(1, min(int(min_chunk_bytes), state["chunk"]))
     tracer = get_tracer()
     cuda = device.type == "cuda"
     staging = done = None
     if cuda:
         # one pinned buffer for every slice (raises if it cannot be
-        # pinned: no pageable fallback)
-        staging = torch.empty((min(rows, n), flat_src.shape[1]),
-                              dtype=dtype, pin_memory=True)
+        # pinned: no pageable fallback); a downshift only shrinks slices
+        staging = torch.empty((min(state["chunk"] // per_row, n),
+                               flat_src.shape[1]), dtype=dtype,
+                              pin_memory=True)
         done = torch.cuda.Event()
-    for i in range(0, n, rows):
+
+    def downshift(attempt, exc):
+        new = max(floor, state["chunk"] // 2)
+        if new < state["chunk"]:
+            state["chunk"] = new
+            from bigdl_tpu_torch.obs import get_registry
+            get_registry().counter("resilience/transfer_downshifts").add(1)
+            tracer.instant("h2d/downshift", cat="transfer", chunk_bytes=new)
+
+    def stage(i):
+        rows = max(1, state["chunk"] // per_row)
         piece = flat_src[i:i + rows]
         nbytes = piece.numel() * piece.element_size()
         with tracer.span("h2d/chunk", cat="transfer", offset_rows=i,
                          rows=int(piece.shape[0]), bytes=int(nbytes)):
             fault_point("transfer.chunk", offset_rows=i,
                         rows=int(piece.shape[0]), bytes=int(nbytes))
+            dst = flat_out[i:i + piece.shape[0]]
             if not cuda:
-                flat_out[i:i + rows].copy_(piece)
-                continue
-            if i:
+                dst.copy_(piece)
+            else:
                 # the previous slice's copy has to finish before its
                 # staging rows are overwritten
                 done.synchronize()
-            buf = staging[:piece.shape[0]]
-            buf.copy_(piece)
-            flat_out[i:i + rows].copy_(buf, non_blocking=True)
-            done.record()
+                buf = staging[:piece.shape[0]]
+                buf.copy_(piece)
+                dst.copy_(buf, non_blocking=True)
+                done.record()
+        return int(piece.shape[0])
+
+    i = 0
+    while i < n:
+        i += with_backoff(lambda i=i: stage(i), retries=max_retries,
+                          on_transient=downshift, label="h2d chunk")
     if cuda:
         done.synchronize()
     return out

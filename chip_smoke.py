@@ -96,7 +96,28 @@ result line:
    T6: ``serving.verify`` transient at p 0.5 (seed 0) on spec arm 2:
    slots demoted, streams exact; ``serving.enqueue`` transient ->
    ``ServingOverloaded``; the registry's keys by prefix;
-9. train: the same model, full depth, trained by LocalOptimizer (Adam,
+9. replicas: serving across several engines of the same model on the
+   card, in one process, the engines sharing its parameter tensors, every
+   step a replayed graph and no replica capturing after warmup.  P1: one
+   engine with ``max_prefill_chunk_tokens=128``, greedy: exactly 19
+   prefill passes, decode gaps interrupted by chunks, ITL p99 printed
+   beside the serve run's.  D1: a ``DisaggCoordinator`` with one prefill
+   and one decode replica, greedy and then at 0.7 (a fresh coordinator
+   each): 8 migrations and adoptions, no lost payload, migrated_blocks =
+   125 less the blocks the decode radix held, 1,179,648 bytes a block
+   down and up, the prefill replica never launching the paged kernel and
+   the decode replica never the flash kernel; TTFT p50, tokens/s and the
+   median ``lm/migrate`` span printed beside the serve run's.  D2: D1
+   greedy under ``serving.migrate:backend_lost:p=0.5`` (seed 3):
+   re_prefills == lost_payloads > 0, streams bitwise D1's, the decode
+   replica's flash launches 12 a cold re-prefill pass.  Then one
+   ``LMReplicaSet`` of 2 with a ``RadixRouter`` and a ``HedgePolicy``:
+   R1 a session's two turns on one replica (sticky, a radix hit there);
+   R3 the 8 requests at 0.7, hedgeable, behind a seeded trigger window
+   (hedges fired and won printed); R2 the 511-token request at 0.7 whose
+   replica is killed after its 4th token, replayed bitwise on the
+   survivor.  Each run prints its launches and allocated MiB around it;
+10. train: the same model, full depth, trained by LocalOptimizer (Adam,
    TimeDistributed(ClassNLL)) on a fixed 8 x 1024 batch through the
    flash forward and both flash backward kernels: step-0 loss and every
    gradient held against plain attention, every bf16-compute gradient
@@ -189,6 +210,15 @@ QUANT_PRODUCT_KN = ((768, 768), (768, 3072), (3072, 768))
 # payload (k and v, float32 and int8 with its scales) at GPT-2-small width
 TIER = dict(hibernate_at=8, cancel_at=4, queued_deadline_s=0.002,
             wire_block_bytes=1_179_648, wire_block_bytes_int8=313_344)
+# the replicas phase: P1's chunk cap and its prefill passes (1+1+1+1 for
+# the four short prompts, 2, 3, 4 and 6 for the 200-, 300-, 511- and
+# 700-token ones); D2's fault; R1's turn-2 tail; R3's seeded hedge window
+# (waits well under any TTFT, so the p50 trigger fires); R2's stream and
+# the token after which its replica dies
+REPLICAS = dict(chunk_cap=128, prefill_passes=19,
+                d2_fault="serving.migrate:backend_lost:p=0.5",
+                turn2_extra=(3, 5, 2), hedge_seed_waits=8,
+                hedge_seed_wait_s=0.0005, r2_prompt=6, r2_kill_at=4)
 TRAIN_CLI = ["--synthetic", "-e", "1", "-b", "8", "--hiddenSize", "768",
              "--nHead", "12", "--nLayers", "2", "--seqLength", "128",
              "--packed", "--docIsolate"]
@@ -909,6 +939,7 @@ def serve_once(dev, model, serve, prompts, oracle, label, profile_path=None,
         raise AssertionError("the shared-head prompts missed the radix cache")
     out.update(peak_bytes=peak, resident_bytes=resident, ties=ties,
                radix_hits=hits, warm=warm,
+               itl_p99_s=stats["metrics"]["itl"]["p99_s"],
                matched_streams=len(prompts) - len(ties),
                prefix_prefill=stats["prefix_prefill_cache"])
     log(f"[{label}] {len(prompts)} requests, prompt lengths "
@@ -1362,11 +1393,13 @@ class _PathLaunches:
 
     def __init__(self):
         self.total = {}
+        self.last = {}
 
     def run(self, fn):
         _reset_launches()
         out = fn()
-        for symbol, n in _launches().items():
+        self.last = _launches()
+        for symbol, n in self.last.items():
             self.total[symbol] = self.total.get(symbol, 0) + n
         return out
 
@@ -1848,6 +1881,437 @@ def phase_tier(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC, prompts=None,
     return out
 
 
+# --------------------------------------------------------------------------- #
+def engine_passes(engine):
+    """Prefill passes an engine ran: every call of its two prefill caches
+    (warmup counts neither hits nor misses)."""
+    st = engine.stats()
+    return sum(st[c]["hits"] + st[c]["misses"]
+               for c in ("prefill_cache", "prefix_prefill_cache"))
+
+
+def chunk_pairs(prompts, cap, block_len):
+    """The (chunk length, prefix blocks) pairs a chunk cap makes: every
+    chunk after the first runs the suffix prefill, with the prompt cold
+    or with the radix head it shares with another prompt."""
+    heads = {0}
+    for _, m in zip(*radix_pairs(prompts, block_len)):
+        heads.add(m)
+    pairs = set()
+    for p in prompts:
+        for m in heads:
+            if m * block_len >= len(p):
+                continue
+            pos = m * block_len
+            while pos < len(p):
+                ts = min(len(p) - pos, cap)
+                if pos:
+                    pairs.add((ts, pos // block_len))
+                pos += ts
+    return sorted(pairs)
+
+
+def shared_heads(prompts, block_len):
+    """Every (suffix, prefix blocks) pair a replica can meet when any
+    subset of ``prompts`` (each prompt itself included, for a repeat)
+    was admitted before: each prompt against each whole-block head it
+    shares with any of them, at most ``(len - 1) // block_len``."""
+    import numpy as np
+    B = block_len
+    pairs = set()
+    for p in prompts:
+        for q in prompts:
+            n, cap = 0, min((len(p) - 1) // B, len(q) // B)
+            while n < cap and np.array_equal(p[n * B:(n + 1) * B],
+                                             q[n * B:(n + 1) * B]):
+                n += 1
+            if n:
+                pairs.add((len(p) - n * B, n))
+    return sorted(pairs)
+
+
+def warm_pairs(engine, pairs):
+    """``warmup()`` plus one ``warmup_prefix()`` a (suffix, prefix
+    blocks) pair; returns the graph counters with the warm seconds."""
+    import torch
+    t0 = time.perf_counter()
+    engine.warmup()
+    for s, m in pairs:
+        engine.warmup_prefix(suffix_lens=[s], prefix_blocks=[m])
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(engine.graphs.stats(), warm_s=time.perf_counter() - t0,
+                pool_bytes=engine.graphs.pool_bytes())
+
+
+def allocated_mib(dev):
+    import torch
+    return (torch.cuda.memory_allocated() / 2**20 if dev.type == "cuda"
+            else 0.0)
+
+
+def check_replica(run, engine, warm, ptrs, params_ptr):
+    """A replica after its traffic: bounded captures, none since warmup
+    (a prefill replica has no decode graph), the arenas where the graphs
+    captured them, and the model's parameter tensors shared, not
+    copied."""
+    if engine.migrate is not None:
+        if engine._decode_exec.compiles != 0:
+            raise AssertionError(f"{run}: a prefill replica made a decode "
+                                 "graph")
+        graphs = engine.stats()["cuda_graphs"]
+        if graphs["captures"] != warm["captures"]:
+            raise AssertionError(f"{run}: {engine.name} captured after "
+                                 "warmup")
+    else:
+        graphs = check_bounded(f"{run} {engine.name}", engine, warm)
+    if engine.cache_buffer_pointers() != ptrs:
+        raise AssertionError(f"{run}: {engine.name}'s arenas moved")
+    if engine._params["embed"].data_ptr() != params_ptr:
+        raise AssertionError(f"{run}: {engine.name} copied the params")
+    return graphs
+
+
+def phase_replicas(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC,
+                   prompts=None, oracle=None, replicas=REPLICAS,
+                   colocated=None):
+    """Serving across replicas on one card (see the module docstring):
+    P1 chunked prefill, D1 disaggregation greedy and at 0.7, D2 lost
+    payloads, then one routed replica set for R1 routing, R3 hedging and
+    R2 failover.  Every stream is held against offline generate, every
+    replica against bounded captures (none after warmup) and fixed arena
+    addresses.  ``colocated`` is the greedy serve run's numbers, printed
+    beside D1's.  Returns the phase's numbers and its launches."""
+    import os
+    import statistics
+
+    import numpy as np
+    from bigdl_tpu_torch.obs import get_tracer
+    from bigdl_tpu_torch.resilience import faults
+    from bigdl_tpu_torch.resilience.replicaset import HedgePolicy
+    from bigdl_tpu_torch.serving import DisaggCoordinator
+    from bigdl_tpu_torch.serving.router import LMReplicaSet, RadixRouter
+    oracle = oracle or Oracle(dev, config, serve["seed"])
+    prompts = serve_prompts() if prompts is None else prompts
+    max_new, B, temp = serve["max_new"], serve["block_len"], spec["temperature"]
+    n_layers = config["n_layers"]
+    model = build_lm(dev, config, serve["seed"])
+    params_ptr = model.params["embed"].data_ptr()
+    tracer = get_tracer()
+    cuda = dev.type == "cuda"
+    eng_kw = dict(slots=serve["slots"], cache_len=serve["cache_len"],
+                  block_len=B, max_new_tokens=max_new, device=dev,
+                  attention_impl="flash", decode_attn="paged_kernel")
+    prompt_blocks = sum(-(-len(p) // B) for p in prompts)
+    acc = _PathLaunches()
+    out = {}
+
+    def sub_run(label, fn):
+        """``fn()`` with the launches counted from 0 and the allocated
+        MiB around it, both printed."""
+        before = allocated_mib(dev)
+        res = acc.run(fn)
+        launches = dict(acc.last)
+        log(f"[replicas] {label}: launches {launches}, allocated "
+            f"{before:.1f} -> {allocated_mib(dev):.1f} MiB")
+        return res, launches
+
+    # -- P1: chunked prefill ------------------------------------------ #
+    cap = replicas["chunk_cap"]
+    engine = make_engine(model, dev, serve, max_prefill_chunk_tokens=cap)
+    try:
+        warm = warm_pairs(engine, chunk_pairs(prompts, cap, B))
+        ptrs = engine.cache_buffer_pointers()
+        run, launches = sub_run("P1", lambda: serve_run(engine, prompts,
+                                                        max_new))
+        passes = engine_passes(engine)
+        st = engine.stats()
+        graphs = check_replica("P1", engine, warm, ptrs, params_ptr)
+    finally:
+        engine.close()
+    del engine
+    release(dev)
+    ties = check_streams("replicas P1", oracle, prompts, run["results"],
+                         max_new)
+    want = sum(-(-len(p) // cap) for p in prompts)
+    if passes != want or (config == GPT2_SMALL
+                          and passes != replicas["prefill_passes"]):
+        raise AssertionError(f"replicas P1: {passes} prefill passes, not "
+                             f"{want}")
+    gaps = st["metrics"]["itl_prefill_gap"]["count"]
+    if gaps <= 0:
+        raise AssertionError("replicas P1: no decode gap was interrupted "
+                             "by a prefill chunk")
+    if cuda:
+        check_launches("replicas P1", launches,
+                       ("bigdl_flash_fwd", "bigdl_paged_decode"))
+    itl = st["metrics"]["itl"]
+    out["p1"] = dict(passes=passes, itl_prefill_gaps=gaps,
+                     itl_p99_s=itl["p99_s"], ties=len(ties),
+                     ttft_p50_s=run["ttft_p50_s"],
+                     decode_tokens_per_s=run["decode_tokens_per_s"])
+    log(f"[replicas] P1 max_prefill_chunk_tokens {cap}: {passes} prefill "
+        f"passes, itl_prefill_gap count {gaps}, ITL p99 "
+        f"{itl['p99_s'] * 1e3:.3f} ms (histogram bucket edge) with the cap"
+        + (f", {colocated['itl_p99_s'] * 1e3:.3f} ms without (serve)"
+           if colocated else "")
+        + f"; TTFT p50 {run['ttft_p50_s'] * 1e3:.2f} ms, decode "
+        f"{run['decode_tokens_per_s']:.1f} tokens/s; "
+        f"{len(prompts) - len(ties)} of {len(prompts)} streams identical to "
+        f"offline generate; {graphs['captures']} captures, none after warmup")
+
+    # -- D1 / D2: disaggregation -------------------------------------- #
+    d_pairs = shared_heads(prompts, B)
+
+    def disagg(label, temperature, fault=None):
+        co = DisaggCoordinator(model, name=f"replicas-{label}", **eng_kw)
+        try:
+            engines = co.prefill + co.decode
+            co.warmup()
+            warm = {e.name: warm_pairs(e, d_pairs) for e in engines}
+            ptrs = {e.name: e.cache_buffer_pointers() for e in engines}
+            before = {e.name: e.kernel_launches() for e in engines}
+            passes0 = {e.name: engine_passes(e) for e in engines}
+            tracer.clear()
+            tracer.enable()
+            env = ({faults.ENV_SPEC: fault, faults.ENV_SEED: "3"}
+                   if fault else {})
+            os.environ.update(env)
+            faults.refresh_from_env()
+            try:
+                run, launches = sub_run(label, lambda: serve_run(
+                    co, prompts, max_new, temperature))
+            finally:
+                for key in env:
+                    os.environ.pop(key, None)
+                faults.refresh_from_env()
+                tracer.disable()
+            st = co.stats()
+            own = {e.name: {k: v - before[e.name][k]
+                            for k, v in e.kernel_launches().items()}
+                   for e in engines}
+            passes = {e.name: engine_passes(e) - passes0[e.name]
+                      for e in engines}
+            plain = {e.name: e.stats()["prefill_cache"] for e in engines}
+            radix = co.decode[0].radix.stats()
+            for e in engines:
+                check_replica(label, e, warm[e.name], ptrs[e.name],
+                              params_ptr)
+        finally:
+            co.close()
+        migrate_ms = [e["dur"] / 1e3 for e in _spans(tracer, "lm/migrate")]
+        h2d = sum(e.get("args", {}).get("bytes", 0)
+                  for e in _spans(tracer, "h2d/chunk"))
+        return dict(run=run, launches=launches, stats=st, own=own,
+                    passes=passes, plain=plain, radix=radix,
+                    migrate_ms=migrate_ms, h2d_bytes=h2d)
+
+    wire = None
+    d1 = {}
+    for label, t in (("D1 greedy", 0.0), ("D1 sampled", temp)):
+        r = disagg(label, t)
+        release(dev)    # the coordinator's engines, now garbage
+        st, run = r["stats"], r["run"]
+        pre, dec = st["engines"]
+        ties = check_streams(f"replicas {label}", oracle, prompts,
+                             run["results"], max_new, t)
+        if (st["migrations"], st["adopted"], st["lost_payloads"]) != (
+                len(prompts), len(prompts), 0):
+            raise AssertionError(f"replicas {label}: migrations "
+                                 f"{st['migrations']}, adopted "
+                                 f"{st['adopted']}, lost "
+                                 f"{st['lost_payloads']}")
+        matched = r["radix"]["prefill_tokens_saved"] // B
+        if st["migrated_blocks"] != prompt_blocks - matched:
+            raise AssertionError(
+                f"replicas {label}: {st['migrated_blocks']} blocks migrated,"
+                f" not {prompt_blocks} - {matched} the decode radix held")
+        wire = st["migrated_bytes"] // max(1, st["migrated_blocks"])
+        if config == GPT2_SMALL and wire != TIER["wire_block_bytes"]:
+            raise AssertionError(f"replicas {label}: {wire} bytes a block")
+        if r["h2d_bytes"] != st["migrated_bytes"]:
+            raise AssertionError(f"replicas {label}: {r['h2d_bytes']} bytes "
+                                 f"up, {st['migrated_bytes']} down")
+        if cuda:
+            if r["own"][pre]["bigdl_paged_decode"] or \
+                    r["own"][dec]["bigdl_flash_fwd"]:
+                raise AssertionError(f"replicas {label}: per-replica "
+                                     f"launches {r['own']}")
+            check_launches(f"replicas {label}", r["launches"],
+                           ("bigdl_flash_fwd", "bigdl_paged_decode"))
+        d1[label] = r
+        ms = r["migrate_ms"]
+        log(f"[replicas] {label}: migrations {st['migrations']}, adopted "
+            f"{st['adopted']}, lost_payloads 0; decode radix hits "
+            f"{r['radix']['hits']} ({matched} blocks); migrated_blocks "
+            f"{st['migrated_blocks']} = {prompt_blocks} - {matched}, "
+            f"{st['migrated_bytes']} bytes down and {r['h2d_bytes']} up "
+            f"({wire} a block); launches by replica {r['own']}; TTFT p50 "
+            f"{run['ttft_p50_s'] * 1e3:.2f} ms, decode "
+            f"{run['decode_tokens_per_s']:.1f} tokens/s, lm/migrate ms "
+            f"median {statistics.median(ms):.3f} (min {min(ms):.3f}, max "
+            f"{max(ms):.3f})"
+            + (f"; co-located serve: TTFT p50 "
+               f"{colocated['ttft_p50_s'] * 1e3:.2f} ms, decode "
+               f"{colocated['decode_tokens_per_s']:.1f} tokens/s"
+               if colocated and t == 0.0 else "")
+            + f"; {len(prompts) - len(ties)} of {len(prompts)} streams "
+            "identical to offline generate; no capture after warmup")
+    out["d1"] = {k: dict(migrated_blocks=v["stats"]["migrated_blocks"],
+                         migrated_bytes=v["stats"]["migrated_bytes"],
+                         decode_radix_hits=v["radix"]["hits"],
+                         migrate_ms=v["migrate_ms"],
+                         ttft_p50_s=v["run"]["ttft_p50_s"],
+                         decode_tokens_per_s=v["run"]["decode_tokens_per_s"])
+                 for k, v in d1.items()}
+
+    r = disagg("D2", 0.0, fault=replicas["d2_fault"])
+    release(dev)
+    st = r["stats"]
+    pre, dec = st["engines"]
+    for i, (a, b) in enumerate(zip(r["run"]["results"],
+                                   d1["D1 greedy"]["run"]["results"])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"replicas D2: stream {i} differs from D1's")
+    check_streams("replicas D2", oracle, prompts, r["run"]["results"],
+                  max_new)
+    lost, re_pf = st["lost_payloads"], st["re_prefills"]
+    if not lost > 0 or re_pf != lost or st["migrations"] != len(prompts):
+        raise AssertionError(f"replicas D2: lost_payloads {lost}, "
+                             f"re_prefills {re_pf}")
+    if r["passes"][dec] != re_pf:
+        raise AssertionError(f"replicas D2: {r['passes'][dec]} decode-side "
+                             f"prefill passes for {re_pf} re-prefills")
+    plain = r["plain"][dec]["hits"] + r["plain"][dec]["misses"]
+    if cuda and r["own"][dec]["bigdl_flash_fwd"] != n_layers * plain:
+        raise AssertionError(f"replicas D2: the decode replica launched "
+                             f"flash_fwd {r['own'][dec]['bigdl_flash_fwd']} "
+                             f"times for {plain} cold re-prefill passes")
+    out["d2"] = dict(lost_payloads=lost, re_prefills=re_pf,
+                     decode_flash_fwd=r["own"][dec]["bigdl_flash_fwd"],
+                     decode_plain_passes=plain,
+                     migrated_blocks=st["migrated_blocks"])
+    log(f"[replicas] D2 {replicas['d2_fault']} seed 3: lost_payloads {lost},"
+        f" re_prefills {re_pf} ({r['passes'][dec]} decode-side prefill "
+        f"passes, {plain} through the flash prefill: decode flash_fwd "
+        f"{r['own'][dec]['bigdl_flash_fwd']} = {n_layers} x {plain}); "
+        f"migrated_blocks {st['migrated_blocks']}; every stream bitwise "
+        "D1's and identical to offline generate")
+
+    # -- R1, R3, R2: one routed replica set ---------------------------- #
+    p1, seed1, seed2 = prompts[4], 7, 8
+    turn1 = oracle.stream(p1, max_new, temp, rng=seed1)
+    p2 = np.concatenate([turn1, replicas["turn2_extra"]])
+    pol = HedgePolicy(trigger_quantile=0.5, window=64, min_observations=4,
+                      max_hedge_fraction=0.5)
+    rs = LMReplicaSet(model, 2, router=RadixRouter(), hedge=pol,
+                      name="replicas", **eng_kw)
+    engines = [r.engine for r in rs._replicas]
+    try:
+        pairs = shared_heads(list(prompts) + [p2], B)
+        warm = {e.name: warm_pairs(e, pairs) for e in engines}
+        ptrs = {e.name: e.cache_buffer_pointers() for e in engines}
+
+        def r1():
+            s1 = rs.submit(p1, session_id="chat", max_new_tokens=max_new,
+                           temperature=temp, rng=seed1)
+            o1 = s1.result(timeout=600)
+            s2 = rs.submit(p2, session_id="chat", max_new_tokens=max_new,
+                           temperature=temp, rng=seed2)
+            return s1, o1, s2, s2.result(timeout=600)
+
+        (s1, o1, s2, o2), l_r1 = sub_run("R1", r1)
+        tie1 = oracle.check(p1, o1, max_new, temp, rng=seed1)
+        tie2 = oracle.check(p2, o2, max_new, temp, rng=seed2)
+        sess = rs.stats()["sessions"]
+        holder = next(e for e in engines if e.name == s1.replica_name)
+        hits = holder.radix.stats()["hits"]
+        if sess["sticky_hits"] < 1 or s2.replica_name != s1.replica_name \
+                or hits < 1:
+            raise AssertionError(f"replicas R1: sticky_hits "
+                                 f"{sess['sticky_hits']}, turns on "
+                                 f"{s1.replica_name}/{s2.replica_name}, "
+                                 f"radix hits {hits}")
+        out["r1"] = dict(sticky_hits=sess["sticky_hits"], radix_hits=hits,
+                         ties=[t for t in (tie1, tie2) if t])
+        log(f"[replicas] R1 session turns of {len(p1)} and {len(p2)} tokens "
+            f"at {temp}: both on {s1.replica_name}, sticky_hits "
+            f"{sess['sticky_hits']}, radix hits there {hits}; both streams "
+            "identical to offline generate"
+            + (f" ({tie1 or tie2})" if tie1 or tie2 else ""))
+
+        for _ in range(replicas["hedge_seed_waits"]):
+            pol.observe(replicas["hedge_seed_wait_s"])
+
+        def r3():
+            streams = [rs.submit(p, max_new_tokens=max_new, temperature=temp,
+                                 rng=i, hedgeable=True)
+                       for i, p in enumerate(prompts)]
+            return [s.result(timeout=600) for s in streams]
+
+        r3_results, l_r3 = sub_run("R3", r3)
+        ties = check_streams("replicas R3", oracle, prompts, r3_results,
+                             max_new, temp)
+        hst = pol.stats()
+        if hst["hedges_won"] + hst["hedges_lost"] != hst["hedges_fired"]:
+            raise AssertionError(f"replicas R3: hedge outcomes {hst}")
+        out["r3"] = dict(hedges_fired=hst["hedges_fired"],
+                         hedges_won=hst["hedges_won"], ties=len(ties))
+        log(f"[replicas] R3 hedged dispatch (trigger p50 of a seeded window,"
+            f" budget 0.5 of dispatches): hedges_fired {hst['hedges_fired']},"
+            f" hedge_wins {hst['hedges_won']}, hedges_lost "
+            f"{hst['hedges_lost']}; {len(prompts) - len(ties)} of "
+            f"{len(prompts)} streams identical to offline generate")
+
+        i2 = replicas["r2_prompt"]
+
+        def r2():
+            s = rs.submit(prompts[i2], session_id="r2",
+                          max_new_tokens=max_new, temperature=temp, rng=i2)
+            it = s.tokens(timeout=600)
+            for _ in range(replicas["r2_kill_at"]):
+                next(it)
+            victim = s.replica_name
+            rs.kill_replica(victim)
+            return s, victim, s.result(timeout=600)
+
+        (s, victim, o), l_r2 = sub_run("R2", r2)
+        if not np.array_equal(o, r3_results[i2]):
+            raise AssertionError("replicas R2: the replayed stream differs "
+                                 "from R3's run of the same request")
+        tie = oracle.check(prompts[i2], o, max_new, temp, rng=i2)
+        sess = rs.stats()["sessions"]
+        if sess["re_routes"] < 1 or s.re_dispatches != 1 \
+                or s.replica_name == victim:
+            raise AssertionError(f"replicas R2: re_routes "
+                                 f"{sess['re_routes']}, re_dispatches "
+                                 f"{s.re_dispatches}")
+        out["r2"] = dict(re_routes=sess["re_routes"], victim=victim,
+                         survivor=s.replica_name, tie=tie)
+        log(f"[replicas] R2 {victim} killed after the {len(prompts[i2])}-"
+            f"token stream's {replicas['r2_kill_at']}th token: replayed on "
+            f"{s.replica_name}, bitwise R3's stream and identical to offline "
+            f"generate{f' ({tie})' if tie else ''}, re_routes "
+            f"{sess['re_routes']}")
+        for e in engines:
+            check_replica("R1-R3", e, warm[e.name], ptrs[e.name], params_ptr)
+    finally:
+        rs.close()
+    del rs, engines, holder, e
+    release(dev)
+    if cuda:
+        for label, la in (("R1", l_r1), ("R3", l_r3)):
+            check_launches(f"replicas {label}", la,
+                           ("bigdl_flash_fwd", "bigdl_paged_decode"))
+        # the survivor may hold the stream's prompt in its radix (R3 ran
+        # it there), and then the replay prefills through the suffix path
+        check_launches("replicas R2", l_r2, ("bigdl_paged_decode",))
+    del model
+    release(dev)
+    out["launches"] = acc.total
+    return out
+
+
 def _ms_list(ms):
     return "[" + ", ".join(f"{m:.3f}" for m in ms) + "]"
 
@@ -2217,6 +2681,14 @@ def main() -> int:
             f"promote_bandwidth_mbs {run['promote_bandwidth_mbs']:.1f} "
             f"| {smi}")
     log(f"[tier] launches over the tier runs: {tier['launches']} | {smi}")
+    log_allocated("replicas")
+    t0 = time.perf_counter()
+    replicas = phase_replicas(dev, oracle=oracle, colocated=serve)
+    phases["replicas"] = time.perf_counter() - t0
+    check_launches("replicas path", replicas["launches"],
+                   ("bigdl_flash_fwd", "bigdl_paged_decode"))
+    log(f"[replicas] launches over the replicas runs: "
+        f"{replicas['launches']} | {smi}")
     del oracle
     release(dev)
     log_allocated("train")
@@ -2248,12 +2720,13 @@ def main() -> int:
     # pair); by_path: every path's own run, counted from 0
     paths = dict(serve=serve["launches"], serve_sampled=sampled["launches"],
                  spec=spec_launches, quant=quant_launches,
-                 tier=tier["launches"], train=train["launches"])
+                 tier=tier["launches"], replicas=replicas["launches"],
+                 train=train["launches"])
 
     def by_path(symbol, names):
         return {p: paths[p][symbol] for p in names}
 
-    serving = ("serve", "serve_sampled", "spec", "quant", "tier")
+    serving = ("serve", "serve_sampled", "spec", "quant", "tier", "replicas")
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_fwd.cu",

@@ -6,6 +6,8 @@ it also runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_port_kernels.py
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -739,3 +741,154 @@ def test_export_adopt_on_card_equals_cpu(card, kv_quant):
         if a is not None:
             assert torch.equal(a.cpu(), getattr(dst[1], name))
     assert dst[0].k.data_ptr() == ptr
+
+
+# --------------------------------------------------------------------------- #
+# several engines on one card: captures beside replays, the migration hop     #
+# --------------------------------------------------------------------------- #
+
+def _warm(eng, prompts):
+    """warmup(), then warmup_prefix() for every pair a replica can meet:
+    each prompt against each whole-block head it shares with any prompt
+    (itself included, for a repeat)."""
+    B = eng.block_len
+    eng.warmup()
+    for p in prompts:
+        seen = set()
+        for q in prompts:
+            n, cap = 0, min((len(p) - 1) // B, len(q) // B)
+            while n < cap and np.array_equal(p[n * B:(n + 1) * B],
+                                             q[n * B:(n + 1) * B]):
+                n += 1
+            if n and n not in seen:
+                seen.add(n)
+                eng.warmup_prefix(suffix_lens=[len(p) - n * B],
+                                  prefix_blocks=[n])
+
+
+def test_two_engines_one_captures_while_the_other_replays(card):
+    """Engine A decodes through replayed graphs on its worker's stream
+    (a feeder keeps it busy) while engine B, built meanwhile, captures
+    its whole warmup on the caller's thread: A replays during B's
+    captures, no capture is invalidated, and both engines' streams
+    equal offline generate."""
+    import threading
+    from bigdl_tpu_torch.models.transformer.generate import generate
+    from bigdl_tpu_torch.serving import LMServingEngine
+    lm = _engine_lm(card)
+    prompts = _engine_prompts()
+    kw = dict(ENGINE_KW, enable_prefix_cache=False, device=card)
+    a = LMServingEngine(lm, name="card-a", **kw)
+    b = None
+    stop = threading.Event()
+    fed = []
+
+    def feed():
+        while not stop.is_set():
+            batch = [a.submit(p, max_new_tokens=60) for p in prompts]
+            fed.append(batch)
+            for s in batch:
+                s.result(timeout=120)
+
+    feeder = threading.Thread(target=feed)
+    try:
+        a.warmup()
+        feeder.start()
+        while not fed or not fed[0][0].generated.size:
+            time.sleep(0.001)
+        replays = a.graphs.replays
+        b = LMServingEngine(lm, name="card-b", **kw)
+        assert b.warmup() == len(ENGINE_KW["prefill_buckets"])
+        assert a.graphs.replays > replays       # A replayed meanwhile
+        stop.set()
+        feeder.join(120)
+        assert b.graphs.captures == len(ENGINE_KW["prefill_buckets"]) + 1
+        got_b = [b.generate(p, max_new_tokens=8, timeout=120)
+                 for p in prompts]
+        want = [generate(lm, lm.params, p[None], 60, device=card).numpy()[0]
+                for p in prompts]
+        for batch in fed:
+            for s, w in zip(batch, want):
+                np.testing.assert_array_equal(s.result(timeout=120), w)
+        for p, gb, w in zip(prompts, got_b, want):
+            np.testing.assert_array_equal(gb, w[:len(p) + 8])
+        assert a.kernel_launches()["bigdl_paged_decode"] > 0
+        assert b.kernel_launches()["bigdl_flash_fwd"] > 0
+        assert a.graphs.captures == len(ENGINE_KW["prefill_buckets"]) + 1
+        assert a._params["embed"].data_ptr() == \
+            b._params["embed"].data_ptr()
+    finally:
+        stop.set()
+        if feeder.is_alive():
+            feeder.join(120)
+        a.close()
+        if b is not None:
+            b.close()
+
+
+def _coordinator(lm, prompts, cuda_graphs=None):
+    from bigdl_tpu_torch.serving import DisaggCoordinator
+    co = DisaggCoordinator(lm, name=f"card-disagg-{cuda_graphs}",
+                           cuda_graphs=cuda_graphs, device=lm.device,
+                           migrate_base_delay_s=0.001, **ENGINE_KW)
+    co.warmup()
+    for eng in co.prefill + co.decode:
+        _warm(eng, prompts)
+    return co
+
+
+def _disagg_run(co, prompts, temperature):
+    streams = [co.submit(p, max_new_tokens=8, temperature=temperature,
+                         rng=i) for i, p in enumerate(prompts)]
+    return [s.result(timeout=120) for s in streams]
+
+
+@pytest.mark.parametrize("spec", [None, "serving.migrate:backend_lost:p=0.5"])
+def test_disagg_through_graphs_equals_eager(card, monkeypatch, spec):
+    """One prefill and one decode replica through replayed graphs, greedy
+    and at 0.7 (and with half the payloads lost, so the decode replica
+    re-prefills through its prefill graphs): every stream bitwise the
+    eager coordinator's; the prefill replica never launches the paged
+    kernel, the decode replica launches the flash kernel only in
+    re-prefills; nothing is captured after warmup, and both replicas'
+    arena addresses hold across every export and adopt."""
+    from bigdl_tpu_torch.resilience import faults
+    lm = _engine_lm(card)
+    prompts = _engine_prompts()
+    graph = _coordinator(lm, prompts)
+    eager = _coordinator(lm, prompts, cuda_graphs=False)
+    try:
+        engines = graph.prefill + graph.decode
+        ptrs = [e.cache_buffer_pointers() for e in engines]
+        captures = [e.graphs.captures for e in engines]
+        outs = {}
+        for co in (graph, eager):
+            if spec:
+                monkeypatch.setenv(faults.ENV_SPEC, spec)
+                monkeypatch.setenv(faults.ENV_SEED, "3")
+                faults.refresh_from_env()
+            outs[co.name] = [_disagg_run(co, prompts, t) for t in (0.0, 0.7)]
+            monkeypatch.delenv(faults.ENV_SPEC, raising=False)
+            faults.refresh_from_env()
+        torch.cuda.synchronize()
+        for g, e in zip(outs[graph.name], outs[eager.name]):
+            for a, b in zip(g, e):
+                np.testing.assert_array_equal(a, b)
+        st = graph.stats()
+        assert st["migrations"] == 2 * len(prompts)
+        assert st["re_prefills"] == st["lost_payloads"]
+        if spec:
+            assert st["lost_payloads"] > 0
+        pre, dec = graph.prefill[0], graph.decode[0]
+        assert pre.kernel_launches()["bigdl_paged_decode"] == 0
+        assert pre.kernel_launches()["bigdl_flash_fwd"] > 0
+        assert dec.kernel_launches()["bigdl_paged_decode"] > 0
+        plain = dec.stats()["prefill_cache"]
+        assert dec.kernel_launches()["bigdl_flash_fwd"] == (
+            ENGINE_LM["n_layers"] * (plain["hits"] + plain["misses"]))
+        assert [e.cache_buffer_pointers() for e in engines] == ptrs
+        assert [e.graphs.captures for e in engines] == captures
+        assert pre._decode_exec.compiles == 0
+    finally:
+        graph.close()
+        eager.close()

@@ -297,7 +297,9 @@ def test_adopt_is_all_or_nothing(monkeypatch):
     monkeypatch.setenv(faults.ENV_SPEC, "transfer.chunk:transient:after=2")
     faults.refresh_from_env()
     try:
-        with pytest.raises(faults.TransientBackendError):
+        # every slice past the 2nd keeps failing: the retries run out
+        # and escalate to a lost backend
+        with pytest.raises(faults.BackendLostError):
             dst.adopt_chain(wire["k"], wire["v"], chunk_bytes=1)
     finally:
         monkeypatch.delenv(faults.ENV_SPEC)

@@ -132,9 +132,12 @@ def test_typed_rejections(pair):
 
 def test_unported_options_raise(pair):
     _, tm = pair
-    for kw in (dict(migrate=print), dict(placement=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LMServingEngine(tm, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*11.7"):
+        LMServingEngine(tm, device="cpu", placement=object())
+    # ported since disaggregated serving: a prefill replica (migrate=)
+    with LMServingEngine(tm, cache_len=32, device="cpu",
+                         migrate=print) as eng:
+        assert eng.phase == "prefill"
     # ported since quantization: int8 KV arenas (through the gather), the
     # default drafter (the target's int8 clone) and the integer spec=k
     with LMServingEngine(tm, cache_len=32, device="cpu",
