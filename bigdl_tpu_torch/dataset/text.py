@@ -1,11 +1,12 @@
 """Text transformers (port of ``bigdl_tpu/dataset/text.py``):
 SentenceSplitter, SentenceTokenizer (its regex path), SentenceBiPadding,
-Dictionary, TextToLabeledSentence, DocumentPacker and
+Dictionary (with its JSON save and load), TextToLabeledSentence, DocumentPacker and
 LabeledSentenceToSample.  The pipeline is host-side numpy, as in the
 JAX package, and yields the same records for the same text.
 """
 from __future__ import annotations
 
+import json
 import re
 from collections import Counter
 from typing import Iterable, Iterator, Optional
@@ -78,6 +79,24 @@ class Dictionary:
 
     def get_word(self, index: int) -> str:
         return self.index2word.get(index, self.UNK)
+
+    def save(self, path: str) -> None:
+        """Write ``{"word2index": ...}`` as JSON through the port's
+        ``fs`` (a local path, ``file://`` or ``memory://``), the file the
+        reference writes."""
+        from bigdl_tpu_torch.utils import fs
+        fs.atomic_write(path,
+                        json.dumps({"word2index": self.word2index}).encode())
+
+    @staticmethod
+    def load(path: str) -> "Dictionary":
+        from bigdl_tpu_torch.utils import fs
+        d = Dictionary()
+        with fs.open_file(path, "rb") as f:
+            d.word2index = json.loads(f.read().decode())["word2index"]
+        d.index2word = {i: w for w, i in d.word2index.items()}
+        d._unk_index = len(d.word2index)
+        return d
 
 
 class TextToLabeledSentence(Transformer):

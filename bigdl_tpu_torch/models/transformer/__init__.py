@@ -4,17 +4,25 @@
 1-based token ids in, (B, T, vocab) float32 log-probabilities out.  The
 parameter tree is the reference's: ``embed`` (V, hidden), ``pos``
 (max_len, hidden) for learned positions, ``blocks`` stacked on a
-leading layer axis (``ln1``, ``attn``, ``ln2``, ``w1``/``b1``,
-``w2``/``b2``), ``ln_f``, and ``head`` (hidden, V) when the head is not
-tied.  Pre-LayerNorm blocks, tanh-approximate GELU, LayerNorm eps 1e-5.
+leading layer axis (``ln1``, ``attn``, ``ln2``, and ``w1``/``b1``,
+``w2``/``b2`` or, with ``moe_experts > 0``, ``moe`` with ``gate``,
+``w1`` and ``w2``), ``ln_f``, and ``head`` (hidden, V) when the head is
+not tied.  Pre-LayerNorm blocks, tanh-approximate GELU, LayerNorm eps
+1e-5.
 
 ``f`` is the serving forward (no autograd); ``apply`` is the training
 forward: differentiable through the stacked leaves (each layer reads
 views of them), with dropout drawn from an explicit
 ``torch.Generator`` and optional activation recomputation (``remat``).
+An MoE model's blocks are top-1 switch MoEs
+(``bigdl_tpu_torch.parallel.switch_mlp``) at ``moe_capacity_factor``;
+``apply`` reports ``moe_aux_weight`` times the summed balance loss as
+the ``"aux_loss"`` buffer, which the optimizers add to the loss.
 ``quantize`` returns an int8 (or bf16) clone for serving: both forwards
 expand its dequant-mode leaves at the entry (``quant.dequantize_entry``)
-and send int8-compute leaves to ``quant.qmatmul``.
+and send int8-compute leaves to ``quant.qmatmul``.  ``save`` and
+``load`` read and write the JAX package's checkpoint format (format 1,
+``bigdl_tpu_torch.utils.file_io``).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.nn.normalization import layer_norm
 from bigdl_tpu_torch.obs.registry import get_registry
+from bigdl_tpu_torch.parallel.expert import init_moe_params, switch_mlp
 from bigdl_tpu_torch.quant.kernels import qmatmul
 from bigdl_tpu_torch.quant.qtensor import is_qtensor
 from bigdl_tpu_torch.quant.transform import (QuantPolicy, dequantize_entry,
@@ -82,8 +91,10 @@ class TransformerLM:
                  dropout: float = 0.0, tie_embeddings: bool = True,
                  remat: bool = False, attention_impl: str = "auto",
                  pos_encoding: str = "learned", rope_base: float = 10000.0,
-                 moe_experts: int = 0, doc_start_id: Optional[int] = None,
-                 device=None):
+                 moe_experts: int = 0,
+                 moe_capacity_factor: Optional[float] = 1.25,
+                 moe_aux_weight: float = 0.01,
+                 doc_start_id: Optional[int] = None, device=None):
         if hidden_size % n_head != 0:
             raise ValueError("hidden_size must divide by n_head")
         if pos_encoding not in ("learned", "rope"):
@@ -91,10 +102,6 @@ class TransformerLM:
                              f"got {pos_encoding!r}")
         if pos_encoding == "rope" and (hidden_size // n_head) % 2 != 0:
             raise ValueError("rope needs an even head_dim")
-        if moe_experts:
-            raise NotImplementedError(
-                "moe_experts > 0 is not ported yet (ROADMAP Queue 1 item 9: "
-                "speculative decoding and MoE)")
         self.device = resolve_device(device)
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -107,31 +114,42 @@ class TransformerLM:
         self.remat = remat
         self.pos_encoding = pos_encoding
         self.rope_base = rope_base
+        self.moe_experts = int(moe_experts)
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_aux_weight = moe_aux_weight
+        # a list here collects each MoE layer's count of tokens over
+        # capacity (0-d device tensors) as the forwards run
+        self.moe_drops: Optional[list] = None
         self.doc_start_id = doc_start_id
         self._mha = MultiHeadAttention(hidden_size, n_head, causal=True,
                                        with_bias=True,
                                        attention_impl=attention_impl)
         self.params: Optional[dict] = None
-        self.buffers: dict = {}  # the dense model keeps no buffers
+        self.buffers: dict = self.init_buffers()
 
     # -------------------------------------------------------------- #
     def _init_block(self, g: torch.Generator) -> dict:
         h, f = self.hidden_size, self.ffn_size
         std_h, std_f = 1.0 / math.sqrt(h), 1.0 / math.sqrt(f)
         dev = self.device
-        return {
+        p = {
             "ln1": {"weight": torch.ones((h,), device=dev),
                     "bias": torch.zeros((h,), device=dev)},
             "attn": self._mha.init(g, dev),
             "ln2": {"weight": torch.ones((h,), device=dev),
                     "bias": torch.zeros((h,), device=dev)},
-            "w1": torch.empty((h, f)).uniform_(-std_h, std_h,
-                                               generator=g).to(dev),
-            "b1": torch.zeros((f,), device=dev),
-            "w2": torch.empty((f, h)).uniform_(-std_f, std_f,
-                                               generator=g).to(dev),
-            "b2": torch.zeros((h,), device=dev),
         }
+        if self.moe_experts:
+            p["moe"] = init_moe_params(g, self.moe_experts, h, f, dev)
+            return p
+        p.update(
+            w1=torch.empty((h, f)).uniform_(-std_h, std_h,
+                                            generator=g).to(dev),
+            b1=torch.zeros((f,), device=dev),
+            w2=torch.empty((f, h)).uniform_(-std_f, std_f,
+                                            generator=g).to(dev),
+            b2=torch.zeros((h,), device=dev))
+        return p
 
     def init(self, generator: torch.Generator) -> dict:
         """A fresh float32 parameter tree on ``self.device``, drawn from
@@ -161,9 +179,35 @@ class TransformerLM:
                 -std, std, generator=g).to(self.device)
         return p
 
+    def init_buffers(self) -> dict:
+        """``{"aux_loss": 0}`` for an MoE model; a dense one keeps none."""
+        if self.moe_experts:
+            return {"aux_loss": torch.zeros((), device=self.device)}
+        return {}
+
     def build(self, seed: int = 0) -> "TransformerLM":
         self.params = self.init(torch.Generator().manual_seed(int(seed)))
+        self.buffers = self.init_buffers()
         return self
+
+    def save(self, path: str, overwrite: bool = False) -> "TransformerLM":
+        """Write the model to ``path`` (a local path, ``file://`` or
+        ``memory://``) in the JAX package's format 1: its spec, and its
+        params and buffers as numpy."""
+        from bigdl_tpu_torch.utils import file_io
+        file_io.save_module(self, path, overwrite=overwrite)
+        return self
+
+    @staticmethod
+    def load(path: str, template: Optional["TransformerLM"] = None,
+             device=None) -> "TransformerLM":
+        """Read a model saved by either package.  With ``template`` the
+        arrays go into it (its tree and shapes must match) and the
+        stored spec is not read; without one a ``TransformerLM`` is built
+        on ``device`` (default ``"cuda"``) from the spec's
+        hyperparameters."""
+        from bigdl_tpu_torch.utils import file_io
+        return file_io.load_module(path, template=template, device=device)
 
     def quantize(self, dtype: str = "int8", *, policy=None,
                  compute: Optional[str] = None) -> "TransformerLM":
@@ -203,9 +247,20 @@ class TransformerLM:
         return (apply_rope(q, positions, self.rope_base),
                 apply_rope(k, positions, self.rope_base))
 
-    def _mlp(self, bp, m):
+    @staticmethod
+    def _dense_mlp(bp, m):
         m = F.gelu(qmatmul(m, bp["w1"]) + bp["b1"], approximate="tanh")
         return qmatmul(m, bp["w2"]) + bp["b2"]
+
+    def _mlp(self, bp, m):
+        """The block's feed-forward half: ``(out, aux)``, the switch MoE
+        at the model's capacity factor with its balance loss, or the
+        dense GELU MLP with no auxiliary term (``aux`` None)."""
+        if self.moe_experts:
+            return switch_mlp(bp["moe"], m,
+                              capacity_factor=self.moe_capacity_factor,
+                              drops=self.moe_drops)
+        return self._dense_mlp(bp, m), None
 
     def _dropout(self, x, generator: torch.Generator):
         keep = 1.0 - self.dropout
@@ -227,10 +282,10 @@ class TransformerLM:
             g = torch.Generator(device=x.device).manual_seed(int(seed))
             o = self._dropout(o, g)
         x = x + o
-        m = self._mlp(bp, self._layer_norm(bp["ln2"], x))
+        m, aux = self._mlp(bp, self._layer_norm(bp["ln2"], x))
         if g is not None:
             m = self._dropout(m, g)
-        return x + m
+        return x + m, aux
 
     def head_logits(self, params, h):
         """The LM head: ``h @ embed.T`` when tied, ``h @ head`` else (a
@@ -270,29 +325,39 @@ class TransformerLM:
             # splits one key per layer)
             seeds = torch.randint(0, 2 ** 62, (self.n_layers,),
                                   generator=generator).tolist()
+        aux = None
         for layer in range(self.n_layers):
             bp = layer_params(params["blocks"], layer)
             if self.remat and torch.is_grad_enabled():
-                h = checkpoint(self._block, bp, h, positions, segment_ids,
-                               seeds[layer], use_reentrant=False,
-                               preserve_rng_state=False)
+                h, a = checkpoint(self._block, bp, h, positions, segment_ids,
+                                  seeds[layer], use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                h = self._block(bp, h, positions, segment_ids, seeds[layer])
+                h, a = self._block(bp, h, positions, segment_ids,
+                                   seeds[layer])
+            if a is not None:
+                aux = a if aux is None else aux + a
         h = self._layer_norm(params["ln_f"], h)
-        return torch.log_softmax(self.head_logits(params, h).float(), dim=-1)
+        logp = torch.log_softmax(self.head_logits(params, h).float(), dim=-1)
+        return logp, aux
 
     @torch.no_grad()
     def f(self, params, x):
         """(B, T) 1-based ids (float or int) -> (B, T, V) float32
         log-probabilities, eval mode, no autograd (the serving
         forward)."""
-        return self._forward(params, x, False, None)
+        return self._forward(params, x, False, None)[0]
 
     def apply(self, params, x, *, buffers=None, training: bool = False,
               generator: Optional[torch.Generator] = None):
         """The training forward: ``(logp, buffers)``, differentiable in
         every leaf of ``params``.  ``training`` turns dropout on, drawn
         from ``generator`` (a CPU ``torch.Generator``; required when
-        ``dropout > 0``)."""
-        return (self._forward(params, x, training, generator),
-                dict(buffers) if buffers else {})
+        ``dropout > 0``).  An MoE model returns ``moe_aux_weight`` times
+        the layers' summed balance loss as ``buffers["aux_loss"]``; a
+        dense one adds no key."""
+        logp, aux = self._forward(params, x, training, generator)
+        new_buffers = dict(buffers) if buffers else {}
+        if self.moe_experts:
+            new_buffers["aux_loss"] = self.moe_aux_weight * aux
+        return logp, new_buffers

@@ -24,6 +24,9 @@ one layer's float copy instead of the model's.  ``k_scale``/``v_scale``
 "int8")``): rows are quantized per (position, head) on write
 (:func:`_kv_quantize_rows`) and dequantized inside the dense gather;
 the paged kernel reads float arenas only, as the reference's does.
+
+MoE models decode with dense routing on every path (``_finish_block``),
+as the reference's do, so a stream does not depend on its batch.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.models.transformer import TransformerLM
 from bigdl_tpu_torch.nn.attention import dot_product_attention
 from bigdl_tpu_torch.ops import flash_attention, paged_decode_attention
+from bigdl_tpu_torch.parallel.expert import switch_mlp
 from bigdl_tpu_torch.quant.qtensor import true_div
 from bigdl_tpu_torch.quant.transform import dequantize_entry
 from bigdl_tpu_torch.utils import keychain
@@ -120,9 +124,17 @@ def _row_at(h, index):
 
 
 def _finish_block(model, bp, h, o):
+    """The block after attention.  An MoE block routes DENSE here, on
+    every cached path: the capacity window is a batch-level training
+    construct, under which a sequence's tokens would drop depending on
+    which other rows share the dispatch; dense per-token routing is
+    batch-independent and has static shapes (the balance loss, a
+    training term, is dropped)."""
     h = h + model._mha.project_out(bp["attn"], o)
     m = model._layer_norm(bp["ln2"], h)
-    return h + model._mlp(bp, m)
+    if model.moe_experts:
+        return h + switch_mlp(bp["moe"], m, capacity_factor=None)[0]
+    return h + model._dense_mlp(bp, m)
 
 
 def _prefill_parts(model, params, ids0, last_index, *,

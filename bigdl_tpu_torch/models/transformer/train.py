@@ -5,11 +5,15 @@ plus ``--device``).
     python -m bigdl_tpu_torch.models.transformer.train --synthetic -e 2
     python -m bigdl_tpu_torch.models.transformer.train --synthetic --device cpu
     python -m bigdl_tpu_torch.models.transformer.train -f input.txt --vocabSize 4000
+    python -m bigdl_tpu_torch.models.transformer.train --synthetic \
+        --checkpoint ckpt -e 1      # then: --resume ckpt -e 2
 
 On a CUDA device the attention runs through the flash kernels (forward
-and both backward kernels) for head widths 64 and 128.  Not ported yet,
-refused: ``--distributed``, ``--moeExperts`` > 0, ``--checkpoint``,
-``--model``, ``--state`` and ``--resume``.
+and both backward kernels) for head widths 64 and 128.  ``--checkpoint``
+saves ``dictionary.json`` there, checkpoints every epoch and stops with
+a checkpoint on SIGTERM; ``--resume`` continues from the directory's
+newest pair (a model and state written by either package).
+``--distributed`` is refused (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -59,34 +63,26 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_NOT_PORTED = (("distributed", "--distributed", "DistriOptimizer"),
-               ("checkpoint", "--checkpoint", "checkpoint and resume"),
-               ("model", "--model", "checkpoint and resume"),
-               ("state", "--state", "checkpoint and resume"),
-               ("resume", "--resume", "checkpoint and resume"))
-
-
 def main(argv=None):
     """Train; returns the optimizer (its ``state`` holds the last loss,
     ``validation_results`` the last validation)."""
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    for attr, flag, item in _NOT_PORTED:
-        if getattr(args, attr):
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP Queue 1: "
-                             f"{item})")
-    if args.moeExperts:
-        raise SystemExit("--moeExperts > 0 is not ported yet (ROADMAP "
-                         "Queue 1: MoE)")
+    if args.distributed:
+        raise SystemExit("--distributed is not ported yet (ROADMAP Queue 1 "
+                         "item 12: DistriOptimizer)")
 
     from bigdl_tpu_torch.dataset.text import SENTENCE_START
     from bigdl_tpu_torch.models.transformer import TransformerLM
     from bigdl_tpu_torch.models.utils import (SYNTH_CORPUS, lm_corpus,
-                                              lm_dataset)
+                                              lm_dataset, resolve_resume,
+                                              restore_optim_state)
     from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
     from bigdl_tpu_torch.optim import (SGD, Adam, AdamW, Loss, Optimizer,
                                        Trigger)
+    from bigdl_tpu_torch.utils import fs
 
+    resolve_resume(args)
     if args.synthetic or not args.folder:
         raw = SYNTH_CORPUS
     else:
@@ -94,6 +90,8 @@ def main(argv=None):
             raw = f.read()
 
     token_lists, dictionary = lm_corpus(raw, args.vocabSize)
+    if args.checkpoint:
+        dictionary.save(fs.join(args.checkpoint, "dictionary.json"))
     vocab = dictionary.vocab_size()
     split = int(len(token_lists) * 0.8) or 1
     train_ds = lm_dataset(token_lists[:split], dictionary, args.seqLength,
@@ -116,21 +114,33 @@ def main(argv=None):
             raise SystemExit("--docIsolate requires --packed (the padded "
                              "pipeline never mixes documents in a window)")
         doc_start_id = dictionary.get_index(SENTENCE_START) + 1  # 1-based
-    model = TransformerLM(
-        vocab, hidden_size=args.hiddenSize, n_head=args.nHead,
-        n_layers=args.nLayers, max_len=args.seqLength,
-        dropout=args.dropout, remat=args.remat,
-        pos_encoding=args.posEncoding, doc_start_id=doc_start_id,
-        device=args.device).build(seed=1)
+    if args.model:
+        model = TransformerLM.load(args.model, device=args.device)
+        if args.docIsolate:
+            # a resumed or fine-tuned model honours the flag too
+            model.doc_start_id = doc_start_id
+    else:
+        model = TransformerLM(
+            vocab, hidden_size=args.hiddenSize, n_head=args.nHead,
+            n_layers=args.nLayers, max_len=args.seqLength,
+            dropout=args.dropout, remat=args.remat,
+            pos_encoding=args.posEncoding, moe_experts=args.moeExperts,
+            doc_start_id=doc_start_id, device=args.device).build(seed=1)
     criterion = TimeDistributedCriterion(ClassNLLCriterion(), True)
     method = {"sgd": SGD, "adam": Adam, "adamw": AdamW}[args.optim](
         learning_rate=args.learningRate, weight_decay=args.weightDecay)
     optimizer = Optimizer.create(model, train_ds, criterion)
+    if args.state:
+        restore_optim_state(optimizer, method, args.state)
     optimizer.set_optim_method(method) \
              .set_end_when(Trigger.max_epoch(args.maxEpoch))
     if val_ds is not None:
         optimizer.set_validation(Trigger.every_epoch(), val_ds,
                                  [Loss(criterion)])
+    if args.checkpoint:
+        optimizer.set_checkpoint(args.checkpoint, Trigger.every_epoch())
+        # SIGTERM: a final checkpoint and a clean return; --resume goes on
+        optimizer.handle_preemption()
     optimizer.optimize()
     return optimizer
 

@@ -1,8 +1,12 @@
-"""Language-model corpus and dataset helpers shared by the train CLIs
-(port of ``bigdl_tpu/models/utils/__init__.py``: ``lm_corpus``,
-``lm_sample_pipe``, ``lm_dataset``; and the synthetic corpus of
+"""Language-model corpus and dataset helpers and the checkpoint
+plumbing shared by the CLIs (port of
+``bigdl_tpu/models/utils/__init__.py``: ``lm_corpus``,
+``lm_sample_pipe``, ``lm_dataset``, ``restore_optim_state``,
+``resolve_resume``; and the synthetic corpus of
 ``bigdl_tpu/models/rnn/train.py``)."""
 from __future__ import annotations
+
+import logging
 
 from bigdl_tpu_torch.dataset import DataSet, SampleToBatch, text
 
@@ -61,3 +65,43 @@ def lm_dataset(token_lists, dictionary, seq_length: int, batch_size: int,
         vocab, fixed_length=seq_length, one_hot=one_hot, pad_label=pad_label)
     return DataSet.array(windows, distributed=distributed) >> (
         to_sample >> SampleToBatch(batch_size))
+
+
+def restore_optim_state(optimizer, method, state_path: str) -> None:
+    """Load a ``state.<n>`` file (either package's) into (optimizer,
+    method): the driver state through ``set_state``, the method's state
+    onto the model's device as ``method._state``.  A file written by
+    another method class is refused (Adam's moments fed to SGD would be
+    dropped without a word)."""
+    from bigdl_tpu_torch.utils import file_io
+    snap = file_io.load(state_path)
+    saved = snap.get("optim_method")
+    if saved is not None and saved != type(method).__name__:
+        raise SystemExit(
+            f"checkpoint {state_path} was written by {saved} but this run "
+            f"is configured with {type(method).__name__}: pass the "
+            f"matching optimizer flag (state trees are not "
+            f"interchangeable)")
+    optimizer.set_state(snap["driver_state"])
+    if snap.get("optim_state") is not None:
+        method._state = file_io.state_from_numpy(snap["optim_state"],
+                                                 optimizer.model.device)
+
+
+def resolve_resume(args) -> None:
+    """``--resume <dir>``: point ``--model``/``--state`` at the
+    directory's newest checkpoint pair.  An empty or missing directory
+    is a cold start; ``--model``/``--state`` beside ``--resume`` is an
+    error."""
+    if not getattr(args, "resume", None):
+        return
+    if getattr(args, "model", None) or getattr(args, "state", None):
+        raise SystemExit("--resume picks the newest checkpoint itself; "
+                         "drop --model/--state (or drop --resume)")
+    from bigdl_tpu_torch.utils import file_io
+    found = file_io.latest_checkpoint(args.resume)
+    if found is None:
+        logging.getLogger("bigdl_tpu_torch").info(
+            "no checkpoints under %s yet: starting fresh", args.resume)
+        return
+    args.model, args.state = found[0], found[1]

@@ -60,6 +60,10 @@ def _match_compute_dtype(x, w):
     return x
 
 
+#: the attention cores a MultiHeadAttention dispatches between
+ATTENTION_IMPLS = ("auto", "flash", "xla")
+
+
 class MultiHeadAttention:
     """Multi-head attention over (B, T, F): projections, head split and
     the attention-core dispatch shared by ``TransformerLM``."""
@@ -69,7 +73,7 @@ class MultiHeadAttention:
                  with_bias: bool = True, attention_impl: str = "auto"):
         if head_dim is None and hidden_size % n_head != 0:
             raise ValueError("hidden_size must divide by n_head")
-        if attention_impl not in ("auto", "flash", "xla"):
+        if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be 'auto', 'flash' or "
                              f"'xla', got {attention_impl!r}")
         self.hidden_size = hidden_size
@@ -105,7 +109,7 @@ class MultiHeadAttention:
         ``TransformerLM`` block, generation prefill); ``attention_impl``
         overrides the module's own setting for one call."""
         impl = self.attention_impl if attention_impl is None else attention_impl
-        if impl not in ("auto", "flash", "xla"):
+        if impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be 'auto', 'flash' or "
                              f"'xla', got {impl!r}")
         if impl == "flash":

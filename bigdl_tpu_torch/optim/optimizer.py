@@ -2,19 +2,28 @@
 ``bigdl_tpu/optim/optimizer.py``: ``Optimizer``, ``LocalOptimizer`` and
 ``LocalValidator``; ref optim/Optimizer.scala, LocalOptimizer.scala).
 
-A step is eager PyTorch: the model's training forward, the criterion,
+A step is eager PyTorch: the model's training forward, the criterion
+plus a model's ``"aux_loss"`` buffer (the MoE balance term),
 ``torch.autograd.grad`` over every parameter leaf (through the flash
 backward kernels on a CUDA device), optional gradient clipping, and the
-optimizer method's in-place update.  The host fetches the loss once a
-step, which is the step's only synchronisation.
+optimizer method's in-place update.  With gradient accumulation the
+step is a Python loop over micro-batches, each one's graph freed before
+the next.  The host fetches the loss once a step, which is the step's
+only synchronisation.
 
-Not ported yet, refused when asked for: checkpoints and preemption,
-gradient accumulation, summaries, the stall watchdog, the observability
-registry, LBFGS and distributed datasets (ROADMAP Queue 1).
+Checkpoints (``set_checkpoint``), ``resume_from``, the emergency
+checkpoint on a failed loop and ``handle_preemption`` follow the
+reference, writing its file format (``bigdl_tpu_torch.utils.file_io``).
+Not ported, refused when asked for: summaries (ROADMAP Queue 1 item
+8.6), the stall watchdog's escalation checkpoint, LBFGS and distributed
+datasets.
 """
 from __future__ import annotations
 
 import logging
+import os
+import signal
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -22,12 +31,16 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
+from bigdl_tpu_torch.obs.registry import get_registry
 from bigdl_tpu_torch.optim.optim_method import OptimMethod, SGD
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import ValidationMethod
+from bigdl_tpu_torch.utils import file_io, fs
 from bigdl_tpu_torch.utils.params import tree_leaves, tree_map
 
 log = logging.getLogger("bigdl_tpu_torch.optim")
+
+_accum_fallback_warned: set = set()  # (batch_desc, rows, accum) warned
 
 
 def cast_float_leaves(tree, dtype):
@@ -43,7 +56,9 @@ def loss_and_grads(model, criterion, params, data, labels, *, buffers=None,
     """One training forward and backward: ``(loss, grads, buffers)``
     with ``grads`` a tree shaped like ``params`` (float32 for float32
     leaves, whatever ``compute_dtype``) and ``loss`` a detached 0-d
-    tensor on the device."""
+    tensor on the device.  A model's ``"aux_loss"`` buffer (the MoE
+    balance term, already weighted) joins the loss before it is
+    differentiated."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     it = iter(leaves)
     live = tree_map(lambda _: next(it), params)
@@ -53,9 +68,53 @@ def loss_and_grads(model, criterion, params, data, labels, *, buffers=None,
         out, new_buffers = model.apply(run, data, buffers=buffers,
                                        training=True, generator=generator)
         loss = criterion.loss(out.float(), labels)
+        if "aux_loss" in new_buffers:
+            loss = loss + new_buffers["aux_loss"]
         flat = torch.autograd.grad(loss, leaves)
     it = iter(flat)
+    new_buffers = tree_map(lambda b: b.detach(), new_buffers)
     return loss.detach(), tree_map(lambda _: next(it), params), new_buffers
+
+
+def accumulated_loss_and_grads(model, criterion, params, data, labels,
+                               accum: int, *, buffers=None,
+                               generator: Optional[torch.Generator] = None,
+                               compute_dtype: Optional[torch.dtype] = None,
+                               batch_desc: str = "batch"):
+    """:func:`loss_and_grads` over ``accum`` equal micro-batches (rows
+    ``i*m .. (i+1)*m`` of ``data``): the mean of their losses and of
+    their gradients, the buffers threaded through them in order.  Each
+    micro-batch's graph is freed before the next runs, so activation
+    memory follows the micro-batch.  For a mean-reduced criterion this
+    is the full-batch gradient.  A batch that ``accum`` does not divide
+    (an epoch's ragged tail) runs as one unaccumulated step, with a
+    warning once per shape (the reference's fallback)."""
+    n = int(data.shape[0])
+    if accum <= 1 or n % accum:
+        if accum > 1 and (batch_desc, n, accum) not in _accum_fallback_warned:
+            _accum_fallback_warned.add((batch_desc, n, accum))
+            log.warning(
+                "gradient accumulation: %s dim %d is not divisible by "
+                "accum=%d, running this shape as ONE unaccumulated step "
+                "(full-batch activation memory)", batch_desc, n, accum)
+        return loss_and_grads(model, criterion, params, data, labels,
+                              buffers=buffers, generator=generator,
+                              compute_dtype=compute_dtype)
+    m = n // accum
+    g_sum = loss_sum = None
+    for i in range(accum):
+        loss, grads, buffers = loss_and_grads(
+            model, criterion, params, data[i * m:(i + 1) * m],
+            labels[i * m:(i + 1) * m], buffers=buffers, generator=generator,
+            compute_dtype=compute_dtype)
+        if g_sum is None:
+            g_sum, loss_sum = grads, loss.float()
+        else:
+            tree_map(lambda a, b: a.add_(b), g_sum, grads)
+            loss_sum = loss_sum + loss.float()
+        del grads
+    inv = 1.0 / accum
+    return loss_sum * inv, tree_map(lambda g: g * inv, g_sum), buffers
 
 
 class Optimizer:
@@ -73,6 +132,13 @@ class Optimizer:
         self.validation_results: list = []  # the last validation's
         self.state: dict = {}
         self.compute_dtype: Optional[torch.dtype] = None  # None: float32
+        self.grad_accum = 1  # micro-batches a step
+        self.checkpoint_path: Optional[str] = None
+        self.checkpoint_trigger: Optional[Trigger] = None
+        self.last_checkpoint: Optional[dict] = None  # iteration, bytes, s
+        self._preempt_signals: tuple = ()
+        self._preempted = False
+        self._updating = False  # inside the in-place update
         self._clip_const = None
         self._clip_l2 = None
 
@@ -134,18 +200,33 @@ class Optimizer:
         return self
 
     def set_gradient_accumulation(self, n_micro: int) -> "Optimizer":
-        if int(n_micro) != 1:
-            raise NotImplementedError(
-                "gradient accumulation is not ported yet (ROADMAP Queue 1)")
+        """Split every batch into ``n_micro`` equal micro-batches and
+        average their gradients before the one update
+        (:func:`accumulated_loss_and_grads`).  ``n_micro`` must divide
+        the first batch; a later ragged tail falls back to one
+        unaccumulated step."""
+        n_micro = int(n_micro)
+        if n_micro < 1:
+            raise ValueError(f"n_micro must be >= 1, got {n_micro}")
+        self.grad_accum = n_micro
         return self
 
     def set_checkpoint(self, path: str, trigger: Trigger) -> "Optimizer":
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP Queue 1: checkpoint "
-            "and resume)")
+        """Write ``model.<n>`` and ``state.<n>`` under ``path`` (a local
+        directory, created; ``file://`` or ``memory://``) whenever
+        ``trigger`` fires, ``n`` the iteration just finished."""
+        filesystem, rest = fs.get_filesystem(path)
+        if isinstance(filesystem, fs.LocalFileSystem):
+            if os.path.exists(rest) and not os.path.isdir(rest):
+                raise ValueError(f"checkpoint path {path} is not a directory")
+            filesystem.makedirs(rest)
+        self.checkpoint_path = path
+        self.checkpoint_trigger = trigger
+        return self
 
     def set_train_summary(self, summary) -> "Optimizer":
-        raise NotImplementedError("summaries are not ported yet")
+        raise NotImplementedError(
+            "summaries are not ported yet (ROADMAP Queue 1 item 8.6)")
 
     set_validation_summary = set_train_summary
 
@@ -175,10 +256,130 @@ class Optimizer:
     def _validate(self):
         raise NotImplementedError
 
+    # -- checkpoints, resume and preemption ----------------------------- #
+    def _maybe_checkpoint(self) -> bool:
+        if (self.checkpoint_trigger is not None
+                and self.checkpoint_path is not None
+                and self.checkpoint_trigger(self.state)):
+            self._checkpoint()
+            return True
+        return False
+
+    def handle_preemption(self, signals=None) -> "Optimizer":
+        """On SIGTERM (or ``signals``) during ``optimize()``: finish the
+        iteration in flight, write a checkpoint when a path is set, and
+        return.  The handler is installed when ``optimize()`` starts on
+        the main thread and the previous one restored when it returns."""
+        self._preempt_signals = (tuple(signals) if signals is not None
+                                 else (signal.SIGTERM,))
+        return self
+
+    def _install_preemption(self) -> dict:
+        """Install the preemption handler; returns the handlers it
+        replaced."""
+        self._preempted = False
+        if not self._preempt_signals:
+            return {}
+        if threading.current_thread() is not threading.main_thread():
+            log.warning("handle_preemption: optimize() runs off the main "
+                        "thread, where no signal handler can be installed")
+            return {}
+
+        def handler(signum, frame):
+            self._preempted = True
+            log.warning("received signal %s: will checkpoint and stop "
+                        "after the current iteration", signum)
+
+        previous = {}
+        for s in self._preempt_signals:
+            previous[s] = signal.getsignal(s)
+            signal.signal(s, handler)
+        return previous
+
+    @staticmethod
+    def _restore_signals(previous: dict) -> None:
+        for s, h in previous.items():
+            signal.signal(s, signal.SIG_DFL if h is None else h)
+
+    def _check_preemption(self) -> bool:
+        return self._preempted
+
+    def _checkpoint(self) -> None:
+        """Write ``model.<n>`` and ``state.<n>``, ``n`` the iteration
+        just finished; the state holds the driver state, the optimizer
+        method's state as numpy and the method's class name."""
+        t0 = time.perf_counter()
+        n = self.state["neval"] - 1
+        nbytes = file_io.save_module(
+            self.model, fs.join(self.checkpoint_path, f"model.{n}"),
+            overwrite=True)
+        opt_state = getattr(self.optim_method, "_state", None)
+        nbytes += file_io.save(
+            {"driver_state": dict(self.state),
+             "optim_state": (file_io.state_to_numpy(opt_state)
+                             if opt_state is not None else None),
+             "optim_method": type(self.optim_method).__name__},
+            fs.join(self.checkpoint_path, f"state.{n}"), overwrite=True)
+        dt = time.perf_counter() - t0
+        self.last_checkpoint = dict(iteration=n, bytes=nbytes, seconds=dt)
+        log.info("checkpoint written at iteration %d: %d bytes in %.3f s",
+                 n, nbytes, dt)
+
+    def resume_from(self, path: str) -> "Optimizer":
+        """Load the newest ``model.<n>``/``state.<n>`` pair under
+        ``path`` (either package's) into this optimizer's model, driver
+        state and optimizer method, so the next ``optimize()`` continues
+        the run: counters, moments, the schedule's position and the
+        records already read this epoch.  No pair there is a cold
+        start."""
+        from bigdl_tpu_torch.models.utils import restore_optim_state
+        found = file_io.latest_checkpoint(path)
+        if not found:
+            log.info("resume_from(%s): no checkpoint pair found, cold "
+                     "start", path)
+            return self
+        model_path, state_path, n = found
+        file_io.load_module(model_path, template=self.model)
+        restore_optim_state(self, self.optim_method, state_path)
+        get_registry().counter("resilience/resumes").add(1)
+        log.warning("resumed from %s (iteration %d, epoch %s, %s records "
+                    "into the epoch)", path, n, self.state.get("epoch"),
+                    self.state.get("records_processed", 0))
+        return self
+
+    def _publish_for_checkpoint(self) -> None:
+        """Make ``model.params`` and the method's state current before an
+        emergency checkpoint: the local loop publishes every iteration."""
+
+    def _emergency_checkpoint(self, reason: str = "") -> bool:
+        """Checkpoint the last completed iteration on the failure path;
+        never raises, so the original error is what surfaces.  Skipped
+        when the failure struck inside the in-place update, where the
+        weights are between two steps."""
+        if self.checkpoint_path is None:
+            log.warning("cannot write emergency checkpoint (%s): no "
+                        "checkpoint path configured, call set_checkpoint "
+                        "first", reason)
+            return False
+        if self._updating:
+            log.error("no emergency checkpoint (%s): the failure struck "
+                      "inside the in-place update", reason)
+            return False
+        try:
+            self._publish_for_checkpoint()
+            self._checkpoint()
+        except Exception:
+            log.exception("emergency checkpoint failed (%s)", reason)
+            return False
+        get_registry().counter("resilience/emergency_checkpoints").add(1)
+        log.warning("emergency checkpoint written at iteration %d (%s)",
+                    self.state["neval"] - 1, reason)
+        return True
+
     def _fast_forward_data(self, data_iter, records_into_epoch: int) -> None:
-        """Continue where an earlier ``optimize()`` stopped (a later call
-        with a larger end trigger): replay the epoch rollovers' shuffles,
-        then skip the records the epoch already trained on."""
+        """Continue where an earlier ``optimize()`` or a checkpoint
+        stopped: replay the epoch rollovers' shuffles, then skip the
+        records the epoch already trained on."""
         for _ in range(int(self.state.get("epoch", 1)) - 1):
             self.dataset.shuffle()
         skipped = 0
@@ -190,54 +391,97 @@ class LocalOptimizer(Optimizer):
     """Single-process training loop (ref optim/LocalOptimizer.scala).
 
     The dataset yields MiniBatch (data, labels) host arrays; each step
-    moves them to the model's device, differentiates, clips and updates
-    the parameters in place.
+    moves them to the model's device, differentiates (accumulating over
+    micro-batches when asked), clips and updates the parameters in
+    place.
     """
 
     def _step(self, params, buffers, opt_state, data, labels):
-        loss, grads, new_buffers = loss_and_grads(
+        loss, grads, new_buffers = accumulated_loss_and_grads(
             self.model, self.criterion, params, data, labels,
-            buffers=buffers, generator=self._generator,
+            self.grad_accum, buffers=buffers, generator=self._generator,
             compute_dtype=self.compute_dtype)
         grads = self._clip_gradients(grads)
+        self._updating = True
         self.optim_method.update(grads, opt_state, params,
                                  epoch=self.state["epoch"])
+        self._updating = False
         return new_buffers, loss
 
     def optimize(self):
         self._init_driver_state()
+        previous = self._install_preemption()
+        try:
+            return self._optimize()
+        finally:
+            self._restore_signals(previous)
+
+    def _optimize(self):
+        self._updating = False
         params = self.model.params
         buffers = getattr(self.model, "buffers", None) or {}
-        # a state left by an earlier optimize() (or set by the caller)
-        # continues: moments, momentum and the schedule's iteration
+        # a state left by an earlier optimize(), set by the caller or
+        # restored from a checkpoint continues: moments, momentum and
+        # the schedule's iteration
         restored = getattr(self.optim_method, "_state", None)
         opt_state = restored if restored else \
             self.optim_method.init_state(params)
         self._generator = torch.Generator().manual_seed(
             int(self.state.get("seed", 0)))
         device = tree_leaves(params)[0].device
-        dataset_size = self.dataset.size()
         self.dataset.shuffle()
         data_iter = self.dataset.data(train=True)
         records_this_epoch = self.state.get("records_processed", 0)
         self._fast_forward_data(data_iter, records_this_epoch)
+        try:
+            self._loop(params, buffers, opt_state, device, data_iter,
+                       records_this_epoch)
+        except Exception as e:
+            # the last completed iteration is on the model: persist it
+            # before the failure surfaces, so resume_from loses at most
+            # the iteration in flight
+            self._emergency_checkpoint(f"training loop failed: {e!r}")
+            raise
+        return self.model
+
+    def _loop(self, params, buffers, opt_state, device, data_iter,
+              records_this_epoch):
+        dataset_size = self.dataset.size()
         wall0 = time.perf_counter()
-        next_batch = None
+        next_batch = fetch_error = None
+        accum_checked = False
         while not self.end_when(self.state):
+            if fetch_error is not None:
+                # the read ahead failed during the previous iteration:
+                # surface it where a plain read would have
+                raise fetch_error
             self.state["epoch_finished"] = False
             batch = next_batch if next_batch is not None else next(data_iter)
             next_batch = None
+            bs = batch.data.shape[0]
+            if not accum_checked:
+                # the first batch is the steady size; a later ragged
+                # tail falls back to one unaccumulated step by design
+                accum_checked = True
+                if self.grad_accum > 1 and bs % self.grad_accum:
+                    raise ValueError(
+                        f"set_gradient_accumulation({self.grad_accum}) "
+                        f"needs the batch size ({bs}) divisible by n_micro")
             t0 = time.perf_counter()
             buffers, loss = self._step(
                 params, buffers, opt_state,
                 torch.as_tensor(np.asarray(batch.data), device=device),
                 torch.as_tensor(np.asarray(batch.labels), device=device))
-            bs = batch.data.shape[0]
             if records_this_epoch + bs < dataset_size:
                 # the next batch is read while the device runs this step;
                 # not at an epoch boundary, where the rollover shuffle
-                # below must come first
-                next_batch = next(data_iter)
+                # below must come first.  A failed read is held until
+                # this iteration is recorded: the weights already hold
+                # its update
+                try:
+                    next_batch = next(data_iter)
+                except Exception as e:
+                    fetch_error = e
             loss_val = float(loss)  # the step's one synchronisation
             dt = time.perf_counter() - t0
             records_this_epoch += bs
@@ -251,14 +495,22 @@ class LocalOptimizer(Optimizer):
                 self.state["epoch_finished"] = True
                 records_this_epoch = 0
                 self.dataset.shuffle()
+            # current every iteration, so any checkpoint records how far
+            # into the epoch training got
             self.state["records_processed"] = records_this_epoch
             self.model.params, self.model.buffers = params, buffers
             self.optim_method._state = opt_state
             self.state["neval"] += 1
             self._maybe_validate()
+            wrote = self._maybe_checkpoint()
+            if self._check_preemption():
+                if self.checkpoint_path is not None and not wrote:
+                    self._checkpoint()
+                log.warning("stopping on preemption at iteration %d",
+                            self.state["neval"] - 1)
+                break
         log.info("training finished in %.1fs", time.perf_counter() - wall0)
         self.model.params, self.model.buffers = params, buffers
-        return self.model
 
     def _validate(self):
         if getattr(self, "_validator", None) is None:

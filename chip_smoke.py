@@ -125,7 +125,36 @@ result line:
    warm-up and 5 timed steps, one optimize() of a warm-up and 3 timed
    bf16-compute steps, and the train CLI once on a packed,
    document-isolated corpus; the three kernels' launch counters must be
-   12 a step.
+   12 a step;
+11. moe: the same widths with every block's MLP a top-1 switch MoE of 8
+   experts (capacity 1.25, aux weight 0.01; 2,083,316,736 bytes of
+   float32 weights).  M1: the train batch through the three flash
+   kernels, step-0 loss within 1e-5 and every gradient leaf (the gate
+   and experts included) within 1e-3 of its max |g| against plain
+   attention, aux_loss > 0, the gate's gradient non-zero; one optimize()
+   of a warm-up and 3 timed steps, exactly 12 launches a step of each
+   kernel, the tokens over capacity by layer.  M2: the trained model
+   behind LMServingEngine (graphs on, dense routing) on the serve
+   prompts, every greedy stream held against offline generate on plain
+   attention, both kernels launched, no capture after warmup; TTFT and
+   tokens/s beside the dense serve run's;
+12. accum: the dense model's gradient on the train batch in 2 and 4
+   micro-batches against 1 (loss within 1e-5, leaves within 1e-3), and
+   two LocalOptimizer steps at each n with exactly 12 n launches a step
+   of each flash kernel and the run's peak;
+13. ckpt: C1 a 5-step Adam run against one whose data stream dies while
+   step 4's batch is read (checkpoints every 2 iterations, the emergency
+   checkpoint at 3), resumed by a fresh model and optimizer: losses
+   within 1e-5, each leaf's max |dw| within 1e-5 of its max |w|, the
+   pair's bytes and its write and read seconds; C2 SIGTERM mid-run: one
+   checkpoint, a clean return, the handler restored, the resilience
+   counters; C3 the train CLI with --checkpoint, --resume, and the eval
+   CLI with --generate on the newest model (files in a temporary
+   directory, removed);
+14. gpt2: a GPT-2-small state dict with Hugging Face's names from seed
+   0, torch.save'd, imported and decoded by the port's
+   ``example/gpt2_import.py --checkpoint`` (16 tokens), held against
+   offline generate on plain attention; export then import bitwise.
 
 Every serving engine must keep its captures bounded: prefill entries at
 most the buckets, one decode graph, one verify graph (one per tree
@@ -136,11 +165,11 @@ bytes of the engine's graph pool.
 
 ``--profile PATH`` adds one more serve run of fresh prompts on each of
 the two serve engines, one more run of spec arm 2 on each of its two
-engines, one more float32 training step and one more bf16-compute step
-under torch.profiler and writes their kernel tables (device busy time,
-idle share, time by kernel) to PATH and to PATH with ``_eager``,
-``_spec``, ``_spec_eager``, ``_train`` and ``_train_bf16`` before its
-extension.
+engines, one more float32 training step, one more bf16-compute step and
+one more MoE training step under torch.profiler and writes their kernel
+tables (device busy time, idle share, time by kernel) to PATH and to
+PATH with ``_eager``, ``_spec``, ``_spec_eager``, ``_train``,
+``_train_bf16`` and ``_moe`` before its extension.
 
 The flash kernels' bounds, forward and backward, take float32 at the
 3xTF32 tensor-core rate (495 / 3 TFLOP/s), the rate those kernels run
@@ -222,6 +251,19 @@ REPLICAS = dict(chunk_cap=128, prefill_passes=19,
 TRAIN_CLI = ["--synthetic", "-e", "1", "-b", "8", "--hiddenSize", "768",
              "--nHead", "12", "--nLayers", "2", "--seqLength", "128",
              "--packed", "--docIsolate"]
+# the moe phase: 8 experts a block, capacity 1.25, aux weight 0.01; the
+# float32 weights of GPT2_SMALL so (520,829,184 parameters)
+MOE = dict(experts=8, capacity_factor=1.25, aux_weight=0.01, warmup=1,
+           steps=3, weight_bytes=2_083_316_736)
+ACCUM_MICRO = (2, 4)  # the accum phase's micro-batches a step, beside 1
+# the ckpt phase: 16 rows of the training length in batches of 4 (an
+# epoch of 4 steps, so step 4 resumes mid-epoch and step 5 starts the
+# next); checkpoints every 2 iterations; the failing read (the read-ahead
+# during step 3, surfacing as step 4 begins) and the SIGTERM read; C1's
+# tolerance on each parameter leaf (max |dw| over its max |w|)
+CKPT = dict(rows=16, batch=4, steps=5, every=2, crash_at=4, sigterm_at=3,
+            generate=8, tol_param=1e-5)
+GPT2 = dict(seed=0, prompt="464,3290,318", new_tokens=16)
 
 
 def log(msg: str) -> None:
@@ -2546,6 +2588,517 @@ def phase_train(dev, config=GPT2_SMALL, train=TRAIN, cli=TRAIN_CLI,
 
 
 # --------------------------------------------------------------------------- #
+def _peak_reset(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(dev):
+    import torch
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+
+
+def _mib(nbytes):
+    return "n/a (CPU)" if nbytes is None else f"{nbytes / 2**20:.1f} MiB"
+
+
+def _train_batch(config, train):
+    """The train phase's fixed batch of random ids: (x, y) float32."""
+    import numpy as np
+    ids = np.random.RandomState(train["data_seed"]).randint(
+        1, config["vocab_size"] + 1,
+        size=(train["batch"], train["seq_len"] + 1)).astype(np.float32)
+    return ids[:, :-1], ids[:, 1:]
+
+
+def _optimizer(model, x, y, batch, lr, **kw):
+    """LocalOptimizer (Adam, TimeDistributed(ClassNLL)) over the rows of
+    (x, y) in batches of ``batch``."""
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer
+    ds = DataSet.array([Sample(f, l) for f, l in zip(x, y)], **kw) \
+        >> SampleToBatch(batch)
+    return LocalOptimizer(model, ds, TimeDistributedCriterion(
+        ClassNLLCriterion(), True)).set_optim_method(Adam(learning_rate=lr))
+
+
+def _set_flag(args, flag, value):
+    """``args`` with the value after ``flag`` replaced."""
+    args = list(args)
+    args[args.index(flag) + 1] = value
+    return args
+
+
+def _weight_bytes(params):
+    from bigdl_tpu_torch.utils.params import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
+
+
+def phase_moe(dev, config=GPT2_SMALL, moe=MOE, train=TRAIN, serve=SERVE,
+              prompts=None, dense_serve=None, profile_path=None):
+    """M1: the switch-MoE model (every block's MLP replaced by 8 experts,
+    capacity 1.25, aux weight 0.01) trained on the train phase's batch
+    through the three flash kernels: the step-0 loss and every gradient
+    leaf held against plain attention, then one optimize() of a warm-up
+    and the timed steps.  M2: the same weights behind LMServingEngine
+    (graphs on, dense routing), every greedy stream held against offline
+    generate on plain attention.  Returns the two runs' numbers.  With
+    ``profile_path``, one more training step is traced (see
+    profile_device) into PATH with ``_moe`` before its extension."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import loss_and_grads
+    cfg = dict(config, moe_experts=moe["experts"],
+               moe_capacity_factor=moe["capacity_factor"],
+               moe_aux_weight=moe["aux_weight"])
+    x, y = _train_batch(config, train)
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), True)
+    t0 = time.perf_counter()
+    model = TransformerLM(attention_impl="flash", device=dev,
+                          **cfg).build(seed=train["seed"])
+    wbytes = _weight_bytes(model.params)
+    if config is GPT2_SMALL and wbytes != moe["weight_bytes"]:
+        raise AssertionError(f"MoE weights {wbytes} bytes, not "
+                             f"{moe['weight_bytes']}")
+    log(f"[moe] {cfg['n_layers']} layers, {moe['experts']} experts a block, "
+        f"{wbytes} bytes of float32 weights, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # M1. step-0 loss and every gradient leaf, moe leaves included
+    cb = train["check_batch"]
+    xb, yb = (torch.as_tensor(a[:cb], device=dev) for a in (x, y))
+    plain = TransformerLM(attention_impl="xla", device=dev, **cfg)
+    loss_f, g_f, buf = loss_and_grads(model, crit, model.params, xb, yb,
+                                      buffers=model.buffers)
+    loss_p, g_p, _ = loss_and_grads(plain, crit, model.params, xb, yb,
+                                    buffers=model.buffers)
+    rel = abs(float(loss_f) - float(loss_p)) / abs(float(loss_p))
+    if not rel <= TOL_LOSS:
+        raise AssertionError(f"MoE step-0 loss flash {float(loss_f)} vs plain "
+                             f"{float(loss_p)}: relative {rel:.3e}")
+    worst = _check_grads("MoE flash", g_f, g_p, TOL_GRAD)
+    aux = float(buf["aux_loss"])
+    gate_g = float(g_f["blocks"]["moe"]["gate"].abs().max())
+    if not (np.isfinite(aux) and aux > 0 and gate_g > 0):
+        raise AssertionError(f"MoE aux_loss {aux}, gate max |g| {gate_g}")
+    log(f"[moe] M1 gradient check at {cb}x{train['seq_len']}: loss flash "
+        f"{float(loss_f):.6f} plain {float(loss_p):.6f} (relative "
+        f"{rel:.2e}), every leaf within {TOL_GRAD} of its max |g| (worst "
+        f"{worst[0]:.2e} at {worst[1]}); aux_loss {aux:.6f}, gate max |g| "
+        f"{gate_g:.3e}")
+    del g_f, g_p, plain
+
+    opt = _optimizer(model, x, y, train["batch"], train["learning_rate"])
+    model.moe_drops = []
+    _peak_reset(dev)
+    _reset_launches()
+    losses, step_s = run_iterations(opt, moe["warmup"] + moe["steps"])
+    launches = _launches()
+    peak = _peak(dev)
+    drops = [int(d) for d in model.moe_drops[:cfg["n_layers"]]]
+    model.moe_drops = None
+    step_s = step_s[moe["warmup"] - 1:]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE training losses {losses}")
+    step_ms = float(np.median(step_s)) * 1e3
+    tokens = x.shape[0] * x.shape[1]
+    cap = int(np.ceil(moe["capacity_factor"] * tokens / moe["experts"]))
+    log(f"[moe] M1 {x.shape[0]}x{x.shape[1]} tokens, Adam lr "
+        f"{train['learning_rate']}: losses {[round(v, 4) for v in losses]}; "
+        f"median step {step_ms:.2f} ms over {moe['steps']} steps "
+        f"({_ms_list([s * 1e3 for s in step_s])} ms), "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s, max_memory_allocated "
+        f"{_mib(peak)}; tokens over capacity (C = {cap} a expert) by layer "
+        f"in the first step {drops} of {tokens}")
+    idle = None
+    if profile_path:
+        root, ext = os.path.splitext(profile_path)
+        idle = profile_device(lambda: run_iterations(opt, 1),
+                              f"MoE train step ({x.shape[0]}x{x.shape[1]})",
+                              f"{root}_moe{ext}")
+    m1 = dict(losses=losses, step_ms=step_ms, tokens_per_s=tokens / step_ms
+              * 1e3, peak_bytes=peak, launches=launches, drops=drops,
+              steps_run=moe["warmup"] + moe["steps"], weight_bytes=wbytes,
+              idle_share=idle)
+    del opt
+    release(dev)
+
+    # M2. the trained weights behind the engine, against plain attention
+    prompts = serve_prompts() if prompts is None else prompts
+    trained = model.params
+
+    def plain_model():
+        m = TransformerLM(attention_impl="xla", device=dev, **cfg)
+        m.params = trained
+        return m
+
+    oracle = Oracle(dev, cfg, 0, make_model=plain_model)
+    m2 = serve_once(dev, model, serve, prompts, oracle, "moe serve")
+    line = ""
+    if dense_serve is not None:
+        line = (f" (dense serve TTFT p50 "
+                f"{dense_serve['ttft_p50_s'] * 1e3:.2f} ms, "
+                f"{dense_serve['decode_tokens_per_s']:.1f} tokens/s)")
+    log(f"[moe] M2 TTFT p50 {m2['ttft_p50_s'] * 1e3:.2f} ms, decode "
+        f"{m2['decode_tokens_per_s']:.1f} tokens/s{line}; launches "
+        f"{m2['launches']}")
+    del oracle, model, trained
+    release(dev)
+    return dict(m1=m1, m2=m2)
+
+
+def phase_accum(dev, config=GPT2_SMALL, train=TRAIN, micro=ACCUM_MICRO):
+    """A1: the dense model's step on the train batch split into n
+    micro-batches (``set_gradient_accumulation(n)``), n = 2 and 4,
+    against n = 1: the loss within 1e-5 relative and every gradient leaf
+    within 1e-3 of its max |g|; then two LocalOptimizer steps at each n,
+    the flash kernels launched exactly 12 n times a step, with each
+    run's peak."""
+    import torch
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import accumulated_loss_and_grads
+    x, y = _train_batch(config, train)
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), True)
+    xt, yt = (torch.as_tensor(a, device=dev) for a in (x, y))
+    runs = {}
+    ref = None
+    for n in (1,) + tuple(micro):
+        model = TransformerLM(attention_impl="flash", device=dev,
+                              **config).build(seed=train["seed"])
+        _peak_reset(dev)
+        loss, grads, _ = accumulated_loss_and_grads(model, crit,
+                                                    model.params, xt, yt, n)
+        grad_peak = _peak(dev)
+        if ref is None:
+            ref = (float(loss), grads)
+            rel, worst = 0.0, (0.0, "")
+        else:
+            rel = abs(float(loss) - ref[0]) / abs(ref[0])
+            if not rel <= TOL_LOSS:
+                raise AssertionError(f"accumulation {n}: loss {float(loss)} "
+                                     f"vs {ref[0]}, relative {rel:.3e}")
+            worst = _check_grads(f"accumulation {n}", grads, ref[1], TOL_GRAD)
+        del grads
+        opt = _optimizer(model, x, y, train["batch"], train["learning_rate"])
+        opt.set_gradient_accumulation(n)
+        _peak_reset(dev)
+        _reset_launches()
+        losses, step_s = run_iterations(opt, 2)
+        launches = _launches()
+        runs[n] = dict(loss=float(loss), rel=rel, worst=worst,
+                       grad_peak=grad_peak, peak=_peak(dev),
+                       launches=launches, step_ms=step_s[0] * 1e3,
+                       losses=losses)
+        log(f"[accum] A1 n={n}: loss {float(loss):.6f} (relative {rel:.2e} "
+            f"to n=1), worst leaf {worst[0]:.2e} {worst[1]}; peak of the "
+            f"gradient {_mib(grad_peak)}, of two optimizer steps "
+            f"{_mib(runs[n]['peak'])}; step 2 {runs[n]['step_ms']:.2f} ms; "
+            f"launches {launches}")
+        del opt, model
+        release(dev)
+    return runs
+
+
+class _FaultyData:
+    """A dataset whose ``at``-th training-batch read raises, or calls
+    ``action`` and goes on when one is given."""
+
+    def __init__(self, inner, at, action=None):
+        self.inner, self.at, self.action = inner, at, action
+        self.reads = 0
+
+    def size(self):
+        return self.inner.size()
+
+    def shuffle(self):
+        self.inner.shuffle()
+
+    def data(self, train=True):
+        it = self.inner.data(train=train)
+        if not train:
+            return it
+
+        def gen():
+            while True:
+                self.reads += 1
+                if self.reads == self.at:
+                    if self.action is None:
+                        raise RuntimeError("the data stream died (injected)")
+                    self.action()
+                yield next(it)
+        return gen()
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def phase_ckpt(dev, config=GPT2_SMALL, ckpt=CKPT, train=TRAIN,
+               cli=TRAIN_CLI):
+    """C1: a 5-step Adam run of the dense model, uninterrupted, against
+    one whose data stream dies while step 4's batch is read (checkpoints
+    every 2 iterations; the emergency checkpoint holds step 3), resumed
+    by a fresh model and optimizer for steps 4 and 5.  C2: SIGTERM to the
+    process during a run: one checkpoint and a clean return.  C3: the
+    train CLI with --checkpoint, then --resume, then the eval CLI on the
+    newest model with --generate.  Checkpoints go to a temporary
+    directory removed at the end."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.models.transformer import test as eval_cli
+    from bigdl_tpu_torch.models.transformer import train as train_cli
+    from bigdl_tpu_torch.obs import get_registry
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.utils import file_io
+    rng = np.random.RandomState(train["data_seed"] + 1)
+    ids = rng.randint(1, config["vocab_size"] + 1,
+                      size=(ckpt["rows"], train["seq_len"] + 1)).astype(
+        np.float32)
+    x, y = ids[:, :-1], ids[:, 1:]
+    reg = get_registry()
+    counts0 = {k: reg.counter(f"resilience/{k}").value
+               for k in ("resumes", "emergency_checkpoints")}
+    root = tempfile.mkdtemp(prefix="ckpt_")
+    every = Trigger(lambda s: (s["neval"] - 1) % ckpt["every"] == 0,
+                    f"every {ckpt['every']} iterations")
+
+    def fresh(seed=train["seed"]):
+        return TransformerLM(attention_impl="flash", device=dev,
+                             **config).build(seed=seed)
+
+    def opt_for(model, data=None):
+        o = _optimizer(model, x, y, ckpt["batch"], train["learning_rate"])
+        if data is not None:
+            o.dataset = data(o.dataset)
+        return o
+
+    out = {}
+    _reset_launches()
+    try:
+        # C1
+        model_a = fresh()
+        losses_a, _ = run_iterations(opt_for(model_a), ckpt["steps"])
+        d1 = os.path.join(root, "c1")
+        model_b = fresh()
+        opt_b = opt_for(model_b, lambda ds: _FaultyData(ds, ckpt["crash_at"]))
+        opt_b.set_checkpoint(d1, every)
+        try:
+            run_iterations(opt_b, ckpt["steps"])
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        else:
+            raise AssertionError("C1: the injected failure did not surface")
+        found = file_io.latest_checkpoint(d1)
+        if found is None or found[2] != ckpt["crash_at"] - 1:
+            raise AssertionError(f"C1: newest checkpoint {found}, not "
+                                 f"iteration {ckpt['crash_at'] - 1}")
+        written = opt_b.last_checkpoint
+        names = sorted(os.listdir(d1))
+        del opt_b, model_b
+        release(dev)
+        model_c = fresh(seed=train["seed"] + 1)
+        opt_c = opt_for(model_c)
+        t0 = time.perf_counter()
+        opt_c.resume_from(d1)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        losses_c, _ = run_iterations(opt_c, ckpt["steps"] - found[2])
+        rels = [abs(a - c) / abs(a) for a, c in
+                zip(losses_a[found[2]:], losses_c)]
+        if not max(rels) <= TOL_LOSS:
+            raise AssertionError(f"C1: resumed losses {losses_c} vs "
+                                 f"uninterrupted {losses_a[found[2]:]}")
+        worst, bitwise, leaves = (0.0, ""), 0, 0
+        for (path, a), (_, c) in zip(_named_leaves(model_a.params),
+                                     _named_leaves(model_c.params)):
+            leaves += 1
+            bitwise += int(torch.equal(a, c))
+            ratio = (a - c).abs().max().item() / max(a.abs().max().item(),
+                                                     1e-30)
+            if not ratio <= ckpt["tol_param"]:
+                raise AssertionError(f"C1: parameter {path} max |dw| over "
+                                     f"max |w| {ratio:.3e}")
+            worst = max(worst, (ratio, path))
+        nbytes = written["bytes"]
+        out["c1"] = dict(files=names, bytes=nbytes, dir_bytes=_dir_bytes(d1),
+                         write_s=written["seconds"], read_s=read_s,
+                         losses=losses_a, resumed=losses_c,
+                         worst_rel=max(rels), worst_param=worst,
+                         bitwise_leaves=(bitwise, leaves))
+        log(f"[ckpt] C1 uninterrupted losses "
+            f"{[round(v, 6) for v in losses_a]}; crashed at read "
+            f"{ckpt['crash_at']}, files {names}; resumed steps "
+            f"{found[2] + 1}-{ckpt['steps']} losses "
+            f"{[round(v, 6) for v in losses_c]} (worst relative "
+            f"{max(rels):.2e}), every leaf's max |dw| within "
+            f"{ckpt['tol_param']} of its max |w| (worst {worst[0]:.2e} at "
+            f"{worst[1]}; {bitwise} of {leaves} leaves bitwise equal); one "
+            f"pair {nbytes} bytes, written in "
+            f"{written['seconds']:.3f} s ({nbytes / written['seconds'] / 1e6:.1f}"
+            f" MB/s), read and placed in {read_s:.3f} s "
+            f"({nbytes / read_s / 1e6:.1f} MB/s)")
+        del opt_c, model_a
+        release(dev)
+
+        # C2
+        d2 = os.path.join(root, "c2")
+        opt_d = opt_for(model_c, lambda ds: _FaultyData(
+            ds, ckpt["sigterm_at"],
+            action=lambda: os.kill(os.getpid(), signal.SIGTERM)))
+        opt_d.set_checkpoint(d2, Trigger.several_iteration(10 ** 9))
+        opt_d.handle_preemption()
+        before = signal.getsignal(signal.SIGTERM)
+        opt_d.set_end_when(Trigger.max_iteration(10 ** 6))
+        opt_d.optimize()
+        if signal.getsignal(signal.SIGTERM) is not before:
+            raise AssertionError("C2: the SIGTERM handler was not restored")
+        names2 = sorted(os.listdir(d2))
+        if len(names2) != 2:
+            raise AssertionError(f"C2: files {names2}, not one pair")
+        counts = {k: reg.counter(f"resilience/{k}").value - v
+                  for k, v in counts0.items()}
+        if counts != {"resumes": 1, "emergency_checkpoints": 1}:
+            raise AssertionError(f"C2: resilience counters moved {counts}")
+        out["c2"] = dict(files=names2, stopped_at=opt_d.state["neval"] - 1,
+                         counters=counts)
+        log(f"[ckpt] C2 SIGTERM at read {ckpt['sigterm_at']}: stopped after "
+            f"iteration {opt_d.state['neval'] - 1} with {names2}, handler "
+            f"restored; resilience counters moved {counts}")
+        del opt_d, model_c
+        release(dev)
+
+        # C3
+        d3 = os.path.join(root, "c3")
+        base = cli + ["--device", dev.type]
+        first = train_cli.main(base + ["--checkpoint", d3])
+        second = train_cli.main(_set_flag(base, "-e", "2")
+                                + ["--resume", d3, "--checkpoint", d3])
+        n2 = file_io.latest_checkpoint(d3)[2]
+        if not (second.state["epoch"] == 3
+                and n2 == second.state["neval"] - 1
+                and n2 > first.state["neval"] - 1):
+            raise AssertionError(f"C3: resumed run ended at epoch "
+                                 f"{second.state['epoch']}, iteration "
+                                 f"{second.state['neval'] - 1}, newest "
+                                 f"checkpoint {n2}")
+        seq = cli[cli.index("--seqLength") + 1]
+        results, words = eval_cli.main(
+            ["--model", os.path.join(d3, f"model.{n2}"), "--dictionary",
+             os.path.join(d3, "dictionary.json"), "--synthetic", "--packed",
+             "-b", cli[cli.index("-b") + 1], "--seqLength", seq,
+             "--generate", str(ckpt["generate"]), "--device", dev.type])
+        (_, loss), = results
+        if not (np.isfinite(loss.result()[0])
+                and len(words) == 1 + ckpt["generate"]):
+            raise AssertionError(f"C3: eval loss {loss}, words {words}")
+        out["c3"] = dict(first=first.state["neval"] - 1, resumed_to=n2,
+                         loss=loss.result()[0])
+        log(f"[ckpt] C3 train CLI --checkpoint: {first.state['neval'] - 1} "
+            f"iterations; --resume: to iteration {n2} (epoch 2); eval CLI "
+            f"{loss}, generated: {' '.join(words)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = _launches()
+    release(dev)
+    return out
+
+
+def gpt2_state_dict(config, seed):
+    """A GPT-2-shaped state dict with Hugging Face's key names
+    (``transformer.`` prefix, a tied ``lm_head``), drawn from ``seed``
+    (N(0, 0.02) weights, N(1, 0.02) norm scales)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    h, v, f = config["hidden_size"], config["vocab_size"], config["ffn_size"]
+
+    def w(*shape, mean=0.0):
+        return torch.randn(shape, generator=g) * 0.02 + mean
+
+    sd = {"wte.weight": w(v, h), "wpe.weight": w(config["max_len"], h),
+          "ln_f.weight": w(h, mean=1.0), "ln_f.bias": w(h)}
+    for i in range(config["n_layers"]):
+        p = f"h.{i}."
+        sd.update({p + "ln_1.weight": w(h, mean=1.0), p + "ln_1.bias": w(h),
+                   p + "attn.c_attn.weight": w(h, 3 * h),
+                   p + "attn.c_attn.bias": w(3 * h),
+                   p + "attn.c_proj.weight": w(h, h),
+                   p + "attn.c_proj.bias": w(h),
+                   p + "ln_2.weight": w(h, mean=1.0), p + "ln_2.bias": w(h),
+                   p + "mlp.c_fc.weight": w(h, f), p + "mlp.c_fc.bias": w(f),
+                   p + "mlp.c_proj.weight": w(f, h),
+                   p + "mlp.c_proj.bias": w(h)})
+    sd = {"transformer." + k: t for k, t in sd.items()}
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    return sd
+
+
+def phase_gpt2(dev, config=GPT2_SMALL, gpt2=GPT2):
+    """G1: a GPT-2-small-shaped state dict from seed 0, torch.save'd to a
+    temporary file, imported and decoded by the port's
+    ``example/gpt2_import.py --checkpoint`` on the device; the tokens
+    held against offline generate on plain attention of the imported
+    weights; export then import is bitwise a round trip."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.example import gpt2_import
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.models.transformer.io import (export_gpt2_state_dict,
+                                                       load_gpt2_state_dict)
+    from bigdl_tpu_torch.utils.params import tree_leaves
+    sd = gpt2_state_dict(config, gpt2["seed"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gpt2.pth")
+        torch.save(sd, path)
+        size = os.path.getsize(path)
+        _reset_launches()
+        t0 = time.perf_counter()
+        got = gpt2_import.main(
+            ["--checkpoint", path, "--vocab", str(config["vocab_size"]),
+             "--hidden", str(config["hidden_size"]),
+             "--layers", str(config["n_layers"]),
+             "--heads", str(config["n_head"]),
+             "--maxLen", str(config["max_len"]), "--prompt", gpt2["prompt"],
+             "--maxNewTokens", str(gpt2["new_tokens"]),
+             "--device", dev.type])
+        wall = time.perf_counter() - t0
+        launches = _launches()
+    plain = load_gpt2_state_dict(TransformerLM(
+        attention_impl="xla", device=dev, **config), sd)
+    oracle = Oracle(dev, config, 0, make_model=lambda: plain)
+    prompt = np.array([int(t) + 1 for t in gpt2["prompt"].split(",")])
+    tie = oracle.check(prompt, np.concatenate([prompt, np.asarray(got) + 1]),
+                       gpt2["new_tokens"])
+    clone = load_gpt2_state_dict(TransformerLM(device=dev, **config),
+                                 export_gpt2_state_dict(plain))
+    for a, b in zip(tree_leaves(plain.params), tree_leaves(clone.params)):
+        if not torch.equal(a, b):
+            raise AssertionError("G1: export then import is not bitwise")
+    log(f"[gpt2] G1 {size} bytes of state dict; example --checkpoint "
+        f"generated {got} in {wall:.2f} s (import included), "
+        f"{'identical to offline generate' if tie is None else tie}; export "
+        f"then import bitwise; launches {launches}")
+    del plain, clone, oracle, sd
+    release(dev)
+    return dict(ids=got, launches=launches, bytes=size, wall_s=wall, tie=tie)
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
         print("chip_smoke.py: the bigdl_tpu_torch package is not beside "
@@ -2714,26 +3267,73 @@ def main() -> int:
         f"{train['peak_bytes'] / 2**20:.1f} MiB, device idle share {idle}; "
         f"bf16-compute median step {train['step16_ms']:.2f} ms, "
         f"{train['tokens_per_s16']:.1f} tokens/s | {smi}")
+    log_allocated("moe")
+    t0 = time.perf_counter()
+    moe = phase_moe(dev, dense_serve=serve, profile_path=args.profile)
+    phases["moe"] = time.perf_counter() - t0
+    m1, m2 = moe["m1"], moe["m2"]
+    check_launches("MoE training path (M1)", m1["launches"], flash_train,
+                   exactly=GPT2_SMALL["n_layers"] * m1["steps_run"])
+    check_launches("MoE serve path (M2)", m2["launches"],
+                   ("bigdl_flash_fwd", "bigdl_paged_decode"))
+    log(f"[moe] M1 median step {m1['step_ms']:.2f} ms, "
+        f"{m1['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+        f"{_mib(m1['peak_bytes'])}, weights {m1['weight_bytes']} bytes, "
+        f"device idle share {idle_text(m1['idle_share'])} (dense train step "
+        f"{train['step_ms']:.2f} ms); M2 TTFT p50 "
+        f"{m2['ttft_p50_s'] * 1e3:.2f} ms, decode "
+        f"{m2['decode_tokens_per_s']:.1f} tokens/s (dense serve "
+        f"{serve['ttft_p50_s'] * 1e3:.2f} ms, "
+        f"{serve['decode_tokens_per_s']:.1f} tokens/s) | {smi}")
+    log_allocated("accum")
+    t0 = time.perf_counter()
+    accum = phase_accum(dev)
+    phases["accum"] = time.perf_counter() - t0
+    for n, run in accum.items():
+        check_launches(f"accumulation {n} path", run["launches"], flash_train,
+                       exactly=GPT2_SMALL["n_layers"] * n * 2)
+    log("[accum] A1 peaks (two optimizer steps): " + ", ".join(
+        f"n={n} {_mib(r['peak'])}" for n, r in accum.items()) + f" | {smi}")
+    log_allocated("ckpt")
+    t0 = time.perf_counter()
+    ckpt = phase_ckpt(dev)
+    phases["ckpt"] = time.perf_counter() - t0
+    check_launches("checkpoint path", ckpt["launches"], flash_train)
+    log_allocated("gpt2")
+    t0 = time.perf_counter()
+    gpt2 = phase_gpt2(dev)
+    phases["gpt2"] = time.perf_counter() - t0
+    check_launches("GPT-2 import path", gpt2["launches"], ("bigdl_flash_fwd",))
     log("[done] phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()))
+
+    def total(*runs):
+        return {k: sum(r[k] for r in runs) for k in runs[0]}
+
     # launches: the serve path's (the training path's for the backward
     # pair); by_path: every path's own run, counted from 0
     paths = dict(serve=serve["launches"], serve_sampled=sampled["launches"],
                  spec=spec_launches, quant=quant_launches,
                  tier=tier["launches"], replicas=replicas["launches"],
-                 train=train["launches"])
+                 train=train["launches"],
+                 moe=total(m1["launches"], m2["launches"]),
+                 accum=total(*(r["launches"] for r in accum.values())),
+                 ckpt=ckpt["launches"], gpt2=gpt2["launches"])
 
     def by_path(symbol, names):
         return {p: paths[p][symbol] for p in names}
 
-    serving = ("serve", "serve_sampled", "spec", "quant", "tier", "replicas")
+    serving = ("serve", "serve_sampled", "spec", "quant", "tier", "replicas",
+               "moe")
+    training = ("train", "moe", "accum", "ckpt")
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_fwd.cu",
              replaces="bigdl_tpu/ops/flash_attention.py:39",
              launches=serve["launches"]["bigdl_flash_fwd"],
              launches_by_path=by_path("bigdl_flash_fwd",
-                                      serving + ("train",)), **flash_main),
+                                      serving + ("train", "accum", "ckpt",
+                                                 "gpt2")), **flash_main),
         dict(name="paged_decode", route="cuda",
              source="bigdl_tpu_torch/csrc/paged_decode.cu",
              replaces="bigdl_tpu/ops/paged_attention.py:34",
@@ -2744,13 +3344,13 @@ def main() -> int:
              source="bigdl_tpu_torch/csrc/flash_bwd.cu",
              replaces="bigdl_tpu/ops/flash_attention.py:199",
              launches=train["launches"]["bigdl_flash_bwd_dkv"],
-             launches_by_path=by_path("bigdl_flash_bwd_dkv", ("train",)),
+             launches_by_path=by_path("bigdl_flash_bwd_dkv", training),
              **dkv_main),
         dict(name="flash_bwd_dq", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_bwd.cu",
              replaces="bigdl_tpu/ops/flash_attention.py:262",
              launches=train["launches"]["bigdl_flash_bwd_dq"],
-             launches_by_path=by_path("bigdl_flash_bwd_dq", ("train",)),
+             launches_by_path=by_path("bigdl_flash_bwd_dq", training),
              **dq_main),
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -892,3 +892,113 @@ def test_disagg_through_graphs_equals_eager(card, monkeypatch, spec):
     finally:
         graph.close()
         eager.close()
+
+
+# --------------------------------------------------------------------------- #
+# MoE serving and gradient accumulation on the card                           #
+# --------------------------------------------------------------------------- #
+
+def _grads_close(got, want, tol):
+    """Each leaf within ``tol`` of the tree's max |g| (the key bias's
+    gradient is rounding noise, so no per-leaf ratio for it)."""
+    from bigdl_tpu_torch.utils.params import tree_leaves
+    scale = max(b.abs().max().item() for b in tree_leaves(want))
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert (a - b).abs().max().item() <= tol * scale
+
+
+def test_moe_engine_on_card_streams_equal_generate(card):
+    """An MoE model (4 experts a block, dense routing on every cached
+    path) behind the engine with graphs: greedy streams equal offline
+    generate, no capture after warmup, both kernels launched; its
+    replayed prefill and decode steps equal the eager steps."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.models.transformer.generate import generate
+    from bigdl_tpu_torch.serving import LMServingEngine
+    lm = TransformerLM(attention_impl="flash", device=card, moe_experts=4,
+                       **ENGINE_LM).build(seed=0)
+    eng = LMServingEngine(lm, device=card, **ENGINE_KW)
+    eager = LMServingEngine(lm, device=card, cuda_graphs=False, **ENGINE_KW)
+    prompts = _engine_prompts()
+    diffs = {}
+    try:
+        eng.warmup()
+        eng.warmup_prefix()
+        warm = eng.stats()["cuda_graphs"]["captures"]
+        before = _launch_counts()
+        streams = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        for p, s in zip(prompts, streams):
+            want = generate(lm, lm.params, p[None], 8,
+                            device=card).numpy()[0]
+            np.testing.assert_array_equal(s.result(timeout=120), want)
+        after = _launch_counts()
+        assert eng.stats()["cuda_graphs"]["captures"] == warm
+        for k in ("bigdl_flash_fwd", "bigdl_paged_decode"):
+            assert after[k] > before[k], k
+        eager.warmup()
+        # the served traffic wrote the graph engine's arenas: start both
+        # from the same contents
+        g = torch.Generator().manual_seed(7)
+        for name in ("k", "v"):
+            fill = torch.randn(getattr(eng.pool, name).shape, generator=g)
+            getattr(eng.pool, name).copy_(fill)
+            getattr(eager.pool, name).copy_(fill)
+        rng = np.random.RandomState(2)
+        S, M = eng.slots, eng.table_width
+        n = eng.pool.shape[1]
+        tables = rng.randint(1, n, size=(S, M)).astype(np.int32)
+        pos = np.asarray([0, 17, 70, 120], np.int32)
+        ids = np.zeros((1, 32), np.int64)
+        ids[0, :29] = rng.randint(0, 97, size=29)
+        blocks = [int(i) for i in rng.choice(np.arange(1, n), 8, False)]
+        x = eng._prefill_x(ids, 29, 0, blocks)
+        _replay_and_eager(eng, eager, lambda e: e.prefill_cache(
+            e._params, {}, x).cpu(), diffs, "moe prefill 32")
+        token = rng.randint(0, 97, size=S).astype(np.int64)
+        c = _replay_and_eager(eng, eager, lambda e: e._decode(
+            token, pos, tables), diffs, "moe decode")
+        assert c["bigdl_paged_decode"] == ENGINE_LM["n_layers"]
+        assert eng.stats()["cuda_graphs"]["captures"] == warm
+    finally:
+        eng.close()
+        eager.close()
+
+
+@pytest.mark.parametrize("moe", [0, 4])
+def test_grad_accumulation_on_card_matches_full_batch(card, moe):
+    """The accumulated step (2 and 4 micro-batches) against the full
+    batch on the card: loss within 1e-5 relative, every gradient leaf
+    within 1e-3 of the tree's max |g|, and the three flash kernels
+    launched exactly n times a layer.  The MoE case routes at capacity
+    per micro-batch, so it is held against the CPU's accumulated step
+    instead of the full batch."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import accumulated_loss_and_grads
+    from bigdl_tpu_torch.utils.params import tree_map
+    kw = dict(ENGINE_LM, moe_experts=moe)
+    lm = TransformerLM(attention_impl="flash", device=card, **kw).build(3)
+    cpu = TransformerLM(device="cpu", **kw)
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), True)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(1, 98, size=(8, 65)).astype(np.float32)
+    x, y = (torch.from_numpy(a) for a in (ids[:, :-1], ids[:, 1:]))
+    full = accumulated_loss_and_grads(lm, crit, lm.params, x.to(card),
+                                      y.to(card), 1)
+    for n in (2, 4):
+        before = _launch_counts()
+        loss, grads, _ = accumulated_loss_and_grads(
+            lm, crit, lm.params, x.to(card), y.to(card), n)
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        for k in ("bigdl_flash_fwd", "bigdl_flash_bwd_dkv",
+                  "bigdl_flash_bwd_dq"):
+            assert after[k] - before[k] == n * kw["n_layers"], k
+        if moe:
+            want_loss, want, _ = accumulated_loss_and_grads(
+                cpu, crit, tree_map(lambda t: t.cpu(), lm.params), x, y, n)
+        else:
+            want_loss, want = full[0], full[1]
+        assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
+        _grads_close(tree_map(lambda t: t.cpu(), grads),
+                     tree_map(lambda t: t.cpu(), want), 1e-3)

@@ -281,8 +281,113 @@ def test_train_cli_runs_on_cpu(caplog):
     assert str(method) == "Loss" and np.isfinite(result.result()[0])
     assert any(r.getMessage().startswith("Loss is Loss(")
                for r in caplog.records)
-    for flag in (["--distributed"], ["--moeExperts", "2"],
-                 ["--checkpoint", "ck"], ["--model", "m"], ["--state", "s"],
-                 ["--resume", "ck"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            train.main(["--synthetic", "--device", "cpu", *flag])
+    # --moeExperts, --checkpoint, --model, --state and --resume are
+    # ported (tests/test_torch_port_ckpt.py); --distributed is not
+    with pytest.raises(SystemExit, match="not ported"):
+        train.main(["--synthetic", "--device", "cpu", "--distributed"])
+
+
+# --------------------------------------------------------------------------- #
+# gradient accumulation (mirrors tests/test_grad_accum.py)                    #
+# --------------------------------------------------------------------------- #
+
+def _accum_data(n=32, t=8, vocab=13, seed=5):
+    rng = np.random.RandomState(seed)
+    seqs = rng.randint(1, vocab + 1, size=(n, t + 1))
+    return seqs[:, :-1].astype(np.float32), seqs[:, 1:].astype(np.float32)
+
+
+def _accum_train(accum, epochs=2, batch=16):
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToBatch
+    x, y = _accum_data()
+    ds = DataSet.array([Sample(a, b) for a, b in zip(x, y)], seed=11) >> \
+        SampleToBatch(batch)
+    model = TransformerLM(vocab_size=13, hidden_size=16, n_head=2,
+                          n_layers=1, max_len=8, device="cpu").build(2)
+    opt = optim.LocalOptimizer(model, ds, TimeDistributedCriterion(
+        ClassNLLCriterion(), True))
+    opt.set_optim_method(optim.SGD(learning_rate=0.1, momentum=0.9))
+    opt.set_gradient_accumulation(accum)
+    opt.set_end_when(optim.Trigger.max_epoch(epochs))
+    opt.optimize()
+    return model.params, opt.state["loss"]
+
+
+def test_accumulated_matches_full_batch():
+    """Mean-reduced criterion: the mean of 4 micro-batch gradients is the
+    full batch's, so two epochs' trajectories agree."""
+    p1, loss1 = _accum_train(1)
+    p4, loss4 = _accum_train(4)
+    assert abs(loss1 - loss4) < 1e-5
+    for a, b in zip(tree_leaves(p4), tree_leaves(p1)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-5,
+                                   atol=2e-6)
+
+
+@pytest.mark.parametrize("moe", [0, 2])
+@pytest.mark.parametrize("accum", [2, 4])
+def test_accumulated_step_matches_jax(accum, moe):
+    """One accumulated step against the JAX package's
+    ``accumulated_value_and_grad`` (a scan over micro-batches): the loss
+    within 1e-5 relative and every gradient leaf within 1e-5.  The MoE
+    case threads its aux_loss buffer through the micro-batches and adds
+    it to each micro-batch's loss."""
+    from bigdl_tpu.optim.optimizer import accumulated_value_and_grad
+    kw = dict(vocab_size=13, hidden_size=16, n_head=2, n_layers=2,
+              max_len=8, moe_experts=moe, moe_capacity_factor=0.5)
+    jm = JaxLM(attention_impl="xla", **kw).build(seed=3)
+    tm = TransformerLM(attention_impl="xla", device="cpu", **kw)
+    tm.params = params_from_numpy(_np_tree(jm.params), "cpu")
+    x, y = _accum_data(n=8)
+    jcrit = jnn.TimeDistributedCriterion(jnn.ClassNLLCriterion(), True)
+
+    def loss_fn(params, buffers, data, labels, rng):
+        out, nb = jm.apply(params, data, buffers=buffers, training=True,
+                           rng=rng)
+        loss = jcrit.loss(out, labels)
+        if "aux_loss" in nb:
+            loss = loss + nb["aux_loss"]
+        return loss, nb
+
+    (want_loss, want_buf), want = jax.jit(
+        lambda *a: accumulated_value_and_grad(loss_fn, accum, *a))(
+        jm.params, jm.buffers, jnp.asarray(x), jnp.asarray(y),
+        jax.random.PRNGKey(0))
+    loss, grads, buf = optim.accumulated_loss_and_grads(
+        tm, TimeDistributedCriterion(ClassNLLCriterion(), True), tm.params,
+        torch.from_numpy(x), torch.from_numpy(y), accum, buffers=tm.buffers)
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
+    _assert_trees_close(params_to_numpy(grads), _np_tree(want), 1e-5, 1e-5)
+    if moe:
+        assert float(buf["aux_loss"]) == pytest.approx(
+            float(want_buf["aux_loss"]), rel=1e-5)
+
+
+def test_indivisible_batch_raises():
+    with pytest.raises(ValueError, match="divisible"):
+        _accum_train(5)  # 16 % 5 != 0
+
+
+def test_ragged_tail_falls_back_unaccumulated(caplog):
+    """An indivisible batch (an epoch's ragged tail) runs as one
+    unaccumulated step, bitwise that step, with one warning a shape."""
+    tm = TransformerLM(vocab_size=13, hidden_size=16, n_head=2, n_layers=1,
+                       max_len=8, device="cpu").build(9)
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), True)
+    x, y = (torch.from_numpy(a) for a in _accum_data(n=10))
+    with caplog.at_level(logging.WARNING, logger="bigdl_tpu_torch.optim"):
+        tail = optim.accumulated_loss_and_grads(tm, crit, tm.params, x, y, 4,
+                                                batch_desc="ragged test")
+        optim.accumulated_loss_and_grads(tm, crit, tm.params, x, y, 4,
+                                         batch_desc="ragged test")
+    ref = optim.accumulated_loss_and_grads(tm, crit, tm.params, x, y, 1)
+    assert float(tail[0]) == float(ref[0])
+    for a, b in zip(tree_leaves(tail[1]), tree_leaves(ref[1])):
+        assert torch.equal(a, b)
+    warned = [r for r in caplog.records if "not divisible" in r.getMessage()]
+    assert len(warned) == 1
+
+
+def test_setter_rejects_nonpositive():
+    with pytest.raises(ValueError):
+        optim.LocalOptimizer(None, None, None).set_gradient_accumulation(0)
