@@ -9,8 +9,8 @@ their counters process-wide without copying.  The log-bucket
 percentiles are the reference's.
 
 Every metric here is host state: reading one never touches a device.
-(The reference's ``export_to_summary`` writes through its tfevents
-writers, which the port does not have yet.)
+:meth:`MetricRegistry.export_to_summary` writes a snapshot through the
+tfevents writers of :mod:`bigdl_tpu_torch.visualization`.
 """
 from __future__ import annotations
 
@@ -289,6 +289,28 @@ class MetricRegistry:
         snap["obs/registry_cardinality"] = {"value": float(card)}
         snap["obs/registry_overflow_total"] = {"value": float(over)}
         return snap
+
+    def export_to_summary(self, summary, step: int,
+                          prefix: str = "Obs/") -> int:
+        """Write every scalar-valued field of the snapshot through a
+        ``visualization.Summary`` (tfevents) writer; histograms export
+        their p50/p99/mean/count.  Returns the scalar count written."""
+        wrote = 0
+        for name, snap in self.snapshot().items():
+            if "value" in snap:
+                if snap["value"] is not None:
+                    summary.add_scalar(prefix + name, float(snap["value"]),
+                                       step)
+                    wrote += 1
+                continue
+            for key in ("p50_s", "p99_s", "mean_s", "count"):
+                v = snap.get(key)
+                if v is not None:
+                    summary.add_scalar(f"{prefix}{name}/{key}", float(v),
+                                       step)
+                    wrote += 1
+        summary.flush()
+        return wrote
 
 
 #: process-wide registry

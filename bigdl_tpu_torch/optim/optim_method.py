@@ -5,13 +5,23 @@ the ``Default`` learning-rate schedule, ``OptimMethod``, ``SGD``,
 Each method works over the parameter dict tree: ``init_state(params)``
 returns the state (``iteration`` as a host int, moments as trees of
 tensors shaped like the parameters) and ``update(grads, state, params,
-epoch)`` returns ``(params, state)``.  Unlike the JAX package's pure
-updates, the port updates IN PLACE under ``torch.no_grad()``: the
-returned ``params`` and ``state`` are the very dicts passed in, their
-tensors overwritten, so a step allocates no second copy of the weights
-or the moments.  The arithmetic is the JAX package's, element for
-element; ``torch.optim`` is not used (its SGD dampening default
-differs from BigDL's).
+epoch)`` returns ``(params, state)``: the very dicts passed in, their
+tensors overwritten under ``torch.no_grad()``, where the JAX package's
+updates are pure.  The arithmetic is the JAX package's, element for
+element; ``torch.optim`` is not used (its SGD dampening default differs
+from BigDL's).
+
+The built-in methods stage, then commit: :meth:`OptimMethod.stage`
+computes every new weight and moment out of place, and
+:meth:`OptimMethod.commit` copies them over the live tensors in one
+``torch._foreach_copy_`` and advances the iteration.  A failure while
+staging (a CUDA out-of-memory in a temporary, a subclass's hook
+raising) leaves the parameters and the state at the last completed
+iteration, so the training loop can checkpoint it as the reference
+does.  The price is one transient copy of the parameters and of each
+moment tree at the commit.  A method that overrides ``update`` (a
+user's in-place method) is not staged: :func:`stages_updates` tells
+the loop which kind it holds.
 """
 from __future__ import annotations
 
@@ -48,6 +58,19 @@ class OptimMethod:
         """-> (params, state), both updated in place."""
         raise NotImplementedError
 
+    def stage(self, grads, state, params, epoch=1):
+        """The step's new tensors, out of place: ``(targets, values,
+        iteration)`` for :meth:`commit`.  Writes nothing."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def commit(self, staged, state) -> None:
+        """Copy the staged values over their targets in one pass and
+        advance the state's iteration."""
+        targets, values, iteration = staged
+        torch._foreach_copy_(targets, values)
+        state["iteration"] = iteration
+
     def clear_history(self) -> None:
         self._state = None
 
@@ -57,6 +80,18 @@ class OptimMethod:
 
 def _zeros_like(params):
     return tree_map(torch.zeros_like, params)
+
+
+def _staged(update):
+    update.staged = True
+    return update
+
+
+def stages_updates(method: OptimMethod) -> bool:
+    """Whether ``method.update`` is a built-in staged update (its class
+    did not override ``update``), so that ``stage`` raising leaves the
+    parameters and the state untouched."""
+    return getattr(type(method).update, "staged", False)
 
 
 class SGD(OptimMethod):
@@ -89,21 +124,29 @@ class SGD(OptimMethod):
     def current_rate(self, state, epoch=1):
         return self.schedule.rate(self.learning_rate, state["iteration"], epoch)
 
-    @torch.no_grad()
+    @_staged
     def update(self, grads, state, params, epoch=1):
+        self.commit(self.stage(grads, state, params, epoch), state)
+        return params, state
+
+    @torch.no_grad()
+    def stage(self, grads, state, params, epoch=1):
         lr = self.current_rate(state, epoch)
         mu, damp, wd = self.momentum, self.dampening, self.weight_decay
         vs = (tree_leaves(state["velocity"]) if mu > 0
               else [None] * len(tree_leaves(params)))
+        targets, values = [], []
         for w, g, v in zip(tree_leaves(params), tree_leaves(grads), vs):
             if wd > 0:
                 g = g + wd * w
             if mu > 0:
-                v.mul_(mu).add_((1 - damp) * g)
-                g = g + mu * v if self.nesterov else v
-            w.sub_(lr * g)
-        state["iteration"] += 1
-        return params, state
+                v_new = v * mu + (1 - damp) * g
+                targets.append(v)
+                values.append(v_new)
+                g = g + mu * v_new if self.nesterov else v_new
+            targets.append(w)
+            values.append(w - lr * g)
+        return targets, values, state["iteration"] + 1
 
     def get_hyper_parameter(self) -> str:
         return f"Current learning rate is {self.learning_rate}. "
@@ -138,22 +181,29 @@ class Adam(OptimMethod):
     def _post_step(self, w_new, w_old, lr):
         return w_new
 
-    @torch.no_grad()
+    @_staged
     def update(self, grads, state, params, epoch=1):
+        self.commit(self.stage(grads, state, params, epoch), state)
+        return params, state
+
+    @torch.no_grad()
+    def stage(self, grads, state, params, epoch=1):
         lr = self.current_rate(state, epoch)
         t = state["iteration"] + 1
         b1, b2 = self.beta1, self.beta2
         bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+        targets, values = [], []
         for w, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(state["m"]),
                               tree_leaves(state["v"])):
             g = self._decayed(g, w)
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * g * g)
-            w_new = w - lr * (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            w.copy_(self._post_step(w_new, w, lr))
-        state["iteration"] = t
-        return params, state
+            m_new = m * b1 + (1 - b1) * g
+            v_new = v * b2 + (1 - b2) * g * g
+            w_new = w - lr * (m_new / bc1) / (torch.sqrt(v_new / bc2)
+                                              + self.eps)
+            targets += [m, v, w]
+            values += [m_new, v_new, self._post_step(w_new, w, lr)]
+        return targets, values, t
 
 
 class AdamW(Adam):

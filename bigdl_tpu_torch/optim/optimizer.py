@@ -6,7 +6,9 @@ A step is eager PyTorch: the model's training forward, the criterion
 plus a model's ``"aux_loss"`` buffer (the MoE balance term),
 ``torch.autograd.grad`` over every parameter leaf (through the flash
 backward kernels on a CUDA device), optional gradient clipping, and the
-optimizer method's in-place update.  With gradient accumulation the
+optimizer method's update: a built-in method stages every new tensor
+out of place and commits them in one pass, so a failure while staging
+leaves the weights at the last completed iteration.  With gradient accumulation the
 step is a Python loop over micro-batches, each one's graph freed before
 the next.  The host fetches the loss once a step, which is the step's
 only synchronisation.
@@ -14,9 +16,13 @@ only synchronisation.
 Checkpoints (``set_checkpoint``), ``resume_from``, the emergency
 checkpoint on a failed loop and ``handle_preemption`` follow the
 reference, writing its file format (``bigdl_tpu_torch.utils.file_io``).
-Not ported, refused when asked for: summaries (ROADMAP Queue 1 item
-8.6), the stall watchdog's escalation checkpoint, LBFGS and distributed
-datasets.
+So do TensorBoard summaries (``set_train_summary``: Loss, Throughput,
+LearningRate and Parameters histograms on their triggers;
+``set_validation_summary``), the phase counters (``metrics``, published
+as ``train/*``) and the stall watchdog (``BIGDL_TPU_WATCHDOG``): a step
+is bracketed up to the host's read of its loss, and a stall requests an
+emergency checkpoint at the next completed iteration.  Not ported,
+refused when asked for: LBFGS and distributed datasets.
 """
 from __future__ import annotations
 
@@ -32,7 +38,9 @@ import torch
 
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.obs.registry import get_registry
-from bigdl_tpu_torch.optim.optim_method import OptimMethod, SGD
+from bigdl_tpu_torch.optim.metrics import Metrics
+from bigdl_tpu_torch.optim.optim_method import (OptimMethod, SGD,
+                                                stages_updates)
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import ValidationMethod
 from bigdl_tpu_torch.utils import file_io, fs
@@ -48,6 +56,18 @@ def cast_float_leaves(tree, dtype):
     leaf untouched.  Differentiable, so gradients arrive in float32."""
     return tree_map(lambda a: a.to(dtype) if a.dtype == torch.float32
                     else a, tree)
+
+
+def named_leaves(tree, prefix: str = ""):
+    """``(path, leaf)`` pairs of a nested dict, keys sorted at every
+    level and joined by ``/``: the reference's histogram tags (a JAX
+    dict flattens in sorted key order)."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from named_leaves(tree[key],
+                                    f"{prefix}/{key}" if prefix else key)
+    else:
+        yield prefix, tree
 
 
 def loss_and_grads(model, criterion, params, data, labels, *, buffers=None,
@@ -130,7 +150,13 @@ class Optimizer:
         self.validation_dataset: Optional[AbstractDataSet] = None
         self.validation_methods: Sequence[ValidationMethod] = ()
         self.validation_results: list = []  # the last validation's
+        self.train_summary = None
+        self.validation_summary = None
+        # host ms of each summary record, by kind ("scalars", "parameters")
+        self.summary_ms: dict = {"scalars": [], "parameters": []}
         self.state: dict = {}
+        # phase counters, published live into the process-wide registry
+        self.metrics = Metrics().publish_to(get_registry())
         self.compute_dtype: Optional[torch.dtype] = None  # None: float32
         self.grad_accum = 1  # micro-batches a step
         self.checkpoint_path: Optional[str] = None
@@ -138,7 +164,8 @@ class Optimizer:
         self.last_checkpoint: Optional[dict] = None  # iteration, bytes, s
         self._preempt_signals: tuple = ()
         self._preempted = False
-        self._updating = False  # inside the in-place update
+        self._updating = False  # inside an update's writes
+        self._stall_ckpt_requested = False
         self._clip_const = None
         self._clip_l2 = None
 
@@ -225,10 +252,18 @@ class Optimizer:
         return self
 
     def set_train_summary(self, summary) -> "Optimizer":
-        raise NotImplementedError(
-            "summaries are not ported yet (ROADMAP Queue 1 item 8.6)")
+        """Write Loss, Throughput and LearningRate scalars (and, on its
+        trigger, a Parameters histogram per leaf) into ``summary``, a
+        :class:`~bigdl_tpu_torch.visualization.TrainSummary`, each
+        iteration its triggers fire."""
+        self.train_summary = summary
+        return self
 
-    set_validation_summary = set_train_summary
+    def set_validation_summary(self, summary) -> "Optimizer":
+        """Write each validation method's result into ``summary`` (a
+        :class:`~bigdl_tpu_torch.visualization.ValidationSummary`)."""
+        self.validation_summary = summary
+        return self
 
     @staticmethod
     def create(model, dataset: AbstractDataSet, criterion) -> "Optimizer":
@@ -242,6 +277,40 @@ class Optimizer:
         self.state.setdefault("records_processed", 0)
         self.state["epoch_finished"] = False
 
+    def _record_train_summary(self, loss_val: float, throughput: float,
+                              epoch: int, iteration: int) -> None:
+        """Trigger-gated scalars, and on its trigger the Parameters
+        histograms (ref optimizer.py ``_record_train_summary``): step =
+        ``neval``, the iteration just run; ``iteration`` is the method's
+        counter that iteration's rate used.  A Parameters record copies
+        every leaf to the host, so it runs only when its trigger fires;
+        each record's host ms lands in ``summary_ms``."""
+        ts = self.train_summary
+        if ts is None:
+            return
+        t0 = time.perf_counter()
+        step = self.state["neval"]
+        gated = hasattr(ts, "should_record")
+        if not gated or ts.should_record("Loss", self.state):
+            ts.add_scalar("Loss", loss_val, step)
+        if not gated or ts.should_record("Throughput", self.state):
+            ts.add_scalar("Throughput", throughput, step)
+        if gated and ts.should_record("LearningRate", self.state):
+            m = self.optim_method
+            if hasattr(m, "current_rate"):
+                lr = float(m.current_rate({"iteration": iteration}, epoch))
+            else:
+                lr = float(getattr(m, "learning_rate", 0.0))
+            ts.add_scalar("LearningRate", lr, step)
+        t1 = time.perf_counter()
+        self.summary_ms["scalars"].append((t1 - t0) * 1e3)
+        if gated and ts.should_record("Parameters", self.state):
+            for name, leaf in named_leaves(self.model.params):
+                ts.add_histogram(name, leaf.detach().float().cpu().numpy(),
+                                 step)
+            self.summary_ms["parameters"].append(
+                (time.perf_counter() - t1) * 1e3)
+
     def _maybe_validate(self):
         if (self.validation_trigger is not None
                 and self.validation_dataset is not None
@@ -249,6 +318,10 @@ class Optimizer:
             results = self._validate()
             for method, result in results:
                 log.info("%s is %s", method, result)
+                if self.validation_summary is not None:
+                    self.validation_summary.add_scalar(
+                        str(method), result.result()[0],
+                        self.state["neval"] - 1)
             self.validation_results = results
             return results
         return None
@@ -354,8 +427,9 @@ class Optimizer:
     def _emergency_checkpoint(self, reason: str = "") -> bool:
         """Checkpoint the last completed iteration on the failure path;
         never raises, so the original error is what surfaces.  Skipped
-        when the failure struck inside the in-place update, where the
-        weights are between two steps."""
+        when the failure struck while an update was writing the weights
+        (a staged method's commit, or any part of an in-place user
+        method's ``update``): they are between two steps there."""
         if self.checkpoint_path is None:
             log.warning("cannot write emergency checkpoint (%s): no "
                         "checkpoint path configured, call set_checkpoint "
@@ -363,7 +437,7 @@ class Optimizer:
             return False
         if self._updating:
             log.error("no emergency checkpoint (%s): the failure struck "
-                      "inside the in-place update", reason)
+                      "while the update was writing the weights", reason)
             return False
         try:
             self._publish_for_checkpoint()
@@ -375,6 +449,27 @@ class Optimizer:
         log.warning("emergency checkpoint written at iteration %d (%s)",
                     self.state["neval"] - 1, reason)
         return True
+
+    def _arm_stall_checkpoint(self, watchdog) -> None:
+        """The escalation: when the stall watchdog fires, request an
+        emergency checkpoint, taken by the loop at the next completed
+        iteration (the stalled step may still be running; a checkpoint
+        from the watchdog's thread would race it)."""
+        self._stall_ckpt_requested = False
+        if watchdog is None:
+            return
+
+        def _on_stall(event):
+            self._stall_ckpt_requested = True
+
+        watchdog.on_stall = _on_stall
+
+    def _maybe_stall_checkpoint(self) -> None:
+        if self._stall_ckpt_requested:
+            self._stall_ckpt_requested = False
+            self._emergency_checkpoint(
+                "stall watchdog escalation: checkpointing at the next "
+                "completed iteration")
 
     def _fast_forward_data(self, data_iter, records_into_epoch: int) -> None:
         """Continue where an earlier ``optimize()`` or a checkpoint
@@ -392,8 +487,7 @@ class LocalOptimizer(Optimizer):
 
     The dataset yields MiniBatch (data, labels) host arrays; each step
     moves them to the model's device, differentiates (accumulating over
-    micro-batches when asked), clips and updates the parameters in
-    place.
+    micro-batches when asked), clips and updates the parameters.
     """
 
     def _step(self, params, buffers, opt_state, data, labels):
@@ -402,9 +496,16 @@ class LocalOptimizer(Optimizer):
             self.grad_accum, buffers=buffers, generator=self._generator,
             compute_dtype=self.compute_dtype)
         grads = self._clip_gradients(grads)
-        self._updating = True
-        self.optim_method.update(grads, opt_state, params,
-                                 epoch=self.state["epoch"])
+        method, epoch = self.optim_method, self.state["epoch"]
+        if stages_updates(method):
+            # everything that can fail runs before the first write
+            staged = method.stage(grads, opt_state, params, epoch=epoch)
+            del grads
+            self._updating = True
+            method.commit(staged, opt_state)
+        else:
+            self._updating = True
+            method.update(grads, opt_state, params, epoch=epoch)
         self._updating = False
         return new_buffers, loss
 
@@ -433,19 +534,37 @@ class LocalOptimizer(Optimizer):
         data_iter = self.dataset.data(train=True)
         records_this_epoch = self.state.get("records_processed", 0)
         self._fast_forward_data(data_iter, records_this_epoch)
+        # step-cadence stall detection; a stall escalates to a
+        # checkpoint at the next completed iteration
+        from bigdl_tpu_torch.obs.watchdog import (env_watchdog_enabled,
+                                                  env_watchdog_kwargs,
+                                                  shared_watchdog)
+        watchdog = None
+        if env_watchdog_enabled():
+            watchdog = shared_watchdog("train_step")
+            # every knob from this run's environment: an unset one takes
+            # its default, not the value an earlier run left behind
+            watchdog.reset(**{"k": 10.0, "deadline_s": None,
+                              **env_watchdog_kwargs()})
+        self._arm_stall_checkpoint(watchdog)
         try:
             self._loop(params, buffers, opt_state, device, data_iter,
-                       records_this_epoch)
+                       records_this_epoch, watchdog)
         except Exception as e:
             # the last completed iteration is on the model: persist it
             # before the failure surfaces, so resume_from loses at most
             # the iteration in flight
             self._emergency_checkpoint(f"training loop failed: {e!r}")
             raise
+        finally:
+            if watchdog is not None:
+                # a step the failure left open must not fire later
+                watchdog.on_stall = None
+                watchdog.reset()
         return self.model
 
     def _loop(self, params, buffers, opt_state, device, data_iter,
-              records_this_epoch):
+              records_this_epoch, watchdog=None):
         dataset_size = self.dataset.size()
         wall0 = time.perf_counter()
         next_batch = fetch_error = None
@@ -468,6 +587,8 @@ class LocalOptimizer(Optimizer):
                         f"set_gradient_accumulation({self.grad_accum}) "
                         f"needs the batch size ({bs}) divisible by n_micro")
             t0 = time.perf_counter()
+            if watchdog is not None:
+                watchdog.step_started()
             buffers, loss = self._step(
                 params, buffers, opt_state,
                 torch.as_tensor(np.asarray(batch.data), device=device),
@@ -483,13 +604,19 @@ class LocalOptimizer(Optimizer):
                 except Exception as e:
                     fetch_error = e
             loss_val = float(loss)  # the step's one synchronisation
+            if watchdog is not None:
+                # after the sync: the bracket spans the device's work,
+                # not only the launches
+                watchdog.step_finished()
             dt = time.perf_counter() - t0
+            self.metrics.add("computing time", dt)
             records_this_epoch += bs
             self.state["loss"] = loss_val
             self.state["throughput"] = bs / dt
             log.info("Epoch %d iteration %d: loss %.6f, throughput %.1f "
                      "records/s", self.state["epoch"], self.state["neval"],
                      loss_val, bs / dt)
+            epoch_of_step = self.state["epoch"]
             if records_this_epoch >= dataset_size:  # epoch rollover
                 self.state["epoch"] += 1
                 self.state["epoch_finished"] = True
@@ -500,9 +627,15 @@ class LocalOptimizer(Optimizer):
             self.state["records_processed"] = records_this_epoch
             self.model.params, self.model.buffers = params, buffers
             self.optim_method._state = opt_state
+            # the update advanced the counter: the rate it used is one back
+            self._record_train_summary(
+                loss_val, bs / dt, epoch_of_step,
+                int(opt_state.get("iteration", 1)) - 1)
             self.state["neval"] += 1
             self._maybe_validate()
             wrote = self._maybe_checkpoint()
+            if not wrote:
+                self._maybe_stall_checkpoint()
             if self._check_preemption():
                 if self.checkpoint_path is not None and not wrote:
                     self._checkpoint()
@@ -510,6 +643,7 @@ class LocalOptimizer(Optimizer):
                             self.state["neval"] - 1)
                 break
         log.info("training finished in %.1fs", time.perf_counter() - wall0)
+        log.info("phase breakdown: %s", self.metrics.summary())
         self.model.params, self.model.buffers = params, buffers
 
     def _validate(self):

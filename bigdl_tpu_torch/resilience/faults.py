@@ -30,8 +30,9 @@ Spec grammar (``;``-separated specs)::
            ms=50         latency kind: sleep duration
 
 Every fire adds one to the ``resilience/faults_injected`` registry
-counter and logs the spec.  (The reference also dumps a flight-recorder
-incident; the port's flight recorder is not written yet.)
+counter, logs the spec and raises a ``fault_injected`` flight incident
+(one bundle per site inside the recorder's dedup window, when the
+recorder is armed).
 """
 from __future__ import annotations
 
@@ -176,6 +177,15 @@ class FaultInjector:
         from bigdl_tpu_torch.obs import get_registry
         get_registry().counter("resilience/faults_injected").add(1)
         log.info("fault injected: %s at %s", spec.describe(), site)
+        # every fire is an incident candidate; the recorder's per-site
+        # dedup window collapses a chaos sweep to one bundle per site
+        try:
+            from bigdl_tpu_torch.obs import flight
+            flight.get_flight_recorder().record(
+                "fault_injected",
+                {"site": site, "spec": spec.describe()}, key=site)
+        except Exception:
+            log.exception("fault flight-recorder dump failed")
 
     def stats(self) -> dict:
         """Seen and fired counts, summed over specs that describe alike."""

@@ -52,9 +52,12 @@ capture runs nothing; another thread's launches meanwhile still count)
 and adds them on every replay, so a counter reads the launches the
 device ran.
 
-Not ported: the reference files each executable's cost and memory rows
-with the memory ledger (``obs/ledger``); that waits for the ledger's
-port (ROADMAP Queue 1 item 11.6).
+Each entry made (a captured graph on the card, the eager function on
+the CPU) files a row with the memory ledger under the cache's
+``ledger_tag`` (``MemoryLedger.record_compiled``): the owner's graph-pool
+bytes at that moment and no cost (no XLA cost analysis exists for a CUDA
+graph); an LRU eviction releases the row.  A pool's standing bytes are
+attributed once, by the engine that owns it, never per entry.
 """
 from __future__ import annotations
 
@@ -106,6 +109,16 @@ def _leaves(x):
 
 def _pack(leaves, x_was_dict: bool):
     return dict(leaves) if x_was_dict else leaves[0][1]
+
+
+def _ledger_row(tag: str, key: str, graphs: "GraphPool") -> None:
+    """File one made entry's row with the memory ledger (best effort: the
+    ledger never breaks a step)."""
+    try:
+        from bigdl_tpu_torch.obs.ledger import get_ledger
+        get_ledger().record_compiled(tag, key, graphs)
+    except Exception:
+        pass
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -277,18 +290,24 @@ class StepGraph:
     """One fixed-shape step (decode, a verify width, the tree commit):
     the reference's single executable, made on first use from that
     call's inputs and replayed from then on.  ``compiles`` is the
-    bounded-executables witness."""
+    bounded-executables witness.  With a ``name`` the step files its
+    memory-ledger row under ``(name, key)`` when made."""
 
-    def __init__(self, fn: Callable, graphs: GraphPool):
+    def __init__(self, fn: Callable, graphs: GraphPool, *,
+                 name: Optional[str] = None, key: str = "step"):
         self._fn = fn
         self._graphs = graphs
         self._entry = None
         self.compiles = 0
+        self.name = name
+        self._key = key
 
     def __call__(self, x):
         if self._entry is None:
             self._entry, out = self._graphs.make(self._fn, x)
             self.compiles += 1
+            if self.name is not None:
+                _ledger_row(self.name, self._key, self._graphs)
             return out
         return self._entry(x)
 
@@ -299,11 +318,13 @@ class CompileCache:
     ``params``/``buffers`` are the frozen model state (the same tensors
     every call, captured by address; only the params dtype tag is in
     the key); ``x`` is the padded input, one host array or a flat dict
-    of them, whose per-leaf (shape, dtype) keys the entry.
+    of them, whose per-leaf (shape, dtype) keys the entry.  ``name`` is
+    the memory-ledger tag of its rows (default: the function's name).
     """
 
     def __init__(self, fn: Callable, *, graphs: GraphPool,
-                 max_entries: int = 16):
+                 max_entries: int = 16, name: str = ""):
+        self.ledger_tag = name or getattr(fn, "__name__", "fn").lstrip("_")
         self._fn = fn
         self._graphs = graphs
         self._max_entries = max(1, int(max_entries))
@@ -320,14 +341,23 @@ class CompileCache:
         return (input_signature(x), params_dtype_tag(params),
                 params_compute_tag(params))
 
+    @staticmethod
+    def _ledger_key(key: Key) -> str:
+        # input signature + params dtype tag, as the reference's rows
+        return f"{key[0]}|{key[1]}"
+
     def _make(self, params, buffers, x):
         fn = self._fn
-        return self._graphs.make(lambda xs: fn(params, buffers, xs), x)
+        made = self._graphs.make(lambda xs: fn(params, buffers, xs), x)
+        _ledger_row(self.ledger_tag,
+                    self._ledger_key(self.key_for(x, params)), self._graphs)
+        return made
 
     def _admit(self, key: Key, entry: Callable, *, count: bool) -> bool:
         """Insert a freshly made entry under the LRU bound; returns
         whether it was new.  ``count`` toggles the miss counter (warmup
         provisioning is not traffic)."""
+        evicted = []
         with self._lock:
             if count:
                 self.misses += 1
@@ -336,8 +366,18 @@ class CompileCache:
                 self._entries[key] = entry
             self._entries.move_to_end(key)
             while len(self._entries) > self._max_entries:
-                self._entries.popitem(last=False)
+                evicted.append(self._entries.popitem(last=False)[0])
                 self.evictions += 1
+        if evicted:
+            # keep the ledger's executable table in step with the LRU
+            try:
+                from bigdl_tpu_torch.obs.ledger import get_ledger
+                led = get_ledger()
+                for k in evicted:
+                    led.release_executable(self.ledger_tag,
+                                           self._ledger_key(k))
+            except Exception:
+                pass
         return new
 
     def __call__(self, params, buffers, x):
@@ -385,4 +425,5 @@ class CompileCache:
                 "misses": self.misses,
                 "evictions": self.evictions,
                 "hit_rate": (self.hits / total) if total else None,
+                "ledger_tag": self.ledger_tag,
             }

@@ -38,8 +38,12 @@ class RequestExceedsPool(ValueError):
 def count_rejection() -> None:
     """Process-wide typed-shed accounting: every admission-seam shed
     adds one to ``serving/rejected_total``, on top of the engine's own
-    ``serving/lm/rejected``.  (The reference also feeds its flight
-    recorder's shed-burst trigger here, which the port does not have
-    yet.)"""
+    ``serving/lm/rejected``, and feeds the flight recorder's shed-burst
+    trigger (a no-op while the recorder is disarmed)."""
     from bigdl_tpu_torch.obs import get_registry
     get_registry().counter("serving/rejected_total", unit="requests").add(1)
+    try:
+        from bigdl_tpu_torch.obs import flight
+        flight.note_shed()
+    except Exception:
+        pass  # forensics must never turn a shed into a crash

@@ -24,10 +24,10 @@ by ``("session", request_id)``.
 Hit/miss/demote/promote counters and per-tier byte gauges publish into
 the registry under ``kvtier/<name>/``.  Every disk read verifies a CRC
 recorded at spill time; a corrupted or lost spill file is counted
-(``corrupt_reads``), logged, and reads as a miss, so a stream never gets
-wrong KV rows.  (The reference also raises a flight-recorder incident
-there and attributes host bytes to its memory ledger; neither is ported
-yet.)
+(``corrupt_reads``), logged, raises a ``kvtier_spill_corrupt`` flight
+incident, and reads as a miss, so a stream never gets wrong KV rows.
+The store's host residency and its cumulative promotion bytes are
+attributed to the memory ledger (subsystem ``kvtier``).
 
 The store moves host numpy arrays only, and never touches a device;
 every mutation holds the store lock, since stats are read from other
@@ -133,6 +133,27 @@ class HostBlockStore:
                 lambda read=read: (read(ref()) if ref() is not None
                                    else None)), replace=True)
         self._promote_s = 0.0    # cumulative promote host-read seconds
+        # memory-ledger attribution: host-tier residency and the
+        # cumulative promotion traffic the device side re-admitted
+        try:
+            from bigdl_tpu_torch.obs.ledger import get_ledger
+            led = get_ledger()
+
+            def _host_resident():
+                st = ref()
+                return st._host_used if st is not None else None
+
+            def _promoted():
+                st = ref()
+                return (int(st.promoted_bytes.get()[0])
+                        if st is not None else None)
+
+            led.register("kvtier", f"{name}/host_resident",
+                         _host_resident, note="host RAM tier payloads")
+            led.register("kvtier", f"{name}/promoted_bytes", _promoted,
+                         note="cumulative tier->device promotion traffic")
+        except Exception:
+            log.exception("memory-ledger registration failed")
 
     # -- demotion (pool -> host tier) ----------------------------------- #
     def put(self, key: tuple, payload: dict) -> None:
@@ -282,6 +303,15 @@ class HostBlockStore:
                     raise ValueError(f"CRC mismatch on {name!r}")
         except BaseException as e:  # noqa: BLE001 — lost OR corrupt
             self.corrupt_reads.add(1)
+            try:
+                from bigdl_tpu_torch.obs.flight import get_flight_recorder
+                get_flight_recorder().record(
+                    "kvtier_spill_corrupt",
+                    {"store": self.name, "path": entry.path,
+                     "key": repr(key), "error": repr(e)},
+                    key=f"kvtier/{self.name}")
+            except Exception:
+                log.exception("flight incident for corrupt spill failed")
             log.warning("kvtier spill read failed (%s): %r", entry.path, e)
             return None
         return payload

@@ -113,12 +113,20 @@ side by side while another captures.  The kernels' launches made by a
 worker are also counted per engine (:meth:`LMServingEngine.\
 kernel_launches`).
 
+Observability: the engine attributes its arenas, staged params,
+drafter arena and graph pool to the memory ledger
+(:mod:`bigdl_tpu_torch.obs.ledger`; released on :meth:`close`), defers
+an admission while the ledger reads the device past its watermark
+(one ``mem_pressure`` flight bundle), and registers its ``stats()`` and
+request ids with the flight recorder as ``lm_engine/<name>``.
+
 Not ported yet, and refused with ``NotImplementedError`` when asked
 for: ``placement`` (ROADMAP Queue 1 item 11.7).
 """
 from __future__ import annotations
 
 import copy
+import logging
 import threading
 import time
 import weakref
@@ -136,7 +144,7 @@ from bigdl_tpu_torch.models.transformer.generate import (
 from bigdl_tpu_torch.quant.transform import (params_dtype_tag,
                                              set_compute_mode)
 from bigdl_tpu_torch.serving.compile_cache import (CompileCache, GraphPool,
-                                                   StepGraph)
+                                                   StepGraph, _dtype_name)
 from bigdl_tpu_torch.obs import get_registry, get_tracer, mint_request_id
 from bigdl_tpu_torch.obs.registry import FnGauge, Histogram
 from bigdl_tpu_torch.ops import KERNELS
@@ -155,6 +163,8 @@ from bigdl_tpu_torch.serving.spec import (DraftModel, NgramDrafter,
                                           SpecConfig, SpecMetrics)
 from bigdl_tpu_torch.serving.spec.verify import accept_row, pick_token
 from bigdl_tpu_torch.utils import keychain
+
+log = logging.getLogger("bigdl_tpu_torch.serving")
 
 _tracer = get_tracer()
 
@@ -829,7 +839,8 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             return logits
 
         self.prefill_cache = CompileCache(
-            _prefill_fn, graphs=self.graphs, max_entries=max_cache_entries)
+            _prefill_fn, graphs=self.graphs, max_entries=max_cache_entries,
+            name=f"lm/{name}/prefill")
 
         def _prefix_prefill_fn(params, buffers, x):
             del buffers
@@ -842,14 +853,16 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
 
         self.prefix_prefill_cache = CompileCache(
             _prefix_prefill_fn, graphs=self.graphs,
-            max_entries=max_cache_entries)
+            max_entries=max_cache_entries, name=f"lm/{name}/prefix_prefill")
 
         def _decode_fn(x):
             return _decode_step_paged(
                 model, self._params, x["token"], x["pos"], x["tables"],
                 pool.k, pool.v, pool.ks, pool.vs, attn_impl=decode_attn)[0]
 
-        self._decode_exec = StepGraph(_decode_fn, self.graphs)
+        self._decode_exec = StepGraph(_decode_fn, self.graphs,
+                                      name=f"lm/{name}/decode",
+                                      key=f"slots={self.slots}")
 
         # -- speculation (draft-verify) --------------------------------- #
         self.spec = spec
@@ -897,7 +910,9 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                     _tree_commit_paged(x["src"], x["pos"], x["tables"],
                                        pool.k, pool.v, pool.ks, pool.vs)
 
-                self._commit_exec = StepGraph(_commit_fn, self.graphs)
+                self._commit_exec = StepGraph(
+                    _commit_fn, self.graphs, name=f"lm/{name}/commit",
+                    key=f"dmax={self._commit_dmax}")
 
         reg = get_registry()
         self.metrics = (metrics if metrics is not None
@@ -905,6 +920,7 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             reg, prefix=metrics_prefix)
         self.metrics.spec = self.spec_metrics
         self._publish_kv_metrics(reg)
+        self._ledger_keys = self._register_ledger()
         self._cv = threading.Condition()
         self._queue: deque = deque()
         self._adopt_q: deque = deque()       # KVHandoffs awaiting seats
@@ -952,6 +968,109 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         self._worker = threading.Thread(
             target=self._run, daemon=True, name=f"lm-serve-{name}")
         self._worker.start()
+        self._register_flight()
+
+    def _register_ledger(self) -> List[tuple]:
+        """Attribute this engine's device bytes to the memory ledger: the
+        KV arenas (and int8 scale arenas), the staged params, the
+        drafter's dense arena and, with capture on, the graph pool the
+        engine and its drafter share (its segments, once).  Rows and
+        dtype names are the reference's; providers hold the engine's
+        parts weakly; ``close`` releases the rows."""
+        keys: List[tuple] = []
+        try:
+            from bigdl_tpu_torch.obs.ledger import get_ledger
+            from bigdl_tpu_torch.quant.transform import params_nbytes
+            led = get_ledger()
+            name = self.name
+            pool_ref = weakref.ref(self.pool)
+
+            def _kv_bytes():
+                p = pool_ref()
+                return p.kv_arena_bytes if p is not None else None
+
+            keys.append(led.register(
+                "kvcache", f"{name}/kv_arena", _kv_bytes,
+                shape=self.pool.shape, dtype=_dtype_name(self.pool.k.dtype)))
+            if self.kv_quant is not None:
+                def _scale_bytes():
+                    p = pool_ref()
+                    return p.scale_arena_bytes if p is not None else None
+
+                keys.append(led.register(
+                    "kvcache", f"{name}/scale_arena", _scale_bytes,
+                    shape=self.pool.shape[:4], dtype="float32"))
+            keys.append(led.register(
+                "params", f"{name}/staged", params_nbytes(self._params),
+                note=f"quant={params_dtype_tag(self._params)}"))
+            if self.draft is not None and \
+                    getattr(self.draft, "k", None) is not None:
+                # (the n-gram drafter has no arena)
+                draft_ref = weakref.ref(self.draft)
+
+                def _draft_bytes():
+                    d = draft_ref()
+                    return d.arena_bytes if d is not None else None
+
+                keys.append(led.register(
+                    "spec", f"{name}/draft_arena", _draft_bytes,
+                    shape=tuple(self.draft.k.shape),
+                    dtype=_dtype_name(self.draft.k.dtype)))
+            if self.graphs.capture:
+                graphs_ref = weakref.ref(self.graphs)
+
+                def _pool_bytes():
+                    g = graphs_ref()
+                    return g.pool_bytes() if g is not None else None
+
+                keys.append(led.register(
+                    "graphs", f"{name}/graph_pool", _pool_bytes,
+                    note="CUDA-graph pool of the engine and its drafter"))
+        except Exception:
+            log.exception("memory-ledger registration failed")
+        return keys
+
+    def _register_flight(self) -> None:
+        """Incident bundles carry this engine's ``stats()`` and its
+        queued and seated request ids, under ``lm_engine/<name>``; both
+        read host state only and hold the engine weakly.  Neither waits
+        for the scheduler's lock, which ``warmup()`` holds through its
+        captures: a dump on another engine's worker would stall that
+        worker for the whole warmup.  A held lock reads as busy."""
+        try:
+            from bigdl_tpu_torch.obs import flight
+            ref = weakref.ref(self)
+            busy = "busy: the scheduler's lock is held (warmup or a round)"
+
+            def _flight_state():
+                eng = ref()
+                if eng is None:
+                    return None
+                if not eng._cv.acquire(timeout=0.05):
+                    return busy
+                try:
+                    return eng.stats()
+                finally:
+                    eng._cv.release()
+
+            def _flight_requests():
+                eng = ref()
+                if eng is None:
+                    return []
+                if not eng._cv.acquire(timeout=0.05):
+                    return [busy]
+                try:
+                    rids = [r.rid for r in eng._queue]
+                    rids += [st.rid for st in eng._slots if st is not None]
+                finally:
+                    eng._cv.release()
+                return rids
+
+            flight.register_state(f"lm_engine/{self.name}", _flight_state)
+            flight.register_requests(f"lm_engine/{self.name}",
+                                     _flight_requests)
+        except Exception:
+            log.exception("flight-recorder registration failed")
 
     def _publish_kv_metrics(self, registry) -> None:
         """The KV plane's gauges.  Each reads host state only (the free
@@ -1008,7 +1127,9 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                     model, self._params, x["tokens"], x["pos"], x["ncand"],
                     x["tables"], pool.k, pool.v, pool.ks, pool.vs)[0]
 
-            return [StepGraph(_verify_fn, self.graphs)]
+            return [StepGraph(_verify_fn, self.graphs,
+                              name=f"lm/{self.name}/verify",
+                              key=f"k={spec.k}")]
         self._tree_shapes = list(spec.shapes)
         steps = []
         for shp in self._tree_shapes:
@@ -1023,7 +1144,9 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                     x["tables"], pool.k, pool.v, pool.ks, pool.vs,
                     depths=depths, anc=anc)[0]
 
-            steps.append(StepGraph(_tree_fn, self.graphs))
+            steps.append(StepGraph(_tree_fn, self.graphs,
+                                   name=f"lm/{self.name}/verify",
+                                   key=f"rung={len(steps)}"))
         return steps
 
     @property
@@ -1604,10 +1727,30 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             if freed:
                 self._cv.notify_all()
 
+    def _mem_pressure_deferred(self) -> bool:
+        """The byte-level admission gate: past the memory ledger's
+        watermark, defer the admission exactly like pool pressure, and
+        let the ledger dump ONE ``mem_pressure`` bundle while the
+        attribution table can still be written."""
+        try:
+            from bigdl_tpu_torch.obs.ledger import get_ledger
+            led = get_ledger()
+            if led.over_watermark(self.device):
+                led.check_pressure(
+                    self.device,
+                    context={"site": f"lm_admission/{self.name}"})
+                return True
+        except Exception:
+            pass
+        return False
+
     def _admit(self, slot: int, req: _Request) -> bool:
         """Prefill + insert one request into ``slot``.  Returns False
         (defer) when the pool can't supply its blocks right now, even
-        after evicting unreferenced radix tails."""
+        after evicting unreferenced radix tails, or when the memory
+        ledger reads the device past its watermark."""
+        if self._mem_pressure_deferred():
+            return False
         t = req.prompt0.shape[0]
         need_total = self.pool.blocks_for(t + req.max_new)
         matched: List[int] = []
@@ -2695,6 +2838,15 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             self._worker.join(5.0)
             self._fail_all(ServingClosed("engine closed before "
                                          "completion"))
+        # drop this engine's ledger rows (the weakref providers would go
+        # stale anyway; releasing keeps the table clean)
+        try:
+            from bigdl_tpu_torch.obs.ledger import get_ledger
+            led = get_ledger()
+            for sub, nm in self._ledger_keys:
+                led.release(sub, nm)
+        except Exception:
+            pass
 
     def __enter__(self) -> "LMServingEngine":
         return self

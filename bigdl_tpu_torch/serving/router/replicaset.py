@@ -24,8 +24,8 @@ it elsewhere, and the session is repointed.
 
 On one card the replicas are engines of one process sharing the model's
 parameter tensors, each with its own arenas, graph pool and worker
-stream.  The reference's flight-recorder hookup waits for ROADMAP Queue
-1 item 11.6.
+stream.  Flight bundles carry the set's ``stats()`` (circuit states,
+router, sessions) as ``lm_replicaset``, beside each engine's own.
 """
 from __future__ import annotations
 
@@ -172,6 +172,19 @@ class LMReplicaSet(ReplicaSetCore):
         self.max_new_tokens = self._replicas[0].engine.max_new_tokens
         self._publish_open_circuits()
         self._publish_replica_count()
+        try:
+            import weakref
+
+            from bigdl_tpu_torch.obs import flight
+            wself = weakref.ref(self)
+
+            def _flight_state():
+                rs = wself()
+                return rs.stats() if rs is not None else None
+
+            flight.register_state("lm_replicaset", _flight_state)
+        except Exception:
+            log.exception("flight-recorder registration failed")
 
     # -- replica selection ----------------------------------------------- #
     def _policy(self, healthy, ctx):

@@ -139,14 +139,17 @@ class DraftModel:
             _insert_slot_dense(k, v, kn, vn, x["slot"])
 
         self.prefill_cache = CompileCache(
-            _prefill_fn, graphs=self.graphs, max_entries=max_cache_entries)
+            _prefill_fn, graphs=self.graphs, max_entries=max_cache_entries,
+            name="draft/insert")
 
         def _decode_fn(x):
             logits, _, _ = _decode_step_slots(model, self._params, x["token"],
                                               x["pos"], k, v)
             return logits
 
-        self._decode_exec = StepGraph(_decode_fn, self.graphs)
+        self._decode_exec = StepGraph(_decode_fn, self.graphs,
+                                      name="draft/decode",
+                                      key=f"slots={self.slots}")
         self._st: List[Optional[_DraftSlot]] = [None] * self.slots
 
     @property

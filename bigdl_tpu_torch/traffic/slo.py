@@ -14,9 +14,11 @@ bound, typed sheds counted in ``serving/rejected_total``).
 ``cool_streak`` ticks under target walk back: admission first, capacity
 last, and never while the shed window still saw sheds.  :meth:`tick` is
 one pure read-decide-actuate step (tests drive it by hand);
-:meth:`start`/:meth:`stop` run it on a daemon thread.  The reference's
-``ledger=`` (no scale-up past the memory ledger's watermark) waits for
-the ledger's port (ROADMAP Queue 1 item 11.6).
+:meth:`start`/:meth:`stop` run it on a daemon thread.  With ``ledger=``
+a tick that would scale up first asks the memory ledger: past its
+watermark the controller refuses to add capacity and falls through to
+admission control.  :func:`detect_knee` finds the saturation knee of a
+goodput-vs-offered-load sweep.
 """
 from __future__ import annotations
 
@@ -47,6 +49,12 @@ class SLOController:
             ticks before acting (cool slower than hot on purpose).
         start_level: initial index into ``admission_levels``; a non-zero
             one is applied at once.
+        ledger: optional :class:`~bigdl_tpu_torch.obs.ledger.MemoryLedger`
+            (or anything with ``over_watermark() -> bool``): past its
+            ``BIGDL_TPU_MEM_WATERMARK`` the controller refuses to scale
+            up (new slots or replicas would hasten an out-of-memory
+            error) and moves on to admission; a later cool window
+            re-arms scaling as usual.
         rejections: a callable returning the cumulative shed count; while
             the shed window saw sheds, the controller holds instead of
             relaxing (a healthy p99 under a shut gate is the gate
@@ -65,6 +73,7 @@ class SLOController:
                  hot_streak: int = 2,
                  cool_streak: int = 4,
                  start_level: int = 0,
+                 ledger=None,
                  rejections: Optional[Callable[[], float]] = None,
                  shed_free_intervals: Optional[int] = None):
         if target_p99_s <= 0:
@@ -80,6 +89,7 @@ class SLOController:
         self.admission_levels = [int(v) for v in admission_levels]
         self.hot_streak = int(hot_streak)
         self.cool_streak = int(cool_streak)
+        self.ledger = ledger
 
         self.rejections = rejections
         self._snaps: deque = deque(maxlen=window_intervals + 1)
@@ -139,11 +149,26 @@ class SLOController:
             self.actions.append(out)
         return out
 
+    def _mem_denied(self) -> bool:
+        """True when the memory ledger reads the device past its
+        watermark: adding capacity under byte pressure trades a latency
+        miss for an out-of-memory error."""
+        if self.ledger is None:
+            return False
+        try:
+            return bool(self.ledger.over_watermark())
+        except Exception:
+            return False
+
     def _tighten(self) -> str:
         if not self._scaling_exhausted and self.scale_up is not None:
-            if self.scale_up():
+            if self._mem_denied():
+                # refused on memory: the admission ladder takes over
+                self._scaling_exhausted = True
+            elif self.scale_up():
                 return "scale_up"
-            self._scaling_exhausted = True  # fall through to admission
+            else:
+                self._scaling_exhausted = True  # fall through to admission
         if self.set_admission is not None and \
                 self._level < len(self.admission_levels) - 1:
             self._level += 1
@@ -206,3 +231,35 @@ class SLOController:
                 "admission_value": (self.admission_levels[self._level]
                                     if self.admission_levels else None),
                 "scaling_exhausted": self._scaling_exhausted}
+
+
+def detect_knee(rows: Sequence[dict], *,
+                offered_key: str = "offered_rps",
+                goodput_key: str = "goodput_rps",
+                efficiency: float = 0.85) -> dict:
+    """Find the saturation knee in a goodput-vs-offered-load curve.
+
+    Below the knee the server keeps up: goodput tracks offered load
+    (within ``efficiency``).  The knee is the LAST load point where
+    ``goodput >= efficiency * offered``; everything past it is the
+    saturated regime where extra offered load buys sheds, not goodput.
+    Returns ``{knee_rps, peak_goodput_rps, saturated}`` —
+    ``saturated`` is True only if the sweep actually drove past the
+    knee (a curve that never bends just wasn't pushed hard enough).
+    """
+    pts = sorted(
+        ((float(r[offered_key]), float(r[goodput_key])) for r in rows
+         if r.get(offered_key) is not None
+         and r.get(goodput_key) is not None),
+        key=lambda p: p[0])
+    if not pts:
+        return {"knee_rps": None, "peak_goodput_rps": None,
+                "saturated": False}
+    knee = None
+    for off, good in pts:
+        if good >= efficiency * off:
+            knee = off
+    peak = max(g for _, g in pts)
+    return {"knee_rps": knee,
+            "peak_goodput_rps": peak,
+            "saturated": knee is not None and knee < pts[-1][0]}

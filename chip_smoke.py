@@ -154,7 +154,42 @@ result line:
 14. gpt2: a GPT-2-small state dict with Hugging Face's names from seed
    0, torch.save'd, imported and decoded by the port's
    ``example/gpt2_import.py --checkpoint`` (16 tokens), held against
-   offline generate on plain attention; export then import bitwise.
+   offline generate on plain attention; export then import bitwise;
+15. obs: observability, traffic and train summaries on the serve cell's
+   model and engine (graphs on, warmed), after ``release``, the memory
+   ledger a fresh one, every bundle and incident file in a temporary
+   directory.  O1: open-loop poisson traces (3 s, prompts of 17, 64,
+   200, 511 tokens, 16, 32 or 64 new, deadlines 1 s, 2 s or none) at 4,
+   8, 16, 32 and 64 requests/s, doubled on until ``detect_knee`` reports
+   saturation, the time-series sampler at 0.1 s; each rate's row
+   (offered, accepted, shed, completed, good, goodput, TTFT p50/p99,
+   agreement), the knee; every completed stream at or below the knee,
+   and a seeded 16 above it, equal to offline generate, truncated ones
+   its prefixes, no accepted request lost.  O2: ``reconcile()`` against
+   the CUDA allocator (verdict ``reconciled``), the KV arenas' and the
+   staged params' exact bytes, the drift split into the allocator's
+   cache and unregistered live tensors; a budget the card crosses defers
+   4 admissions and dumps one ``mem_pressure`` bundle with the table;
+   lifted, the 4 streams equal offline generate.  O3: a ChaosReplayer
+   schedule (``build_schedule`` over an incident log mapping to
+   ``serving.verify`` and ``serving.enqueue``) over a poisson trace at
+   half the knee on a k = 4 speculative engine, tracer on: no accepted
+   loss, every stream exact, one bundle per site with spans, a
+   time-series window, the engine's state and requests and
+   ``diagnose_cuda``.  O4: 6 Adam steps on the train batch with
+   TensorBoard summaries (Loss, Throughput, LearningRate each step,
+   Parameters and a validation every 3), the 5th update sleeping past a
+   1.5 s watchdog deadline: one stall bundle, an emergency pair at
+   iteration 5 bitwise the run's weights there, the Loss scalars equal
+   the loop's, one histogram per leaf per Parameters step, and the ms of
+   a scalar step and of a Parameters record.  O5: Adam raising inside
+   its 3rd update after staging one leaf: the emergency pair is
+   iteration 2, resume and finish within C1's tolerances; the step and
+   peak with staged updates beside the in-place update, twice each, and
+   the train phase's.  Launches: O1 and O2 both serving kernels, O3 the
+   flash forward (its decode rounds are verify rounds), O4 and O5 the
+   three flash kernels exactly 12 a step (O4's forward also 12 a
+   validation).
 
 Every serving engine must keep its captures bounded: prefill entries at
 most the buckets, one decode graph, one verify graph (one per tree
@@ -264,6 +299,26 @@ ACCUM_MICRO = (2, 4)  # the accum phase's micro-batches a step, beside 1
 CKPT = dict(rows=16, batch=4, steps=5, every=2, crash_at=4, sigterm_at=3,
             generate=8, tol_param=1e-5)
 GPT2 = dict(seed=0, prompt="464,3290,318", new_tokens=16)
+# the obs phase.  O1: 3 s poisson traces of the serve cell's model at
+# rising rates (extended by doubling up to max_rate until the knee
+# saturates), the sampler at 0.1 s, a seeded sample of 16 streams checked
+# above the knee; O2: the arenas' and staged params' exact bytes (2 x 12
+# layers x 769 blocks x 16 x 12 heads x 64 x 4; quant_report's
+# 497,759,232), 4 requests held past the watermark for defer_s; O3: an
+# incident log whose stages map to serving.verify ("lm") and
+# serving.enqueue (a clean exit), 0.3 s apart, scheduled over 3 s at half
+# the knee on a k = 4 speculative engine; O4: 6 Adam steps, Parameters
+# and validation every 3, the 5th update sleeping 4 s past a 1.5 s
+# watchdog deadline; O5: a failure inside the 3rd update of 1 + 3 steps
+OBS = dict(duration_s=3.0, rates=(4, 8, 16, 32, 64), max_rate=1024,
+           sample_s=0.1, vocab=GPT2_SMALL["vocab_size"],
+           prompt_lens=(17, 64, 200, 511), max_news=(16, 32, 64),
+           deadline_menu=(1.0, 2.0, None), agreement_sample=16,
+           kv_arena_bytes=907_149_312, params_bytes=497_759_232,
+           pressure_requests=4, prompt_seed=3, defer_s=1.0,
+           chaos_stages=(("lm", 124), ("profile", 0)), chaos_gap_s=0.3,
+           chaos_seed=0, chaos_trace_seed=100, chaos_k=4, steps=6, params_every=3, stall_at=5,
+           stall_s=4.0, watchdog_deadline_s=1.5, fail_at=3, o5_steps=3)
 
 
 def log(msg: str) -> None:
@@ -3099,6 +3154,790 @@ def phase_gpt2(dev, config=GPT2_SMALL, gpt2=GPT2):
 
 
 # --------------------------------------------------------------------------- #
+def _obs_adam_classes():
+    """Adam subclasses for O4 and O5 (defined late: importing the port's
+    optim at module level would import torch before the device check)."""
+    from bigdl_tpu_torch.optim import Adam
+
+    class SleepyAdam(Adam):
+        """Adam whose ``at``-th update sleeps ``s`` seconds while staging:
+        inside the loop's step bracket, past the watchdog's deadline."""
+
+        def __init__(self, at, s, **kw):
+            super().__init__(**kw)
+            self.at, self.s, self.updates = at, s, 0
+
+        def stage(self, grads, state, params, epoch=1):
+            self.updates += 1
+            if self.updates == self.at:
+                time.sleep(self.s)
+            return super().stage(grads, state, params, epoch)
+
+    class FailingAdam(Adam):
+        """Adam whose ``fail_at``-th update raises after staging one leaf
+        (``fail_at`` None: never)."""
+
+        def __init__(self, fail_at=None, **kw):
+            super().__init__(**kw)
+            self.fail_at, self.updates, self.staged_leaves = fail_at, 0, 0
+
+        def stage(self, grads, state, params, epoch=1):
+            self.updates += 1
+            self.staged_leaves = 0
+            return super().stage(grads, state, params, epoch)
+
+        def _post_step(self, w_new, w_old, lr):
+            self.staged_leaves += 1
+            if self.updates == self.fail_at and self.staged_leaves == 2:
+                raise RuntimeError("injected failure inside update")
+            return super()._post_step(w_new, w_old, lr)
+
+    class InPlaceAdam(Adam):
+        """The update before stage-then-commit: each leaf's moments and
+        weight overwritten in place as the loop walks them (a user's
+        in-place method to the loop).  Timed beside the staged update."""
+
+        def update(self, grads, state, params, epoch=1):
+            import torch
+            from bigdl_tpu_torch.utils.params import tree_leaves
+            with torch.no_grad():
+                lr = self.current_rate(state, epoch)
+                t = state["iteration"] + 1
+                b1, b2 = self.beta1, self.beta2
+                bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+                for w, g, m, v in zip(tree_leaves(params),
+                                      tree_leaves(grads),
+                                      tree_leaves(state["m"]),
+                                      tree_leaves(state["v"])):
+                    g = self._decayed(g, w)
+                    m.mul_(b1).add_((1 - b1) * g)
+                    v.mul_(b2).add_((1 - b2) * g * g)
+                    w_new = w - lr * (m / bc1) / (torch.sqrt(v / bc2)
+                                                  + self.eps)
+                    w.copy_(self._post_step(w_new, w, lr))
+                state["iteration"] = t
+            return params, state
+
+    return SleepyAdam, FailingAdam, InPlaceAdam
+
+
+def obs_prompts(obs, n):
+    """``n`` seeded prompts, their lengths cycling ``obs["prompt_lens"]``
+    (O2's requests, O3's tail traffic)."""
+    import numpy as np
+    rng = np.random.RandomState(obs["prompt_seed"])
+    lens = obs["prompt_lens"]
+    return [rng.randint(1, obs["vocab"] + 1, size=lens[i % len(lens)])
+            .astype(np.int32) for i in range(n)]
+
+
+def _pct_ms(values, q):
+    import numpy as np
+    return float(np.percentile(values, q)) * 1e3 if values else None
+
+
+def _flight_recorder(root, name):
+    """The process-wide flight recorder armed into a directory of
+    ``root`` (bundles and incident log both), and the recorder it
+    replaced."""
+    from bigdl_tpu_torch.obs import flight
+    old = flight.get_flight_recorder()
+    d = os.path.join(root, name)
+    rec = flight.configure(enabled=True, out_dir=d,
+                           incidents_path=os.path.join(d, "INCIDENTS.json"))
+    return rec, old
+
+
+def _bundles(rec):
+    import glob
+    return [json.load(open(p)) for p in
+            sorted(glob.glob(os.path.join(rec.out_dir, "FLIGHT_*.json")))]
+
+
+def obs_load_point(engine, gen):
+    """One open-loop load point (the reference's lifecycle row): replay
+    the trace, drain every accepted stream, and sort them into
+    completed, truncated, typed shed and lost; ``good`` = completed
+    inside its deadline.  Streams are kept for the agreement check."""
+    import numpy as np
+    from bigdl_tpu_torch.serving import ServingDeadlineExceeded
+    t0 = time.perf_counter()
+    report = gen.run(lambda a: engine.submit(
+        a.prompt, max_new_tokens=a.max_new, deadline_s=a.deadline_s))
+    done, truncated, shed_after, lost = [], [], 0, []
+    good, ttfts = 0, []
+    for a, st in report.accepted:
+        try:
+            st.result(timeout=600)
+        except ServingDeadlineExceeded:
+            shed_after += 1
+            continue
+        except Exception as e:  # noqa: BLE001 - a loss is data here
+            lost.append((a.index, repr(e)))
+            continue
+        if st.truncation is not None:
+            truncated.append((a, st.generated.copy()))
+            continue
+        done.append((a, st.generated.copy()))
+        ttfts.append(st.ttft_s)
+        lat = st.finished_at - st.submitted_at
+        if a.deadline_s is None or lat <= a.deadline_s:
+            good += 1
+    wall = time.perf_counter() - t0
+    s = report.summary()
+    return dict(rate_rps=gen.rate_rps, offered=report.offered,
+                offered_rps=s["offered_rps"], accepted=len(report.accepted),
+                shed=len(report.shed), submit_errors=len(report.errors),
+                completed=len(done), truncated=len(truncated),
+                shed_after_admission=shed_after, accepted_loss=len(lost),
+                lost=lost, good=good, wall_s=wall,
+                goodput_rps=good / wall if wall > 0 else None,
+                ttft_p50_ms=_pct_ms(ttfts, 50), ttft_p99_ms=_pct_ms(ttfts, 99),
+                streams=done, truncated_streams=truncated)
+
+
+def obs_agreement(row, oracle, sample=None, seed=0):
+    """Completed streams (all, or a seeded sample of ``sample``) against
+    offline generate at batch 1; truncated ones as prefixes.  Returns
+    (checked, agreeing, ties)."""
+    import numpy as np
+    streams = list(row["streams"])
+    if sample is not None and len(streams) > sample:
+        pick = np.random.RandomState(seed).choice(len(streams), sample,
+                                                  replace=False)
+        streams = [streams[i] for i in sorted(pick)]
+    checked = agree = 0
+    ties = []
+    for a, gen in streams:
+        checked += 1
+        tie = oracle.check(a.prompt, np.concatenate([a.prompt, gen]),
+                           a.max_new)
+        agree += 1
+        if tie is not None:
+            ties.append(tie)
+    for a, gen in (row["truncated_streams"] if sample is None else []):
+        checked += 1
+        want = oracle.stream(a.prompt, a.max_new)[len(a.prompt):]
+        if not np.array_equal(gen, want[:len(gen)]):
+            raise AssertionError(f"O1: a truncated stream of {len(gen)} "
+                                 "tokens is not a prefix of offline "
+                                 "generate's")
+        agree += 1
+    return checked, agree, ties
+
+
+def phase_obs(dev, config=GPT2_SMALL, serve=SERVE, train=TRAIN, obs=None,
+              ckpt=CKPT, train_ref=None, oracle=None):
+    """O1-O5 (see the module docstring): the load sweep and its knee, the
+    memory ledger and its admission gate, chaos over a speculative
+    engine, train summaries with the watchdog's escalation, and the
+    emergency checkpoint after a failure inside the update.  Every
+    bundle and incident file goes to a temporary directory, removed at
+    the end.  Returns each part's numbers and launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.obs import (MemoryLedger, TimeSeriesSampler,
+                                     get_registry, get_tracer, set_ledger,
+                                     set_sampler)
+    from bigdl_tpu_torch.obs import flight
+    from bigdl_tpu_torch.traffic import (ChaosReplayer, TraceLoadGenerator,
+                                         append_incident, build_schedule,
+                                         detect_knee)
+    obs = dict(OBS, **(obs or {}))
+    release(dev)
+    root = tempfile.mkdtemp(prefix="obs_")
+    led = MemoryLedger()
+    old_ledger = set_ledger(led)
+    sampler = TimeSeriesSampler(get_registry(), interval_s=obs["sample_s"],
+                                capacity=4096)
+    old_sampler = set_sampler(sampler)
+    old_rec = flight.get_flight_recorder()
+    out = {}
+    model = engine = None
+    try:
+        model = build_lm(dev, config, serve["seed"])
+        oracle = oracle or Oracle(dev, config, serve["seed"])
+        # the oracle's weights are a second copy on the card: attributed,
+        # so the drift is the allocator's slack and nothing else's
+        if dev.type == "cuda":
+            from bigdl_tpu_torch.quant.transform import params_nbytes
+            led.register("params", "oracle/plain_model",
+                         params_nbytes(oracle.model.params),
+                         note="offline generate's plain-attention copy")
+        sampler.start()
+        before = led.reconcile(dev)
+        engine = make_engine(model, dev, serve, name="obs")
+        t0 = time.perf_counter()
+        engine.warmup()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        captures = engine.graphs.stats()["captures"]
+        warm = led.reconcile(dev)
+        log(f"[obs] engine warm in {time.perf_counter() - t0:.2f} s, "
+            f"{captures} captures; drift before the engine "
+            f"{before['drift_bytes']}, after its warmup "
+            f"{warm['drift_bytes']} bytes")
+        out["o1"] = obs_sweep(engine, oracle, obs, config["vocab_size"])
+        if engine.graphs.stats()["captures"] != captures:
+            raise AssertionError(f"O1: {engine.graphs.stats()['captures']} "
+                                 f"captures after the sweep, {captures} "
+                                 "after warmup")
+        out["o2"] = obs_ledger(dev, engine, led, oracle, obs, serve, root,
+                               before, warm)
+        engine.close()
+        engine = None
+        ws = _cublas_workspace_bytes(dev)
+        out["o2"]["cublas_workspace_bytes"] = ws
+        log(f"[obs] O2 cuBLAS workspaces held while the engine served "
+            f"(freed after it closed): {ws} bytes, of the "
+            f"{out['o2']['remainder'].get('unregistered_live')} unregistered "
+            f"live bytes")
+        release(dev)
+        out["o3"] = obs_chaos(dev, model, oracle, obs, serve, root,
+                              out["o1"]["knee"]["knee_rps"],
+                              config["vocab_size"])
+        del model
+        model = None
+        sampler.stop()
+        release(dev)
+        out["o4"] = obs_train(dev, config, train, obs, root)
+        release(dev)
+        out["o5"] = obs_update_failure(dev, config, train, obs, ckpt, root,
+                                       train_ref)
+    finally:
+        if engine is not None:
+            engine.close()
+        sampler.stop()
+        set_sampler(old_sampler)
+        set_ledger(old_ledger)
+        flight._GLOBAL = old_rec
+        get_tracer().disable()
+        shutil.rmtree(root, ignore_errors=True)
+        release(dev)
+    return out
+
+
+def obs_sweep(engine, oracle, obs, vocab):
+    """O1: open-loop poisson traces at rising rates until the knee
+    saturates; every completed stream at or below the knee (and a
+    seeded sample of 16 above it) held against offline generate."""
+    from bigdl_tpu_torch.traffic import TraceLoadGenerator, detect_knee
+    rows, rates = [], list(obs["rates"])
+    while True:
+        rate = rates.pop(0)
+        # a seed a rate: the same seed at two rates draws the same
+        # prompts, and a repeat is a radix hit no warmup covered
+        gen = TraceLoadGenerator(
+            kind="poisson", rate_rps=rate, duration_s=obs["duration_s"],
+            seed=len(rows), vocab=vocab,
+            prompt_lens=obs["prompt_lens"], max_news=obs["max_news"],
+            deadline_menu=obs["deadline_menu"])
+        _reset_launches()
+        row = obs_load_point(engine, gen)
+        row["launches"] = _launches()
+        if row["accepted_loss"]:
+            raise AssertionError(f"O1 at {rate} rps: accepted requests "
+                                 f"lost: {row['lost'][:3]}")
+        rows.append(row)
+        log(f"[obs] O1 {rate} rps: offered {row['offered']} "
+            f"({row['offered_rps']} rps), accepted {row['accepted']}, shed "
+            f"{row['shed']} + {row['shed_after_admission']} after admission, "
+            f"completed {row['completed']}, truncated {row['truncated']}, "
+            f"good {row['good']}, goodput {row['goodput_rps']:.3f} rps, "
+            f"TTFT p50 {row['ttft_p50_ms']} ms p99 {row['ttft_p99_ms']} ms, "
+            f"wall {row['wall_s']:.2f} s")
+        knee = detect_knee(rows)
+        if not rates:
+            if knee["saturated"] or rate * 2 > obs["max_rate"]:
+                break
+            rates.append(rate * 2)
+    if not knee["saturated"]:
+        raise AssertionError(f"O1: no saturation up to {rows[-1]['rate_rps']}"
+                             f" rps: {knee}")
+    ties_all = []
+    for row in rows:
+        above = row["offered_rps"] > knee["knee_rps"]
+        checked, agree, ties = obs_agreement(
+            row, oracle, sample=obs["agreement_sample"] if above else None,
+            seed=int(row["rate_rps"]))
+        row["agreement"] = agree / checked if checked else None
+        row["checked"] = checked
+        ties_all += ties
+        if checked and agree != checked:
+            raise AssertionError(f"O1 at {row['rate_rps']} rps: agreement "
+                                 f"{agree}/{checked}")
+    launches = {}
+    for row in rows:
+        for k, v in row.pop("launches").items():
+            launches[k] = launches.get(k, 0) + v
+        row.pop("streams")
+        row.pop("truncated_streams")
+    log(f"[obs] O1 knee {knee}; agreement "
+        f"{[(r['rate_rps'], r['checked'], r['agreement']) for r in rows]}; "
+        f"ties {ties_all}")
+    return dict(rows=rows, knee=knee, launches=launches, ties=ties_all,
+                checks=[("obs O1 (load sweep) path", launches,
+                         ("bigdl_flash_fwd", "bigdl_paged_decode"), None)])
+
+
+def obs_ledger(dev, engine, led, oracle, obs, serve, root, before, warm):
+    """O2: the ledger against the allocator before the engine
+    (``before``), after its warmup (``warm``) and after the sweep, then
+    with the allocator's cache emptied, the drift split into cache and
+    unregistered live tensors; then the byte-level admission gate: a
+    budget the card already crosses defers 4 requests and dumps one
+    mem_pressure bundle; lifting it admits them, streams exact."""
+    import numpy as np
+    import torch
+    swept = led.reconcile(dev)
+    if dev.type == "cuda":
+        # cached free segments go back to the device (the graph pool is
+        # private and stays)
+        torch.cuda.empty_cache()
+    rec = led.reconcile(dev)
+    attr = led.attribution()
+    rows = {r["name"]: r for r in led.entries()}
+    kv = rows["obs/kv_arena"]["nbytes"]
+    params = rows["obs/staged"]["nbytes"]
+    if kv != obs["kv_arena_bytes"] or params != obs["params_bytes"]:
+        raise AssertionError(f"O2: kv arena {kv} / params {params} bytes, "
+                             f"not {obs['kv_arena_bytes']} / "
+                             f"{obs['params_bytes']}")
+    if dev.type == "cuda" and rec["verdict"] != "reconciled":
+        raise AssertionError(f"O2: verdict {rec['verdict']} on the card")
+    remainder = {}
+    if rec["backend_bytes_in_use"] is not None:
+        # drift = the allocator's cached free bytes outside the graph
+        # pool + live tensors outside it that nobody registered (the
+        # pool's segments count whole on both sides)
+        pool = attr.get("graphs", 0)
+        live_outside = rec["backend_allocated_bytes"] - _pool_live_bytes(
+            engine)
+        remainder = {
+            "allocator_cache": rec["backend_bytes_in_use"] - pool
+            - live_outside,
+            "unregistered_live": live_outside
+            - (rec["ledger_bytes"] - pool)}
+    log(f"[obs] O2 drift before the engine {before['drift_bytes']}, after "
+        f"warmup {warm['drift_bytes']}, after the sweep "
+        f"{swept['drift_bytes']} bytes; with the cache emptied: "
+        f"ledger {rec['ledger_bytes']} bytes, backend "
+        f"in use (allocator reserved) {rec['backend_bytes_in_use']}, drift "
+        f"{rec['drift_bytes']} ({rec['verdict']}); allocated "
+        f"{rec.get('backend_allocated_bytes')}, device used "
+        f"{rec.get('backend_device_used_bytes')}, limit "
+        f"{rec.get('backend_bytes_limit')}; attribution {attr}; kv arena "
+        f"{kv}, params {params}; remainder {remainder}")
+    rec_f, _ = _flight_recorder(root, "o2")
+    prompts = obs_prompts(obs, obs["pressure_requests"])
+    try:
+        led.budget_bytes = max(1, int(led.backend_stats(dev)["bytes_in_use"])
+                               if dev.type == "cuda" else 1)
+        _reset_launches()
+        streams = [engine.submit(p, max_new_tokens=serve["max_new"])
+                   for p in prompts]
+        t0 = time.perf_counter()
+        while rec_f.bundles_written < 1 and time.perf_counter() - t0 < 30:
+            time.sleep(0.01)
+        time.sleep(obs["defer_s"])
+        deferred = sum(not s.done() for s in streams)
+        started = sum(s.first_token_at is not None for s in streams)
+        bundles = _bundles(rec_f)
+        led.budget_bytes = None
+        results = [s.result(timeout=600) for s in streams]
+        launches = _launches()
+    finally:
+        led.budget_bytes = None
+    kinds = [b["flight"] for b in bundles]
+    if deferred != len(prompts) or started or kinds != ["mem_pressure"]:
+        raise AssertionError(f"O2: {deferred} of {len(prompts)} deferred, "
+                             f"{started} started, bundles {kinds}")
+    table = bundles[0]["detail"]["table"]
+    if not {"obs/kv_arena", "obs/staged"} <= {r["name"] for r in table}:
+        raise AssertionError("O2: the mem_pressure bundle lacks the table")
+    ties = check_streams("obs O2", oracle, prompts, results, serve["max_new"])
+    log(f"[obs] O2 gate: {deferred} of {len(prompts)} admissions deferred "
+        f"past the watermark, one mem_pressure bundle "
+        f"(used_fraction {bundles[0]['detail']['used_fraction']}, "
+        f"{len(table)} table rows); budget lifted: {len(results)} streams "
+        f"equal offline generate ({len(ties)} ties)")
+    return dict(reconcile=rec, before=before, warm=warm, swept=swept,
+                attribution=attr, kv_arena_bytes=kv,
+                params_bytes=params, remainder=remainder, deferred=deferred,
+                bundle=bundles[0]["detail"], ties=ties, launches=launches,
+                checks=[("obs O2 (admission gate) path", launches,
+                         ("bigdl_flash_fwd", "bigdl_paged_decode"), None)])
+
+
+def _cublas_workspace_bytes(dev):
+    """Bytes of the cuBLAS workspaces (one per handle and stream cuBLAS
+    has run on), measured by freeing them: only once no live graph
+    captured one."""
+    import gc
+
+    import torch
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if dev.type != "cuda" or clear is None:
+        return None
+    gc.collect()
+    before = torch.cuda.memory_allocated(dev)
+    clear()
+    return before - torch.cuda.memory_allocated(dev)
+
+
+def _pool_live_bytes(engine):
+    """Bytes of live blocks inside the engine's graph pool (the pool's
+    share of the allocator's allocated bytes)."""
+    import torch
+    if not engine.graphs.capture:
+        return 0
+    live = 0
+    for seg in torch.cuda.memory_snapshot():
+        if tuple(seg.get("segment_pool_id", ())) == tuple(engine.graphs.pool):
+            live += int(seg.get("allocated_size", 0))
+    return live
+
+
+def obs_chaos(dev, model, oracle, obs, serve, root, knee_rps, vocab):
+    """O3: serving.verify and serving.enqueue transients, scheduled by
+    build_schedule from an incident log, fired by a ChaosReplayer over a
+    poisson trace at half the knee on a speculative engine (the target
+    drafting itself, greedy), with the tracer and the sampler on: zero
+    accepted loss, every stream exact, one bundle per site."""
+    import numpy as np
+    from bigdl_tpu_torch.obs import get_tracer
+    from bigdl_tpu_torch.resilience import faults
+    from bigdl_tpu_torch.serving import SpecConfig
+    from bigdl_tpu_torch.traffic import (ChaosReplayer, TraceLoadGenerator,
+                                         append_incident, build_schedule)
+    log_path = os.path.join(root, "o3_incidents.json")
+    gap = obs["chaos_gap_s"]
+    for i, (stage, rc) in enumerate(obs["chaos_stages"]):
+        append_incident(stage, rc, log_path, now=1000.0 + gap * i)
+    schedule = build_schedule(obs["duration_s"], path=log_path,
+                              seed=obs["chaos_seed"])
+    sites = {e["site"] for e in schedule}
+    if sites != {"serving.verify", "serving.enqueue"}:
+        raise AssertionError(f"O3: schedule sites {sites}")
+    rate = max(1.0, knee_rps / 2.0)
+    gen = TraceLoadGenerator(
+        kind="poisson", rate_rps=rate, duration_s=obs["duration_s"],
+        seed=obs["chaos_trace_seed"], vocab=vocab,
+        prompt_lens=obs["prompt_lens"],
+        max_news=obs["max_news"])
+    tracer = get_tracer()
+    tracer.clear()
+    tracer.enable()
+    rec, _ = _flight_recorder(root, "o3")
+    os.environ.pop(faults.ENV_SPEC, None)
+    faults.refresh_from_env()
+    engine = make_engine(model, dev, serve, name="obs-chaos",
+                         spec=SpecConfig(k=obs["chaos_k"], draft=model))
+    try:
+        engine.warmup()
+        _reset_launches()
+        with ChaosReplayer(schedule, seed=obs["chaos_seed"]) as chaos:
+            report = gen.run(lambda a: engine.submit(
+                a.prompt, max_new_tokens=a.max_new))
+            results = []
+            for a, st in report.accepted:
+                results.append((a, st.result(timeout=600)))
+            # events armed after the last arrival meet a tail of traffic
+            t0 = time.perf_counter()
+            extra = 0
+            while (chaos.summary()["fired"] < len(schedule)
+                   and time.perf_counter() - t0 < 30):
+                p = obs_prompts(obs, extra + 1)[extra]
+                extra += 1
+                try:
+                    results.append((None, (p, engine.generate(
+                        p, max_new_tokens=8, timeout=600))))
+                except Exception as e:  # noqa: BLE001 - typed sheds only
+                    from bigdl_tpu_torch.serving import ServingOverloaded
+                    if not isinstance(e, ServingOverloaded):
+                        raise
+            summary = chaos.summary()
+        launches = _launches()
+    finally:
+        engine.close()
+        tracer.disable()
+    if report.errors or summary["fired"] != len(schedule):
+        raise AssertionError(f"O3: submit errors {report.errors[:3]}, "
+                             f"fired {summary['fired']} of {len(schedule)}")
+    ties = []
+    for a, got in results:
+        if a is None:
+            p, r = got
+            tie = oracle.check(p, r, 8)
+        else:
+            tie = oracle.check(a.prompt, got, a.max_new)
+        if tie is not None:
+            ties.append(tie)
+    bundles = _bundles(rec)
+    by_site = {}
+    for b in bundles:
+        by_site.setdefault(b["detail"].get("site"), []).append(b)
+    if sorted(by_site) != ["serving.enqueue", "serving.verify"] or \
+            any(len(v) != 1 for v in by_site.values()):
+        raise AssertionError(f"O3: bundles by site "
+                             f"{ {k: len(v) for k, v in by_site.items()} }")
+    for site, (b,) in by_site.items():
+        missing = [k for k in ("spans", "timeseries", "diagnose_cuda")
+                   if not b[k]]
+        if missing or "lm_engine/obs-chaos" not in b["state"] or \
+                "lm_engine/obs-chaos" not in b["active_requests"]:
+            raise AssertionError(f"O3: the {site} bundle lacks {missing} "
+                                 "or the engine's state/requests")
+    log(f"[obs] O3 {rate:.1f} rps: offered {report.offered}, accepted "
+        f"{len(report.accepted)}, shed {len(report.shed)} (typed), accepted "
+        f"loss 0, {len(results)} streams equal offline generate "
+        f"({len(ties)} ties); schedule {summary['events']}; fired "
+        f"{summary['fired']}; one bundle per site "
+        f"({ {k: len(v[0]['spans']) for k, v in by_site.items()} } spans, "
+        f"{ {k: len(v[0]['timeseries']) for k, v in by_site.items()} } "
+        f"time-series rows); launches {launches}")
+    return dict(rate_rps=rate, offered=report.offered,
+                accepted=len(report.accepted), shed=len(report.shed),
+                streams=len(results), fired=summary["fired"],
+                bundles={k: len(v) for k, v in by_site.items()},
+                launches=launches, ties=ties,
+                checks=[("obs O3 (chaos, speculative) path", launches,
+                         ("bigdl_flash_fwd",), None)])
+
+
+def obs_train(dev, config, train, obs, root):
+    """O4: 6 Adam steps on the train batch with Loss, Throughput and
+    LearningRate summaries every step, Parameters every 3 and a
+    validation summary; the 5th update sleeps past the watchdog's
+    deadline: one stall bundle, and an emergency pair at iteration 5
+    equal to the run's weights there."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToBatch
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.obs import get_registry
+    from bigdl_tpu_torch.optim import Loss, Trigger
+    from bigdl_tpu_torch.optim.optimizer import named_leaves
+    from bigdl_tpu_torch.utils import file_io
+    from bigdl_tpu_torch.visualization import (TrainSummary, ValidationSummary,
+                                               list_tags, read_records,
+                                               decode_event)
+    SleepyAdam, _, _ = _obs_adam_classes()
+    x, y = _train_batch(config, train)
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), True)
+    model = TransformerLM(attention_impl="flash", device=dev,
+                          **config).build(seed=train["seed"])
+    opt = _optimizer(model, x, y, train["batch"], train["learning_rate"])
+    opt.set_optim_method(SleepyAdam(obs["stall_at"], obs["stall_s"],
+                                    learning_rate=train["learning_rate"]))
+    logdir = os.path.join(root, "tb")
+    ts = TrainSummary(logdir, "obs")
+    ts.set_summary_trigger("Parameters",
+                           Trigger.several_iteration(obs["params_every"]))
+    vs = ValidationSummary(logdir, "obs")
+    val = DataSet.array([Sample(f, l) for f, l in zip(x, y)]) \
+        >> SampleToBatch(train["batch"])
+    opt.set_train_summary(ts).set_validation_summary(vs).set_validation(
+        Trigger.several_iteration(obs["params_every"]), val, [Loss(crit)])
+    ck = os.path.join(root, "o4_ckpt")
+    opt.set_checkpoint(ck, Trigger(lambda s: False, "never"))
+    rec, _ = _flight_recorder(root, "o4")
+    snap = {}
+    stall_ckpt = opt._maybe_stall_checkpoint
+
+    def snapshot_then_checkpoint():
+        if opt._stall_ckpt_requested:
+            snap["iteration"] = opt.state["neval"] - 1
+            snap["params"] = {n: t.detach().clone()
+                              for n, t in named_leaves(model.params)}
+        stall_ckpt()
+
+    opt._maybe_stall_checkpoint = snapshot_then_checkpoint
+    env = {"BIGDL_TPU_WATCHDOG": "1",
+           "BIGDL_TPU_WATCHDOG_DEADLINE_S": str(obs["watchdog_deadline_s"])}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    emerg = get_registry().counter("resilience/emergency_checkpoints").value
+    _reset_launches()
+    try:
+        losses, step_s = run_iterations(opt, obs["steps"])
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = _launches()
+    ts.flush()
+    vs.flush()
+    emerg = get_registry().counter(
+        "resilience/emergency_checkpoints").value - emerg
+    stalls = [b for b in _bundles(rec) if b["flight"] == "stall"]
+    found = file_io.latest_checkpoint(ck)
+    if len(stalls) != 1 or emerg != 1 or found is None or \
+            found[2] != obs["stall_at"] or snap.get("iteration") != found[2]:
+        raise AssertionError(f"O4: {len(stalls)} stall bundles, emergency "
+                             f"+{emerg}, pair {found}, snapshot at "
+                             f"{snap.get('iteration')}")
+    saved = TransformerLM.load(found[0], device=dev)
+    for name, t in named_leaves(saved.params):
+        if not torch.equal(t, snap["params"][name]):
+            raise AssertionError(f"O4: the pair's {name} differs from the "
+                                 "run's weights at that iteration")
+    got = [v for _, v, _ in ts.read_scalar("Loss")]
+    if got != [float(np.float32(v)) for v in losses]:
+        raise AssertionError(f"O4: Loss scalars {got} vs the loop's {losses}")
+    hist = {}
+    for payload in read_records(ts.writer._event_writer.path):
+        ev = decode_event(payload)
+        for v in ev.values:
+            if v.histo is not None:
+                hist.setdefault(ev.step, []).append(v.tag)
+    leaves = sorted(n for n, _ in named_leaves(model.params))
+    want_steps = [s for s in range(1, obs["steps"] + 1)
+                  if s % obs["params_every"] == 0]
+    if sorted(hist) != want_steps or any(sorted(t) != leaves
+                                         for t in hist.values()):
+        raise AssertionError(f"O4: histograms at {sorted(hist)} "
+                             f"({ {k: len(v) for k, v in hist.items()} })")
+    vloss = vs.read_scalar("Loss")
+    n_val = len(vloss)
+    per = config["n_layers"]
+    sc, pm = opt.summary_ms["scalars"], opt.summary_ms["parameters"]
+    log(f"[obs] O4 {obs['steps']} steps, losses "
+        f"{[round(v, 4) for v in losses]}; stall bundle "
+        f"(inflight {stalls[0]['detail']['inflight_s']} s, threshold "
+        f"{stalls[0]['detail']['threshold_s']} s); emergency pair at "
+        f"iteration {found[2]} equal to the run's weights; Loss scalars "
+        f"equal the loop's; {len(leaves)} histograms at steps {want_steps}; "
+        f"{n_val} validation scalars; one scalar step "
+        f"{statistics.median(sc):.3f} ms (median of {len(sc)}), one "
+        f"Parameters record {statistics.median(pm):.1f} ms (median of "
+        f"{len(pm)}); launches {launches}")
+    ts.close()
+    vs.close()
+    del opt, model, saved, snap
+    return dict(losses=losses, stall=stalls[0]["detail"], pair=found[2],
+                scalar_ms=sc, parameters_ms=pm, launches=launches,
+                validations=n_val,
+                checks=[("obs O4 training path", launches,
+                         ("bigdl_flash_bwd_dkv", "bigdl_flash_bwd_dq"),
+                         per * obs["steps"]),
+                        ("obs O4 forward (steps and validations)", launches,
+                         ("bigdl_flash_fwd",), per * (obs["steps"] + n_val))])
+
+
+def obs_update_failure(dev, config, train, obs, ckpt, root, train_ref):
+    """O5: the train batch, Adam raising inside the update of iteration 3
+    after staging one leaf: the emergency pair is iteration 2, and a
+    fresh model resuming it and finishing equals the uninterrupted run
+    within C1's tolerances.  The uninterrupted run is timed (staged
+    updates) beside the same steps with the update in place."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.obs import get_registry
+    from bigdl_tpu_torch.optim import Adam, Trigger
+    from bigdl_tpu_torch.utils import file_io
+    _, FailingAdam, InPlaceAdam = _obs_adam_classes()
+    x, y = _train_batch(config, train)
+    lr = train["learning_rate"]
+    n = obs["o5_steps"]
+
+    def fresh(seed=train["seed"]):
+        return TransformerLM(attention_impl="flash", device=dev,
+                             **config).build(seed=seed)
+
+    def opt_for(model, method):
+        return _optimizer(model, x, y, train["batch"], lr).set_optim_method(
+            method)
+
+    timing = {}
+    _reset_launches()
+    for label, method in (("in_place", InPlaceAdam), ("staged", Adam),
+                          ("in_place_2", InPlaceAdam), ("staged_2", Adam)):
+        model = fresh()
+        _peak_reset(dev)
+        losses, step_s = run_iterations(opt_for(model, method(
+            learning_rate=lr)), 1 + n)
+        timing[label] = dict(step_ms=float(np.median(step_s)) * 1e3,
+                             peak_bytes=_peak(dev), losses=losses)
+        if label == "staged":
+            model_a, losses_a = model, losses
+        else:
+            del model
+        release(dev)
+    d = os.path.join(root, "o5")
+    model_b = fresh()
+    opt_b = opt_for(model_b, FailingAdam(fail_at=obs["fail_at"],
+                                         learning_rate=lr))
+    opt_b.set_checkpoint(d, Trigger(lambda s: False, "never"))
+    emerg = get_registry().counter("resilience/emergency_checkpoints").value
+    try:
+        run_iterations(opt_b, 1 + n)
+    except RuntimeError as e:
+        if "inside update" not in str(e):
+            raise
+    else:
+        raise AssertionError("O5: the failure inside update did not surface")
+    emerg = get_registry().counter(
+        "resilience/emergency_checkpoints").value - emerg
+    found = file_io.latest_checkpoint(d)
+    if emerg != 1 or found is None or found[2] != obs["fail_at"] - 1 or \
+            opt_b.optim_method.staged_leaves != 2:
+        raise AssertionError(f"O5: emergency +{emerg}, pair {found}, "
+                             f"{opt_b.optim_method.staged_leaves} leaves "
+                             "staged before the failure")
+    del opt_b, model_b
+    release(dev)
+    model_c = fresh(seed=train["seed"] + 1)
+    opt_c = opt_for(model_c, FailingAdam(learning_rate=lr))
+    opt_c.resume_from(d)
+    losses_c, _ = run_iterations(opt_c, 1 + n - found[2])
+    rels = [abs(a - c) / abs(a) for a, c in
+            zip(losses_a[found[2]:], losses_c)]
+    if not max(rels) <= TOL_LOSS:
+        raise AssertionError(f"O5: resumed losses {losses_c} vs "
+                             f"uninterrupted {losses_a[found[2]:]}")
+    worst = 0.0
+    for (path, a), (_, c) in zip(_named_leaves(model_a.params),
+                                 _named_leaves(model_c.params)):
+        ratio = (a - c).abs().max().item() / max(a.abs().max().item(),
+                                                 1e-30)
+        worst = max(worst, ratio)
+    if not worst <= ckpt["tol_param"]:
+        raise AssertionError(f"O5: a resumed leaf's max |dw| is {worst:.3e} "
+                             "of its max |w|")
+    launches = _launches()
+    # 4 timed runs, the failing run's steps to the failure (its forward
+    # and backward ran), the resumed run's
+    steps = 4 * (1 + n) + obs["fail_at"] + (1 + n - found[2])
+
+    ref = train_ref or {}
+    log(f"[obs] O5 failure inside update at iteration {obs['fail_at']}: "
+        f"emergency pair at {found[2]}, resumed losses {losses_c} equal the "
+        f"uninterrupted run's within {TOL_LOSS}, worst leaf {worst:.2e}; "
+        f"median step staged {timing['staged']['step_ms']:.2f} / "
+        f"{timing['staged_2']['step_ms']:.2f} ms, in place "
+        f"{timing['in_place']['step_ms']:.2f} / "
+        f"{timing['in_place_2']['step_ms']:.2f} ms; peak staged "
+        f"{_mib(timing['staged']['peak_bytes'])}, in place "
+        f"{_mib(timing['in_place']['peak_bytes'])} (train phase "
+        f"{ref.get('step_ms', float('nan')):.2f} ms, "
+        f"{_mib(ref.get('peak_bytes'))})")
+    del model_a, model_c, opt_c
+    return dict(pair=found[2], worst_leaf=worst, timing=timing,
+                launches=launches, steps=steps,
+                checks=[("obs O5 training path", launches,
+                         ("bigdl_flash_fwd", "bigdl_flash_bwd_dkv",
+                          "bigdl_flash_bwd_dq"), config["n_layers"] * steps)])
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
         print("chip_smoke.py: the bigdl_tpu_torch package is not beside "
@@ -3304,6 +4143,29 @@ def main() -> int:
     gpt2 = phase_gpt2(dev)
     phases["gpt2"] = time.perf_counter() - t0
     check_launches("GPT-2 import path", gpt2["launches"], ("bigdl_flash_fwd",))
+    log_allocated("obs")
+    t0 = time.perf_counter()
+    obs = phase_obs(dev, train_ref=train)
+    phases["obs"] = time.perf_counter() - t0
+    for part in ("o1", "o2", "o3", "o4", "o5"):
+        for label, launches, symbols, exactly in obs[part]["checks"]:
+            check_launches(label, launches, symbols, exactly=exactly)
+    o1, o2, o5 = obs["o1"], obs["o2"], obs["o5"]
+    log(f"[obs] O1 rows: " + json.dumps(
+        [{k: r[k] for k in ("rate_rps", "offered", "offered_rps", "accepted",
+                            "shed", "shed_after_admission", "completed",
+                            "truncated", "good", "goodput_rps",
+                            "ttft_p50_ms", "ttft_p99_ms", "agreement",
+                            "checked", "wall_s")} for r in o1["rows"]])
+        + f"; knee {json.dumps(o1['knee'])} | {smi}")
+    log(f"[obs] O2 reconcile {json.dumps(o2['reconcile'])}; attribution "
+        f"{json.dumps(o2['attribution'])}; remainder "
+        f"{json.dumps(o2['remainder'])} | {smi}")
+    log(f"[obs] O5 staged vs in place: " + json.dumps(
+        {k: {"step_ms": v["step_ms"], "peak_bytes": v["peak_bytes"]}
+         for k, v in o5["timing"].items()})
+        + f"; train phase {train['step_ms']:.2f} ms, "
+        f"{_mib(train['peak_bytes'])} | {smi}")
     log("[done] phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()))
 
@@ -3318,14 +4180,16 @@ def main() -> int:
                  train=train["launches"],
                  moe=total(m1["launches"], m2["launches"]),
                  accum=total(*(r["launches"] for r in accum.values())),
-                 ckpt=ckpt["launches"], gpt2=gpt2["launches"])
+                 ckpt=ckpt["launches"], gpt2=gpt2["launches"],
+                 obs=total(*(obs[p]["launches"]
+                             for p in ("o1", "o2", "o3", "o4", "o5"))))
 
     def by_path(symbol, names):
         return {p: paths[p][symbol] for p in names}
 
     serving = ("serve", "serve_sampled", "spec", "quant", "tier", "replicas",
-               "moe")
-    training = ("train", "moe", "accum", "ckpt")
+               "moe", "obs")
+    training = ("train", "moe", "accum", "ckpt", "obs")
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_fwd.cu",

@@ -1002,3 +1002,139 @@ def test_grad_accumulation_on_card_matches_full_batch(card, moe):
         assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
         _grads_close(tree_map(lambda t: t.cpu(), grads),
                      tree_map(lambda t: t.cpu(), want), 1e-3)
+
+
+# --------------------------------------------------------------------------- #
+# observability on the card: flight dumps beside a capture, the ledger     #
+# against the allocator, diagnose_cuda beside a busy kernel                 #
+# --------------------------------------------------------------------------- #
+
+def test_fault_bundles_while_another_engine_captures(card, tmp_path,
+                                                     monkeypatch):
+    """Engine A decodes with a latency fault at serving.cancel firing
+    every round, each fire dumping a fault_injected bundle from A's
+    worker (dedup off), while engine B captures its warmup on the
+    caller's thread with a fault site inside its decode step, so a
+    bundle is also dumped on the capturing thread inside
+    ``torch.cuda.graph``: no dump synchronises the card, every capture
+    succeeds, and B's replayed streams equal an eager engine's."""
+    import json
+    import threading
+    import bigdl_tpu_torch.serving.lm_engine as lm_engine
+    from bigdl_tpu_torch.obs import flight
+    from bigdl_tpu_torch.resilience import faults
+    from bigdl_tpu_torch.serving import LMServingEngine
+    lm = _engine_lm(card)
+    prompts = _engine_prompts()
+    kw = dict(ENGINE_KW, enable_prefix_cache=False, device=card)
+    old = flight.get_flight_recorder()
+    rec = flight.configure(enabled=True, out_dir=str(tmp_path),
+                           incidents_path=str(tmp_path / "INCIDENTS.json"),
+                           dedup_window_s=0.0, max_bundles=0)
+    monkeypatch.setenv(faults.ENV_SPEC, "serving.cancel:latency:ms=1;"
+                       "capture.decode:latency:ms=1")
+    faults.refresh_from_env()
+    a = LMServingEngine(lm, name="flight-a", **kw)
+    b = c = None
+    stop = threading.Event()
+
+    def feed():
+        while not stop.is_set():
+            for s in [a.submit(p, max_new_tokens=60) for p in prompts]:
+                s.result(timeout=120)
+
+    step = lm_engine._decode_step_paged
+
+    def step_with_a_fault_site(*args, **kwargs):
+        faults.fault_point("capture.decode",
+                           capturing=torch.cuda.is_current_stream_capturing())
+        return step(*args, **kwargs)
+
+    feeder = threading.Thread(target=feed)
+    try:
+        a.warmup()
+        feeder.start()
+        while rec.bundles_written == 0:
+            time.sleep(0.001)
+        b = LMServingEngine(lm, name="flight-b", **kw)
+        monkeypatch.setattr(lm_engine, "_decode_step_paged",
+                            step_with_a_fault_site)
+        assert b.warmup() == len(ENGINE_KW["prefill_buckets"])
+        monkeypatch.setattr(lm_engine, "_decode_step_paged", step)
+        rec.enabled = False
+        stop.set()
+        feeder.join(120)
+        assert b.graphs.captures == len(ENGINE_KW["prefill_buckets"]) + 1
+        docs = [json.load(open(p)) for p in tmp_path.glob("FLIGHT_*.json")]
+        sites = [d["detail"]["site"] for d in docs]
+        # the warm pass and the capture pass each crossed the site once
+        assert sites.count("capture.decode") == 2
+        assert sites.count("serving.cancel") >= 1
+        assert all(d["platform"]["platform"] == "gpu" for d in docs)
+        got = [b.generate(p, max_new_tokens=8, timeout=120) for p in prompts]
+        c = LMServingEngine(lm, name="flight-c", cuda_graphs=False, **kw)
+        want = [c.generate(p, max_new_tokens=8, timeout=120)
+                for p in prompts]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    finally:
+        stop.set()
+        if feeder.is_alive():
+            feeder.join(120)
+        monkeypatch.setattr(lm_engine, "_decode_step_paged", step)
+        monkeypatch.delenv(faults.ENV_SPEC)
+        faults.refresh_from_env()
+        flight._GLOBAL = old
+        a.close()
+        for e in (b, c):
+            if e is not None:
+                e.close()
+
+
+def test_reconcile_on_card_reads_the_arenas_exactly(card):
+    """After warmup the ledger reconciles against the CUDA allocator:
+    verdict ``reconciled``, the KV arenas' and the staged params' exact
+    bytes, the graph pool attributed once, and a drift the allocator's
+    reserved bytes cover."""
+    from bigdl_tpu_torch.obs import MemoryLedger, MetricRegistry, set_ledger
+    from bigdl_tpu_torch.quant.transform import params_nbytes
+    from bigdl_tpu_torch.serving import LMServingEngine
+    lm = _engine_lm(card)
+    led = MemoryLedger(registry=MetricRegistry())
+    old = set_ledger(led)
+    eng = LMServingEngine(lm, name="led-card", device=card, **ENGINE_KW)
+    try:
+        eng.warmup()
+        torch.cuda.synchronize()
+        rec = led.reconcile(card)
+        rows = {r["name"]: r for r in led.entries()}
+        L, N, H, B, D = eng.pool.shape
+        assert rec["verdict"] == "reconciled"
+        assert rows["led-card/kv_arena"]["nbytes"] == 2 * L * N * H * B * D * 4
+        assert rows["led-card/staged"]["nbytes"] == params_nbytes(lm.params)
+        pool = rows["led-card/graph_pool"]["nbytes"]
+        assert pool == eng.graphs.pool_bytes() and pool > 0
+        stats = led.backend_stats(card)
+        assert stats["bytes_in_use"] == torch.cuda.memory_reserved(card)
+        assert rec["drift_bytes"] >= 0
+        assert 0 < led.used_fraction(card) < 1
+    finally:
+        eng.close()
+        set_ledger(old)
+
+
+def test_diagnose_cuda_returns_while_a_kernel_spins(card):
+    """A kernel busy on another stream for seconds: diagnose_cuda() (a
+    /proc scan that never calls into CUDA) returns inside 1 s."""
+    from bigdl_tpu_torch.device import diagnose_cuda
+    side = torch.cuda.Stream(card)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(4_000_000_000)      # ~2 s of device clock
+    t0 = time.perf_counter()
+    out = diagnose_cuda()
+    took = time.perf_counter() - t0
+    busy = not side.query()
+    side.synchronize()
+    assert isinstance(out, str) and out
+    assert busy, "the spinning kernel ended before diagnose_cuda returned"
+    assert took < 1.0

@@ -161,12 +161,18 @@ def test_generate_greedy_token_exact_vs_jax(name):
 
 
 def test_unported_options_raise():
-    # moe_experts is ported (tests/test_torch_port_moe.py); summaries are not
+    # moe_experts (tests/test_torch_port_moe.py) and train summaries
+    # (tests/test_torch_port_summary.py) are ported; placement is not
     from bigdl_tpu_torch.optim import LocalOptimizer
-    with pytest.raises(NotImplementedError, match="item 8.6"):
-        LocalOptimizer(None, None, None).set_train_summary(object())
+    from bigdl_tpu_torch.serving import LMServingEngine
+    opt = LocalOptimizer(None, None, None)
+    summary = object()
+    assert opt.set_train_summary(summary) is opt
+    assert opt.train_summary is summary
     tm = TransformerLM(vocab_size=11, hidden_size=8, n_head=2, n_layers=1,
                        max_len=16, device="cpu").build(0)
+    with pytest.raises(NotImplementedError, match="item 11.7"):
+        LMServingEngine(tm, placement=object(), device="cpu")
     with pytest.raises(ValueError, match="max_len"):
         tgen.generate(tm, tm.params, np.ones((1, 10), np.int32), 8,
                       device="cpu")
