@@ -30,18 +30,20 @@ import copy
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.normalization import layer_norm
-from bigdl_tpu_torch.obs.registry import get_registry
 from bigdl_tpu_torch.parallel.expert import init_moe_params, switch_mlp
 from bigdl_tpu_torch.quant.kernels import qmatmul
 from bigdl_tpu_torch.quant.qtensor import is_qtensor
 from bigdl_tpu_torch.quant.transform import (QuantPolicy, dequantize_entry,
+                                             publish_quant_report,
                                              quantize_params)
 from bigdl_tpu_torch.utils.params import layer_params
 
@@ -63,26 +65,14 @@ def apply_rope(x, positions, base: float = 10000.0):
                       (x2 * cos + x1 * sin).to(x.dtype)], -1)
 
 
-def _publish_quant_report(report: dict) -> None:
-    """The reference's ``quant/*`` registry gauges of one report."""
-    reg = get_registry()
-    reg.gauge("quant/bytes_saved", unit="B").set(report["bytes_saved"])
-    reg.gauge("quant/payload_ratio").set(report["payload_ratio"])
-    reg.gauge("quant/max_abs_dequant_error").set(
-        report["max_abs_dequant_error"])
-    for path, err in report["per_layer_max_abs_err"].items():
-        reg.gauge(f"quant/max_abs_dequant_error/{path}").set(err)
-    if report.get("per_layer_overflow_risk"):
-        reg.gauge("quant/overflow_risk").set(report["overflow_risk"])
-        for path, risk in report["per_layer_overflow_risk"].items():
-            reg.gauge(f"quant/overflow_risk/{path}").set(risk)
+class TransformerLM(Module):
+    """Causal transformer LM over 1-based token ids, a
+    :class:`~bigdl_tpu_torch.nn.module.Module` (the Torch-style shell,
+    ``serve`` and the padded-batch ``ServingEngine`` take it).
 
-
-class TransformerLM:
-    """Causal transformer LM over 1-based token ids.
-
-    ``init(generator)`` returns a fresh parameter tree on ``device``;
-    ``build(seed)`` stores one as ``self.params``.
+    ``init(generator)`` returns a fresh parameter tree on ``device``
+    from a ``torch.Generator``; ``build(seed)`` stores one as
+    ``self.params``.
     """
 
     def __init__(self, vocab_size: int, hidden_size: int = 128,
@@ -95,6 +85,7 @@ class TransformerLM:
                  moe_capacity_factor: Optional[float] = 1.25,
                  moe_aux_weight: float = 0.01,
                  doc_start_id: Optional[int] = None, device=None):
+        super().__init__()
         if hidden_size % n_head != 0:
             raise ValueError("hidden_size must divide by n_head")
         if pos_encoding not in ("learned", "rope"):
@@ -135,7 +126,7 @@ class TransformerLM:
         p = {
             "ln1": {"weight": torch.ones((h,), device=dev),
                     "bias": torch.zeros((h,), device=dev)},
-            "attn": self._mha.init(g, dev),
+            "attn": self._mha.init_generator(g, dev),
             "ln2": {"weight": torch.ones((h,), device=dev),
                     "bias": torch.zeros((h,), device=dev)},
         }
@@ -233,7 +224,7 @@ class TransformerLM:
         new.params = quantize_params(self.params, dtype, policy=policy,
                                      report=report)
         new.quant_report = report
-        _publish_quant_report(report)
+        publish_quant_report(report)
         return new
 
     # -------------------------------------------------------------- #
@@ -349,13 +340,20 @@ class TransformerLM:
         return self._forward(params, x, False, None)[0]
 
     def apply(self, params, x, *, buffers=None, training: bool = False,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None, rng=None):
         """The training forward: ``(logp, buffers)``, differentiable in
         every leaf of ``params``.  ``training`` turns dropout on, drawn
         from ``generator`` (a CPU ``torch.Generator``; required when
-        ``dropout > 0``).  An MoE model returns ``moe_aux_weight`` times
-        the layers' summed balance loss as ``buffers["aux_loss"]``; a
-        dense one adds no key."""
+        ``dropout > 0``), or else from a generator seeded by ``rng``, the
+        reference's key-chain key (the masks are not the reference's).
+        An MoE model returns ``moe_aux_weight`` times the layers' summed
+        balance loss as ``buffers["aux_loss"]``; a dense one adds no
+        key."""
+        if generator is None and rng is not None and training \
+                and self.dropout > 0.0:
+            key = np.asarray(rng, np.uint32)
+            generator = torch.Generator().manual_seed(
+                (int(key[0]) << 32) | int(key[1]))
         logp, aux = self._forward(params, x, training, generator)
         new_buffers = dict(buffers) if buffers else {}
         if self.moe_experts:

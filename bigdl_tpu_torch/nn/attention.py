@@ -2,17 +2,23 @@
 
 Parameters keep the JAX layout: ``wq``/``wk``/``wv`` are ``(hidden,
 H*D)``, ``wo`` is ``(H*D, hidden)``, applied as ``x @ w``.  Heads are
-split to ``(B, H, T, D)`` as in the reference.
+split to ``(B, H, T, D)`` as in the reference.  ``MultiHeadAttention``
+is a :class:`~bigdl_tpu_torch.nn.module.Module`: ``build(seed)`` draws
+the reference's tree bit for bit.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.quant.kernels import qmatmul
 from bigdl_tpu_torch.quant.qtensor import is_qtensor
+from bigdl_tpu_torch.utils import keychain
+from bigdl_tpu_torch.utils.table import Table
 
 
 def segment_mask(seg_q, seg_k):
@@ -64,13 +70,15 @@ def _match_compute_dtype(x, w):
 ATTENTION_IMPLS = ("auto", "flash", "xla")
 
 
-class MultiHeadAttention:
+class MultiHeadAttention(Module):
     """Multi-head attention over (B, T, F): projections, head split and
-    the attention-core dispatch shared by ``TransformerLM``."""
+    the attention-core dispatch shared by ``TransformerLM``.  Input: a
+    tensor (self-attention) or a Table/tuple (query, key, value)."""
 
     def __init__(self, hidden_size: int, n_head: int,
                  head_dim: Optional[int] = None, causal: bool = False,
                  with_bias: bool = True, attention_impl: str = "auto"):
+        super().__init__()
         if head_dim is None and hidden_size % n_head != 0:
             raise ValueError("hidden_size must divide by n_head")
         if attention_impl not in ATTENTION_IMPLS:
@@ -87,20 +95,40 @@ class MultiHeadAttention:
         # plain attention on the host
         self.attention_impl = attention_impl
 
-    def init(self, generator: torch.Generator, device="cpu") -> dict:
+    def _shapes(self):
         inner = self.n_head * self.head_dim
+        return (("wq", (self.hidden_size, inner)),
+                ("wk", (self.hidden_size, inner)),
+                ("wv", (self.hidden_size, inner)),
+                ("wo", (inner, self.hidden_size)))
+
+    def _bias_size(self, name: str) -> int:
+        return self.hidden_size if name == "bo" else \
+            self.n_head * self.head_dim
+
+    def init(self, rng) -> dict:
+        """The reference's tree from a key-chain key: ``split(rng, 4)``
+        and a uniform draw per projection, zero biases (numpy)."""
         std = 1.0 / math.sqrt(self.hidden_size)
-        p = {}
-        for name, shape in (("wq", (self.hidden_size, inner)),
-                            ("wk", (self.hidden_size, inner)),
-                            ("wv", (self.hidden_size, inner)),
-                            ("wo", (inner, self.hidden_size))):
-            p[name] = torch.empty(shape).uniform_(
-                -std, std, generator=generator).to(device)
+        p = {name: keychain.uniform(k, shape, -std, std)
+             for (name, shape), k in zip(self._shapes(),
+                                         keychain.split(rng, 4))}
         if self.with_bias:
             for name in ("bq", "bk", "bv", "bo"):
-                n = self.hidden_size if name == "bo" else inner
-                p[name] = torch.zeros((n,), device=device)
+                p[name] = np.zeros((self._bias_size(name),), np.float32)
+        return p
+
+    def init_generator(self, generator: torch.Generator,
+                       device="cpu") -> dict:
+        """A tree drawn from a ``torch.Generator`` (``TransformerLM``'s
+        own initializer), on ``device``."""
+        std = 1.0 / math.sqrt(self.hidden_size)
+        p = {name: torch.empty(shape).uniform_(
+                -std, std, generator=generator).to(device)
+             for name, shape in self._shapes()}
+        if self.with_bias:
+            for name in ("bq", "bk", "bv", "bo"):
+                p[name] = torch.zeros((self._bias_size(name),), device=device)
         return p
 
     def resolve_use_flash(self, device: torch.device,
@@ -158,9 +186,12 @@ class MultiHeadAttention:
                 else segment_mask(segment_ids, segment_ids))
         return dot_product_attention(q, k, v, causal=self.causal, mask=mask)
 
-    def f(self, params, x, *, segment_ids=None):
-        """Self-attention (a tensor) or (query, key, value) (a tuple)."""
-        if isinstance(x, (tuple, list)):
+    def f(self, params, x, *, segment_ids=None, **kw):
+        """Self-attention (a tensor) or (query, key, value) (a Table or a
+        tuple)."""
+        if isinstance(x, Table):
+            q_in, k_in, v_in = x.to_seq()[:3]
+        elif isinstance(x, (tuple, list)):
             q_in, k_in, v_in = x[0], x[1], x[2]
         else:
             q_in = k_in = v_in = x

@@ -3,7 +3,9 @@
 
 Conventions preserved from Torch/BigDL: class targets are **1-based**;
 ``size_average=True`` (the default) means mean-reduction over the batch.
-``loss(output, target)`` is a differentiable torch expression.
+``loss(output, target)`` is a differentiable torch expression; both
+derive from :class:`~bigdl_tpu_torch.nn.module.Criterion`, whose shell
+adds ``forward``/``backward``.
 """
 from __future__ import annotations
 
@@ -11,16 +13,19 @@ from typing import Optional
 
 import torch
 
+from bigdl_tpu_torch.nn.module import Criterion
+
 
 def _reduce(x, size_average: bool):
     return x.mean() if size_average else x.sum()
 
 
-class ClassNLLCriterion:
+class ClassNLLCriterion(Criterion):
     """Negative log-likelihood over log-probabilities, 1-based integer
     targets, optional per-class weights."""
 
     def __init__(self, weights=None, size_average: bool = True):
+        super().__init__()
         self.weights = (None if weights is None
                         else torch.as_tensor(weights, dtype=torch.float32))
         self.size_average = size_average
@@ -47,10 +52,11 @@ class ClassNLLCriterion:
         return "mean" if self.size_average else "sum"
 
 
-class TimeDistributedCriterion:
+class TimeDistributedCriterion(Criterion):
     """Apply a criterion at every timestep of (batch, time, ...) output."""
 
     def __init__(self, criterion, size_average: bool = False):
+        super().__init__()
         self.criterion = criterion
         self.size_average = size_average
 

@@ -21,7 +21,8 @@ iteration, so the training loop can checkpoint it as the reference
 does.  The price is one transient copy of the parameters and of each
 moment tree at the commit.  A method that overrides ``update`` (a
 user's in-place method) is not staged: :func:`stages_updates` tells
-the loop which kind it holds.
+the loop which kind it holds, and the loop snapshots what such an
+update may write before calling it (``optimizer.UpdateSnapshot``).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from bigdl_tpu_torch.utils.params import tree_leaves, tree_map
+from bigdl_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 
 class LearningRateSchedule:

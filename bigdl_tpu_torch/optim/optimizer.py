@@ -8,10 +8,12 @@ plus a model's ``"aux_loss"`` buffer (the MoE balance term),
 backward kernels on a CUDA device), optional gradient clipping, and the
 optimizer method's update: a built-in method stages every new tensor
 out of place and commits them in one pass, so a failure while staging
-leaves the weights at the last completed iteration.  With gradient accumulation the
-step is a Python loop over micro-batches, each one's graph freed before
-the next.  The host fetches the loss once a step, which is the step's
-only synchronisation.
+leaves the weights at the last completed iteration; a user's method
+that updates in place (``stages_updates`` false) runs after a snapshot
+of the weights and its state, restored if it raises.  With gradient
+accumulation the step is a Python loop over micro-batches, each one's
+graph freed before the next.  The host fetches the loss once a step,
+which is the step's only synchronisation.
 
 Checkpoints (``set_checkpoint``), ``resume_from``, the emergency
 checkpoint on a failed loop and ``handle_preemption`` follow the
@@ -44,7 +46,8 @@ from bigdl_tpu_torch.optim.optim_method import (OptimMethod, SGD,
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import ValidationMethod
 from bigdl_tpu_torch.utils import file_io, fs
-from bigdl_tpu_torch.utils.params import tree_leaves, tree_map
+from bigdl_tpu_torch.utils.pytree import tree_leaves, tree_map
+from bigdl_tpu_torch.utils.table import Table
 
 log = logging.getLogger("bigdl_tpu_torch.optim")
 
@@ -165,6 +168,7 @@ class Optimizer:
         self._preempt_signals: tuple = ()
         self._preempted = False
         self._updating = False  # inside an update's writes
+        self._update_snapshot = UpdateSnapshot()  # unstaged methods only
         self._stall_ckpt_requested = False
         self._clip_const = None
         self._clip_l2 = None
@@ -427,9 +431,10 @@ class Optimizer:
     def _emergency_checkpoint(self, reason: str = "") -> bool:
         """Checkpoint the last completed iteration on the failure path;
         never raises, so the original error is what surfaces.  Skipped
-        when the failure struck while an update was writing the weights
-        (a staged method's commit, or any part of an in-place user
-        method's ``update``): they are between two steps there."""
+        when the failure struck while a staged method's commit was
+        writing the weights: they are between two steps there (an
+        in-place user method's failed ``update`` has been rolled back to
+        its snapshot by then)."""
         if self.checkpoint_path is None:
             log.warning("cannot write emergency checkpoint (%s): no "
                         "checkpoint path configured, call set_checkpoint "
@@ -482,6 +487,86 @@ class Optimizer:
             skipped += int(np.asarray(next(data_iter).data).shape[0])
 
 
+class UpdateSnapshot:
+    """The weights and optimizer state an unstaged (in-place) update may
+    write, taken before it runs.  Every container of the trees is
+    walked: a dict's or ``Table``'s entries and a list's items (which
+    object sits where, and host values such as ``iteration``) are
+    recorded, a tuple is descended into, a numpy array is copied on the
+    host, and every tensor's values are copied by one
+    ``torch._foreach_copy_`` into buffers allocated on first use and
+    reused while the shapes hold.  ``restore`` puts all of it back.  A
+    leaf of another kind could be written in place where no snapshot
+    reaches, so ``take`` refuses it.  It costs one more copy of the
+    weights and the state on the device."""
+
+    _IMMUTABLE = (type(None), bool, int, float, complex, str, bytes,
+                  np.generic, torch.dtype, torch.device)
+
+    def __init__(self):
+        self._bufs: list = []
+        self._nodes: list = []
+        self._arrays: list = []
+        self._tensors: list = []
+
+    def take(self, *trees) -> None:
+        self._nodes, self._arrays, self._tensors = [], [], []
+        seen = set()
+
+        def walk(x):
+            if isinstance(x, self._IMMUTABLE) or id(x) in seen:
+                return
+            seen.add(id(x))
+            if isinstance(x, torch.Tensor):
+                self._tensors.append(x)
+            elif isinstance(x, np.ndarray):
+                self._arrays.append((x, x.copy()))
+            elif isinstance(x, (dict, Table)):
+                self._nodes.append((x, list(x.items())))
+                for v in list(x.values()):
+                    walk(v)
+            elif isinstance(x, list):
+                self._nodes.append((x, list(x)))
+                for v in x:
+                    walk(v)
+            elif isinstance(x, tuple):
+                for v in x:
+                    walk(v)
+            else:
+                raise TypeError(
+                    f"an in-place update's params or state hold a "
+                    f"{type(x).__name__}, which its snapshot cannot "
+                    f"restore; keep tensors, numpy arrays and scalars "
+                    f"in dicts, Tables, lists or tuples")
+
+        for tree in trees:
+            walk(tree)
+        if [(b.shape, b.dtype, b.device) for b in self._bufs] != [
+                (t.shape, t.dtype, t.device) for t in self._tensors]:
+            self._bufs = [torch.empty_like(t) for t in self._tensors]
+        if self._tensors:
+            with torch.no_grad():
+                torch._foreach_copy_(self._bufs, self._tensors)
+
+    def restore(self) -> None:
+        for node, saved in self._nodes:
+            if isinstance(node, list):
+                node[:] = saved
+            elif isinstance(node, dict):
+                node.clear()
+                node.update(saved)
+            else:  # a Table
+                for k in list(node.keys()):
+                    del node[k]
+                for k, v in saved:
+                    node[k] = v
+        for a, saved in self._arrays:
+            np.copyto(a, saved)
+        if self._tensors:
+            with torch.no_grad():
+                torch._foreach_copy_(self._tensors, self._bufs)
+
+
 class LocalOptimizer(Optimizer):
     """Single-process training loop (ref optim/LocalOptimizer.scala).
 
@@ -504,8 +589,16 @@ class LocalOptimizer(Optimizer):
             self._updating = True
             method.commit(staged, opt_state)
         else:
+            # a user's in-place update: snapshot what it may write, and
+            # put it back if the update raises midway
+            self._update_snapshot.take(params, opt_state)
             self._updating = True
-            method.update(grads, opt_state, params, epoch=epoch)
+            try:
+                method.update(grads, opt_state, params, epoch=epoch)
+            except BaseException:
+                self._update_snapshot.restore()
+                self._updating = False
+                raise
         self._updating = False
         return new_buffers, loss
 

@@ -21,8 +21,13 @@ stores).  Rows are independent and zero columns add nothing, so
 :func:`int_mm` pads with zeros and slices the result: the accumulators
 stay exact, with no float fallback.
 
-``qlinear``/``qconv`` and their ``_i8`` forms wait for the port's
-``nn.Linear``/``SpatialConvolution`` (ROADMAP Queue 1 item 12).
+``qlinear`` (``nn.Linear``'s product with a native ``(out, in)`` weight
+and per-output-channel scales ``(out, 1)``) keeps the reference's
+operands: bfloat16 values of the activation and the expanded weight,
+multiplied with float32 accumulation (``torch.matmul`` of their float32
+copies, exact products), or :func:`qlinear_i8` in int8 compute.
+``qconv`` and its ``_i8`` form wait for the port's
+``SpatialConvolution`` (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -92,6 +97,34 @@ def resolve_compute(qweight: QTensor, x_shape) -> str:
     del x_shape  # the shape keys the autotune verdict, once ported
     mode = qweight.compute
     return "dequant" if mode == "auto" else mode
+
+
+def qlinear(x, qweight: QTensor, bias=None):
+    """Quantized ``y = x @ W.T + b`` (``nn.Linear`` semantics, weight
+    ``(out, in)`` with per-out-channel scales ``(out, 1)``); the compute
+    mode dispatched per the weight's ``compute``."""
+    if resolve_compute(qweight, x.shape) == "int8":
+        return qlinear_i8(x, qweight, bias)
+    w = qweight.dequantize(torch.bfloat16).float()
+    if x.is_floating_point():
+        x = x.to(torch.bfloat16).float()
+    y = torch.matmul(x, w.T)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(torch_dtype(qweight.orig_dtype))
+
+
+def qlinear_i8(x, qweight: QTensor, bias=None):
+    """``y = x @ W.T + b`` with int8 x int8 products: per-token
+    activation quantization, exact int32 accumulation, one float32
+    rescale by activation scale (..., 1) x weight scale (out,)."""
+    xq, xs = quantize_per_token(x, scale=qweight.act_scale)
+    acc = int_mm(xq.reshape(-1, xq.shape[-1]), qweight.q.T)
+    acc = acc.reshape(xq.shape[:-1] + (acc.shape[-1],))
+    y = acc.float() * xs * qweight.scale.reshape(-1)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(torch_dtype(qweight.orig_dtype))
 
 
 def qmatmul(x, w):

@@ -20,11 +20,11 @@ int8 and fp8 products on the card take the second operand that way (a
 row-major one runs several times slower, or is refused), and a slice
 ``q[i]`` of a stacked leaf keeps the layout.
 
-``native`` marks leaves whose owning layer would dequantize inside its
-own kernel (``nn.Linear``/``SpatialConvolution``, not ported yet);
-every other leaf is expanded at the entry seam
-(``transform.dequantize_entry``) unless its ``compute`` mode is served
-by a QTensor-aware product (``kernels.qmatmul``).
+``native`` marks leaves whose owning layer dequantizes inside its own
+product (``nn.Linear``, through ``kernels.qlinear``); every other leaf
+is expanded at the entry seam (``transform.dequantize_entry``) unless
+its ``compute`` mode is served by a QTensor-aware product
+(``kernels.qmatmul``).
 """
 from __future__ import annotations
 

@@ -12,10 +12,12 @@ layer-norm weights 2-D, so they are quantized too, as in the reference,
 and expanded at the entry seam (:func:`dequantize_entry`), since their
 consumer reads them directly.
 
-Not ported: the reference's owner-aware walk (native per-out-channel
-scales for ``nn.Linear``/``SpatialConvolution``) waits for those layers
-(ROADMAP Queue 1 item 12); a transformer's leaves take the generic path
-there too, so its trees quantize leaf for leaf alike.
+With ``module=`` the walk is owner-aware, as the reference's: a
+``Linear``'s weight gets its native layout (per-output-channel scales,
+reduced over ``in``) and a ``LookupTable``'s table is never quantized.
+``SpatialConvolution``'s native layout waits for that layer (ROADMAP
+Queue 1 item 12).  A transformer's leaves take the generic path in both
+packages, so its trees quantize leaf for leaf alike.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import torch
 from bigdl_tpu_torch.quant.qtensor import (COMPUTE_MODES, QTensor,
                                            dequantize_array, is_qtensor,
                                            quantize_array, torch_dtype)
-from bigdl_tpu_torch.utils.params import tree_leaves, tree_map
+from bigdl_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 #: leaf names never quantized: biases in every naming scheme (``bias``,
 #: the stacked blocks' ``b1``/``bq``/...), norm affine leaves and
@@ -121,11 +123,54 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+def _module_index(module) -> Dict[Tuple[str, ...], object]:
+    """(tree path) -> owning leaf module, walking containers by their
+    index keys."""
+    index: Dict[Tuple[str, ...], object] = {}
+
+    def walk(mod, path):
+        children = getattr(mod, "modules", None)
+        if children:
+            for i, child in enumerate(children):
+                walk(child, path + (str(i),))
+            return
+        index[path] = mod
+
+    walk(module, ())
+    return index
+
+
+def _owner_of(index, leaf_path: Tuple[str, ...]):
+    """Longest registered prefix of ``leaf_path`` (nested leaf params
+    like Scale's {cmul, cadd} still belong to the Scale module)."""
+    for n in range(len(leaf_path) - 1, -1, -1):
+        mod = index.get(leaf_path[:n])
+        if mod is not None:
+            return mod
+    return None
+
+
+def _native_spec(owner, name: str):
+    """(reduce_axes, native) when the owner dequantizes this leaf inside
+    its own product; None for the generic handling; "skip" for an
+    embedding table."""
+    if owner is None:
+        return None
+    from bigdl_tpu_torch.nn.linear import Linear, LookupTable
+    if isinstance(owner, LookupTable):
+        return "skip"
+    if name == "weight" and isinstance(owner, Linear):
+        return (-1,), True  # (out, in): the contraction is over in
+    return None
+
+
 def quantize_params(params, dtype: str = "int8", *,
                     policy: Optional[QuantPolicy] = None,
-                    report: Optional[dict] = None):
+                    module=None, report: Optional[dict] = None):
     """Quantize the eligible leaves of ``params``; returns a new tree
-    (other leaves are shared).  ``report`` (a dict) is filled with the
+    (other leaves are shared).  ``module`` (the tree's owner) enables the
+    owner-aware decisions: native scale layouts for ``Linear`` and the
+    exclusion of embedding tables.  ``report`` (a dict) is filled with the
     byte counts, per-leaf max abs dequantization error and, for int8 or
     auto compute, each leaf's int32-accumulator overflow risk, under the
     reference's keys."""
@@ -137,6 +182,7 @@ def quantize_params(params, dtype: str = "int8", *,
                              skip_path_re=policy.skip_path_re,
                              compute=policy.compute,
                              compute_name_re=policy.compute_name_re)
+    index = _module_index(module) if module is not None else {}
     per_layer_err: Dict[str, float] = {}
     per_layer_risk: Dict[str, float] = {}
     stats = {"bytes_orig": 0, "bytes_quant": 0,
@@ -155,7 +201,9 @@ def quantize_params(params, dtype: str = "int8", *,
         if not isinstance(node, torch.Tensor):
             return node
         stats["bytes_orig"] += _nbytes(node)
-        if not policy.wants(path, node):
+        name = path[-1] if path else ""
+        spec = _native_spec(_owner_of(index, path), name)
+        if spec == "skip" or not policy.wants(path, node):
             stats["bytes_quant"] += _nbytes(node)
             stats["skipped_leaves"] += 1
             return node
@@ -168,14 +216,14 @@ def quantize_params(params, dtype: str = "int8", *,
                 per_layer_err[key] = float(
                     (node - out.to(node.dtype)).abs().max())
             return out
-        # the generic x @ w layout (stacked blocks, the untied head): the
-        # contraction is the second-to-last axis, every other axis keeps
-        # its own scale
-        reduce_axes = (-2,)
-        compute = _effective_compute(policy.compute,
-                                     path[-1] if path else "", False,
+        # else the generic x @ w layout (stacked blocks, the untied
+        # head): the contraction is the second-to-last axis, every other
+        # axis keeps its own scale
+        reduce_axes, native = spec if spec is not None else ((-2,), False)
+        compute = _effective_compute(policy.compute, name, native,
                                      policy.compute_name_re)
-        qt = quantize_array(node, reduce_axes, compute=compute)
+        qt = quantize_array(node, reduce_axes, native=native,
+                            compute=compute)
         stats["bytes_quant"] += qt.nbytes
         if report is not None:
             per_layer_err[key] = float(
@@ -199,6 +247,22 @@ def quantize_params(params, dtype: str = "int8", *,
         report["overflow_risk"] = (max(per_layer_risk.values())
                                    if per_layer_risk else 0.0)
     return out
+
+
+def publish_quant_report(report: dict) -> None:
+    """The reference's ``quant/*`` registry gauges of one report."""
+    from bigdl_tpu_torch.obs.registry import get_registry
+    reg = get_registry()
+    reg.gauge("quant/bytes_saved", unit="B").set(report["bytes_saved"])
+    reg.gauge("quant/payload_ratio").set(report["payload_ratio"])
+    reg.gauge("quant/max_abs_dequant_error").set(
+        report["max_abs_dequant_error"])
+    for path, err in report["per_layer_max_abs_err"].items():
+        reg.gauge(f"quant/max_abs_dequant_error/{path}").set(err)
+    if report.get("per_layer_overflow_risk"):
+        reg.gauge("quant/overflow_risk").set(report["overflow_risk"])
+        for path, risk in report["per_layer_overflow_risk"].items():
+            reg.gauge(f"quant/overflow_risk/{path}").set(risk)
 
 
 def _overflow_risk(qt: QTensor, reduce_axes) -> float:

@@ -1,17 +1,22 @@
-"""Replica-set failover core (port of the engine-agnostic half of
+"""Multi-replica serving failover (port of
 ``bigdl_tpu/resilience/replicaset.py``): the replica states, the
 per-replica circuit breaker with its half-open probe, replica selection
-under an injectable dispatch policy, and the :class:`HedgePolicy` for
-speculative re-dispatch.
+under an injectable dispatch policy, the :class:`HedgePolicy` for
+speculative re-dispatch, and the padded-batch :class:`ReplicaSet`: N
+``ServingEngine`` replicas behind ONE ``DynamicBatcher``.
 
 A replica that fails is retried elsewhere (bounded re-dispatch), and
 repeated failures open its breaker: an open replica takes no traffic
 until a cooldown passes, then one half-open probe decides whether it
 closes or re-opens.  Health shows in the ``resilience/*`` counters and
 gauges of the process-wide registry.  ``serving/router/replicaset.py``
-builds the routed LM replica set on this core; the reference's
-padded-batch ``ReplicaSet`` (over ``ServingEngine`` and
-``DynamicBatcher``) waits for ROADMAP Queue 1 item 11.6.
+builds the routed LM replica set on this core, and :class:`ReplicaSet`
+the padded-batch one.  Its members are ``ServingEngine`` replicas built
+with ``with_batcher=False`` (one queue for the set), each with its own
+graph cache, stager and watchdog bracket.  As in the reference, the
+padded-batch set does not hedge (its core's ``hedge_policy`` stays
+None): a batch is re-dispatched only after a failure.  Placement on a
+device mesh is not ported (ROADMAP Queue 1 item 11.7).
 """
 from __future__ import annotations
 
@@ -19,9 +24,13 @@ import logging
 import threading
 import time
 from collections import deque
-from typing import Optional
+from concurrent.futures import Future
+from typing import Optional, Sequence
+
+import numpy as np
 
 from bigdl_tpu_torch.obs import get_registry
+from bigdl_tpu_torch.resilience.errors import BackendLostError, classify_error
 
 log = logging.getLogger("bigdl_tpu_torch.resilience")
 
@@ -162,10 +171,9 @@ class ReplicaSetCore:
     breakers, the half-open probe protocol, and replica selection with
     an **injectable dispatch policy**.
 
-    The LM router's ``LMReplicaSet`` inherits it (as the reference's
-    padded-batch ``ReplicaSet`` does, which waits for ROADMAP Queue 1
-    item 11.6), so breakers, bounded re-dispatch accounting and the
-    pick/record state machine are the reference's.
+    The LM router's ``LMReplicaSet`` and the padded-batch
+    :class:`ReplicaSet` inherit it, so breakers, bounded re-dispatch
+    accounting and the pick/record state machine are the reference's.
 
     ``dispatch_policy`` is ``policy(healthy, ctx) -> replica | None``:
     called under the set lock with the non-excluded HEALTHY replicas
@@ -274,3 +282,327 @@ class ReplicaSetCore:
                             "failures (%s)", rep.name,
                             rep.consecutive_failures, exc)
             self._publish_open_circuits()
+
+
+class ReplicaSet(ReplicaSetCore):
+    """Serve a built module from ``n_replicas`` engines with failover.
+
+    Args:
+        module: a built ``nn.Module`` — every replica freezes the same
+            params, so replica-set outputs are exactly the single-engine
+            outputs (the acceptance contract) — OR a sequence of built
+            modules, one per replica (heterogeneous sets: e.g. a
+            ``Module.quantize()`` int8 clone next to its f32 original;
+            each engine keys its compile cache on its own params dtype).
+            With heterogeneous members the failover contract is
+            per-replica exactness: a request's output is exactly what
+            the replica that served it would produce alone.
+        n_replicas: how many ServingEngine replicas to build (default 2,
+            or ``len(module)`` when a sequence is given).
+        failure_threshold: consecutive failures that open a replica's
+            circuit.
+        cooldown_s: how long an open circuit waits before a half-open
+            probe is allowed.
+        max_redispatch: how many times one batch may be re-dispatched
+            after a failure before the set gives up (default: try every
+            replica once).
+        dispatch_policy: optional replica-selection policy (see
+            :class:`ReplicaSetCore`) — e.g. the serving router's
+            prefix-affinity scorer.  None keeps least-loaded.
+        clock: injectable monotonic clock (tests drive breaker timing).
+        placement: one mesh slot per replica, not ported yet (ROADMAP
+            Queue 1 item 11.7): it raises.
+        Remaining kwargs mirror :class:`ServingEngine` / DynamicBatcher
+        policy knobs (``device=`` among them: default the card).
+    """
+
+    def __init__(self, module, n_replicas: Optional[int] = None, *,
+                 failure_threshold: int = 3,
+                 cooldown_s: float = 5.0,
+                 max_redispatch: Optional[int] = None,
+                 dispatch_policy=None,
+                 clock=time.monotonic,
+                 input_shape: Optional[tuple] = None,
+                 buckets: Optional[Sequence[int]] = None,
+                 max_batch_size: Optional[int] = None,
+                 max_wait_ms: float = 5.0,
+                 max_queue: int = 256,
+                 dtype="float32",
+                 platform: Optional[str] = None,
+                 use_shared_pool: bool = True,
+                 placement=None,
+                 **engine_kwargs):
+        modules = (list(module) if isinstance(module, (list, tuple))
+                   else None)
+        if modules is not None:
+            if n_replicas is None:
+                n_replicas = len(modules)
+            elif n_replicas != len(modules):
+                raise ValueError(
+                    f"{len(modules)} modules given but n_replicas="
+                    f"{n_replicas}: pass one module per replica")
+        elif n_replicas is None:
+            n_replicas = 2
+        if n_replicas < 1:
+            raise ValueError("n_replicas must be >= 1")
+        if placement is not None:
+            raise NotImplementedError(
+                "placement is not ported yet (ROADMAP Queue 1 item 11.7)")
+        from bigdl_tpu_torch.serving.batcher import DynamicBatcher
+        from bigdl_tpu_torch.serving.engine import ServingEngine
+        from bigdl_tpu_torch.serving.metrics import ServingMetrics
+        from bigdl_tpu_torch.utils.engine import Engine
+
+        self._init_core(
+            failure_threshold=failure_threshold,
+            cooldown_s=cooldown_s,
+            max_redispatch=(int(max_redispatch) if max_redispatch
+                            is not None else max(1, n_replicas - 1)),
+            clock=clock, dispatch_policy=dispatch_policy)
+        # kept for scale_to(): new replicas are built from the same
+        # module (heterogeneous sets grow with their FIRST module) and
+        # the same engine policy the constructor used
+        self._scale_module = modules[0] if modules is not None else module
+        self._engine_cls = ServingEngine
+        self._engine_cfg = dict(input_shape=input_shape, buckets=buckets,
+                                max_batch_size=max_batch_size, dtype=dtype,
+                                platform=platform, **engine_kwargs)
+        self.placement = None
+        self._next_idx = n_replicas
+        self._replicas = []
+        for i in range(n_replicas):
+            name = f"r{i}"
+            engine = ServingEngine(
+                modules[i] if modules is not None else module,
+                name=name, with_batcher=False, **self._engine_cfg)
+            self._replicas.append(_Replica(name, engine))
+        ref = self._replicas[0].engine
+        # one batching policy for the whole set, published as the
+        # process's serving/* metrics (created after the member engines
+        # so the set owns the names)
+        self.metrics = ServingMetrics().publish_to(self._registry)
+        self.batcher = DynamicBatcher(
+            self._dispatch_batch,
+            max_batch_size=ref.max_batch_size,
+            max_wait_ms=max_wait_ms,
+            max_queue=max_queue,
+            buckets=ref.buckets,
+            metrics=self.metrics,
+            pool=Engine.default_or_create() if use_shared_pool else None)
+        self._closed = False
+        self._publish_open_circuits()
+        self._publish_replica_count()
+        # flight-recorder state: circuit states + pending depth land in
+        # every incident bundle (weakref — a closed set must be
+        # collectable; latest set wins the key)
+        try:
+            import weakref
+
+            from bigdl_tpu_torch.obs import flight
+            wself = weakref.ref(self)
+
+            def _flight_state():
+                rs = wself()
+                return rs.stats() if rs is not None else None
+            flight.register_state("replicaset", _flight_state)
+        except Exception:
+            pass
+
+    # ---------------------------------------------------------------- #
+    # dispatch                                                         #
+    # ---------------------------------------------------------------- #
+    def _dispatch_batch(self, x_padded: np.ndarray):
+        """Batcher callback: run on the best replica, re-dispatching a
+        failed batch to another (bounded) so an accepted request only
+        fails when the whole set is down.  The batcher binds the
+        batch's request ids to this thread before calling, so the
+        failover hops land in every affected request's span tree."""
+        from bigdl_tpu_torch.obs import flight
+        from bigdl_tpu_torch.obs.tracer import (get_request_context,
+                                                get_tracer)
+        tracer = get_tracer()
+        rids = list(get_request_context()) if tracer.enabled else []
+        tried: set = set()
+        redispatches = 0
+        last: Optional[BaseException] = None
+        while True:
+            rep = self._pick(tried)
+            if rep is None:
+                self._registry.counter("resilience/backend_lost").add(1)
+                flight.get_flight_recorder().record(
+                    "backend_lost",
+                    {"reason": "no_replica_available",
+                     "tried": sorted(tried),
+                     "redispatches": redispatches,
+                     "error": str(last)},
+                    key="replicaset")
+                raise BackendLostError(
+                    f"no serving replica available ({len(tried)} tried, "
+                    f"{redispatches} re-dispatches): {last}") from last
+            try:
+                span_args = {"replica": rep.name, "attempt": redispatches}
+                if rids:
+                    span_args["request_ids"] = rids
+                with tracer.span("resilience/dispatch", cat="resilience",
+                                 **span_args):
+                    y = rep.engine._run_batch(x_padded)
+            except Exception as e:  # noqa: BLE001 — classified below
+                self._record_failure(rep, e)
+                if classify_error(e) == "fatal":
+                    # a model/shape bug fails identically on every
+                    # replica: surface it, don't open every circuit
+                    raise
+                last = e
+                tried.add(rep.name)
+                redispatches += 1
+                if redispatches > self.max_redispatch:
+                    self._registry.counter("resilience/backend_lost").add(1)
+                    flight.get_flight_recorder().record(
+                        "backend_lost",
+                        {"reason": "redispatch_bound",
+                         "tried": sorted(tried),
+                         "redispatches": redispatches,
+                         "error": str(e)},
+                        key="replicaset")
+                    raise BackendLostError(
+                        f"batch failed on {redispatches} replicas "
+                        f"(re-dispatch bound reached): {e}") from e
+                self._registry.counter("resilience/failovers").add(1)
+                tracer.instant(
+                    "resilience/failover", cat="resilience",
+                    failed_replica=rep.name, redispatch=redispatches,
+                    error=f"{type(e).__name__}: {e}",
+                    **({"request_ids": rids} if rids else {}))
+                log.warning("replica %s failed a batch, re-dispatching "
+                            "(%d/%d): %s", rep.name, redispatches,
+                            self.max_redispatch, e)
+                continue
+            self._record_success(rep)
+            return y
+
+    # ---------------------------------------------------------------- #
+    # public API (mirrors ServingEngine)                               #
+    # ---------------------------------------------------------------- #
+    def _coerce(self, x, batched: bool) -> np.ndarray:
+        return self._replicas[0].engine._coerce(x, batched)
+
+    def warmup(self, input_shape: Optional[tuple] = None) -> int:
+        """Pre-compile every bucket on every replica; returns the total
+        number of executables compiled."""
+        return sum(r.engine.warmup(input_shape) for r in self._replicas
+                   if r.state != DRAINING)
+
+    def scale_to(self, n: int, *, drain_timeout_s: float = 10.0) -> int:
+        """SLO-controller actuator: grow or shrink the live replica
+        count without touching the queue.
+
+        Growing builds fresh batcher-less engines (the same module —
+        heterogeneous sets grow with their first member's) and warms
+        them when an input shape is known, so the next dispatch pays no
+        compile.  Shrinking marks the newest replicas DRAINING (the
+        picker skips them immediately), waits for their in-flight
+        batches, then closes their engines — an accepted request is
+        never dropped by a scale-down.  Returns the live count."""
+        n = int(n)
+        if n < 1:
+            raise ValueError("scale_to needs n >= 1")
+        with self._lock:
+            live = [r for r in self._replicas if r.state != DRAINING]
+        if n > len(live):
+            warm_shape = live[0].engine.input_shape if live else None
+            added = 0
+            for _ in range(n - len(live)):
+                name = f"r{self._next_idx}"
+                self._next_idx += 1
+                engine = self._engine_cls(
+                    self._scale_module, name=name, with_batcher=False,
+                    **self._engine_cfg)
+                if warm_shape is not None:
+                    engine.warmup(warm_shape)
+                with self._lock:
+                    self._replicas.append(_Replica(name, engine))
+                added += 1
+                log.info("replica %s: added by scale_to(%d)", name, n)
+            self._registry.counter("resilience/scale_ups").add(added)
+        elif n < len(live):
+            victims = live[n:]  # newest first out: r0 keeps seniority
+            with self._lock:
+                for r in victims:
+                    r.state = DRAINING
+            deadline = time.monotonic() + float(drain_timeout_s)
+            for r in victims:
+                while r.inflight > 0 and time.monotonic() < deadline:
+                    time.sleep(0.005)
+                r.engine.close()
+                log.info("replica %s: drained and closed by scale_to(%d)",
+                         r.name, n)
+            with self._lock:
+                self._replicas = [r for r in self._replicas
+                                  if r not in victims]
+            self._registry.counter("resilience/scale_downs") \
+                .add(len(victims))
+        self._publish_open_circuits()
+        self._publish_replica_count()
+        with self._lock:
+            return sum(1 for r in self._replicas if r.state != DRAINING)
+
+    def try_scale_up(self, max_replicas: Optional[int] = None) -> bool:
+        """The SLO controller's scale_up hook: add ONE replica while
+        under ``max_replicas``; returns whether capacity was actually
+        added (False makes the controller's ladder fall through to
+        admission tightening)."""
+        with self._lock:
+            live = sum(1 for r in self._replicas if r.state != DRAINING)
+        if max_replicas is not None and live >= int(max_replicas):
+            return False
+        return self.scale_to(live + 1) > live
+
+    def submit(self, x, *, batched: bool = True) -> Future:
+        if self._closed:
+            from bigdl_tpu_torch.serving.errors import ServingClosed
+            raise ServingClosed("replica set is closed")
+        return self.batcher.submit(self._coerce(x, batched))
+
+    def predict(self, x, *, timeout: Optional[float] = None) -> np.ndarray:
+        return self.submit(x).result(timeout=timeout)
+
+    def predict_one(self, x, *,
+                    timeout: Optional[float] = None) -> np.ndarray:
+        fut = self.submit(self._coerce(x, batched=False), batched=True)
+        return fut.result(timeout=timeout)[0]
+
+    def stats(self) -> dict:
+        with self._lock:
+            replicas = {
+                r.name: {"state": r.state, "inflight": r.inflight,
+                         "dispatched": r.dispatched,
+                         "failures": r.failures,
+                         "consecutive_failures": r.consecutive_failures,
+                         "placement": None}
+                for r in self._replicas}
+        return {
+            "replicas": replicas,
+            "pending": self.batcher.pending(),
+            "buckets": list(self.batcher.buckets),
+            "placement": None,
+            "metrics": self.metrics.snapshot(
+                self._replicas[0].engine.cache.stats()),
+        }
+
+    def close(self, timeout: Optional[float] = 30.0) -> None:
+        """Graceful drain: stop intake, serve what is queued, then shut
+        the replicas down."""
+        self._closed = True
+        self.batcher.close(timeout=timeout)
+        with self._lock:
+            for r in self._replicas:
+                r.state = DRAINING
+        for r in self._replicas:
+            r.engine.close()
+        self._publish_open_circuits()
+
+    def __enter__(self) -> "ReplicaSet":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -42,8 +42,9 @@ use side streams of PyTorch's high-priority stream pool, so a capture
 stream is never the stream another engine's worker replays on.
 
 On the CPU (or with capture off) an entry is the eager function, run
-once when it is made, as the warm pass; the bookkeeping is the same, so
-the counts can be held against the JAX package's.
+once when it is made, as the warm pass, on host arrays or on tensors
+already staged to the device; the bookkeeping is the same, so the counts
+can be held against the JAX package's.
 
 The kernels' launch counters (``bigdl_tpu_torch.ops.KERNELS``) tick in
 Python, which a replay never reaches: each graph records the launches
@@ -131,8 +132,15 @@ def _host_tensor(a: np.ndarray) -> torch.Tensor:
 
 
 def _on_device(x, device):
-    return _pack([(k, _host_tensor(a).to(device)) for k, a in _leaves(x)],
-                 isinstance(x, dict))
+    """``x`` (host arrays, or tensors a stager already put on the
+    device) as tensors on ``device``."""
+    def put(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(device)
+        return _host_tensor(np.asarray(a)).to(device)
+    if isinstance(x, dict):
+        return {k: put(x[k]) for k in sorted(x)}
+    return put(x)
 
 
 class _Eager:

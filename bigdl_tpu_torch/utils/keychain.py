@@ -5,10 +5,11 @@ numpy, bit for bit as jax computes it with its default PRNG
 Keys are ``np.uint32`` arrays of shape (2,), or (n, 2) for ``split``'s
 result; a key taken from ``np.asarray(jax.random.PRNGKey(s))`` goes
 straight in.  ``prng_key``, ``split``, ``fold_in`` and ``uniform`` are
-bitwise equal to jax's; ``gumbel`` takes two float32 logarithms, each
-within an ulp of XLA's, so ``categorical`` (Gumbel argmax) can differ
-from jax's only where the top two perturbed logits lie within about
-1e-6 of each other.  ``sample`` is the one sampling rule built on
+bitwise equal to jax's.  ``normal`` runs XLA's float32 inverse error
+function and lands within 4 ulp of jax's.  ``gumbel`` takes two float32
+logarithms, each within an ulp of XLA's, so a ``categorical`` (Gumbel
+argmax) draw can differ only where the top two perturbed logits lie
+within about 1e-6 of each other.  ``sample`` is the one sampling rule built on
 them that offline ``generate`` and the serving engine both draw by.
 
 The cipher works on arrays only: numpy wraps uint32 array arithmetic
@@ -99,12 +100,67 @@ def random_bits(key, shape=()) -> np.ndarray:
 def uniform(key, shape=(), minval: float = 0.0,
             maxval: float = 1.0) -> np.ndarray:
     """``jax.random.uniform`` in float32: 23 random mantissa bits under
-    the exponent of 1.0, minus 1, scaled and shifted, then at least
-    ``minval``."""
+    the exponent of 1.0, minus 1, scaled and shifted in one fused
+    multiply-add, then at least ``minval``."""
     lo, hi = np.float32(minval), np.float32(maxval)
     bits = (random_bits(key, shape) >> np.uint32(9)) | np.uint32(0x3F800000)
     floats = bits.view(np.float32) - np.float32(1.0)
-    return np.maximum(lo, floats * (hi - lo) + lo)
+    # XLA contracts the scale and shift into one fused multiply-add
+    return np.maximum(lo, _fma_f32(floats, hi - lo, lo))
+
+
+#: XLA's float32 ``ErfInv`` (M. Giles' single-precision approximation):
+#: polynomial coefficients for w < 5 and for w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _fma_f32(a, b, c) -> np.ndarray:
+    """``a * b + c`` rounded once to float32, as XLA's CPU code contracts
+    it.  The float32 product is exact in float64, but the float64 sum
+    may round, and a second rounding to float32 can then land on the
+    wrong side of a tie.  So the sum is rounded to odd (the exact error
+    from TwoSum nudges an inexact even sum one float64 ulp toward it),
+    which float64's 29 spare bits make a single correct rounding."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = np.broadcast_to(np.asarray(c, np.float64), p.shape)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    bump = (err != 0) & ((s.view(np.int64) & 1) == 0) & np.isfinite(s)
+    s = np.where(bump, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)),
+                 s)
+    return s.astype(np.float32)
+
+
+def _erfinv_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's float32 inverse error function over (-1, 1)."""
+    w = _log1p_f32(-x * x)
+    w = -w
+    lt = w < np.float32(5.0)
+    w = np.where(lt, w - np.float32(2.5),
+                 np.sqrt(w) - np.float32(3.0)).astype(np.float32)
+    p = np.where(lt, np.float32(_ERFINV_LT5[0]), np.float32(_ERFINV_GE5[0]))
+    for lo, hi in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma_f32(p, w, np.where(lt, np.float32(lo), np.float32(hi)))
+    return (p * x).astype(np.float32)
+
+
+def normal(key, shape=()) -> np.ndarray:
+    """``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)`` with
+    ``u = uniform(nextafter(-1, 0), 1)`` (bitwise jax's) and XLA's
+    float32 ``erf_inv`` polynomial; within 4 ulp of jax's."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform(key, shape, lo, 1.0)
+    return (np.float32(np.sqrt(2.0)) * _erfinv_f32(u)).astype(np.float32)
+
+
+def _log1p_f32(x: np.ndarray) -> np.ndarray:
+    return np.log1p(x.astype(np.float64)).astype(np.float32)
 
 
 def _log_f32(x: np.ndarray) -> np.ndarray:

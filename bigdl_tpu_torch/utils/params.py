@@ -6,7 +6,8 @@ A reference tree therefore crosses over leaf by leaf with no remapping,
 quantized trees included: a reference ``QTensor`` leaf (any object with
 its ``q``/``scale``/``orig_dtype``/``native``/``compute``/``act_scale``
 fields) becomes the port's :class:`~bigdl_tpu_torch.quant.QTensor`.  A
-QTensor is a leaf of :func:`tree_map` and :func:`tree_leaves`, and
+QTensor is a leaf of ``tree_map`` and ``tree_leaves`` (re-exported from
+:mod:`bigdl_tpu_torch.utils.pytree`, the port's one tree walker), and
 :func:`layer_params` slices it per layer.
 """
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from bigdl_tpu_torch.utils.pytree import tree_leaves, tree_map  # noqa: F401
 
 
 def _leaf_to_torch(x, device, dtype):
@@ -71,23 +74,6 @@ def params_to_numpy(tree):
                        tree.orig_dtype, tree.native, tree.compute,
                        tree.act_scale)
     return _leaf_to_numpy(tree)
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a nested dict, depth first in insertion order: trees
-    built from one another (``tree_map``, ``zeros_like``) share it."""
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    return [tree]
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of ``tree`` (and the matching leaves of
-    ``rest``), keeping the dict structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return fn(tree, *rest)
 
 
 def layer_params(blocks: dict, layer: int) -> dict:

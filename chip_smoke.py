@@ -184,12 +184,37 @@ result line:
    the loop's, one histogram per leaf per Parameters step, and the ms of
    a scalar step and of a Parameters record.  O5: Adam raising inside
    its 3rd update after staging one leaf: the emergency pair is
-   iteration 2, resume and finish within C1's tolerances; the step and
-   peak with staged updates beside the in-place update, twice each, and
-   the train phase's.  Launches: O1 and O2 both serving kernels, O3 the
+   iteration 2, resume and finish within C1's tolerances; a user's
+   in-place Adam raising inside its 3rd update after writing one leaf:
+   the loop restores its snapshot and the pair is iteration 2, the
+   weights bitwise the pair's; the step and peak with staged updates
+   beside the in-place update (snapshotted), twice each, and the train
+   phase's.  Launches: O1 and O2 both serving kernels, O3 the
    flash forward (its decode rounds are verify rounds), O4 and O5 the
    three flash kernels exactly 12 a step (O4's forward also 12 a
-   validation).
+   validation);
+16. batch: the padded-batch serving stack and the Module core, on the
+   serve cell's model (its seed-0 weights, ``attention_impl="auto"``)
+   while the plain-attention oracle still holds them.  B1:
+   ``ServingEngine(model, input_shape=(128,), max_batch_size=8)``,
+   buckets 1, 2, 4, 8, graphs on and warmed (4 captures, none after);
+   64 requests of 1-8 rows of random 1-based ids in the sizes of the
+   reference's BENCH_SERVE.json mix cut to 8, from 4 threads, then 8
+   synchronous ``predict`` calls and 2 oversized requests of 19 rows:
+   every returned (n, 128, 50257) block within 1e-3 of the plain
+   forward's log-probs, cache hit rate 1.0, flash_fwd exactly 12
+   launches a replay; examples/s, latency p50/p99, queue wait against
+   device time (``ServingMetrics``), peak, graph pool and the time of
+   the top bucket's 205.9 MB copy to the host.  B2: a ``ReplicaSet`` of
+   2 over the same model under ``serving.dispatch:die:name=r1,after=4``:
+   the B1 requests one at a time, each answer bitwise the single
+   engine's, re-dispatches and breaker states printed.  B3:
+   ``Sequential(MultiHeadAttention(768, 12, causal=True), Linear(768,
+   768)).build(0)`` on 4 x 256 x 768: ``forward``, ``backward`` and
+   ``get_parameters()`` through the flash forward and both backward
+   kernels, gradInput and every gradient leaf within 1e-3 of its max
+   |g| against the same module on plain attention, forward and backward
+   ms.
 
 Every serving engine must keep its captures bounded: prefill entries at
 most the buckets, one decode graph, one verify graph (one per tree
@@ -319,6 +344,16 @@ OBS = dict(duration_s=3.0, rates=(4, 8, 16, 32, 64), max_rate=1024,
            chaos_stages=(("lm", 124), ("profile", 0)), chaos_gap_s=0.3,
            chaos_seed=0, chaos_trace_seed=100, chaos_k=4, steps=6, params_every=3, stall_at=5,
            stall_s=4.0, watchdog_deadline_s=1.5, fail_at=3, o5_steps=3)
+# the batch phase: the serve cell's model scoring (n, 128) id blocks
+# through ServingEngine (buckets 1, 2, 4, 8): 64 requests in the sizes of
+# the reference's BENCH_SERVE.json mix cut to 8, from 4 threads, then 8
+# synchronous ones and 2 of 19 rows; B2's fault; B3's (batch, seq) and
+# timed steps
+BATCH = dict(seq_len=128, max_batch=8, threads=4, requests=64, predicts=8,
+             sizes=(1, 2, 4, 3, 8, 5, 7, 1, 6, 2, 4, 1, 8), oversized=19,
+             oversized_n=2, id_seed=12, tol=1e-3,
+             fault="serving.dispatch:die:name=r1,after=4", b3_shape=(4, 256),
+             b3_steps=3, split_reps=3)
 
 
 def log(msg: str) -> None:
@@ -2409,6 +2444,304 @@ def phase_replicas(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC,
     return out
 
 
+def batch_requests(batch, vocab):
+    """The batch phase's requests: ``requests`` asynchronous ones in the
+    sizes of the reference's BENCH_SERVE mix cut to the top bucket, then
+    ``predicts`` synchronous ones continuing the mix, then the oversized
+    ones; each (n, seq_len) random 1-based ids as float32, from one
+    seed."""
+    import numpy as np
+    sizes = batch["sizes"]
+    ns = [sizes[i % len(sizes)]
+          for i in range(batch["requests"] + batch["predicts"])]
+    ns += [batch["oversized"]] * batch["oversized_n"]
+    rng = np.random.RandomState(batch["id_seed"])
+    return [rng.randint(1, vocab + 1, size=(n, batch["seq_len"])).astype(
+        np.float32) for n in ns]
+
+
+def phase_batch(dev, config=GPT2_SMALL, batch=BATCH, oracle=None):
+    """The padded-batch serving stack and the Module core (see the
+    module docstring): B1 the serve cell's model scored through one
+    ServingEngine, B2 the same traffic through a 2-replica ReplicaSet
+    with r1 dying, B3 the OO shell's backward through the flash pair.
+    Returns the phase's numbers and its launches."""
+    import threading
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.obs import get_registry
+    from bigdl_tpu_torch.resilience import ReplicaSet, faults
+    from bigdl_tpu_torch.serving import ServingEngine
+    from bigdl_tpu_torch.utils import pytree
+    oracle = oracle or Oracle(dev, config, SERVE["seed"])
+    plain = oracle.model
+    cuda = dev.type == "cuda"
+    T, top, V = batch["seq_len"], batch["max_batch"], config["vocab_size"]
+    n_layers = config["n_layers"]
+    # the serve cell's seed-0 weights, shared with the plain model
+    model = TransformerLM(attention_impl="auto", device=dev, **config)
+    model.params = plain.params
+    reqs = batch_requests(batch, V)
+    n_async = batch["requests"]
+    n_sync = n_async + batch["predicts"]
+    acc = _PathLaunches()
+    out = {}
+
+    def plain_err(x, y):
+        """max |dlog-prob| of served rows ``y`` against the plain
+        forward of ``x``; raises past the tolerance."""
+        with torch.no_grad():
+            want = plain.f(plain.params, torch.from_numpy(x).to(dev))
+        if y.shape != tuple(want.shape) or not np.isfinite(y).all():
+            raise AssertionError(f"batch: served {y.shape}, plain "
+                                 f"{tuple(want.shape)}, finite "
+                                 f"{bool(np.isfinite(y).all())}")
+        err = (torch.from_numpy(y).to(dev) - want).abs().max().item()
+        if not err <= batch["tol"]:
+            raise AssertionError(f"batch: max |dlog-prob| {err:.3e} > "
+                                 f"{batch['tol']} against plain attention")
+        return err
+
+    # -- B1: one engine, threads, predicts, oversized ------------------ #
+    _peak_reset(dev)
+    eng = ServingEngine(model, input_shape=(T,), dtype="float32",
+                        max_batch_size=top, device=dev, name="batch")
+    n_buckets = len(eng.buckets)
+    lat = [None] * len(reqs)
+    results = [None] * len(reqs)
+
+    def b1():
+        t0 = time.perf_counter()
+        made = eng.warmup()
+        warm_s = time.perf_counter() - t0
+        captures = eng.graphs.captures
+        launches0, replays0 = _launches(), eng.graphs.replays
+        futs = {}
+
+        def client(k):
+            for i in range(k, n_async, batch["threads"]):
+                t = time.perf_counter()
+                f = eng.submit(reqs[i])
+                f.add_done_callback(lambda _f, i=i, t=t: lat.__setitem__(
+                    i, time.perf_counter() - t))
+                futs[i] = f
+
+        t_start = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(batch["threads"])]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        for i in range(n_async):
+            results[i] = futs[i].result(timeout=600)
+        for i in range(n_async, len(reqs)):
+            t = time.perf_counter()
+            results[i] = eng.predict(reqs[i], timeout=600)
+            lat[i] = time.perf_counter() - t
+        wall = time.perf_counter() - t_start
+        if cuda:
+            torch.cuda.synchronize()
+        launches = _launches()
+        return dict(made=made, warm_s=warm_s, captures_warm=captures,
+                    wall_s=wall, replays=eng.graphs.replays - replays0,
+                    fwd_traffic=launches["bigdl_flash_fwd"]
+                    - launches0["bigdl_flash_fwd"])
+
+    b1r = acc.run(b1)
+    stats = eng.stats()
+    snap = stats["metrics"]
+    want_caps = n_buckets if cuda else 0
+    if b1r["made"] != n_buckets or b1r["captures_warm"] != want_caps or \
+            eng.graphs.captures != want_caps:
+        raise AssertionError(f"batch B1: {b1r['made']} entries made, "
+                             f"{b1r['captures_warm']} captures at warmup, "
+                             f"{eng.graphs.captures} after traffic; "
+                             f"{n_buckets} buckets")
+    if stats["compile_cache"]["hit_rate"] != 1.0:
+        raise AssertionError(f"batch B1: hit rate "
+                             f"{stats['compile_cache']['hit_rate']}")
+    if cuda and b1r["fwd_traffic"] != n_layers * b1r["replays"]:
+        raise AssertionError(f"batch B1: {b1r['fwd_traffic']} flash_fwd "
+                             f"launches over {b1r['replays']} replays, not "
+                             f"{n_layers} a replay")
+    peak = _peak(dev)
+    worst = 0.0
+    for i, x in enumerate(reqs):
+        worst = max(worst, plain_err(x, results[i]))
+        results[i] = None
+    rows = sum(int(x.shape[0]) for x in reqs)
+    lat_ms = np.asarray(lat) * 1e3
+    d2h_ms, split = None, {}
+    top_bytes = top * T * V * 4
+    if cuda:
+        # each bucket's batch, split as _run_batch runs it: the entry's
+        # staging and replay (CUDA events on the replaying stream), then
+        # the engine's own copy of the outputs to the host (host clock;
+        # the copy synchronises)
+        from bigdl_tpu_torch.serving.engine import _to_host
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        for bkt in eng.buckets:
+            xb = np.zeros((bkt, T), np.float32)
+            rep, cp = [], []
+            for _ in range(batch["split_reps"]):
+                torch.cuda.synchronize()
+                ev0.record()
+                y = eng.cache(eng._params, eng._buffers, xb)
+                ev1.record()
+                ev1.synchronize()
+                t0 = time.perf_counter()
+                _to_host(y)
+                cp.append((time.perf_counter() - t0) * 1e3)
+                rep.append(ev0.elapsed_time(ev1))
+            split[bkt] = dict(replay_ms=float(np.median(rep)),
+                              to_host_ms=float(np.median(cp)))
+        del y
+        d2h_ms = split[top]["to_host_ms"]
+    pool = eng.graphs.pool_bytes()
+    qw, dt = snap["queue_wait"], snap["device_time"]
+    out["b1"] = dict(
+        requests=len(reqs), rows=rows, wall_s=b1r["wall_s"],
+        examples_per_s=rows / b1r["wall_s"],
+        latency_p50_ms=float(np.percentile(lat_ms, 50)),
+        latency_p99_ms=float(np.percentile(lat_ms, 99)),
+        queue_wait_p50_ms=qw["p50_s"] * 1e3, queue_wait_p99_ms=qw["p99_s"]
+        * 1e3, device_p50_ms=dt["p50_s"] * 1e3, device_p99_ms=dt["p99_s"]
+        * 1e3, batches=snap["batches"], occupancy=snap["batch_occupancy"],
+        replays=b1r["replays"], captures=eng.graphs.captures,
+        warmup_s=b1r["warm_s"], max_err=worst, peak_bytes=peak,
+        pool_bytes=pool, top_output_bytes=top_bytes, d2h_ms=d2h_ms,
+        split=split)
+    b = out["b1"]
+    log(f"[batch] B1 {b['requests']} requests, {rows} rows of {T} ids "
+        f"(4 threads, {batch['predicts']} predicts, {batch['oversized_n']} "
+        f"x {batch['oversized']} rows): {b['examples_per_s']:.1f} "
+        f"examples/s, latency p50 {b['latency_p50_ms']:.2f} / p99 "
+        f"{b['latency_p99_ms']:.2f} ms, queue wait p50 "
+        f"{b['queue_wait_p50_ms']:.2f} / p99 {b['queue_wait_p99_ms']:.2f} ms "
+        f"against device time p50 {b['device_p50_ms']:.2f} / p99 "
+        f"{b['device_p99_ms']:.2f} ms, {b['batches']} batches, occupancy "
+        f"{b['occupancy']:.3f}, {b['captures']} captures ({b['warmup_s']:.2f}"
+        f" s warmup), {b['replays']} replays, flash_fwd "
+        f"{b1r['fwd_traffic']} launches through them, max |dlog-prob| "
+        f"{worst:.3e} against plain attention, max_memory_allocated "
+        f"{_mib(peak)}, graph pool "
+        f"{'none' if pool is None else f'{pool / 2**20:.1f} MiB'}; the top "
+        f"bucket's output {top_bytes} bytes, its copy to the host "
+        f"{'n/a' if d2h_ms is None else f'{d2h_ms:.2f} ms'}")
+    for bkt, sp in split.items():
+        log(f"[batch] B1 bucket {bkt}: stage + replay "
+            f"{sp['replay_ms']:.3f} ms (CUDA events), the engine's copy of "
+            f"its output to the host {sp['to_host_ms']:.3f} ms (host "
+            f"clock), medians of {batch['split_reps']}")
+
+    # -- B2: the padded-batch replica set, r1 dying -------------------- #
+    failovers = get_registry().counter("resilience/failovers")
+    rs = ReplicaSet(model, n_replicas=2, input_shape=(T,), dtype="float32",
+                    max_batch_size=top, device=dev)
+    os.environ[faults.ENV_SPEC] = batch["fault"]
+    os.environ[faults.ENV_SEED] = "0"
+    faults.refresh_from_env()
+    try:
+        def b2():
+            rs.warmup()
+            f0 = failovers.value
+            for i, x in enumerate(reqs):
+                want = eng.predict(x, timeout=600)   # one request a batch
+                got = rs.predict(x, timeout=600)
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"batch B2: request {i} differs "
+                                         "from the single engine's answer")
+            return int(failovers.value - f0)
+
+        redispatches = acc.run(b2)
+        st = rs.stats()["replicas"]
+        fired = sum(v["fired"] for v in faults.active().stats().values())
+    finally:
+        os.environ.pop(faults.ENV_SPEC, None)
+        os.environ.pop(faults.ENV_SEED, None)
+        faults.refresh_from_env()
+        rs.close()
+    states = {k: v["state"] for k, v in st.items()}
+    if redispatches < 1 or fired < 1 or states["r1"] == "healthy":
+        raise AssertionError(f"batch B2: {redispatches} re-dispatches, "
+                             f"{fired} faults fired, breakers {states}")
+    out["b2"] = dict(requests=len(reqs), redispatches=redispatches,
+                     fired=fired, states=states,
+                     dispatched={k: v["dispatched"] for k, v in st.items()})
+    log(f"[batch] B2 ReplicaSet of 2 under {batch['fault']}: "
+        f"{len(reqs)} requests all answered, each bitwise the single "
+        f"engine's, {redispatches} re-dispatches, {fired} faults fired, "
+        f"breakers {states}, dispatched "
+        f"{out['b2']['dispatched']}")
+    eng.close()
+    del rs, eng
+    release(dev)
+
+    # -- B3: the OO shell through the flash pair ----------------------- #
+    H, heads = config["hidden_size"], config["n_head"]
+
+    def b3_module(impl):
+        return nn.Sequential(
+            nn.MultiHeadAttention(H, heads, causal=True, attention_impl=impl),
+            nn.Linear(H, H)).build(0, device=dev)
+
+    rng = np.random.RandomState(batch["id_seed"])
+    x3 = rng.randn(*batch["b3_shape"], H).astype(np.float32)
+    g3 = rng.randn(*batch["b3_shape"], H).astype(np.float32)
+    fast = b3_module("auto")
+
+    def b3():
+        fwd, bwd = [], []
+        for _ in range(1 + batch["b3_steps"]):
+            fast.zero_grad_parameters()
+            t0 = time.perf_counter()
+            fast.forward(x3)
+            if cuda:
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            gi = fast.backward(x3, g3)
+            if cuda:
+                torch.cuda.synchronize()
+            fwd.append((t1 - t0) * 1e3)
+            bwd.append((time.perf_counter() - t1) * 1e3)
+        flat_w, flat_g, _ = fast.get_parameters()
+        return gi, flat_w, flat_g, fwd[1:], bwd[1:]
+
+    gi, flat_w, flat_g, fwd_ms, bwd_ms = acc.run(b3)
+    l3 = dict(acc.last)
+    plain3 = b3_module("xla")
+    gi_ref = plain3.backward(x3, g3)
+    got = {"input": gi, **{str(i): leaf for i, leaf in enumerate(
+        pytree.tree_leaves(fast.grad_params))}}
+    want = {"input": gi_ref, **{str(i): leaf for i, leaf in enumerate(
+        pytree.tree_leaves(plain3.grad_params))}}
+    ratio, leaf = _check_grads("batch B3", got, want, TOL_GRAD)
+    n_params = int(flat_w.numel())
+    if flat_g.numel() != n_params or not torch.isfinite(flat_g).all():
+        raise AssertionError("batch B3: get_parameters() gradients")
+    if cuda:
+        check_launches("batch B3", l3, ("bigdl_flash_fwd",
+                                        "bigdl_flash_bwd_dkv",
+                                        "bigdl_flash_bwd_dq"))
+    out["b3"] = dict(fwd_ms=float(np.median(fwd_ms)),
+                     bwd_ms=float(np.median(bwd_ms)), worst=ratio,
+                     worst_leaf=leaf, params=n_params, launches=l3)
+    log(f"[batch] B3 Sequential(MultiHeadAttention({H}, {heads}, causal), "
+        f"Linear({H}, {H})) on {tuple(x3.shape)}: forward "
+        f"{out['b3']['fwd_ms']:.2f} ms, backward {out['b3']['bwd_ms']:.2f} "
+        f"ms (medians of {batch['b3_steps']}, host clock), "
+        f"{n_params} parameters flattened, worst gradient {ratio:.2e} of "
+        f"its max |g| ({leaf}), launches {l3}")
+    del fast, plain3, model
+    release(dev)
+    out["launches"] = acc.total
+    return out
+
+
 def _ms_list(ms):
     return "[" + ", ".join(f"{m:.3f}" for m in ms) + "]"
 
@@ -2688,7 +3021,7 @@ def _set_flag(args, flag, value):
 
 
 def _weight_bytes(params):
-    from bigdl_tpu_torch.utils.params import tree_leaves
+    from bigdl_tpu_torch.utils.pytree import tree_leaves
     return sum(t.numel() * t.element_size() for t in tree_leaves(params))
 
 
@@ -3115,7 +3448,7 @@ def phase_gpt2(dev, config=GPT2_SMALL, gpt2=GPT2):
     from bigdl_tpu_torch.models.transformer import TransformerLM
     from bigdl_tpu_torch.models.transformer.io import (export_gpt2_state_dict,
                                                        load_gpt2_state_dict)
-    from bigdl_tpu_torch.utils.params import tree_leaves
+    from bigdl_tpu_torch.utils.pytree import tree_leaves
     sd = gpt2_state_dict(config, gpt2["seed"])
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "gpt2.pth")
@@ -3199,7 +3532,7 @@ def _obs_adam_classes():
 
         def update(self, grads, state, params, epoch=1):
             import torch
-            from bigdl_tpu_torch.utils.params import tree_leaves
+            from bigdl_tpu_torch.utils.pytree import tree_leaves
             with torch.no_grad():
                 lr = self.current_rate(state, epoch)
                 t = state["iteration"] + 1
@@ -3218,7 +3551,25 @@ def _obs_adam_classes():
                 state["iteration"] = t
             return params, state
 
-    return SleepyAdam, FailingAdam, InPlaceAdam
+    class FailingInPlaceAdam(InPlaceAdam):
+        """InPlaceAdam whose ``fail_at``-th update raises after writing
+        its first leaf and the second leaf's moments in place."""
+
+        def __init__(self, fail_at=None, **kw):
+            super().__init__(**kw)
+            self.fail_at, self.updates, self.leaves = fail_at, 0, 0
+
+        def update(self, grads, state, params, epoch=1):
+            self.updates, self.leaves = self.updates + 1, 0
+            return super().update(grads, state, params, epoch)
+
+        def _post_step(self, w_new, w_old, lr):
+            self.leaves += 1
+            if self.updates == self.fail_at and self.leaves == 2:
+                raise RuntimeError("injected failure inside update")
+            return super()._post_step(w_new, w_old, lr)
+
+    return SleepyAdam, FailingAdam, InPlaceAdam, FailingInPlaceAdam
 
 
 def obs_prompts(obs, n):
@@ -3726,7 +4077,7 @@ def obs_train(dev, config, train, obs, root):
     from bigdl_tpu_torch.visualization import (TrainSummary, ValidationSummary,
                                                list_tags, read_records,
                                                decode_event)
-    SleepyAdam, _, _ = _obs_adam_classes()
+    SleepyAdam = _obs_adam_classes()[0]
     x, y = _train_batch(config, train)
     crit = TimeDistributedCriterion(ClassNLLCriterion(), True)
     model = TransformerLM(attention_impl="flash", device=dev,
@@ -3843,7 +4194,7 @@ def obs_update_failure(dev, config, train, obs, ckpt, root, train_ref):
     from bigdl_tpu_torch.obs import get_registry
     from bigdl_tpu_torch.optim import Adam, Trigger
     from bigdl_tpu_torch.utils import file_io
-    _, FailingAdam, InPlaceAdam = _obs_adam_classes()
+    _, FailingAdam, InPlaceAdam, FailingInPlaceAdam = _obs_adam_classes()
     x, y = _train_batch(config, train)
     lr = train["learning_rate"]
     n = obs["o5_steps"]
@@ -3894,6 +4245,40 @@ def obs_update_failure(dev, config, train, obs, ckpt, root, train_ref):
                              "staged before the failure")
     del opt_b, model_b
     release(dev)
+    # a user's in-place method failing midway: the loop rolls its partial
+    # writes back to the snapshot and writes the same iteration's pair
+    d_ip = os.path.join(root, "o5_in_place")
+    model_ip = fresh()
+    opt_ip = opt_for(model_ip, FailingInPlaceAdam(fail_at=obs["fail_at"],
+                                                  learning_rate=lr))
+    opt_ip.set_checkpoint(d_ip, Trigger(lambda s: False, "never"))
+    emerg_ip = get_registry().counter(
+        "resilience/emergency_checkpoints").value
+    try:
+        run_iterations(opt_ip, 1 + n)
+    except RuntimeError as e:
+        if "inside update" not in str(e):
+            raise
+    else:
+        raise AssertionError("O5: the in-place failure did not surface")
+    emerg_ip = get_registry().counter(
+        "resilience/emergency_checkpoints").value - emerg_ip
+    found_ip = file_io.latest_checkpoint(d_ip)
+    if emerg_ip != 1 or found_ip is None or \
+            found_ip[2] != obs["fail_at"] - 1:
+        raise AssertionError(f"O5 in place: emergency +{emerg_ip}, pair "
+                             f"{found_ip}")
+    saved = file_io.load(found_ip[0])["params"]
+    for (path, a), (_, b) in zip(_named_leaves(model_ip.params),
+                                 _named_leaves(saved)):
+        if not np.array_equal(a.cpu().numpy(), b):
+            raise AssertionError(f"O5 in place: leaf {path} differs from "
+                                 "the pair's: the partial write survived")
+    log(f"[obs] O5 in-place user method failing inside update "
+        f"{obs['fail_at']} after writing one leaf: emergency pair at "
+        f"{found_ip[2]}, the rolled-back weights bitwise the pair's")
+    del opt_ip, model_ip, saved
+    release(dev)
     model_c = fresh(seed=train["seed"] + 1)
     opt_c = opt_for(model_c, FailingAdam(learning_rate=lr))
     opt_c.resume_from(d)
@@ -3913,9 +4298,9 @@ def obs_update_failure(dev, config, train, obs, ckpt, root, train_ref):
         raise AssertionError(f"O5: a resumed leaf's max |dw| is {worst:.3e} "
                              "of its max |w|")
     launches = _launches()
-    # 4 timed runs, the failing run's steps to the failure (its forward
-    # and backward ran), the resumed run's
-    steps = 4 * (1 + n) + obs["fail_at"] + (1 + n - found[2])
+    # 4 timed runs, the two failing runs' steps to the failure (their
+    # forward and backward ran), the resumed run's
+    steps = 4 * (1 + n) + 2 * obs["fail_at"] + (1 + n - found[2])
 
     ref = train_ref or {}
     log(f"[obs] O5 failure inside update at iteration {obs['fail_at']}: "
@@ -3930,7 +4315,8 @@ def obs_update_failure(dev, config, train, obs, ckpt, root, train_ref):
         f"{ref.get('step_ms', float('nan')):.2f} ms, "
         f"{_mib(ref.get('peak_bytes'))})")
     del model_a, model_c, opt_c
-    return dict(pair=found[2], worst_leaf=worst, timing=timing,
+    return dict(pair=found[2], pair_in_place=found_ip[2], worst_leaf=worst,
+                timing=timing,
                 launches=launches, steps=steps,
                 checks=[("obs O5 training path", launches,
                          ("bigdl_flash_fwd", "bigdl_flash_bwd_dkv",
@@ -4081,6 +4467,26 @@ def main() -> int:
                    ("bigdl_flash_fwd", "bigdl_paged_decode"))
     log(f"[replicas] launches over the replicas runs: "
         f"{replicas['launches']} | {smi}")
+    log_allocated("batch")
+    t0 = time.perf_counter()
+    batch = phase_batch(dev, oracle=oracle)
+    phases["batch"] = time.perf_counter() - t0
+    check_launches("batch path", batch["launches"],
+                   ("bigdl_flash_fwd", "bigdl_flash_bwd_dkv",
+                    "bigdl_flash_bwd_dq"))
+    b1, b3 = batch["b1"], batch["b3"]
+    log(f"[batch] B1 {b1['examples_per_s']:.1f} examples/s, latency p50 "
+        f"{b1['latency_p50_ms']:.2f} / p99 {b1['latency_p99_ms']:.2f} ms, "
+        f"queue wait p50 {b1['queue_wait_p50_ms']:.2f} ms against device "
+        f"p50 {b1['device_p50_ms']:.2f} ms, max_memory_allocated "
+        f"{_mib(b1['peak_bytes'])}, graph pool "
+        f"{_mib(b1['pool_bytes'])}, per bucket stage + replay / the "
+        f"engine's copy to the host "
+        + ", ".join(f"{k}: {v['replay_ms']:.3f} / {v['to_host_ms']:.3f} ms"
+                    for k, v in b1["split"].items())
+        + f"; B3 forward {b3['fwd_ms']:.2f} ms, backward "
+        f"{b3['bwd_ms']:.2f} ms; launches over the batch runs "
+        f"{batch['launches']} | {smi}")
     del oracle
     release(dev)
     log_allocated("train")
@@ -4177,7 +4583,7 @@ def main() -> int:
     paths = dict(serve=serve["launches"], serve_sampled=sampled["launches"],
                  spec=spec_launches, quant=quant_launches,
                  tier=tier["launches"], replicas=replicas["launches"],
-                 train=train["launches"],
+                 batch=batch["launches"], train=train["launches"],
                  moe=total(m1["launches"], m2["launches"]),
                  accum=total(*(r["launches"] for r in accum.values())),
                  ckpt=ckpt["launches"], gpt2=gpt2["launches"],
@@ -4189,15 +4595,16 @@ def main() -> int:
 
     serving = ("serve", "serve_sampled", "spec", "quant", "tier", "replicas",
                "moe", "obs")
-    training = ("train", "moe", "accum", "ckpt", "obs")
+    training = ("train", "moe", "accum", "ckpt", "obs", "batch")
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_fwd.cu",
              replaces="bigdl_tpu/ops/flash_attention.py:39",
              launches=serve["launches"]["bigdl_flash_fwd"],
              launches_by_path=by_path("bigdl_flash_fwd",
-                                      serving + ("train", "accum", "ckpt",
-                                                 "gpt2")), **flash_main),
+                                      serving + ("batch", "train", "accum",
+                                                 "ckpt", "gpt2")),
+             **flash_main),
         dict(name="paged_decode", route="cuda",
              source="bigdl_tpu_torch/csrc/paged_decode.cu",
              replaces="bigdl_tpu/ops/paged_attention.py:34",

@@ -1138,3 +1138,128 @@ def test_diagnose_cuda_returns_while_a_kernel_spins(card):
     assert isinstance(out, str) and out
     assert busy, "the spinning kernel ended before diagnose_cuda returned"
     assert took < 1.0
+
+
+# --------------------------------------------------------------------- #
+# the padded-batch serving stack                                        #
+# --------------------------------------------------------------------- #
+def _scoring_lm(card):
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    return TransformerLM(attention_impl="auto", device=card,
+                         **ENGINE_LM).build(seed=0)
+
+
+def _score_inputs():
+    rng = np.random.RandomState(6)
+    return [rng.randint(1, 98, size=(n, 64)).astype(np.float32)
+            for n in (1, 3, 2, 4, 1, 7)]
+
+
+def test_padded_engine_through_graphs_equals_eager(card):
+    """A TransformerLM scored through the padded engine's replayed
+    graphs answers exactly as the same engine does eagerly: four
+    captures at warmup, none after, 2 flash launches a replay."""
+    from bigdl_tpu_torch.serving import ServingEngine
+    lm = _scoring_lm(card)
+    xs = _score_inputs()
+    kw = dict(input_shape=(64,), max_batch_size=4, max_wait_ms=1.0,
+              device=card)
+    with ServingEngine(lm, cuda_graphs=False, name="eager", **kw) as eng:
+        want = [eng.predict(x, timeout=120) for x in xs]
+    with ServingEngine(lm, name="graphs", **kw) as eng:
+        assert eng.warmup() == 3 and eng.graphs.captures == 3
+        before = FLASH_FWD.launches
+        replays = eng.graphs.replays
+        got = [eng.predict(x, timeout=120) for x in xs]
+        assert eng.graphs.captures == 3
+        done = eng.graphs.replays - replays
+        assert done >= len(xs)
+        assert FLASH_FWD.launches - before == ENGINE_LM["n_layers"] * done
+        assert eng.stats()["compile_cache"]["hit_rate"] == 1.0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_two_padded_engines_capture_and_replay_side_by_side(card):
+    """Engine A answers a stream of requests through replayed graphs on
+    its batcher's worker while engine B, built meanwhile, captures its
+    warmup on the caller's thread: no capture is invalidated, B answers
+    one request a batch bitwise as A does, and A's batched answers (other
+    buckets, so other product shapes) agree within float32 rounding."""
+    import threading
+    from bigdl_tpu_torch.serving import ServingEngine
+    lm = _scoring_lm(card)
+    xs = _score_inputs()
+    kw = dict(input_shape=(64,), max_batch_size=4, max_wait_ms=1.0,
+              device=card)
+    a = ServingEngine(lm, name="pad-a", **kw)
+    b = None
+    stop = threading.Event()
+    fed = []
+
+    def feed():
+        while not stop.is_set():
+            fed.append([a.submit(x) for x in xs])
+            for f in fed[-1]:
+                f.result(timeout=120)
+
+    feeder = threading.Thread(target=feed)
+    try:
+        a.warmup()
+        want = [a.predict(x, timeout=120) for x in xs]
+        feeder.start()
+        while not fed:
+            time.sleep(0.001)
+        replays = a.graphs.replays
+        b = ServingEngine(lm, name="pad-b", **kw)
+        assert b.warmup() == 3
+        stop.set()
+        feeder.join(120)
+        assert a.graphs.replays > replays
+        for batch in fed:
+            for f, w in zip(batch, want):
+                np.testing.assert_allclose(f.result(timeout=120), w,
+                                           rtol=1e-5, atol=1e-5)
+        for x, w in zip(xs, want):
+            np.testing.assert_array_equal(b.predict(x, timeout=120), w)
+        assert a.graphs.captures == b.graphs.captures == 3
+    finally:
+        stop.set()
+        if feeder.is_alive():
+            feeder.join(120)
+        a.close()
+        if b is not None:
+            b.close()
+
+
+def test_module_backward_runs_the_flash_pair(card):
+    """The OO shell's backward on a causal MultiHeadAttention goes
+    through the flash forward and both backward kernels, and agrees with
+    the same module on plain attention within 1e-3 of each leaf's
+    max |g|.  The key bias's gradient is zero in exact arithmetic (it
+    shifts every score of a row alike), so each leaf's max |g| has a
+    floor of the tree's largest."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.utils import pytree
+
+    def build(impl):
+        return nn.Sequential(
+            nn.MultiHeadAttention(128, 2, causal=True, attention_impl=impl),
+            nn.Linear(128, 128)).build(0, device=card)
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 96, 128).astype(np.float32)
+    g = rng.randn(2, 96, 128).astype(np.float32)
+    counts = {k: k.launches for k in (FLASH_FWD, FLASH_BWD_DKV,
+                                      FLASH_BWD_DQ)}
+    fast, plain = build("auto"), build("xla")
+    gi = fast.backward(x, g)
+    torch.cuda.synchronize()
+    assert all(k.launches > n for k, n in counts.items())
+    gi_ref = plain.backward(x, g)
+    pairs = [(gi, gi_ref)] + list(zip(pytree.tree_leaves(fast.grad_params),
+                                      pytree.tree_leaves(plain.grad_params)))
+    floor = max(v.abs().max().item() for _, v in pairs)
+    for u, v in pairs:
+        scale = max(v.abs().max().item(), 1e-3 * floor)
+        assert (u - v).abs().max().item() <= 1e-3 * scale

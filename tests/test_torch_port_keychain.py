@@ -66,6 +66,21 @@ def test_uniform_bitwise(shape):
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
+@pytest.mark.parametrize("bounds", [(1e-30, 3.0), (-1e-10, 3.0),
+                                    (0.001, 1000.001), (1000.0, 1000.001)])
+def test_uniform_bitwise_with_far_bounds(bounds):
+    """Bounds whose scale-and-shift the float64 sum cannot hold exactly:
+    a double rounding would miss the fused multiply-add's ties."""
+    lo, hi = bounds
+    for seed in (0, 5):
+        key = keychain.split(_jkey(seed), 3)[2]
+        got = keychain.uniform(key, (4099,), lo, hi)
+        want = np.asarray(jax.random.uniform(jnp.asarray(key), (4099,),
+                                             minval=lo, maxval=hi))
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
 @pytest.mark.parametrize("shape", [(97,), (1, 50257), (3, 1000)])
 def test_gumbel_within_2_ulp(shape):
     """Two float32 logs each land within an ulp of XLA's; measured at
@@ -101,3 +116,33 @@ def test_categorical_draws_equal_jax(vocab, temperature):
         assert z[-1] - z[-2] < TIE_GAP, (i, got, int(want[i]))
         ties += 1
     assert ties <= 2
+
+
+@pytest.mark.parametrize("stdv", [1 / 8 ** 0.5, 1 / 768 ** 0.5, 1.0])
+def test_uniform_bitwise_with_symmetric_bounds(stdv):
+    """A layer init's draw, ``uniform(-stdv, stdv)``: XLA fuses the scale
+    and shift into one multiply-add, and so does the key chain."""
+    for seed in range(4):
+        key = keychain.split(_jkey(seed), 2)[0]
+        got = keychain.uniform(key, (64, 96), -stdv, stdv)
+        want = np.asarray(jax.random.uniform(
+            jnp.asarray(key), (64, 96), minval=-stdv, maxval=stdv))
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+@pytest.mark.parametrize("shape", [(97,), (300, 24), (1000, 33)])
+def test_normal_within_4_ulp(shape):
+    """``normal`` runs XLA's float32 inverse-error-function polynomial
+    over the bitwise uniform; numpy's log1p and XLA's differ in the last
+    bit, which the polynomial carries to at most 4 ulp."""
+    worst = 0
+    for seed in range(6):
+        key = _jkey(seed)
+        got = keychain.normal(key, shape)
+        want = np.asarray(jax.random.normal(jnp.asarray(key), shape))
+        assert got.dtype == np.float32 and got.shape == want.shape
+        ulp = np.abs(got.view(np.int32).astype(np.int64)
+                     - want.view(np.int32).astype(np.int64))
+        worst = max(worst, int(ulp.max()))
+    assert worst <= 4

@@ -577,18 +577,157 @@ class _InPlaceThenRaise(optim.OptimMethod):
         return params, state
 
 
-def test_in_place_user_method_failure_writes_no_pair(tmp_path):
-    _, tm, opt, _ = _port_pair(method=_InPlaceThenRaise())
+class _JaxPlainThenRaise(joptim.OptimMethod):
+    """The reference's counterpart of ``_InPlaceThenRaise``: the same
+    step, functional, raising on the device in its 3rd update."""
+
+    def update(self, grads, state, params, epoch=1):
+        new = jax.tree_util.tree_map(lambda w, g: w - 0.01 * g, params,
+                                     grads)
+        it = state["iteration"] + 1
+
+        def boom(i):
+            if int(i) == 3:
+                raise RuntimeError("in-place update failed midway")
+
+        jax.debug.callback(boom, it)
+        return new, {"iteration": it}
+
+
+def test_in_place_user_method_failure_writes_the_reference_pair(tmp_path):
+    """A user's in-place method writes its first leaf, then raises in
+    its 3rd update: the loop rolls the update back to its snapshot and
+    writes the emergency pair of iteration 2, as the reference (whose
+    updates are functional) does for any method: the same driver state,
+    and params within 1e-6 of the reference's."""
+    jm, tm, opt, (tok, dic) = _port_pair(method=_InPlaceThenRaise())
     assert not stages_updates(opt.optim_method)
-    # scheduled pairs when neval turns even: after iterations 1, 3, ...
-    opt.set_checkpoint(str(tmp_path), optim.Trigger.several_iteration(2))
+    opt.set_checkpoint(str(tmp_path / "port"),
+                       optim.Trigger.several_iteration(1000))
     emerg = _counter("resilience/emergency_checkpoints")
     with pytest.raises(RuntimeError, match="midway"):
         opt.optimize()
-    assert _counter("resilience/emergency_checkpoints") == emerg
+    assert _counter("resilience/emergency_checkpoints") - emerg == 1
+
+    jopt = _jax_opt(jm, tok, dic, _JaxPlainThenRaise())
+    jopt.set_checkpoint(str(tmp_path / "ref"),
+                        joptim.Trigger.several_iteration(1000))
+    with pytest.raises(Exception, match="midway"):
+        jopt.optimize()
+
+    pairs = {}
+    for side in ("port", "ref"):
+        found = file_io.latest_checkpoint(str(tmp_path / side))
+        assert found is not None and found[2] == 2
+        assert sorted(os.listdir(str(tmp_path / side))) == [
+            "model.2", "state.2"]
+        pairs[side] = found
+    snaps = {k: file_io.load(v[1]) for k, v in pairs.items()}
+    for key in ("neval", "records_processed", "epoch"):
+        assert snaps["port"]["driver_state"][key] == \
+            snaps["ref"]["driver_state"][key]
+    assert snaps["port"]["driver_state"]["records_processed"] == 8
+    assert int(snaps["port"]["optim_state"]["iteration"]) == \
+        int(snaps["ref"]["optim_state"]["iteration"]) == 2
+    template = JaxLM(attention_impl="xla",
+                     **dict(_KW, vocab_size=dic.vocab_size()))
+    port_pair = _leaves_by_name(
+        TransformerLM.load(pairs["port"][0], device="cpu").params)
+    ref_pair = _jax_leaves_by_name(
+        jnn.Module.load(pairs["ref"][0], template=template).params)
+    assert set(port_pair) == set(ref_pair)
+    for name in port_pair:
+        np.testing.assert_allclose(port_pair[name], ref_pair[name],
+                                   rtol=1e-6, atol=1e-6, err_msg=name)
+    # the weights the loop left are the pair's: the partial write of
+    # the failed update was rolled back
+    for name, leaf in _leaves_by_name(tm.params).items():
+        np.testing.assert_array_equal(leaf, port_pair[name])
+
+
+class _ListMomentThenRaise(optim.OptimMethod):
+    """A user's in-place method that keeps its moments in a list and a
+    log of its calls in another: its 3rd call appends to the log, writes
+    a moment and a weight, then raises."""
+
+    def __init__(self):
+        self.calls = 0
+        self.after2 = None
+
+    def init_state(self, params):
+        return {"iteration": 0, "log": [],
+                "moments": [torch.zeros_like(w) for w in tree_leaves(params)]}
+
+    def update(self, grads, state, params, epoch=1):
+        self.calls += 1
+        state["log"].append(self.calls)
+        with torch.no_grad():
+            for w, g, m in zip(tree_leaves(params), tree_leaves(grads),
+                               state["moments"]):
+                m.mul_(0.9).add_(g)
+                w.sub_(0.01 * m)
+                if self.calls == 3:
+                    raise RuntimeError("in-place update failed midway")
+        state["iteration"] += 1
+        if self.calls == 2:
+            self.after2 = ([m.clone() for m in state["moments"]],
+                           [w.clone() for w in tree_leaves(params)])
+        return params, state
+
+
+def test_in_place_failure_restores_state_kept_in_lists(tmp_path):
+    """The snapshot reaches a moment kept in a list and a list the
+    failed update appended to: the loop is left with iteration 2's
+    weights, moments and log, bit for bit, and writes them as the
+    emergency pair."""
+    method = _ListMomentThenRaise()
+    _, tm, opt, _ = _port_pair(method=method)
+    opt.set_checkpoint(str(tmp_path), optim.Trigger.several_iteration(1000))
+    emerg = _counter("resilience/emergency_checkpoints")
+    with pytest.raises(RuntimeError, match="midway"):
+        opt.optimize()
+    assert _counter("resilience/emergency_checkpoints") - emerg == 1
+    state = method._state
+    assert state["iteration"] == 2 and state["log"] == [1, 2]
+    moments, weights = method.after2
+    assert len(state["moments"]) == len(moments)
+    for a, b in zip(state["moments"] + tree_leaves(tm.params),
+                    moments + weights):
+        assert torch.equal(a, b)
     found = file_io.latest_checkpoint(str(tmp_path))
-    assert found is not None and found[2] == 1
-    assert sorted(os.listdir(str(tmp_path))) == ["model.1", "state.1"]
+    assert found is not None and found[2] == 2
+    saved = file_io.load(found[1])["optim_state"]
+    assert list(saved["log"]) == [1, 2]
+    for a, b in zip(saved["moments"], moments):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_update_snapshot_restores_tables_tuples_and_arrays():
+    """``UpdateSnapshot`` puts back a Table's entries, the tensors under
+    a tuple and a numpy array's values, and refuses a leaf it cannot
+    restore before the update runs."""
+    from bigdl_tpu_torch.optim.optimizer import UpdateSnapshot
+    from bigdl_tpu_torch.utils.table import Table
+    w = torch.arange(4.0)
+    t = Table(torch.ones(2), "tag")
+    state = {"pair": (torch.zeros(3), 7), "table": t,
+             "host": np.arange(3.0)}
+    snap = UpdateSnapshot()
+    snap.take({"w": w}, state)
+    w.add_(1)
+    state["pair"][0].fill_(5)
+    t[1].mul_(3)
+    t[3] = "extra"
+    state["host"][:] = -1
+    state["new"] = 1
+    snap.restore()
+    assert torch.equal(w, torch.arange(4.0))
+    assert torch.equal(state["pair"][0], torch.zeros(3))
+    assert torch.equal(t[1], torch.ones(2)) and sorted(t.keys()) == [1, 2]
+    np.testing.assert_array_equal(state["host"], np.arange(3.0))
+    assert "new" not in state
+    with pytest.raises(TypeError, match="cannot restore"):
+        snap.take({"w": w}, {"opaque": object()})
 
 
 @pytest.mark.parametrize("method", ["sgd", "sgd_nesterov", "adam", "adamw"])
