@@ -51,12 +51,20 @@
 //   tile goes through shared memory.
 // - o = acc / l is stored by `store_rows`; lse by one lane of each quad.
 //
-// The streamed tiles have 64 keys for bf16 at D = 64 and 32 otherwise, as
-// in the backward (float32's split operands and D = 128's accumulators
-// leave fewer registers for the score tile).  Blocks are issued with the
-// last query tile first: under causality it has the most key tiles.  No
-// atomics: every output is summed by one thread in a fixed order, so
-// results are bitwise repeatable.  `wgmma` and TMA are later work.
+// The streamed key tile BK is the caller's choice among the tiles
+// instantiated below (`bigdl_flash_fwd`'s `block_k`, the Python side's
+// FLASH_TILES): 32 or 64 keys for float32 and for bf16 at D = 128, 64 or
+// 128 for bf16 at D = 64.  Dynamic shared memory is Q plus two stages of K
+// and V; the largest, float32 at D = 128 and BK = 64, is 160.5 KiB.  BK
+// changes only how the online softmax walks the keys (where alpha
+// rescales), not the arithmetic of a product.  Without a tuned tile the
+// Python side passes 64 for bf16 at D = 64 and 32 otherwise, the tiles of
+// the backward.  A tile that does not fit the card's opt-in shared memory
+// returns cudaErrorLaunchOutOfResources before anything runs.  Blocks are
+// issued with the last query tile first: under causality it has the most
+// key tiles.  No atomics: every output is summed by one thread in a fixed
+// order, so results are bitwise repeatable.  `wgmma` and TMA are later
+// work.
 #include "sm90_mma.cuh"
 
 #include <math.h>
@@ -248,6 +256,9 @@ int launch(const void* q, const void* k, const void* v, const int* seg_q,
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
+  // the size is the one value here that can be invalid: above the card's
+  // opt-in shared memory
+  if (err == cudaErrorInvalidValue) return (int)cudaErrorLaunchOutOfResources;
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, D, BK><<<grid, THREADS, smem, stream>>>(
@@ -263,23 +274,33 @@ extern "C" {
 
 // q: (B, H, Tq, D), k/v: (B, H, Tk, D), o like q, lse (B, H, Tq) float32,
 // all contiguous; seg_q (B, Tq) / seg_k (B, Tk) int32 or both null.
-// dtype 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
+// dtype 0 = float32, 1 = bfloat16; block_k the streamed key tile (64 or
+// 128 for bf16 at D = 64, else 32 or 64).  Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a (dtype, D, block_k) not built here.
 int bigdl_flash_fwd(const void* q, const void* k, const void* v,
                     const void* seg_q, const void* seg_k, void* o, void* lse,
                     int B, int H, int Tq, int Tk, int D, int dtype, int causal,
-                    float scale, void* stream) {
+                    int block_k, float scale, void* stream) {
   const int* sq = static_cast<const int*>(seg_q);
   const int* sk = static_cast<const int*>(seg_k);
   float* ls = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64, 32>(q, k, v, sq, sk, o, ls, B, H, Tq, Tk, causal, scale, st);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128, 32>(q, k, v, sq, sk, o, ls, B, H, Tq, Tk, causal, scale, st);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64, 64>(q, k, v, sq, sk, o, ls, B, H, Tq, Tk, causal, scale, st);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128, 32>(q, k, v, sq, sk, o, ls, B, H, Tq, Tk, causal, scale, st);
+#define BIGDL_FWD(T, DD, BKK)                                              \
+  if (D == DD && block_k == BKK)                                          \
+    return launch<T, DD, BKK>(q, k, v, sq, sk, o, ls, B, H, Tq, Tk, causal, \
+                              scale, st);
+  if (dtype == 0) {
+    BIGDL_FWD(float, 64, 32)
+    BIGDL_FWD(float, 64, 64)
+    BIGDL_FWD(float, 128, 32)
+    BIGDL_FWD(float, 128, 64)
+  } else if (dtype == 1) {
+    BIGDL_FWD(__nv_bfloat16, 64, 64)
+    BIGDL_FWD(__nv_bfloat16, 64, 128)
+    BIGDL_FWD(__nv_bfloat16, 128, 32)
+    BIGDL_FWD(__nv_bfloat16, 128, 64)
+  }
+#undef BIGDL_FWD
   return (int)cudaErrorInvalidValue;
 }
 

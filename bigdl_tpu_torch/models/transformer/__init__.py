@@ -266,7 +266,9 @@ class TransformerLM(Module):
         a = self._layer_norm(bp["ln1"], x)
         q, k, v = mha.project_qkv(bp["attn"], a, a, a)
         q, k = self._rope(q, k, positions)
-        o = mha.attend(q, k, v, segment_ids=segment_ids)
+        # the LM keeps a block size as flash tiles, never the blockwise core
+        o = mha.attend(q, k, v, segment_ids=segment_ids,
+                       allow_blockwise=False)
         o = mha.project_out(bp["attn"], o)
         g = None
         if seed is not None:

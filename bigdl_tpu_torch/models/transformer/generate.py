@@ -138,26 +138,36 @@ def _finish_block(model, bp, h, o):
 
 
 def _prefill_parts(model, params, ids0, last_index, *,
-                   attention_impl: Optional[str] = None):
+                   attention_impl: Optional[str] = None,
+                   blocks: Optional[tuple] = None):
     """Run a (possibly bucket-padded) prompt once; return (float32
     logits (B, V) at ``last_index``, k, v) with k/v (L, B, H, T, D).
     Padded tail rows stay causally invisible to the row at
     ``last_index`` (an int, or a device int tensor).  ``attention_impl``
     overrides the model's attention core ("flash" runs the CUDA flash
-    kernel)."""
+    kernel).  The core resolves for this prefill's length, as the
+    reference resolves per trace: explicit "flash" pins the kernel's
+    default tile, "auto" takes the tuned plan for the length.
+    ``blocks`` (block_q, block_k) pins the kernel's tile (the LM
+    engine's per-bucket resolution)."""
     params = _entry(params)
     b, t = ids0.shape
     h = params["embed"][ids0]
     if model.pos_encoding == "learned":
         h = h + params["pos"][:t]
     positions = torch.arange(t, device=ids0.device)
-    use_flash = model._mha.resolve_use_flash(ids0.device, attention_impl)
+    mha = model._mha
+    use_flash = mha.resolve_use_flash(ids0.device, attention_impl,
+                                      seq_len=t, dtype=h.dtype)
+    bq, bk = (blocks or mha.pinned_tile(h.dtype, attention_impl)
+              or (None, None))
     ks, vs = [], []
     for bp in _layers(model, params):
         q, k, v = _block_qkv(model, bp, h)
         q, k = model._rope(q, k, positions)
         if use_flash:
-            o = flash_attention(q, k, v, causal=True)
+            o = flash_attention(q, k, v, causal=True, block_q=bq,
+                                block_k=bk)
         else:
             o = dot_product_attention(q, k, v, causal=True)
         h = _finish_block(model, bp, h, o)

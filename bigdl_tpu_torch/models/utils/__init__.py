@@ -3,7 +3,11 @@ plumbing shared by the CLIs (port of
 ``bigdl_tpu/models/utils/__init__.py``: ``lm_corpus``,
 ``lm_sample_pipe``, ``lm_dataset``, ``restore_optim_state``,
 ``resolve_resume``; and the synthetic corpus of
-``bigdl_tpu/models/rnn/train.py``)."""
+``bigdl_tpu/models/rnn/train.py``).
+
+The package also holds the measurement CLIs ``attention_bench`` (the
+flash train step against plain attention, and the tile sweep into the
+tuning cache) and ``lm_perf`` (TransformerLM train-step throughput)."""
 from __future__ import annotations
 
 import logging

@@ -5,9 +5,9 @@ Symmetric int8 weights with per-channel float32 scales
 (:class:`QTensor`) in the regimes ``QuantPolicy(compute=...)`` selects:
 ``"dequant"`` (expand, then a float product), ``"int8"`` (per-token
 activation quantization, exact int32 accumulation through
-``torch._int_mm``, one float32 rescale), ``"auto"`` (``"dequant"`` until
-the port has an autotune cache) and ``"fp8"`` (e4m3, gated on capable
-devices).
+``torch._int_mm``, one float32 rescale), ``"auto"`` (the autotuned
+int8-vs-dequant verdict for the device kind, ``ops.autotune``; dequant
+without one) and ``"fp8"`` (e4m3, gated on capable devices).
 
 Entry points:
 

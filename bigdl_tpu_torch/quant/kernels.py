@@ -31,6 +31,8 @@ copies, exact products), or :func:`qlinear_i8` in int8 compute.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -90,13 +92,26 @@ def _f8_mm(a, b):
 
 def resolve_compute(qweight: QTensor, x_shape) -> str:
     """The effective compute mode for one (activation shape, weight)
-    pair.  ``"auto"`` resolves as the reference's rule does when its
-    autotune cache holds no verdict (``lookup_qcompute(...) or
-    "dequant"``): the port has no autotune cache yet (ROADMAP Queue 1
-    item 7), so ``"auto"`` is ``"dequant"`` for now."""
-    del x_shape  # the shape keys the autotune verdict, once ported
+    pair.  ``"auto"`` resolves through the autotuned int8-vs-dequant
+    duel for the weight's device kind (``ops.autotune.lookup_qcompute``
+    with m the product of ``x_shape[:-1]`` and (k, n) the weight's
+    geometry; no verdict -> ``"dequant"``, so auto never loses to the
+    storage-only recipe).  Memoized per (m, k, n) until
+    ``autotune.clear_cache()``: under CUDA graphs it runs at capture
+    only."""
     mode = qweight.compute
-    return "dequant" if mode == "auto" else mode
+    if mode == "auto":
+        from bigdl_tpu_torch.ops import autotune
+        m = int(math.prod(x_shape[:-1])) if len(x_shape) > 1 else 1
+        k = int(x_shape[-1])
+        n = int(qweight.q.shape[0] if qweight.native
+                else qweight.q.shape[-1])
+        dev = getattr(qweight.q, "device", "cpu")
+        mode = autotune.memoized(
+            ("qcompute", m, k, n, autotune.device_key(dev)),
+            lambda: autotune.lookup_qcompute(m, k, n, device=dev)
+            or "dequant")
+    return mode
 
 
 def qlinear(x, qweight: QTensor, bias=None):

@@ -147,7 +147,7 @@ from bigdl_tpu_torch.serving.compile_cache import (CompileCache, GraphPool,
                                                    StepGraph, _dtype_name)
 from bigdl_tpu_torch.obs import get_registry, get_tracer, mint_request_id
 from bigdl_tpu_torch.obs.registry import FnGauge, Histogram
-from bigdl_tpu_torch.ops import KERNELS
+from bigdl_tpu_torch.ops import KERNELS, autotune, resolve_attention_plan
 from bigdl_tpu_torch.ops._build import tally_launches
 from bigdl_tpu_torch.resilience.faults import fault_point
 from bigdl_tpu_torch.serving.errors import (BackendLostError, PoolExhausted,
@@ -635,14 +635,22 @@ class LMServingEngine:
             ``max_new``.
         max_queue: admission queue bound (``ServingQueueFull`` beyond).
         attention_impl: prefill attention: ``"flash"`` (the CUDA flash
-            kernel; its plain version on the CPU), ``"xla"`` (plain
-            attention) or ``"auto"`` (flash on a CUDA device, plain on
-            the CPU); ``None`` keeps the model's own rule.
+            kernel at its default tile; its plain version on the CPU),
+            ``"xla"`` (plain attention) or ``"auto"`` (the measured
+            crossover per prefill bucket: on a CUDA device flash, at
+            the tile a verdict of the autotune cache for the bucket's
+            length on this device kind names, else the default tile; on
+            the CPU the verdict's core, and plain without one); ``None``
+            keeps the model's own rule.  Each bucket resolves once, here
+            (``prefill_attention`` in ``stats()``).
         decode_attn: ``"paged_kernel"`` (the CUDA paged kernel; its
             plain version on the CPU), ``"gather"`` (dense gather of
-            each chain) or ``"auto"`` (the kernel on a CUDA device, the
-            gather on the CPU; always the gather with ``kv_quant``).
-            Greedy streams agree across all of them.
+            each chain) or ``"auto"`` (the kernel on a CUDA device,
+            whatever the cache says; on the CPU the autotune cache's
+            kernel-vs-gather verdict for (head_dim, block_len, dtype)
+            on this device kind, and without one the gather, as the
+            reference keeps it without evidence; always the gather with
+            ``kv_quant``).  Greedy streams agree across all of them.
         kv_quant: ``None`` (float KV, the default) or ``"int8"``: int8
             arenas with per-(position, head) float32 scales, about 4x the
             positions in the same memory.  Lossy (streams are not
@@ -806,8 +814,10 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         self._prefix_block_buckets = prefill_bucket_lengths(
             self.table_width, min_bucket=1)
 
-        self.attention_impl = (
-            "flash" if mha.resolve_use_flash(self.device, attention_impl)
+        self._prefill_attn = {b: self._prefill_plan(b, attention_impl)
+                              for b in self.prefill_buckets}
+        self.attention_impl = ("flash" if any(
+            impl == "flash" for impl, _ in self._prefill_attn.values())
             else "xla")
         if decode_attn not in ("auto", "gather", "paged_kernel"):
             raise ValueError(f"decode_attn must be 'auto', 'gather' or "
@@ -820,20 +830,30 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                     "kv_quant='int8' requires decode_attn='gather' (the "
                     "paged kernel reads raw float blocks)")
             decode_attn = "gather"
+        elif decode_attn == "auto" and self.device.type == "cuda":
+            # the kernel wherever it runs: a verdict never moves the card
+            # to the gather (flash_attention's rule)
+            decode_attn = "paged_kernel"
         elif decode_attn == "auto":
-            # no autotune cache yet: the kernel wherever it can run
-            decode_attn = ("paged_kernel" if self.device.type == "cuda"
-                           else "gather")
+            # on the CPU a tuned verdict for this device kind decides;
+            # without one, the gather
+            tuned = autotune.lookup_paged(mha.head_dim, self.block_len,
+                                          self._params["embed"].dtype,
+                                          device=self.device)
+            decode_attn = ("paged_kernel" if tuned is not None
+                           and tuned.use_kernel else "gather")
         self.decode_attn = decode_attn
 
         # -- the device steps, one graph per shape ---------------------- #
         self.graphs = GraphPool(self.device, capture=self.cuda_graphs)
-        pool, attn = self.pool, self.attention_impl
+        pool = self.pool
 
         def _prefill_fn(params, buffers, x):
             del buffers  # part of the CompileCache signature only
+            impl, blocks = self._prefill_attn[x["ids"].shape[1]]
             logits, k, v = _prefill_parts(model, params, x["ids"],
-                                          x["len"] - 1, attention_impl=attn)
+                                          x["len"] - 1, attention_impl=impl,
+                                          blocks=blocks)
             _insert_blocks(pool.k, pool.v, k, v, x["insert"], pool.ks,
                            pool.vs)
             return logits
@@ -1255,6 +1275,24 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                 self._params, self.model.buffers, inputs)
             self._follow_caller()
             return n
+
+    def _prefill_plan(self, length: int, attention_impl):
+        """The prefill core of one bucket length, ``("flash", (block_q,
+        block_k))`` or ``("xla", None)``, resolved at construction for
+        every bucket: a verdict for one length never routes another, and
+        no lookup runs on a serving step."""
+        mha = self.model._mha
+        dt = self._params["embed"].dtype
+        if not mha.resolve_use_flash(self.device, attention_impl,
+                                     seq_len=length, dtype=dt):
+            return ("xla", None)
+        pinned = mha.pinned_tile(dt, attention_impl)
+        if pinned is not None:
+            return ("flash", pinned)
+        plan = resolve_attention_plan(length, mha.head_dim, dt, True,
+                                      device=self.device)
+        return (("xla", None) if plan.impl == "xla"
+                else ("flash", (plan.block_q, plan.block_k)))
 
     def bucket_for(self, prompt_len: int) -> int:
         """Smallest configured prefill bucket >= prompt_len."""
@@ -2770,6 +2808,10 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             "cache_len": self.cache_len,
             "block_len": self.block_len,
             "attention_impl": self.attention_impl,
+            "prefill_attention": {
+                str(b): impl if blocks is None else "%s %dx%d" % (
+                    impl, blocks[0], blocks[1])
+                for b, (impl, blocks) in sorted(self._prefill_attn.items())},
             "decode_attn": self.decode_attn,
             "kv_quant": self.kv_quant,
             "quant_dtype": params_dtype_tag(self._params),

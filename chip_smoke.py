@@ -19,7 +19,11 @@ result line:
    outputs.  The forward is timed at the serve path's largest prefill
    (1,12,1024,64) and at the training step's (8,12,1024,64), in float32
    and bf16; each paged case prints the K/V bytes it read and the TB/s
-   that makes;
+   that makes.  Every key tile the forward was built for
+   (``FLASH_TILES``: float32 64x32 and 64x64, bf16 64x32, 64x64 and
+   64x128, at head_dim 64 and 128) is held against the plain version at
+   edge shapes, and every head-64 tile is timed at (1,12,1024,64) and
+   (8,…) beside its bound and SDPA;
 4. serve: a GPT-2-small-width TransformerLM (random weights from a
    seed, float32) behind LMServingEngine answers 8 requests through the
    flash prefill and paged decode kernels, every device step a replayed
@@ -216,6 +220,31 @@ result line:
    |g| against the same module on plain attention, forward and backward
    ms.
 
+17. tune: the autotune sweeps and the dispatch they steer, at the serve
+   and train cell's attention shape (8 x 1024 tokens, 12 heads of 64),
+   into this run's own tuning cache (``BIGDL_TPU_TORCH_TUNE_CACHE`` set
+   to a fresh temporary file before any phase, so every earlier phase
+   dispatches with no cache; the repository's ``TUNE_CUDA.json`` is
+   never read or written).  T1 ``autotune_attention`` in float32 and
+   bf16, every tile of the kernel (forward + backward through autograd)
+   and the plain row, each tile's forward held against the plain
+   version; T2 ``autotune_paged_decode`` at the served step (8 slots,
+   1024 positions, blocks of 16, float32); T3 ``autotune_qcompute`` at
+   m 8 and 256 by GPT-2's (k, n); T4 ``resolve_attention_plan`` naming
+   each winner's tile, one ``flash_attention`` call per tuned key
+   launching the kernel at that tile and matching the plain version (on
+   the card a verdict picks the tile only: a plain core or gather that
+   won its duel never takes a call from the kernel), an
+   ``LMServingEngine`` with ``attention_impl`` and ``decode_attn`` "auto"
+   running the top bucket at T1's float32 tile and decode through the
+   paged kernel, its greedy streams held against the oracle, and
+   ``compute="auto"`` resolving as T3 says; T5 the float32 T1 sweep
+   again: every row reused, the doc's bytes unchanged; T6
+   ``attention_bench -t 1024 -b 8 --heads 12 --headDim 64 --naive`` in
+   both dtypes and ``lm_perf`` at GPT-2-small widths with and without
+   ``--flash``, each line's keys and platform stamp checked.  The phase
+   must finish within 90 s.
+
 Every serving engine must keep its captures bounded: prefill entries at
 most the buckets, one decode graph, one verify graph (one per tree
 rung), at most one commit graph, one drafter decode graph (none for the
@@ -349,6 +378,13 @@ OBS = dict(duration_s=3.0, rates=(4, 8, 16, 32, 64), max_rate=1024,
 # the reference's BENCH_SERVE.json mix cut to 8, from 4 threads, then 8
 # synchronous ones and 2 of 19 rows; B2's fault; B3's (batch, seq) and
 # timed steps
+# the tune phase: the serve and train cell's attention shape (batch 8 x
+# 1024 tokens, 12 heads of 64), the sweeps' iterations, the int8 duel's
+# token rows (decode slots, a prefill tile), lm_perf's timed steps, and
+# the phase's time limit
+TUNE = dict(batch=8, seq_len=1024, iters=10, paged_iters=20,
+            qcompute_m=(8, 256), qcompute_iters=20, lm_iters=3,
+            limit_s=90.0)
 BATCH = dict(seq_len=128, max_batch=8, threads=4, requests=64, predicts=8,
              sizes=(1, 2, 4, 3, 8, 5, 7, 1, 6, 2, 4, 1, 8), oversized=19,
              oversized_n=2, id_seed=12, tol=1e-3,
@@ -434,17 +470,21 @@ def _visible_pairs(tq, tk, causal, seg_q=None, seg_k=None) -> int:
 
 
 def flash_case(dev, tq, tk, dtype, causal=True, segmented=False, seed=0,
-               b=1):
-    """The forward kernel at (b, 12, tq, 64) x (b, 12, tk, 64) against
-    its plain version: o and lse within tolerance, finite, bitwise equal
-    on a second run; timed beside the plain version and SDPA."""
+               b=1, block_k=None, d=64, timed=True, reuse=None):
+    """The forward kernel at (b, 12, tq, d) x (b, 12, tk, d) against its
+    plain version: o and lse within tolerance, finite, bitwise equal on
+    a second run; timed beside the plain version and SDPA unless
+    ``timed`` is False.  ``block_k`` pins the key tile (the default tile
+    when None).  ``reuse``, a timed row of the same inputs, supplies the
+    plain and SDPA times (neither depends on the tile)."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.ops import (flash_attention_reference,
                                      flash_attention_with_lse)
     tdt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(seed)
-    h, d = 12, 64
+    h = 12
+    bq = None if block_k is None else 64
     q = torch.randn((b, h, tq, d), generator=g).to(dev, tdt)
     k = torch.randn((b, h, tk, d), generator=g).to(dev, tdt)
     v = torch.randn((b, h, tk, d), generator=g).to(dev, tdt)
@@ -456,7 +496,8 @@ def flash_case(dev, tq, tk, dtype, causal=True, segmented=False, seed=0,
 
     def kernel():
         return flash_attention_with_lse(q, k, v, causal=causal,
-                                        q_segment_ids=seg, kv_segment_ids=seg)
+                                        q_segment_ids=seg, kv_segment_ids=seg,
+                                        block_q=bq, block_k=block_k)
 
     def plain():
         return flash_attention_reference(q, k, v, causal=causal,
@@ -467,8 +508,9 @@ def flash_case(dev, tq, tk, dtype, causal=True, segmented=False, seed=0,
     o2, lse2 = kernel()
     o_ref, lse_ref = plain()
     torch.cuda.synchronize()
-    name = (f"flash_fwd ({b},12,{tq},64)x({b},12,{tk},64) {dtype} "
-            f"{'causal' if causal else 'full'}{' segmented' if seg is not None else ''}")
+    name = (f"flash_fwd ({b},12,{tq},{d})x({b},12,{tk},{d}) {dtype} "
+            f"{'causal' if causal else 'full'}{' segmented' if seg is not None else ''}"
+            + ("" if block_k is None else f" tile 64x{block_k}"))
     if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
         raise AssertionError(f"{name}: non-finite output")
     if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
@@ -481,21 +523,28 @@ def flash_case(dev, tq, tk, dtype, causal=True, segmented=False, seed=0,
         raise AssertionError(f"{name}: o err {err_o:.3e} (tol {tol_o}), "
                              f"lse err {err_l:.3e} (tol {tol_l})")
     del o2, lse2, o_ref, lse_ref
+    if not timed:
+        log(f"[kernels] {name}: max_abs_err o {err_o:.3e} lse {err_l:.3e}, "
+            "bitwise repeatable")
+        return dict(max_abs_err=err_o)
     ms = cuda_ms(kernel)
-    plain_ms = cuda_ms(plain, iters=5 if b > 1 else 20)
-    mask = None
-    if seg is not None or tq != tk:
-        i = torch.arange(tq, device=dev)[:, None]
-        j = torch.arange(tk, device=dev)[None, :]
-        mask = j <= i + (tk - tq) if causal else torch.ones_like(i == j)
-        if seg is not None:
-            mask = mask & (seg[0][:, None] == seg[0][None, :])
-    if mask is None:
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal))
+    if reuse is not None:
+        plain_ms, library_ms = reuse["plain_ms"], reuse["library_ms"]
     else:
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask))
+        plain_ms = cuda_ms(plain, iters=5 if b > 1 else 20)
+        mask = None
+        if seg is not None or tq != tk:
+            i = torch.arange(tq, device=dev)[:, None]
+            j = torch.arange(tk, device=dev)[None, :]
+            mask = j <= i + (tk - tq) if causal else torch.ones_like(i == j)
+            if seg is not None:
+                mask = mask & (seg[0][:, None] == seg[0][None, :])
+        if mask is None:
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal))
+        else:
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask))
     item = q.element_size()
     nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * item \
         + lse.numel() * 4 + (0 if seg is None else 2 * seg.numel() * 4)
@@ -691,18 +740,53 @@ def flash_bwd_case(dev, b, tq, tk, d, dtype, causal=True, segmented=False,
                  bound_by=dq_bound[1], **common))
 
 
+def tile_cases(dev, base):
+    """Every key tile the forward kernel was built for (``FLASH_TILES``)
+    against the plain version at edge shapes (masked rows, Tk > Tq,
+    segments, full attention); every head-64 tile timed at the serve
+    path's (1,12,1024,64) and the training step's (8,…) shapes.  The
+    default tile's rows, and every row's plain and SDPA times, are
+    ``base``'s, by (dtype, b): the unpinned runs of the same inputs.
+    Returns the timed rows."""
+    from bigdl_tpu_torch.ops import FLASH_TILES
+    rows = []
+    for (dtype, d), tiles in sorted(FLASH_TILES.items()):
+        for _, bk in tiles:
+            flash_case(dev, 300, 200, dtype, b=2, block_k=bk, d=d, seed=11,
+                       timed=False)
+            flash_case(dev, 100, 612, dtype, block_k=bk, d=d, seed=12,
+                       timed=False)
+            flash_case(dev, 256, 256, dtype, segmented=True, block_k=bk,
+                       d=d, seed=13, timed=False)
+            flash_case(dev, 33, 17, dtype, causal=False, block_k=bk, d=d,
+                       seed=14, timed=False)
+            if d != 64:
+                continue
+            for b in (1, 8):
+                r = base[(dtype, b)]
+                if (64, bk) != tiles[0]:
+                    r = flash_case(dev, 1024, 1024, dtype, b=b, block_k=bk,
+                                   reuse=r)
+                rows.append(dict(dtype=dtype, shape=[b, 12, 1024, 64],
+                                 block_q=64, block_k=bk,
+                                 default=(64, bk) == tiles[0], **r))
+    return rows
+
+
 def phase_kernels(dev):
     for t in (8, 100, 512):
         for dtype in ("float32", "bfloat16"):
             flash_case(dev, t, t, dtype)
-    flash_case(dev, 1024, 1024, "bfloat16")
+    base = {("bfloat16", 1): flash_case(dev, 1024, 1024, "bfloat16")}
     flash_case(dev, 256, 256, "float32", segmented=True, seed=1)
     flash_case(dev, 100, 612, "float32", seed=2)
     # the training step's shape, both compute dtypes
     for dtype in ("bfloat16", "float32"):
-        flash_case(dev, 1024, 1024, dtype, b=8)
+        base[(dtype, 8)] = flash_case(dev, 1024, 1024, dtype, b=8)
     # the served model's largest prefill bucket (the 700-token prompt)
     flash_main = flash_case(dev, 1024, 1024, "float32")
+    base[("float32", 1)] = flash_main
+    flash_main["tiles"] = tile_cases(dev, base)
     mid = [16 * i + 8 for i in range(8)]
     for dtype in ("float32", "bfloat16"):
         paged_case(dev, [0] * 8, dtype)
@@ -4324,6 +4408,287 @@ def obs_update_failure(dev, config, train, obs, ckpt, root, train_ref):
 
 
 # --------------------------------------------------------------------------- #
+# --------------------------------------------------------------------------- #
+def _cli_lines(main_fn, argv):
+    """Run a CLI's ``main(argv)`` in this process; its stdout's JSON
+    lines."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main_fn(argv)
+    return [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+
+
+def _check_stamp(run, row, dev):
+    import torch
+    if dev.type != "cuda":
+        if row.get("platform") != "cpu":
+            raise AssertionError(f"{run}: platform {row.get('platform')}")
+        return
+    want = {"platform": "gpu", "device_name": torch.cuda.get_device_name(dev)}
+    got = {k: row.get(k) for k in want}
+    if got != want:
+        raise AssertionError(f"{run}: platform stamp {got}, not {want}")
+
+
+def phase_tune(dev, smi, tune=TUNE, config=GPT2_SMALL, serve=SERVE,
+               prompts=None):
+    """The autotune sweeps at the serve and train cell's widths into this
+    run's (temporary) tuning cache, then the dispatchers under it.  T1
+    the flash tile sweep (forward + backward through autograd, every
+    tile of the kernel and the plain row) in float32 and bf16, each
+    tile's forward held against the plain version at the swept shape;
+    T2 the paged-decode duel at the served step; T3 the int8 duel at
+    GPT-2's layer geometries; T4 the verdicts steering
+    ``resolve_attention_plan``, one ``flash_attention`` call per tuned
+    key, an "auto" engine (decode and prefill buckets) against the
+    oracle, and ``compute="auto"``; T5 a second T1 sweep re-measuring
+    nothing; T6 the attention_bench and lm_perf CLIs.  Returns the
+    phase's numbers and T4's launches."""
+    import torch
+    from bigdl_tpu_torch.models.utils import attention_bench, lm_perf
+    from bigdl_tpu_torch.ops import (FLASH_TILES, autotune, flash_attention,
+                                     flash_attention_reference,
+                                     resolve_attention_plan)
+    from bigdl_tpu_torch.ops.flash_attention import FLASH_FWD
+    from bigdl_tpu_torch.quant.kernels import resolve_compute
+    from bigdl_tpu_torch.quant.qtensor import quantize_array
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    path = autotune.cache_path()
+    b, h, t, d = tune["batch"], config["n_head"], tune["seq_len"], \
+        config["hidden_size"] // config["n_head"]
+    out = {"sweeps": {}}
+    quiet = dict(log=lambda *_: None)
+    # T1: the flash tile sweep, both compute dtypes
+    for dtype in ("float32", "bfloat16"):
+        doc = autotune.autotune_attention(
+            [t], head_dim=d, heads=h, batch=b, causal=True, dtype=dtype,
+            iters=tune["iters"], device=dev, **quiet)
+        tiles = FLASH_TILES[(dtype, d)]
+        rows = [r for r in doc["rows"] if r.get("dtype") == dtype
+                and r.get("seq_len") == t]
+        for r in rows:
+            if r["impl"] == "flash" and "step_s" not in r:
+                raise AssertionError(f"[tune] T1 {dtype}: tile "
+                                     f"{r['block_q']}x{r['block_k']} has no "
+                                     f"step_s: {r.get('error')}")
+        if {(r["block_q"], r["block_k"]) for r in rows
+                if r["impl"] == "flash"} != set(tiles):
+            raise AssertionError(f"[tune] T1 {dtype}: rows do not cover "
+                                 f"the tiles {tiles}")
+        w = doc["winners"][autotune.attention_key(t, d, dtype, True)]
+        out["sweeps"][dtype] = dict(rows=rows, winner=w)
+        for r in rows:
+            log(f"[tune] T1 {dtype} ({b},{h},{t},{d}) {r['impl']}"
+                + (f" 64x{r['block_k']}" if r["impl"] == "flash" else "")
+                + f": fwd+bwd {r.get('step_s', 0) * 1e3:.4f} ms, "
+                f"{r.get('tokens_per_s')} tokens/s | {smi}")
+        log(f"[tune] T1 {dtype} winner: tile {w.get('block_q')}x"
+            f"{w.get('block_k')}, use_flash {w.get('use_flash')}, "
+            f"flash_speedup_vs_xla {w.get('flash_speedup_vs_xla')} | {smi}")
+        # each tile's forward against the plain version at this shape
+        g = torch.Generator(device=dev).manual_seed(0)
+        q, k, v = (torch.randn((b, h, t, d), generator=g, device=dev).to(
+            getattr(torch, dtype)) for _ in range(3))
+        o_ref = flash_attention_reference(q, k, v, causal=True)[0]
+        tol = TOL_F32 if dtype == "float32" else TOL_BF16_O
+        for bq, bk in tiles:
+            o = flash_attention(q, k, v, causal=True, block_q=bq, block_k=bk)
+            err = (o.float() - o_ref.float()).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"[tune] T1 {dtype} tile {bq}x{bk}: "
+                                     f"max_abs_err {err:.3e} > {tol}")
+            log(f"[tune] T1 {dtype} tile {bq}x{bk} forward max_abs_err "
+                f"{err:.3e} (tol {tol})")
+        del q, k, v, o_ref
+    # T2: the paged-decode duel at the served step
+    doc = autotune.autotune_paged_decode(
+        slots=serve["slots"], heads=h, head_dim=d,
+        cache_len=serve["cache_len"], block_len=serve["block_len"],
+        dtype="float32", iters=tune["paged_iters"], device=dev, **quiet)
+    paged_rows = [r for r in doc["rows"] if r["kind"] == "paged_decode"]
+    if not all("step_s" in r for r in paged_rows):
+        raise AssertionError(f"[tune] T2: a row has no step_s: {paged_rows}")
+    pw = doc["winners"][autotune.paged_key(d, serve["block_len"],
+                                           "float32")]
+    out["paged"] = dict(rows=paged_rows, winner=pw)
+    log(f"[tune] T2 paged decode, {serve['slots']} slots x {h} heads x "
+        f"{serve['cache_len']} positions: kernel "
+        f"{pw['kernel_step_s'] * 1e3:.4f} ms, gather "
+        f"{pw['gather_step_s'] * 1e3:.4f} ms, use_kernel "
+        f"{pw['use_kernel']} | {smi}")
+    # T3: the int8 duel at GPT-2's geometries
+    shapes = [(m, kk, n) for m in tune["qcompute_m"]
+              for kk, n in QUANT_PRODUCT_KN]
+    doc = autotune.autotune_qcompute(shapes, iters=tune["qcompute_iters"],
+                                     device=dev, **quiet)
+    qv = {}
+    for m, kk, n in shapes:
+        qw_ = doc["winners"][autotune.qcompute_key(m, kk, n)]
+        if qw_.get("use_int8") is None:
+            raise AssertionError(f"[tune] T3 ({m},{kk},{n}): no verdict")
+        qv[(m, kk, n)] = "int8" if qw_["use_int8"] else "dequant"
+        log(f"[tune] T3 ({m},{kk},{n}): int8 {qw_['int8_step_s'] * 1e3:.4f} "
+            f"ms, dequant {qw_['dequant_step_s'] * 1e3:.4f} ms -> "
+            f"{qv[(m, kk, n)]} | {smi}")
+    out["qcompute"] = {f"{m}x{kk}x{n}": v for (m, kk, n), v in qv.items()}
+    if not doc["complete"]:
+        raise AssertionError("[tune] the tuning doc is not complete")
+    certified = open(path, "rb").read()
+    # T4: the verdicts steer the dispatchers
+    recorded = []
+    real = FLASH_FWD.launch
+
+    def spy(*args):
+        recorded.append(args[14])     # block_k
+        return real(*args)
+
+    for dtype, sw in out["sweeps"].items():
+        w = sw["winner"]
+        plan = resolve_attention_plan(t, d, dtype, True, device=dev)
+        # the card keeps the kernel at the tuned tile whatever the core
+        # verdict; the CPU takes the plain core where it won
+        want = (("xla", None, None, "tuned")
+                if w["use_flash"] is False and not on_card
+                else ("flash", w["block_q"], w["block_k"], "tuned"))
+        if tuple(plan) != want:
+            raise AssertionError(f"[tune] T4 {dtype}: plan {plan}, winner "
+                                 f"{want}")
+        g = torch.Generator(device=dev).manual_seed(1)
+        q, k, v = (torch.randn((1, h, t, d), generator=g, device=dev).to(
+            getattr(torch, dtype)) for _ in range(3))
+        recorded.clear()
+        FLASH_FWD.launch = spy
+        try:
+            o = flash_attention(q, k, v, causal=True)
+            if on_card:
+                torch.cuda.synchronize()
+        finally:
+            del FLASH_FWD.launch
+        if plan.impl == "xla":
+            from bigdl_tpu_torch.nn.attention import dot_product_attention
+            ref, tol = dot_product_attention(q, k, v, causal=True), 0.0
+            if recorded:
+                raise AssertionError(f"[tune] T4 {dtype}: the plain verdict "
+                                     f"launched the kernel {recorded}")
+        else:
+            ref = flash_attention_reference(q, k, v, causal=True)[0]
+            tol = TOL_F32 if dtype == "float32" else TOL_BF16_O
+            if on_card and recorded != [plan.block_k]:
+                raise AssertionError(f"[tune] T4 {dtype}: launches with "
+                                     f"tiles {recorded}, not "
+                                     f"[{plan.block_k}]")
+        err = (o.float() - ref.float()).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"[tune] T4 {dtype}: max_abs_err {err:.3e}"
+                                 f" > {tol} against the plain version")
+        log(f"[tune] T4 {dtype}: plan {tuple(plan)}, flash_attention "
+            f"launched {len(recorded)} time(s) at tiles {recorded}, "
+            f"max_abs_err {err:.3e}")
+    # an "auto" engine: decode per T2, each prefill bucket per its own
+    # verdict (T1's for the 1024 bucket, float32)
+    oracle = Oracle(dev, config, serve["seed"])
+    model = build_lm(dev, config, serve["seed"], attention_impl="auto")
+    prompts = serve_prompts() if prompts is None else prompts
+    want_decode = ("paged_kernel" if on_card or pw["use_kernel"]
+                   else "gather")
+    with make_engine(model, dev, serve, attention_impl="auto",
+                     decode_attn="auto") as engine:
+        if engine.decode_attn != want_decode:
+            raise AssertionError(f"[tune] T4 engine decode_attn "
+                                 f"{engine.decode_attn}, not "
+                                 f"{want_decode}")
+        attn = engine.stats()["prefill_attention"]
+        w32 = out["sweeps"]["float32"]["winner"]
+        want_top = ("xla" if w32["use_flash"] is False and not on_card
+                    else f"flash {w32['block_q']}x{w32['block_k']}")
+        if attn.get(str(t)) != want_top:
+            raise AssertionError(f"[tune] T4 engine bucket {t}: "
+                                 f"{attn.get(str(t))}, T1 says {want_top}")
+        warm = warm_engine(engine, prompts)
+        run = serve_run(engine, prompts, serve["max_new"])
+        check_bounded("tune engine", engine, warm)
+    ties = check_streams("tune", oracle, prompts, run["results"],
+                         serve["max_new"])
+    paged = run["launches"]["bigdl_paged_decode"]
+    if on_card and (paged > 0) != (want_decode == "paged_kernel"):
+        raise AssertionError(f"[tune] T4 engine: {paged} paged launches "
+                             f"with decode_attn {want_decode}")
+    log(f"[tune] T4 engine: decode_attn {engine.decode_attn}, prefill "
+        f"{json.dumps(attn)}, launches {run['launches']}, TTFT p50 "
+        f"{run['ttft_p50_s'] * 1e3:.2f} ms, decode "
+        f"{run['decode_tokens_per_s']:.1f} tokens/s, {len(ties)} ties | "
+        f"{smi}")
+    out["launches"] = run["launches"]
+    del engine, model, oracle
+    for (m, kk, n), v in qv.items():
+        qw_ = quantize_array(torch.ones((kk, n), device=dev), (0,),
+                             compute="auto")
+        got = resolve_compute(qw_, (m, kk))
+        if got != v:
+            raise AssertionError(f"[tune] T4 compute auto ({m},{kk},{n}): "
+                                 f"{got}, T3 says {v}")
+    log(f"[tune] T4 compute='auto' resolves as T3: {out['qcompute']}")
+    # T5: the same T1 sweep again re-measures nothing
+    doc = autotune.autotune_attention(
+        [t], head_dim=d, heads=h, batch=b, causal=True, dtype="float32",
+        iters=tune["iters"], device=dev, **quiet)
+    mine = [r for r in doc["rows"] if r.get("dtype") == "float32"
+            and r.get("kind") == "train_step"]
+    if not all(r.get("reused_from_previous_run") for r in mine):
+        raise AssertionError("[tune] T5: a row was measured again")
+    if open(path, "rb").read() != certified:
+        raise AssertionError("[tune] T5: the certified doc was rewritten")
+    log(f"[tune] T5: {len(mine)} rows reused, the doc's bytes unchanged")
+    # T6: the CLIs at the cell's widths
+    out["cli"] = {}
+    bench_keys = {"metric", "impl", "seq_len", "batch", "heads", "head_dim",
+                  "dtype", "segmented", "block_q", "block_k", "iters",
+                  "step_s", "tokens_per_s"}
+    for dtype in ("float32", "bfloat16"):
+        rows = _cli_lines(attention_bench.main, [
+            "-t", str(t), "-b", str(b), "--heads", str(h), "--headDim",
+            str(d), "--naive", "--dtype", dtype, "--iters",
+            str(tune["iters"]), "--device", dev.type])
+        if [r.get("impl") for r in rows] != ["flash", "naive_xla"]:
+            raise AssertionError(f"[tune] T6 attention_bench {dtype}: {rows}")
+        for r in rows:
+            if not bench_keys <= set(r):
+                raise AssertionError(f"[tune] T6 attention_bench row lacks "
+                                     f"{bench_keys - set(r)}")
+            _check_stamp("attention_bench", r, dev)
+            log(f"[tune] T6 attention_bench {dtype} {r['impl']} "
+                f"64x{r['block_k']}: {r['step_s'] * 1e3:.4f} ms fwd+bwd "
+                f"| {smi}")
+        out["cli"][f"attention_bench_{dtype}"] = rows
+    lm_keys = {"metric", "seq_len", "batch", "vocab", "hidden", "heads",
+               "layers", "flash", "remat", "optim", "dtype", "iters",
+               "step_s", "tokens_per_s"}
+    for flash in (True, False):
+        rows = _cli_lines(lm_perf.main, [
+            "--vocab", str(config["vocab_size"]), "--hidden", str(
+                config["hidden_size"]), "--heads", str(h), "--layers",
+            str(config["n_layers"]), "-t", str(t), "-b", str(b), "--dtype",
+            "float32", "-i", str(tune["lm_iters"]), "--device", dev.type]
+            + (["--flash"] if flash else []))
+        if len(rows) != 1 or not lm_keys <= set(rows[0]):
+            raise AssertionError(f"[tune] T6 lm_perf: {rows}")
+        _check_stamp("lm_perf", rows[0], dev)
+        log(f"[tune] T6 lm_perf {'flash' if flash else 'plain'}: step "
+            f"{rows[0]['step_s'] * 1e3:.2f} ms, {rows[0]['tokens_per_s']} "
+            f"tokens/s | {smi}")
+        out["cli"][f"lm_perf_{'flash' if flash else 'plain'}"] = rows[0]
+        release(dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    if out["seconds"] > tune["limit_s"]:
+        raise AssertionError(f"[tune] the phase took {out['seconds']:.1f} s,"
+                             f" over its {tune['limit_s']} s")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
         print("chip_smoke.py: the bigdl_tpu_torch package is not beside "
@@ -4343,7 +4708,15 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 2
     from bigdl_tpu_torch import resolve_device
+    from bigdl_tpu_torch.ops import autotune
+    import tempfile
     t_start = time.perf_counter()
+    # every phase before tune dispatches with no tuning cache; the tune
+    # phase writes this run's own, and never the repository's
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["BIGDL_TPU_TORCH_TUNE_CACHE"] = os.path.join(tune_dir,
+                                                            "TUNE_CUDA.json")
+    autotune.clear_cache()
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -4572,6 +4945,25 @@ def main() -> int:
          for k, v in o5["timing"].items()})
         + f"; train phase {train['step_ms']:.2f} ms, "
         f"{_mib(train['peak_bytes'])} | {smi}")
+    log_allocated("tune")
+    release(dev)
+    t0 = time.perf_counter()
+    try:
+        tune = phase_tune(dev, smi)
+    finally:
+        import shutil
+        shutil.rmtree(tune_dir, ignore_errors=True)
+        autotune.clear_cache()
+    phases["tune"] = time.perf_counter() - t0
+    check_launches("tune path (T4 engine)", tune["launches"],
+                   ("bigdl_flash_fwd",))
+    log(f"[tune] phase {tune['seconds']:.1f} s; verdicts: " + json.dumps(
+        {"attention": {dt: {k: sw["winner"].get(k) for k in (
+            "block_q", "block_k", "use_flash", "flash_step_s", "xla_step_s",
+            "flash_speedup_vs_xla")} for dt, sw in tune["sweeps"].items()},
+         "paged": {k: tune["paged"]["winner"].get(k) for k in (
+             "use_kernel", "kernel_step_s", "gather_step_s")},
+         "qcompute": tune["qcompute"]}) + f" | {smi}")
     log("[done] phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()))
 
@@ -4588,13 +4980,14 @@ def main() -> int:
                  accum=total(*(r["launches"] for r in accum.values())),
                  ckpt=ckpt["launches"], gpt2=gpt2["launches"],
                  obs=total(*(obs[p]["launches"]
-                             for p in ("o1", "o2", "o3", "o4", "o5"))))
+                             for p in ("o1", "o2", "o3", "o4", "o5"))),
+                 tune=tune["launches"])
 
     def by_path(symbol, names):
         return {p: paths[p][symbol] for p in names}
 
     serving = ("serve", "serve_sampled", "spec", "quant", "tier", "replicas",
-               "moe", "obs")
+               "moe", "obs", "tune")
     training = ("train", "moe", "accum", "ckpt", "obs", "batch")
     kernels = [
         dict(name="flash_fwd", route="cuda",

@@ -14,7 +14,7 @@ import torch
 
 from bigdl_tpu_torch import resolve_device
 from bigdl_tpu_torch.ops import (FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
-                                 PAGED_DECODE, flash_attention,
+                                 FLASH_TILES, PAGED_DECODE, flash_attention,
                                  flash_attention_backward_reference,
                                  flash_attention_reference,
                                  flash_attention_with_lse,
@@ -1263,3 +1263,126 @@ def test_module_backward_runs_the_flash_pair(card):
     for u, v in pairs:
         scale = max(v.abs().max().item(), 1e-3 * floor)
         assert (u - v).abs().max().item() <= 1e-3 * scale
+
+
+# --------------------------------------------------------------------- #
+# the forward's key tiles and the tuned prefill                          #
+# --------------------------------------------------------------------- #
+TILE_CASES = [(200, 200, True, False), (70, 150, True, False),
+              (150, 70, True, False), (90, 90, True, True),
+              (33, 17, False, False)]
+
+
+@pytest.mark.parametrize("dtype,d", sorted(FLASH_TILES))
+def test_every_forward_tile_matches_plain(card, dtype, d):
+    """Each (block_q, block_k) pair the forward kernel was built for
+    agrees with the plain version: causal, Tq != Tk both ways (rows that
+    see no key), segmented, full."""
+    tdt = getattr(torch, dtype)
+    tol_o, tol_l = TOL[dtype]
+    for bq, bk in FLASH_TILES[(dtype, d)]:
+        for i, (tq, tk, causal, segmented) in enumerate(TILE_CASES):
+            g = torch.Generator().manual_seed(bk * 10 + i)
+            q = _rand(g, (2, 3, tq, d), card, tdt)
+            k = _rand(g, (2, 3, tk, d), card, tdt)
+            v = _rand(g, (2, 3, tk, d), card, tdt)
+            seg = None
+            if segmented:
+                seg = torch.tensor(np.sort(np.random.RandomState(i).randint(
+                    0, 4, size=(2, tq)), axis=1), dtype=torch.int32,
+                    device=card)
+            before = FLASH_FWD.launches
+            o, lse = flash_attention_with_lse(
+                q, k, v, causal=causal, q_segment_ids=seg,
+                kv_segment_ids=seg, block_q=bq, block_k=bk)
+            torch.cuda.synchronize()
+            assert FLASH_FWD.launches == before + 1
+            o_ref, lse_ref = flash_attention_reference(
+                q, k, v, causal=causal, q_segment_ids=seg,
+                kv_segment_ids=seg)
+            assert (o.float() - o_ref.float()).abs().max().item() <= tol_o
+            assert (lse - lse_ref).abs().max().item() <= tol_l
+
+
+def test_pair_outside_the_tiles_raises_before_a_launch(card):
+    g = torch.Generator().manual_seed(0)
+    before = FLASH_FWD.launches
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        q, k, v = (_rand(g, (1, 2, 64, 64), card, tdt) for _ in range(3))
+        bad = [(64, 48), (32, 32), (128, 64), (64, 256)]
+        # float32 at 128 keys would not fit; bf16 at D 64 takes 64 and 128
+        bad.append((64, 128) if dtype == "float32" else (64, 32))
+        for bq, bk in bad:
+            with pytest.raises(ValueError, match="takes"):
+                flash_attention(q, k, v, causal=True, block_q=bq,
+                                block_k=bk)
+            with pytest.raises(ValueError, match="takes"):
+                flash_attention_with_lse(q, k, v, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert FLASH_FWD.launches == before
+
+
+def test_tuned_prefill_bucket_replays_with_the_tuned_tile(card, tmp_path,
+                                                           monkeypatch):
+    """Under a cache for this card, an "auto" engine resolves each prefill
+    bucket on its own: 16 and 32 the kernel at the tuned 64x64 tile (for
+    16 a tuned loss to the plain core, which never takes the card from
+    the kernel), 64 the default tile (no verdict); decode keeps the paged
+    kernel under a verdict for the gather.  The captures record those
+    tiles, the replays launch the kernel for every bucket, and every
+    stream equals offline generate on plain attention."""
+    import json
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.models.transformer.generate import generate
+    from bigdl_tpu_torch.ops import autotune
+    from bigdl_tpu_torch.serving import LMServingEngine
+    path = tmp_path / "tune.json"
+    key = lambda t: autotune.attention_key(t, 64, "float32", True)  # noqa
+    path.write_text(json.dumps({
+        "producer": autotune.PRODUCER, "platform": "gpu",
+        "device_kind": torch.cuda.get_device_name(card),
+        "winners": {key(16): {"use_flash": False, "block_q": 64,
+                              "block_k": 64},
+                    key(32): {"use_flash": True, "block_q": 64,
+                              "block_k": 64},
+                    autotune.paged_key(64, ENGINE_KW["block_len"],
+                                       "float32"): {"use_kernel": False}}}))
+    monkeypatch.setenv("BIGDL_TPU_TORCH_TUNE_CACHE", str(path))
+    autotune.clear_cache()
+    recorded = []
+    real = FLASH_FWD.launch
+
+    def spy(*args):
+        recorded.append((args[9], args[14]))   # (Tq, block_k)
+        return real(*args)
+
+    monkeypatch.setattr(FLASH_FWD, "launch", spy)
+    lm = TransformerLM(attention_impl="auto", device=card,
+                       **ENGINE_LM).build(seed=0)
+    plain = TransformerLM(attention_impl="xla", device=card, **ENGINE_LM)
+    plain.params = lm.params
+    kw = dict(ENGINE_KW, attention_impl="auto", decode_attn="auto",
+              enable_prefix_cache=False)
+    try:
+        with LMServingEngine(lm, device=card, **kw) as eng:
+            assert eng.stats()["prefill_attention"] == {
+                "16": "flash 64x64", "32": "flash 64x64",
+                "64": "flash 64x32"}
+            assert eng.decode_attn == "paged_kernel"
+            assert eng.warmup() == 3
+            warm = eng.stats()["cuda_graphs"]["captures"]
+            assert set(recorded) == {(16, 64), (32, 64), (64, 32)}
+            prompts = [np.random.RandomState(n).randint(1, 98, size=n)
+                       for n in (10, 20, 50)]
+            before = FLASH_FWD.launches
+            for p in prompts:
+                got = eng.submit(p, max_new_tokens=8).result(timeout=120)
+                want = generate(plain, plain.params, p[None], 8,
+                                device=card).numpy()[0]
+                np.testing.assert_array_equal(np.asarray(got), want)
+            # every bucket's prefill runs the kernel, once a layer
+            assert FLASH_FWD.launches - before == 3 * ENGINE_LM["n_layers"]
+            assert eng.stats()["cuda_graphs"]["captures"] == warm
+    finally:
+        autotune.clear_cache()
