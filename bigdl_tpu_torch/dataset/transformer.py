@@ -1,12 +1,15 @@
 """Transformer combinators (port of ``bigdl_tpu/dataset/transformer.py``:
-``Transformer``, its ``>>`` chaining and ``SampleToBatch``).
+``Transformer``, its ``>>`` chaining, ``FuncTransformer``,
+``SampleToBatch`` and ``Prefetcher``).
 
 A Transformer maps an iterator to an iterator and chains with ``>>``.
 ``SampleToBatch`` pads/stacks variable-length samples into MiniBatches.
 """
 from __future__ import annotations
 
-from typing import Iterator, Optional, Sequence
+import queue
+import threading
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -34,6 +37,16 @@ class ChainedTransformer(Transformer):
 
     def __call__(self, it: Iterator) -> Iterator:
         return self.second(self.first(it))
+
+
+class FuncTransformer(Transformer):
+    """A per-record map by a plain function."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+
+    def transform_one(self, x):
+        return self.fn(x)
 
 
 class SampleToBatch(Transformer):
@@ -72,3 +85,49 @@ class SampleToBatch(Transformer):
         if feats and not self.drop_last:
             yield MiniBatch(self._pad_stack(feats, self.feature_padding),
                             self._pad_stack(labels, self.label_padding))
+
+
+class Prefetcher(Transformer):
+    """Run the upstream iterator on a background thread behind a bounded
+    queue of ``depth`` items, so host decoding and augmentation overlap
+    the device's steps.  An error upstream is raised where the consumer
+    reads; a consumer that stops reading stops the worker."""
+
+    def __init__(self, depth: int = 4):
+        self.depth = depth
+
+    def __call__(self, it: Iterator) -> Iterator:
+        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+        end, err = object(), object()
+
+        def put(x) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(x, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for x in it:
+                    if not put(x):
+                        return
+            except BaseException as e:  # noqa: BLE001 - raised in consumer
+                put((err, e))
+                return
+            put(end)
+
+        threading.Thread(target=worker, daemon=True).start()
+        try:
+            while True:
+                x = q.get()
+                if x is end:
+                    break
+                if isinstance(x, tuple) and len(x) == 2 and x[0] is err:
+                    raise x[1]
+                yield x
+        finally:
+            stop.set()

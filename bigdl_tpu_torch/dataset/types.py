@@ -1,5 +1,4 @@
-"""Pipeline record types (port of ``bigdl_tpu/dataset/types.py``: the
-ones the language-model pipeline uses)."""
+"""Pipeline record types (port of ``bigdl_tpu/dataset/types.py``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -27,6 +26,33 @@ class MiniBatch:
     labels: np.ndarray
 
     def size(self) -> int:
+        return self.data.shape[0]
+
+
+@dataclass
+class ByteRecord:
+    """Raw bytes and a label (ref dataset/Types.scala:80)."""
+    data: bytes
+    label: float
+
+
+@dataclass
+class LabeledImage:
+    """A decoded image, (C, H, W) float32, and its 1-based label; grey
+    images have one channel, BGR ones three."""
+    data: np.ndarray
+    label: float
+
+    @property
+    def width(self) -> int:
+        return self.data.shape[2]
+
+    @property
+    def height(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def channels(self) -> int:
         return self.data.shape[0]
 
 

@@ -19,9 +19,10 @@ def resolve_device(device=None) -> torch.device:
                 "the plain PyTorch path on the host")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        # float32 matmuls stay full float32 (no TF32): the port is held
-        # to the JAX reference at float32 tolerances
+        # float32 matmuls and convolutions stay full float32 (no TF32):
+        # the port is held to the JAX reference at float32 tolerances
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

@@ -1,0 +1,15 @@
+"""ResNet CIFAR-10 evaluation CLI (port of
+``bigdl_tpu/models/resnet/test.py``, plus ``--device``)."""
+from __future__ import annotations
+
+from bigdl_tpu_torch.models.utils import cifar_test_main
+
+
+def main(argv=None):
+    """Evaluate; prints ``Top1Accuracy is ...`` and returns the
+    (method, result) pairs."""
+    return cifar_test_main("Evaluate ResNet on CIFAR-10", argv)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,16 @@
-"""Language-model corpus and dataset helpers and the checkpoint
-plumbing shared by the CLIs (port of
+"""Language-model corpus and dataset helpers, the CIFAR-10 pipeline and
+the checkpoint plumbing shared by the CLIs (port of
 ``bigdl_tpu/models/utils/__init__.py``: ``lm_corpus``,
 ``lm_sample_pipe``, ``lm_dataset``, ``restore_optim_state``,
-``resolve_resume``; and the synthetic corpus of
-``bigdl_tpu/models/rnn/train.py``).
+``resolve_resume``; the synthetic corpus of
+``bigdl_tpu/models/rnn/train.py``; and the CIFAR-10 datasets and eval
+main the vgg and resnet CLIs share).  The ImageNet SequenceFile path
+(``imagenet_seq_datasets``) waits for the SequenceFile readers.
 
 The package also holds the measurement CLIs ``attention_bench`` (the
 flash train step against plain attention, and the tile sweep into the
-tuning cache) and ``lm_perf`` (TransformerLM train-step throughput)."""
+tuning cache), ``lm_perf`` (TransformerLM train-step throughput) and
+``perf`` (the image classifiers' train-step throughput)."""
 from __future__ import annotations
 
 import logging
@@ -109,3 +112,69 @@ def resolve_resume(args) -> None:
             "no checkpoints under %s yet: starting fresh", args.resume)
         return
     args.model, args.state = found[0], found[1]
+
+
+def refuse_distributed(args) -> None:
+    """``--distributed`` is not ported: raise naming the item."""
+    if getattr(args, "distributed", False):
+        raise SystemExit("--distributed is not ported yet (ROADMAP Queue 1 "
+                         "item 12: DistriOptimizer)")
+
+
+def refuse_imagenet() -> None:
+    """The ImageNet mode reads SequenceFile shards: not ported yet."""
+    raise SystemExit("--dataset imagenet reads SequenceFile shards, and the "
+                     "SequenceFile readers (dataset/seqfile.py, "
+                     "dataset/hadoop_seqfile.py) are not ported yet (ROADMAP "
+                     "Queue 1 item 12)")
+
+
+def cifar_datasets(folder: str, batch_size: int, synthetic: bool):
+    """(train, validation) CIFAR-10 datasets, the reference's pipelines:
+    flip and normalize for training, normalize for validation; 2048 and
+    512 synthetic records (seeds 0 and 9) with ``synthetic``."""
+    from bigdl_tpu_torch.dataset import cifar, image
+    if synthetic:
+        train_records = cifar.synthetic(2048)
+        test_records = cifar.synthetic(512, seed=9)
+    else:
+        train_records = cifar.load(folder, train=True)
+        test_records = cifar.load(folder, train=False)
+    mean, std = cifar.TRAIN_MEAN, cifar.TRAIN_STD
+    train_pipe = (image.HFlip(0.5) >> image.BGRImgNormalizer(mean, std)
+                  >> image.BGRImgToBatch(batch_size))
+    val_pipe = (image.BGRImgNormalizer(mean, std)
+                >> image.BGRImgToBatch(batch_size))
+    return (DataSet.array(train_records) >> train_pipe,
+            DataSet.array(test_records) >> val_pipe)
+
+
+def cifar_test_main(description: str, argv=None):
+    """The CIFAR-10 evaluation CLI of vgg and resnet: ``Top1Accuracy`` of
+    ``--model`` over the test records (512 synthetic ones with
+    ``--synthetic``), printed and returned."""
+    import argparse
+
+    from bigdl_tpu_torch.dataset import cifar, image
+    from bigdl_tpu_torch.nn import Module
+    from bigdl_tpu_torch.optim import LocalValidator, Top1Accuracy
+
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("-f", "--folder", default="./")
+    p.add_argument("--model", required=True)
+    p.add_argument("-b", "--batchSize", type=int, default=128)
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default) or cpu")
+    args = p.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    records = (cifar.synthetic(512, seed=9) if args.synthetic
+               else cifar.load(args.folder, train=False))
+    ds = DataSet.array(records) >> (
+        image.BGRImgNormalizer(cifar.TRAIN_MEAN, cifar.TRAIN_STD)
+        >> image.BGRImgToBatch(args.batchSize))
+    model = Module.load(args.model, device=args.device)
+    results = LocalValidator(model, ds).test([Top1Accuracy()])
+    for method, result in results:
+        print(f"{method} is {result}")
+    return results

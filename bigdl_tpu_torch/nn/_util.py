@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from bigdl_tpu_torch.utils import keychain
@@ -25,10 +26,31 @@ def to_axis(dim: int, ndim: int, n_input_dims: Optional[int] = None) -> int:
     return axis
 
 
+class FoldedKey:
+    """``keychain.fold_in(parent, data)``, computed the first time it is
+    read (``np.asarray``, as every key chain function reads a key) and
+    kept.  A container folds a key for every child on every training
+    forward, and most children (convolutions, batch norms) never read
+    theirs: each fold is a host cipher call of about 0.1 ms."""
+
+    __slots__ = ("_parent", "_data", "_key")
+
+    def __init__(self, parent, data: int):
+        self._parent = parent
+        self._data = data
+        self._key = None
+
+    def __array__(self, dtype=None, copy=None):
+        if self._key is None:
+            self._key = keychain.fold_in(np.asarray(self._parent),
+                                         self._data)
+        return self._key if dtype is None else self._key.astype(dtype)
+
+
 def fold_rng(rng, i: int):
-    """Child ``i``'s key: ``jax.random.fold_in`` through the key chain
-    (None stays None)."""
-    return None if rng is None else keychain.fold_in(rng, i)
+    """Child ``i``'s key: ``jax.random.fold_in`` through the key chain,
+    folded when first read (None stays None)."""
+    return None if rng is None else FoldedKey(rng, i)
 
 
 def cast_f32_leaves(tree, dtype):

@@ -156,6 +156,26 @@ class Module:
         self.zero_grad_parameters()
         return self
 
+    def load_numpy_tree(self, params, buffers=None,
+                        device=None) -> "Module":
+        """Take a parameter tree and buffers held as numpy arrays (a JAX
+        package module's ``params``/``buffers`` through ``np.asarray``
+        leaf by leaf, or a file's) into this module, on ``device`` (the
+        module's own, else the card).  The keys and shapes must be this
+        architecture's: the reference's trees cross over unchanged (OIHW
+        convolution weights, (out, in) linear weights, BN's running
+        statistics as buffers)."""
+        from bigdl_tpu_torch.utils.file_io import _check_tree, _param_shapes
+        _check_tree(params, _param_shapes(self))
+        if device is not None or self.device is None:
+            self.device = resolve_device(device)
+        self.params = params_from_numpy(params, self.device)
+        self.buffers = params_from_numpy(
+            buffers if buffers is not None else self.init_buffers(),
+            self.device)
+        self.zero_grad_parameters()
+        return self
+
     def reset(self, seed=0, device=None) -> "Module":
         return self.build(seed, device)
 

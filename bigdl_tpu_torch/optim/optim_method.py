@@ -1,6 +1,13 @@
 """Optimization methods (port of ``bigdl_tpu/optim/optim_method.py``:
-the ``Default`` learning-rate schedule, ``OptimMethod``, ``SGD``,
-``Adam`` and ``AdamW``).
+the learning-rate schedules ``Default``, ``Poly``, ``Step``,
+``EpochStep``, ``EpochDecay`` and ``EpochSchedule`` with ``Regime``;
+``OptimMethod``, ``SGD``, ``Adam`` and ``AdamW``).  ``Adagrad`` and
+``LBFGS`` are ROADMAP Queue 1 item 12.
+
+A schedule's rate is a host number: the iteration is a host int and the
+epoch the training loop's.  Where the reference computes it in float32 array
+arithmetic (``Poly``, ``Step``, ``EpochStep``) the port does the same
+in numpy float32, so the rate is the reference's float32 value.
 
 Each method works over the parameter dict tree: ``init_state(params)``
 returns the state (``iteration`` as a host int, moments as trees of
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from bigdl_tpu_torch.utils.pytree import tree_leaves, tree_map
@@ -46,6 +54,86 @@ class Default(LearningRateSchedule):
 
     def rate(self, base_lr, iteration, epoch):
         return base_lr / (1.0 + iteration * self.decay)
+
+
+class Poly(LearningRateSchedule):
+    """lr * (1 - iter/max)^power; 0 beyond max (ref SGD.Poly)."""
+
+    def __init__(self, power: float, max_iteration: int):
+        self.power = power
+        self.max_iteration = max_iteration
+
+    def rate(self, base_lr, iteration, epoch):
+        frac = np.clip(np.float32(iteration) / np.float32(self.max_iteration),
+                       np.float32(0.0), np.float32(1.0))
+        return float(np.float32(base_lr)
+                     * (np.float32(1.0) - frac) ** np.float32(self.power))
+
+
+class Step(LearningRateSchedule):
+    """lr * gamma^(floor(iter / step_size)) (ref SGD.Step)."""
+
+    def __init__(self, step_size: int, gamma: float):
+        self.step_size = step_size
+        self.gamma = gamma
+
+    def rate(self, base_lr, iteration, epoch):
+        k = np.floor(np.float32(iteration) / np.float32(self.step_size))
+        return float(np.float32(base_lr) * np.float32(self.gamma) ** k)
+
+
+class EpochStep(LearningRateSchedule):
+    """lr * gamma^(floor((epoch-1) / step)) (ref SGD.EpochStep)."""
+
+    def __init__(self, step: int, gamma: float):
+        self.step = step
+        self.gamma = gamma
+
+    def rate(self, base_lr, iteration, epoch):
+        k = np.floor(np.float32(epoch - 1) / np.float32(self.step))
+        return float(np.float32(base_lr) * np.float32(self.gamma) ** k)
+
+
+class EpochDecay(LearningRateSchedule):
+    """lr * 0.1^decay_fn(epoch) with a user decay function
+    (ref SGD.EpochDecay); the function gets the epoch as a host int."""
+
+    def __init__(self, decay_fn):
+        self.decay_fn = decay_fn
+
+    def rate(self, base_lr, iteration, epoch):
+        return base_lr * 0.1 ** self.decay_fn(epoch)
+
+
+class Regime:
+    """An epoch range and its config (ref SGD.Regime): a dict with
+    "learning_rate" (absolute) or "learning_rate_multiplier" (times the
+    method's base rate); a bare number is the multiplier."""
+
+    def __init__(self, start_epoch: int, end_epoch: int, config):
+        self.start_epoch = start_epoch
+        self.end_epoch = end_epoch
+        if not isinstance(config, dict):
+            config = {"learning_rate_multiplier": float(config)}
+        self.config = config
+
+
+class EpochSchedule(LearningRateSchedule):
+    """Piecewise-constant rate by epoch regime; the last regime that
+    holds the epoch wins (ref SGD.EpochSchedule)."""
+
+    def __init__(self, regimes: list):
+        self.regimes = regimes
+
+    def rate(self, base_lr, iteration, epoch):
+        lr = base_lr
+        for r in self.regimes:
+            if r.start_epoch <= epoch <= r.end_epoch:
+                if "learning_rate_multiplier" in r.config:
+                    lr = base_lr * r.config["learning_rate_multiplier"]
+                else:
+                    lr = r.config.get("learning_rate", base_lr)
+        return lr
 
 
 class OptimMethod:

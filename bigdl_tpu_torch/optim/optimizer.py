@@ -45,7 +45,7 @@ from bigdl_tpu_torch.optim.optim_method import (OptimMethod, SGD,
                                                 stages_updates)
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import ValidationMethod
-from bigdl_tpu_torch.utils import file_io, fs
+from bigdl_tpu_torch.utils import file_io, fs, keychain
 from bigdl_tpu_torch.utils.pytree import tree_leaves, tree_map
 from bigdl_tpu_torch.utils.table import Table
 
@@ -74,22 +74,30 @@ def named_leaves(tree, prefix: str = ""):
 
 
 def loss_and_grads(model, criterion, params, data, labels, *, buffers=None,
-                   generator: Optional[torch.Generator] = None,
+                   rng=None, generator: Optional[torch.Generator] = None,
                    compute_dtype: Optional[torch.dtype] = None):
     """One training forward and backward: ``(loss, grads, buffers)``
     with ``grads`` a tree shaped like ``params`` (float32 for float32
     leaves, whatever ``compute_dtype``) and ``loss`` a detached 0-d
     tensor on the device.  A model's ``"aux_loss"`` buffer (the MoE
     balance term, already weighted) joins the loss before it is
-    differentiated."""
+    differentiated.
+
+    The model is called as every port ``Module`` is called:
+    ``model.apply(params, data, buffers=, training=True, rng=rng)``,
+    ``rng`` a key of the key chain (``utils/keychain.py``) or None.
+    ``generator`` is passed on only when the caller gives one, and only
+    ``TransformerLM.apply`` takes it (its dropout draws from a
+    ``torch.Generator``; given none, it seeds one from ``rng``)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     it = iter(leaves)
     live = tree_map(lambda _: next(it), params)
     run = live if compute_dtype is None else cast_float_leaves(
         live, compute_dtype)
+    extra = {} if generator is None else {"generator": generator}
     with torch.enable_grad():
         out, new_buffers = model.apply(run, data, buffers=buffers,
-                                       training=True, generator=generator)
+                                       training=True, rng=rng, **extra)
         loss = criterion.loss(out.float(), labels)
         if "aux_loss" in new_buffers:
             loss = loss + new_buffers["aux_loss"]
@@ -100,13 +108,15 @@ def loss_and_grads(model, criterion, params, data, labels, *, buffers=None,
 
 
 def accumulated_loss_and_grads(model, criterion, params, data, labels,
-                               accum: int, *, buffers=None,
+                               accum: int, *, buffers=None, rng=None,
                                generator: Optional[torch.Generator] = None,
                                compute_dtype: Optional[torch.dtype] = None,
                                batch_desc: str = "batch"):
     """:func:`loss_and_grads` over ``accum`` equal micro-batches (rows
     ``i*m .. (i+1)*m`` of ``data``): the mean of their losses and of
-    their gradients, the buffers threaded through them in order.  Each
+    their gradients, the buffers threaded through them in order, and
+    micro-batch ``i`` keyed by row ``i`` of ``keychain.split(rng,
+    accum)``, as the reference's scan is.  Each
     micro-batch's graph is freed before the next runs, so activation
     memory follows the micro-batch.  For a mean-reduced criterion this
     is the full-batch gradient.  A batch that ``accum`` does not divide
@@ -121,15 +131,16 @@ def accumulated_loss_and_grads(model, criterion, params, data, labels,
                 "accum=%d, running this shape as ONE unaccumulated step "
                 "(full-batch activation memory)", batch_desc, n, accum)
         return loss_and_grads(model, criterion, params, data, labels,
-                              buffers=buffers, generator=generator,
+                              buffers=buffers, rng=rng, generator=generator,
                               compute_dtype=compute_dtype)
     m = n // accum
+    rngs = [None] * accum if rng is None else keychain.split(rng, accum)
     g_sum = loss_sum = None
     for i in range(accum):
         loss, grads, buffers = loss_and_grads(
             model, criterion, params, data[i * m:(i + 1) * m],
-            labels[i * m:(i + 1) * m], buffers=buffers, generator=generator,
-            compute_dtype=compute_dtype)
+            labels[i * m:(i + 1) * m], buffers=buffers, rng=rngs[i],
+            generator=generator, compute_dtype=compute_dtype)
         if g_sum is None:
             g_sum, loss_sum = grads, loss.float()
         else:
@@ -573,12 +584,20 @@ class LocalOptimizer(Optimizer):
     The dataset yields MiniBatch (data, labels) host arrays; each step
     moves them to the model's device, differentiates (accumulating over
     micro-batches when asked), clips and updates the parameters.
+
+    Keys follow the reference's chain: ``keychain.prng_key(
+    state["seed"])`` (seed 0 by default), split once a step, the step's
+    key split again per micro-batch under accumulation, and each key
+    handed to ``model.apply(..., rng=key)``.  That is the one contract
+    by which the loop calls a model: any port ``Module`` takes ``rng``
+    (a container folds it per child, ``Dropout`` draws its mask from
+    it), and ``TransformerLM`` seeds its dropout generator from it.
     """
 
-    def _step(self, params, buffers, opt_state, data, labels):
+    def _step(self, params, buffers, opt_state, data, labels, rng):
         loss, grads, new_buffers = accumulated_loss_and_grads(
             self.model, self.criterion, params, data, labels,
-            self.grad_accum, buffers=buffers, generator=self._generator,
+            self.grad_accum, buffers=buffers, rng=rng,
             compute_dtype=self.compute_dtype)
         grads = self._clip_gradients(grads)
         method, epoch = self.optim_method, self.state["epoch"]
@@ -620,8 +639,9 @@ class LocalOptimizer(Optimizer):
         restored = getattr(self.optim_method, "_state", None)
         opt_state = restored if restored else \
             self.optim_method.init_state(params)
-        self._generator = torch.Generator().manual_seed(
-            int(self.state.get("seed", 0)))
+        # the reference's key chain: one key for the run, split once a
+        # step; the step's key reaches every layer as ``rng``
+        rng = keychain.prng_key(int(self.state.get("seed", 0)))
         device = tree_leaves(params)[0].device
         self.dataset.shuffle()
         data_iter = self.dataset.data(train=True)
@@ -641,7 +661,7 @@ class LocalOptimizer(Optimizer):
                               **env_watchdog_kwargs()})
         self._arm_stall_checkpoint(watchdog)
         try:
-            self._loop(params, buffers, opt_state, device, data_iter,
+            self._loop(params, buffers, opt_state, rng, device, data_iter,
                        records_this_epoch, watchdog)
         except Exception as e:
             # the last completed iteration is on the model: persist it
@@ -656,7 +676,7 @@ class LocalOptimizer(Optimizer):
                 watchdog.reset()
         return self.model
 
-    def _loop(self, params, buffers, opt_state, device, data_iter,
+    def _loop(self, params, buffers, opt_state, rng, device, data_iter,
               records_this_epoch, watchdog=None):
         dataset_size = self.dataset.size()
         wall0 = time.perf_counter()
@@ -679,13 +699,14 @@ class LocalOptimizer(Optimizer):
                     raise ValueError(
                         f"set_gradient_accumulation({self.grad_accum}) "
                         f"needs the batch size ({bs}) divisible by n_micro")
+            rng, sub = keychain.split(rng)
             t0 = time.perf_counter()
             if watchdog is not None:
                 watchdog.step_started()
             buffers, loss = self._step(
                 params, buffers, opt_state,
                 torch.as_tensor(np.asarray(batch.data), device=device),
-                torch.as_tensor(np.asarray(batch.labels), device=device))
+                torch.as_tensor(np.asarray(batch.labels), device=device), sub)
             if records_this_epoch + bs < dataset_size:
                 # the next batch is read while the device runs this step;
                 # not at an epoch boundary, where the rollover shuffle

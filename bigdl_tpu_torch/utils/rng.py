@@ -76,6 +76,9 @@ class RandomGenerator:
         b = self.random_int() >> 6
         return (a * 67108864.0 + b) * (1.0 / 9007199254740992.0)
 
+    def uniform(self, a: float = 0.0, b: float = 1.0) -> float:
+        return self.random() * (b - a) + a
+
     def randperm(self, n: int) -> np.ndarray:
         """1-based random permutation (Torch randperm semantics)."""
         perm = np.arange(1, n + 1)

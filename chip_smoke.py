@@ -245,6 +245,34 @@ result line:
    ``--flash``, each line's keys and platform stamp checked.  The phase
    must finish within 90 s.
 
+18. cnn: the image classifiers (cuDNN convolutions, pools and batch
+   norms through PyTorch's calls; none of the port's kernels), float32,
+   at their published widths, on the perf harness's seeded synthetic
+   images.  C1: ResNet-50 (224x224x3, 1000 classes, shortcut B) at batch
+   32 through ``perf.run_perf`` (3 warm-up and 10 timed SGD steps), in
+   NCHW and in NHWC: median step ms, images/s, peak allocated MiB, the
+   ms of one batch's copy from pageable memory (inside every step), the
+   step's matmul and convolution FLOPs (``torch.utils.flop_counter``
+   over one more step) and their share of 67 TFLOP/s.  C2: Vgg_16 and
+   Inception_v1 at batch 32 and VggForCifar10 at 128, NCHW, the same
+   numbers.  C3: ResNet-50 at batch 4 built from seed 1 on the card and
+   on the CPU (bitwise equal), one float32 training step on the same
+   batch: the loss within 1e-5 relative; the card records its ReLU masks
+   and max-pool argmaxes (``pinned_decisions``) and the CPU replays them
+   in float32 and in float64: every gradient leaf of the card within
+   1e-3 of its max |g| of both (each device on its own decisions, a few
+   ReLU inputs within rounding of 0 land on different sides, and each
+   such flip moves a late weight gradient by a whole term: that
+   difference is reported, not held); the 53 convolution biases a batch
+   norm follows (gradient 0 in exact arithmetic) at most 1e-4 of the
+   tree's largest |g|; the BN running buffers within 1e-5; and
+   Top1Accuracy over an eval batch of 8 equal
+   (a differing row must be a tie).  C4: the LeNet
+   and ResNet-20 train CLIs (``--synthetic -e 1``) with a checkpoint in
+   a temporary directory, losses finite and falling, validation
+   ``Top1Accuracy``, then their eval CLIs on the checkpoint; the
+   repository's ``flight/`` and ``TUNNEL_INCIDENTS.json`` unchanged.
+
 Every serving engine must keep its captures bounded: prefill entries at
 most the buckets, one decode graph, one verify graph (one per tree
 rung), at most one commit graph, one drafter decode graph (none for the
@@ -254,11 +282,12 @@ bytes of the engine's graph pool.
 
 ``--profile PATH`` adds one more serve run of fresh prompts on each of
 the two serve engines, one more run of spec arm 2 on each of its two
-engines, one more float32 training step, one more bf16-compute step and
-one more MoE training step under torch.profiler and writes their kernel
-tables (device busy time, idle share, time by kernel) to PATH and to
-PATH with ``_eager``, ``_spec``, ``_spec_eager``, ``_train``,
-``_train_bf16`` and ``_moe`` before its extension.
+engines, one more float32 training step, one more bf16-compute step, one
+more MoE training step and one more C1 step in each layout under
+torch.profiler and writes their kernel tables (device busy time, idle
+share, time by kernel) to PATH and to PATH with ``_eager``, ``_spec``,
+``_spec_eager``, ``_train``, ``_train_bf16``, ``_moe``, ``_cnn_nchw``
+and ``_cnn_nhwc`` before its extension.
 
 The flash kernels' bounds, forward and backward, take float32 at the
 3xTF32 tensor-core rate (495 / 3 TFLOP/s), the rate those kernels run
@@ -390,6 +419,17 @@ BATCH = dict(seq_len=128, max_batch=8, threads=4, requests=64, predicts=8,
              oversized_n=2, id_seed=12, tol=1e-3,
              fault="serving.dispatch:die:name=r1,after=4", b3_shape=(4, 256),
              b3_steps=3, split_reps=3)
+# the image classifiers: C1 ResNet-50 in both layouts, C2 the others in
+# NCHW, each through perf.run_perf (warm-up + timed steps); C3 one
+# ResNet-50 step on the card against the CPU; C4 the CLIs
+CNN = dict(c1=("resnet50", 32), c1_formats=("NCHW", "NHWC"),
+           c2=(("vgg16", 32), ("inception_v1", 32), ("vgg_cifar", 128)),
+           warmup=3, iters=10, c3_batch=4, c3_eval_batch=8,
+           tol_loss=1e-5, tol_grad=1e-3, tol_zero=1e-4,
+           tol_buffer=1e-5,
+           lenet_cli=["--synthetic", "-e", "1"],
+           resnet_cli=["--synthetic", "--depth", "20", "-e", "1"],
+           limit_s=150.0)
 
 
 def log(msg: str) -> None:
@@ -4689,6 +4729,375 @@ def phase_tune(dev, smi, tune=TUNE, config=GPT2_SMALL, serve=SERVE,
     return out
 
 
+def _repo_files_state(paths):
+    """(size, mtime) of each path (a directory: of every file under it),
+    to show a phase left the repository's own files as they were."""
+    out = {}
+    for p in paths:
+        full = os.path.join(HERE, p)
+        if os.path.isdir(full):
+            for root, _, files in os.walk(full):
+                for f in files:
+                    st = os.stat(os.path.join(root, f))
+                    out[os.path.join(root, f)] = (st.st_size, st.st_mtime)
+        elif os.path.exists(full):
+            st = os.stat(full)
+            out[full] = (st.st_size, st.st_mtime)
+    return out
+
+
+def cnn_perf_row(dev, name, batch, data_format, cnn=CNN, label=""):
+    """One perf-harness run (warm-up + timed steps) and its numbers: the
+    median step, images/s, peak, the input copy and its share of the
+    step, the step's FLOPs and their share of the float32 peak."""
+    import numpy as np
+    from bigdl_tpu_torch.models.utils import perf
+    r = perf.run_perf(name, batch, cnn["iters"], warmup=cnn["warmup"],
+                      data_format=data_format, device=dev)
+    if not np.isfinite(r["loss"]):
+        raise AssertionError(f"{name} {data_format}: loss {r['loss']}")
+    step_ms = r["median_step_s"] * 1e3
+    bound_ms = r["step_flops"] / PEAK_FLOPS["float32"] * 1e3
+    row = dict(model=name, batch=batch, data_format=data_format,
+               step_ms=step_ms, steps_ms=[t * 1e3 for t in r["step_s"]],
+               images_per_s=batch / r["median_step_s"],
+               peak_mib=(r["peak_bytes"] / 2**20 if r["peak_bytes"]
+                         else None),
+               input_copy_ms=r["input_copy_ms"],
+               input_mb=r["input_bytes"] / 1e6,
+               copy_share=r["input_copy_ms"] / step_ms,
+               step_gflop=r["step_flops"] / 1e9, fp32_bound_ms=bound_ms,
+               fp32_peak_share=bound_ms / step_ms, loss=r["loss"],
+               device=r["nvidia_smi"] or r["device_name"])
+    log(f"[cnn] {name} {data_format}{label} batch {batch}: median step "
+        f"{step_ms:.3f} ms ({_ms_list(row['steps_ms'])}), "
+        f"{row['images_per_s']:.1f} images/s, max_memory_allocated "
+        f"{_mib(r['peak_bytes']) if r['peak_bytes'] else 'n/a'}, input "
+        f"copy {row['input_copy_ms']:.3f} ms for {row['input_mb']:.1f} MB "
+        f"({row['copy_share'] * 100:.1f}% of the step), "
+        f"{row['step_gflop']:.1f} GFLOP a step (matmul and convolution "
+        f"FLOPs of the forward and backward, torch.utils.flop_counter), "
+        f"{row['fp32_peak_share'] * 100:.1f}% of 67 TFLOP/s float32 "
+        f"(bound {bound_ms:.3f} ms) | {row['device']}")
+    return row
+
+
+def profile_cnn_step(dev, name, batch, data_format, out_path):
+    """One more training step of ``name`` (after two warm-up steps)
+    under torch.profiler; returns the device's idle share."""
+    from bigdl_tpu_torch.models.utils import perf
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer
+    model = perf.build_model(name, data_format).build(seed=1, device=dev)
+    ds = perf._make_dataset(name, batch, "random", data_format)
+    opt = LocalOptimizer(model, ds, ClassNLLCriterion()).set_optim_method(
+        SGD(learning_rate=0.01))
+    run_iterations(opt, 2)
+    return profile_device(lambda: run_iterations(opt, 1),
+                          f"{name} {data_format} train step (batch {batch})",
+                          out_path)
+
+
+def phase_cnn(dev, cnn=CNN, cli_dir=None, profile_path=None):
+    """The image-classification path (see the module docstring): C1 and
+    C2 through the perf harness, C3 a ResNet-50 training step on the card
+    against the port's CPU path, C4 the LeNet and ResNet CLIs with a
+    checkpoint in a temporary directory and their eval CLIs on it;
+    ``profile_path`` adds one profiled C1 step per layout.  Returns the
+    rows and the checks' numbers."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import models
+    from bigdl_tpu_torch.models.lenet import test as lenet_test
+    from bigdl_tpu_torch.models.lenet import train as lenet_train
+    from bigdl_tpu_torch.models.resnet import test as resnet_test
+    from bigdl_tpu_torch.models.resnet import train as resnet_train
+    from bigdl_tpu_torch.models.utils import perf
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import Top1Accuracy, loss_and_grads
+    from bigdl_tpu_torch.utils import file_io, keychain
+    from bigdl_tpu_torch.utils.pytree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    guarded = _repo_files_state(("flight", "TUNNEL_INCIDENTS.json"))
+    _reset_launches()
+    out = dict(c1=[], c2=[])
+    # C1 and C2
+    name, batch = cnn["c1"]
+    for df in cnn["c1_formats"]:
+        out["c1"].append(cnn_perf_row(dev, name, batch, df, cnn))
+        release(dev)
+        if profile_path:
+            root, ext = os.path.splitext(profile_path)
+            out["c1"][-1]["idle_share"] = profile_cnn_step(
+                dev, name, batch, df, f"{root}_cnn_{df.lower()}{ext}")
+            release(dev)
+    for name, batch in cnn["c2"]:
+        out["c2"].append(cnn_perf_row(dev, name, batch, "NCHW", cnn))
+        release(dev)
+
+    # C3: one ResNet-50 step on the card against the CPU, same params
+    cpu = torch.device("cpu")
+    card = models.ResNet(1000, depth=50).build(seed=1, device=dev)
+    host = models.ResNet(1000, depth=50).build(seed=1, device=cpu)
+    for a, b in zip(tree_leaves((card.params, card.buffers)),
+                    tree_leaves((host.params, host.buffers))):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("C3: build(seed=1) differs between the "
+                                 "card and the CPU")
+    ds = perf._make_dataset("resnet50", cnn["c3_batch"], "random", "NCHW")
+    b = next(ds.data(train=False))
+    crit = ClassNLLCriterion()
+    key = keychain.prng_key(0)
+    to_cpu = lambda t: tree_map(lambda a: a.cpu(), t)  # noqa: E731
+
+    def step(m, d, dt, pins):
+        cast = lambda t: tree_map(lambda a: a.to(dt), t)  # noqa: E731
+        with pins:
+            loss, g, bufs = loss_and_grads(
+                m, crit, cast(m.params),
+                torch.as_tensor(b.data, device=d).to(dt),
+                torch.as_tensor(b.labels, device=d), buffers=cast(m.buffers),
+                rng=key)
+        return float(loss), to_cpu(g), to_cpu(bufs)
+
+    # the card's float32 step records its ReLU masks and max-pool argmaxes;
+    # the CPU runs the step on its own decisions, and again in float32 and
+    # in float64 on the card's
+    pins_card, pins_cpu = [], []
+    l_card, g_card, buf_card = step(card, dev, torch.float32,
+                                    pinned_decisions(record=pins_card))
+    l_cpu, g_cpu, buf_cpu = step(host, cpu, torch.float32,
+                                 pinned_decisions(record=pins_cpu))
+    _, g_cpu_pinned, _ = step(host, cpu, torch.float32,
+                              pinned_decisions(replay=pins_card))
+    _, g_exact, _ = step(host, cpu, torch.float64,
+                         pinned_decisions(replay=pins_card))
+    masks = [(a.cpu(), c) for a, c in zip(pins_card, pins_cpu)
+             if a.dtype == torch.bool]
+    flips = sum(int((a != c).sum()) for a, c in masks)
+    n_relu = sum(a.numel() for a, _ in masks)
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    if not rel <= cnn["tol_loss"]:
+        raise AssertionError(f"C3 step-0 loss card {l_card} vs cpu "
+                             f"{l_cpu}: relative {rel:.3e}")
+    # the biases ahead of a batch norm have zero gradient in exact
+    # arithmetic: each must be noise, at most tol_zero of the tree's
+    # largest |g|, on both devices; every other leaf is compared
+    zero = biases_ahead_of_bn(card)
+    top = max(float(a.abs().max()) for a in tree_leaves(g_cpu))
+    noise = max(float(a.abs().max()) / top
+                for tree in (g_card, g_cpu)
+                for path, a in _named_leaves(tree) if path in zero)
+    if not (zero and noise <= cnn["tol_zero"]):
+        raise AssertionError(f"C3: the {len(zero)} convolution biases "
+                             f"ahead of a batch norm reach {noise:.3e} of "
+                             f"the largest |g| (limit {cnn['tol_zero']})")
+    g_card = _zeroed(g_card, zero)
+    worst = _check_grads("C3 ResNet-50 float32 step, the card's decisions",
+                         g_card, _zeroed(g_cpu_pinned, zero),
+                         cnn["tol_grad"])
+    worst_exact = _check_grads("C3 ResNet-50 float32 step against float64 "
+                               "on the card's decisions", g_card,
+                               _zeroed(g_exact, zero), cnn["tol_grad"])
+    # each device on its own decisions: not held, reported
+    unpinned = max((float((a - c).abs().max() / c.abs().max()), path)
+                   for (path, a), (_, c) in zip(
+                       _named_leaves(g_card), _named_leaves(g_cpu))
+                   if path not in zero)
+    buf_err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+                  for a, b in zip(tree_leaves(buf_card), tree_leaves(buf_cpu)))
+    if not buf_err <= cnn["tol_buffer"]:
+        raise AssertionError(f"C3 BN running buffers: error {buf_err:.3e}")
+    # Top1 over an eval batch: labels the CPU's prediction for half the
+    # rows and another class for the rest; a differing row must be a tie
+    xe = np.random.RandomState(1).randn(cnn["c3_eval_batch"], 3, 224,
+                                        224).astype(np.float32)
+    with torch.no_grad():
+        lp_cpu = host.apply(host.params, torch.from_numpy(xe),
+                            buffers=host.buffers)[0]
+        lp_card = card.apply(card.params, torch.as_tensor(xe, device=dev),
+                             buffers=card.buffers)[0].cpu()
+    pred = lp_cpu.argmax(-1)
+    half = cnn["c3_eval_batch"] // 2
+    labels = torch.cat([pred[:half] + 1, (pred[half:] + 1) % 1000 + 1])
+    acc = {k: Top1Accuracy()(v, labels) for k, v in (("cpu", lp_cpu),
+                                                     ("card", lp_card))}
+    if acc["cpu"].correct != acc["card"].correct:
+        top2 = lp_cpu.topk(2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1])[lp_card.argmax(-1) != pred]
+        if not (gaps < TIE_GAP).all():
+            raise AssertionError(f"C3 Top1Accuracy card {acc['card']} vs "
+                                 f"cpu {acc['cpu']}")
+    logp_err = float((lp_card - lp_cpu).abs().max())
+    out["c3"] = dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel,
+                     worst_grad=worst[0], worst_grad_leaf=worst[1],
+                     worst_grad_f64=worst_exact[0],
+                     worst_grad_f64_leaf=worst_exact[1],
+                     relu_decisions=n_relu, relu_flips=flips,
+                     unpinned_worst=unpinned[0],
+                     unpinned_worst_leaf=unpinned[1], zero_leaves=len(zero),
+                     zero_leaf_noise=noise, buffer_err=buf_err,
+                     top1_card=acc["card"].correct,
+                     top1_cpu=acc["cpu"].correct, eval_logp_err=logp_err)
+    log(f"[cnn] C3 ResNet-50 batch {cnn['c3_batch']} one float32 step, card "
+        f"vs CPU: loss {l_card:.7f} / {l_cpu:.7f} (relative {rel:.2e}); on "
+        f"the card's ReLU masks and max-pool argmaxes every gradient leaf "
+        f"within {cnn['tol_grad']} of its max |g|: against the CPU's float32 "
+        f"worst {worst[0]:.2e} at {worst[1]}, against float64 worst "
+        f"{worst_exact[0]:.2e} at {worst_exact[1]}; each device on its own "
+        f"decisions ({flips} of {n_relu} ReLU masks differ): worst "
+        f"{unpinned[0]:.2e} at {unpinned[1]} (not held); the {len(zero)} "
+        f"convolution biases ahead of a batch norm (exact gradient 0) at "
+        f"most {noise:.2e} of the largest |g|; BN buffers within "
+        f"{buf_err:.2e}; eval batch of {cnn['c3_eval_batch']}: max "
+        f"|dlog-prob| {logp_err:.2e}, Top1Accuracy {acc['card']} / "
+        f"{acc['cpu']}")
+    del card, host, g_card, g_cpu, g_cpu_pinned, g_exact, pins_card, pins_cpu
+    release(dev)
+
+    # C4: the CLIs, checkpoints in a temporary directory
+    tmp = cli_dir or tempfile.mkdtemp(prefix="chip_smoke_cnn_")
+    out["c4"] = {}
+    logger = logging.getLogger("bigdl_tpu_torch.optim")
+    try:
+        for label, train_main, test_main, argv in (
+                ("lenet", lenet_train.main, lenet_test.main,
+                 cnn["lenet_cli"]),
+                ("resnet20", resnet_train.main, resnet_test.main,
+                 cnn["resnet_cli"])):
+            ck = os.path.join(tmp, label)
+            record, level = _IterationLog(), logger.level
+            logger.setLevel(logging.INFO)
+            logger.addHandler(record)
+            try:
+                opt = train_main(argv + ["--checkpoint", ck,
+                                         "--device", dev.type])
+            finally:
+                logger.removeHandler(record)
+                logger.setLevel(level)
+            losses = record.losses
+            if not (losses and all(np.isfinite(losses))
+                    and losses[-1] < losses[0]):
+                raise AssertionError(f"C4 {label} CLI losses {losses}: "
+                                     "not finite and falling")
+            (method, result), = opt.validation_results
+            if str(method) != "Top1Accuracy":
+                raise AssertionError(f"C4 {label}: validation {method}")
+            found = file_io.latest_checkpoint(ck)
+            if found is None:
+                raise AssertionError(f"C4 {label}: no checkpoint under {ck}")
+            model_path, _, n = found
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                test_main(["--synthetic", "--model", model_path,
+                           "--device", dev.type])
+            printed = buf.getvalue()
+            if "Top1Accuracy is Accuracy(" not in printed:
+                raise AssertionError(f"C4 {label} eval CLI printed "
+                                     f"{printed!r}")
+            out["c4"][label] = dict(losses=losses, validation=str(result),
+                                    checkpoint=n, eval=printed.strip())
+            log(f"[cnn] C4 {label} CLI {' '.join(argv)}: {len(losses)} "
+                f"steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+                f"validation {result}; checkpoint model.{n}, eval CLI: "
+                f"{printed.strip()}")
+    finally:
+        if cli_dir is None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    if _repo_files_state(("flight", "TUNNEL_INCIDENTS.json")) != guarded:
+        raise AssertionError("the cnn phase changed the repository's "
+                             "flight/ or TUNNEL_INCIDENTS.json")
+    out["launches"] = _launches()
+    out["seconds"] = time.perf_counter() - t_phase
+    if dev.type == "cuda" and out["seconds"] > cnn["limit_s"]:
+        raise AssertionError(f"the cnn phase took {out['seconds']:.1f} s, "
+                             f"over {cnn['limit_s']} s")
+    return out
+
+
+def biases_ahead_of_bn(module, prefix=""):
+    """The leaf paths (``_named_leaves``'s form) of every convolution bias
+    that a batch norm follows in a Sequential: the norm subtracts the
+    batch mean, so their gradient is zero in exact arithmetic and the
+    float32 one is rounding noise."""
+    from bigdl_tpu_torch.nn import (BatchNormalization, Container,
+                                    Sequential, SpatialConvolution)
+    out = set()
+    if isinstance(module, Container):
+        mods = module.modules
+        for i, m in enumerate(mods):
+            path = f"{prefix}/{i}"
+            if (isinstance(module, Sequential)
+                    and isinstance(m, SpatialConvolution) and m.with_bias
+                    and i + 1 < len(mods)
+                    and isinstance(mods[i + 1], BatchNormalization)):
+                out.add(f"{path}/bias")
+            out |= biases_ahead_of_bn(m, path)
+    return out
+
+
+class pinned_decisions:
+    """While active, every port ``ReLU`` and ``SpatialMaxPooling`` appends
+    its decision (the mask ``x >= 0``; each window's argmax) to
+    ``record``, or, given ``replay``, takes the next one from it in place
+    of its own.  A gradient is only piecewise smooth: a pre-activation
+    within rounding of 0 passes or stops its gradient depending on the
+    last bit, and each such flip moves a weight gradient summed over few
+    positions by a whole term.  Replaying one run's decisions in another
+    compares the arithmetic of two runs on the same piece."""
+
+    def __init__(self, record=None, replay=None):
+        self.record = record
+        self.replay = None if replay is None else iter(replay)
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+        from bigdl_tpu_torch.nn import ReLU, SpatialMaxPooling
+        from bigdl_tpu_torch.nn.conv import spatial
+        pins = self
+
+        def relu(layer, params, x, **kw):
+            if pins.replay is not None:
+                return x * next(pins.replay).to(x.device, x.dtype)
+            pins.record.append((x >= 0).detach())  # clamp_min's backward
+            return torch.clamp_min(x, 0)
+
+        @spatial
+        def max_pool(layer, params, x):
+            if pins.replay is not None:
+                idx = next(pins.replay).to(x.device)
+                return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+            k, s = layer._window()
+            y, idx = F.max_pool2d(x, k, s, padding=(layer.pad_h, layer.pad_w),
+                                  ceil_mode=layer.ceil_mode,
+                                  return_indices=True)
+            pins.record.append(idx)
+            return y
+
+        self.saved = [(ReLU, ReLU.f), (SpatialMaxPooling, SpatialMaxPooling.f)]
+        ReLU.f, SpatialMaxPooling.f = relu, max_pool
+        return self
+
+    def __exit__(self, *exc):
+        for cls, f in self.saved:
+            cls.f = f
+        return False
+
+
+def _zeroed(tree, paths, prefix=""):
+    """``tree`` with the leaves at ``paths`` replaced by zeros."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: _zeroed(v, paths, f"{prefix}/{k}") for k, v in tree.items()}
+    return torch.zeros_like(tree) if prefix in paths else tree
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
         print("chip_smoke.py: the bigdl_tpu_torch package is not beside "
@@ -4964,6 +5373,26 @@ def main() -> int:
          "paged": {k: tune["paged"]["winner"].get(k) for k in (
              "use_kernel", "kernel_step_s", "gather_step_s")},
          "qcompute": tune["qcompute"]}) + f" | {smi}")
+    log_allocated("cnn")
+    release(dev)
+    t0 = time.perf_counter()
+    cnn = phase_cnn(dev, profile_path=args.profile)
+    phases["cnn"] = time.perf_counter() - t0
+    log("[cnn] summary: " + json.dumps(
+        {"c1": [{k: r[k] for k in ("data_format", "step_ms", "images_per_s",
+                                   "peak_mib", "input_copy_ms", "copy_share",
+                                   "step_gflop", "fp32_peak_share")}
+                for r in cnn["c1"]],
+         "c2": [{k: r[k] for k in ("model", "batch", "step_ms",
+                                   "images_per_s", "peak_mib",
+                                   "input_copy_ms", "step_gflop",
+                                   "fp32_peak_share")} for r in cnn["c2"]],
+         "c3": cnn["c3"],
+         "c4": {k: {"first_loss": v["losses"][0], "last_loss": v["losses"][-1],
+                    "validation": v["validation"]}
+                for k, v in cnn["c4"].items()},
+         "port_kernel_launches": cnn["launches"], "seconds": cnn["seconds"]})
+        + f" | {smi}")
     log("[done] phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()))
 
