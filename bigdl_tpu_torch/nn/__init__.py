@@ -1,10 +1,8 @@
 """bigdl_tpu_torch.nn: the Module core and its layers (port of
 ``bigdl_tpu/nn``): ``Module``/``Criterion``, the linear family, the
 containers, the activations, attention, convolution, pooling,
-normalization, dropout, the shape layers and the table ops, and the
-criterions the training paths use.  Recurrence (``recurrent.py``),
-detection (``Nms``) and the other criterions are ROADMAP Queue 1 item
-12."""
+normalization, dropout, the shape layers, the table ops, the recurrent
+stack (``recurrent.py``), detection (``Nms``) and the 24 criterions."""
 from bigdl_tpu_torch.nn.activations import (ELU, GELU, Abs, Clamp, Exp,
                                             HardShrink, HardTanh, LeakyReLU,
                                             Log, LogSigmoid, LogSoftMax,
@@ -27,8 +25,16 @@ from bigdl_tpu_torch.nn.conv import (SpatialConvolution,
                                      SpatialDilatedConvolution,
                                      SpatialFullConvolution,
                                      SpatialShareConvolution)
-from bigdl_tpu_torch.nn.criterions import (ClassNLLCriterion,
-                                           TimeDistributedCriterion)
+from bigdl_tpu_torch.nn.criterions import (
+    AbsCriterion, BCECriterion, ClassNLLCriterion, ClassSimplexCriterion,
+    CosineEmbeddingCriterion, CriterionTable, CrossEntropyCriterion,
+    DistKLDivCriterion, HingeEmbeddingCriterion, L1Cost,
+    L1HingeEmbeddingCriterion, MarginCriterion, MarginRankingCriterion,
+    MSECriterion, MultiCriterion, MultiLabelMarginCriterion,
+    MultiLabelSoftMarginCriterion, MultiMarginCriterion, ParallelCriterion,
+    SmoothL1Criterion, SmoothL1CriterionWithWeights, SoftmaxWithCriterion,
+    SoftMarginCriterion, TimeDistributedCriterion)
+from bigdl_tpu_torch.nn.detection import Nms, nms
 from bigdl_tpu_torch.nn.dropout import Dropout, GradientReversal, L1Penalty
 from bigdl_tpu_torch.nn.initialization import (BilinearFiller, Default,
                                                InitializationMethod, Xavier)
@@ -45,6 +51,9 @@ from bigdl_tpu_torch.nn.normalization import (
     layer_norm)
 from bigdl_tpu_torch.nn.pooling import (RoiPooling, SpatialAveragePooling,
                                         SpatialMaxPooling)
+from bigdl_tpu_torch.nn.recurrent import (GRU, LSTM, BiRecurrent, Cell,
+                                          Recurrent, RnnCell,
+                                          TimeDistributed)
 from bigdl_tpu_torch.nn.shape import (Contiguous, Copy, Echo, Identity, Index,
                                       InferReshape, MaskedSelect, Narrow,
                                       Padding, Replicate, Reshape, Reverse,
@@ -55,27 +64,37 @@ from bigdl_tpu_torch.nn.table_ops import (CAddTable, CDivTable, CMaxTable,
                                           Max, Mean, Min, Sum)
 
 __all__ = [
-    "Abs", "Add", "AddConstant", "BatchNormalization", "Bilinear",
-    "BilinearFiller", "Bottle", "CAdd", "CAddTable", "CDivTable", "CMaxTable",
-    "CMinTable", "CMul", "CMulTable", "CSubTable", "Clamp",
-    "ClassNLLCriterion", "Concat", "ConcatTable", "Container", "Contiguous",
-    "Copy", "Cosine", "CosineDistance", "Criterion", "Default", "DepthConcat",
+    "Abs", "AbsCriterion", "Add", "AddConstant", "BCECriterion",
+    "BatchNormalization", "BiRecurrent", "Bilinear", "BilinearFiller",
+    "Bottle", "CAdd", "CAddTable", "CDivTable", "CMaxTable", "CMinTable",
+    "CMul", "CMulTable", "CSubTable", "Cell", "Clamp", "ClassNLLCriterion",
+    "ClassSimplexCriterion", "Concat", "ConcatTable", "Container",
+    "Contiguous", "Copy", "Cosine", "CosineDistance",
+    "CosineEmbeddingCriterion", "Criterion", "CriterionTable",
+    "CrossEntropyCriterion", "Default", "DepthConcat", "DistKLDivCriterion",
     "DotProduct", "Dropout", "ELU", "Echo", "Euclidean", "Exp", "FlattenTable",
-    "GELU", "GradientReversal", "HardShrink", "HardTanh", "Identity", "Index",
-    "InferReshape", "InitializationMethod", "JoinTable", "L1Penalty",
-    "LayerNorm", "LeakyReLU", "Linear", "Log", "LogSigmoid", "LogSoftMax",
-    "LookupTable", "MM", "MV", "MapTable", "MaskedSelect", "Max", "Mean",
-    "Min", "MixtureTable", "Module", "Mul", "MulConstant",
-    "MultiHeadAttention", "Narrow", "NarrowTable", "Normalize", "PReLU",
-    "Padding", "PairwiseDistance", "ParallelTable", "Power", "RReLU", "ReLU",
-    "ReLU6", "Replicate", "Reshape", "Reverse", "RoiPooling", "Scale",
-    "Select", "SelectTable", "Sequential", "Sigmoid", "SoftMax", "SoftMin",
-    "SoftPlus", "SoftShrink", "SoftSign", "SpatialAveragePooling",
+    "GELU", "GRU", "GradientReversal", "HardShrink", "HardTanh",
+    "HingeEmbeddingCriterion", "Identity", "Index", "InferReshape",
+    "InitializationMethod", "JoinTable", "L1Cost", "L1HingeEmbeddingCriterion",
+    "L1Penalty", "LSTM", "LayerNorm", "LeakyReLU", "Linear", "Log",
+    "LogSigmoid", "LogSoftMax", "LookupTable", "MM", "MSECriterion", "MV",
+    "MapTable", "MarginCriterion", "MarginRankingCriterion", "MaskedSelect",
+    "Max", "Mean", "Min", "MixtureTable", "Module", "Mul", "MulConstant",
+    "MultiCriterion", "MultiHeadAttention", "MultiLabelMarginCriterion",
+    "MultiLabelSoftMarginCriterion", "MultiMarginCriterion", "Narrow",
+    "NarrowTable", "Nms", "Normalize", "PReLU", "Padding", "PairwiseDistance",
+    "ParallelCriterion", "ParallelTable", "Power", "RReLU", "ReLU", "ReLU6",
+    "Recurrent", "Replicate", "Reshape", "Reverse", "RnnCell", "RoiPooling",
+    "Scale", "Select", "SelectTable", "Sequential", "Sigmoid",
+    "SmoothL1Criterion", "SmoothL1CriterionWithWeights", "SoftMarginCriterion",
+    "SoftMax", "SoftMin", "SoftPlus", "SoftShrink", "SoftSign",
+    "SoftmaxWithCriterion", "SpatialAveragePooling",
     "SpatialBatchNormalization", "SpatialContrastiveNormalization",
     "SpatialConvolution", "SpatialConvolutionMap", "SpatialCrossMapLRN",
     "SpatialDilatedConvolution", "SpatialDivisiveNormalization",
     "SpatialFullConvolution", "SpatialMaxPooling", "SpatialShareConvolution",
     "SpatialSubtractiveNormalization", "SpatialZeroPadding", "SplitTable",
     "Sqrt", "Square", "Squeeze", "Sum", "Tanh", "TanhShrink", "Threshold",
-    "TimeDistributedCriterion", "Transpose", "Unsqueeze", "View", "Xavier",
-    "dot_product_attention", "layer_norm", "segment_mask"]
+    "TimeDistributed", "TimeDistributedCriterion", "Transpose", "Unsqueeze",
+    "View", "Xavier", "dot_product_attention", "layer_norm", "nms",
+    "segment_mask"]

@@ -26,9 +26,16 @@ from bigdl_tpu_torch.utils import keychain
 def keep_mask(key, shape, keep: float, device) -> torch.Tensor:
     """``jax.random.bernoulli(key, keep, shape)`` on ``device``: bool,
     True where kept."""
-    mask = torch.from_numpy(keychain.uniform(key, shape) < np.float32(keep))
+    return keep_masks([key], shape, keep, device)[0]
+
+
+def keep_masks(keys, shape, keep: float, device) -> torch.Tensor:
+    """:func:`keep_mask` of every key in ``keys``, stacked on a new
+    leading axis and copied to ``device`` in one transfer."""
+    masks = np.stack([keychain.uniform(k, shape) < np.float32(keep)
+                      for k in keys])
     # from pageable memory an asynchronous copy is staged at once
-    return mask.to(device, non_blocking=True)
+    return torch.from_numpy(masks).to(device, non_blocking=True)
 
 
 class Dropout(Module):

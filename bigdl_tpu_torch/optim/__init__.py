@@ -1,12 +1,13 @@
-"""Training loop, optimization methods, schedules, triggers and
-validation (port of ``bigdl_tpu/optim``; ``Adagrad``, ``LBFGS`` and the
-distributed optimizer are ROADMAP Queue 1 item 12)."""
-from bigdl_tpu_torch.optim.optim_method import (SGD, Adam, AdamW, Default,
-                                                EpochDecay, EpochSchedule,
-                                                EpochStep,
+"""Training loop, optimization methods (SGD, Adagrad, Adam, AdamW and
+LBFGS with its line search), schedules, triggers and validation (port of
+``bigdl_tpu/optim``; the distributed optimizer is ROADMAP Queue 1 item
+12)."""
+from bigdl_tpu_torch.optim.optim_method import (LBFGS, SGD, Adagrad, Adam,
+                                                AdamW, Default, EpochDecay,
+                                                EpochSchedule, EpochStep,
                                                 LearningRateSchedule,
                                                 OptimMethod, Poly, Regime,
-                                                Step)
+                                                Step, ls_wolfe)
 from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer, LocalValidator,
                                              Optimizer,
                                              accumulated_loss_and_grads,
@@ -18,10 +19,10 @@ from bigdl_tpu_torch.optim.validation import (AccuracyResult, Loss,
                                               Top5Accuracy, ValidationMethod,
                                               ValidationResult)
 
-__all__ = ["AccuracyResult", "Adam", "AdamW", "Default", "EpochDecay",
-           "EpochSchedule", "EpochStep", "LearningRateSchedule",
-           "LocalOptimizer", "LocalValidator", "Loss", "LossResult",
-           "OptimMethod", "Optimizer", "Perplexity", "PerplexityResult",
-           "Poly", "Regime", "SGD", "Step", "Top1Accuracy", "Top5Accuracy",
-           "Trigger", "ValidationMethod", "ValidationResult",
-           "accumulated_loss_and_grads", "loss_and_grads"]
+__all__ = ["AccuracyResult", "Adagrad", "Adam", "AdamW", "Default",
+           "EpochDecay", "EpochSchedule", "EpochStep", "LBFGS",
+           "LearningRateSchedule", "LocalOptimizer", "LocalValidator", "Loss",
+           "LossResult", "OptimMethod", "Optimizer", "Perplexity",
+           "PerplexityResult", "Poly", "Regime", "SGD", "Step", "Top1Accuracy",
+           "Top5Accuracy", "Trigger", "ValidationMethod", "ValidationResult",
+           "accumulated_loss_and_grads", "loss_and_grads", "ls_wolfe"]

@@ -1,8 +1,8 @@
 """Optimization methods (port of ``bigdl_tpu/optim/optim_method.py``:
 the learning-rate schedules ``Default``, ``Poly``, ``Step``,
 ``EpochStep``, ``EpochDecay`` and ``EpochSchedule`` with ``Regime``;
-``OptimMethod``, ``SGD``, ``Adam`` and ``AdamW``).  ``Adagrad`` and
-``LBFGS`` are ROADMAP Queue 1 item 12.
+``OptimMethod``, ``SGD``, ``Adagrad``, ``Adam``, ``AdamW``, and
+``LBFGS`` with its line search ``ls_wolfe``).
 
 A schedule's rate is a host number: the iteration is a host int and the
 epoch the training loop's.  Where the reference computes it in float32 array
@@ -33,7 +33,7 @@ update may write before calling it (``optimizer.UpdateSnapshot``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -241,6 +241,40 @@ class SGD(OptimMethod):
         return f"Current learning rate is {self.learning_rate}. "
 
 
+class Adagrad(OptimMethod):
+    """Adagrad (ref optim/Adagrad.scala): the squared gradients summed
+    per element, each step scaled by their root."""
+
+    def __init__(self, learning_rate: float = 1e-3,
+                 learning_rate_decay: float = 0.0, eps: float = 1e-10):
+        self.learning_rate = learning_rate
+        self.learning_rate_decay = learning_rate_decay
+        self.eps = eps
+
+    def init_state(self, params):
+        return {"iteration": 0, "accum": _zeros_like(params)}
+
+    def current_rate(self, state, epoch=1):
+        return self.learning_rate / (
+            1.0 + state["iteration"] * self.learning_rate_decay)
+
+    @_staged
+    def update(self, grads, state, params, epoch=1):
+        self.commit(self.stage(grads, state, params, epoch), state)
+        return params, state
+
+    @torch.no_grad()
+    def stage(self, grads, state, params, epoch=1):
+        lr = self.current_rate(state, epoch)
+        targets, values = [], []
+        for w, g, a in zip(tree_leaves(params), tree_leaves(grads),
+                           tree_leaves(state["accum"])):
+            a_new = a + g * g
+            targets += [a, w]
+            values += [a_new, w - lr * g / (torch.sqrt(a_new) + self.eps)]
+        return targets, values, state["iteration"] + 1
+
+
 class Adam(OptimMethod):
     """Adam with bias correction (Kingma & Ba 2015); ``weight_decay`` is
     L2 folded into the gradient (see AdamW for the decoupled variant)."""
@@ -306,3 +340,158 @@ class AdamW(Adam):
         if self.weight_decay == 0.0:
             return w_new
         return w_new - lr * self.weight_decay * w_old
+
+
+# --------------------------------------------------------------------- #
+# LBFGS (ref optim/LBFGS.scala + LineSearch.scala lswolfe)              #
+# --------------------------------------------------------------------- #
+def _dot(a, b) -> float:
+    return float(torch.dot(a, b))
+
+
+def ls_wolfe(feval, x, t, d, f, g, gtd, c1=1e-4, c2=0.9, tol_x=1e-9,
+             max_iter=20):
+    """Strong-Wolfe line search with bracketing and bisection (ref
+    LineSearch.scala), on flat float32 vectors; ``feval`` returns (f,
+    g) with ``f`` a host float.  Returns (f, g, t, evaluations)."""
+    d_norm = float(d.abs().max())
+    t_prev, f_prev, g_prev, gtd_prev = 0.0, f, g, gtd
+    ls_func_evals = 0
+    bracket = None
+    for _ in range(max_iter):
+        f_new, g_new = feval(x + t * d)
+        ls_func_evals += 1
+        gtd_new = _dot(g_new, d)
+        if f_new > (f + c1 * t * gtd) or (ls_func_evals > 1
+                                          and f_new >= f_prev):
+            bracket = (t_prev, t, f_prev, f_new, g_prev, g_new, gtd_prev,
+                       gtd_new)
+            break
+        if abs(gtd_new) <= -c2 * gtd:
+            return f_new, g_new, t, ls_func_evals
+        if gtd_new >= 0:
+            bracket = (t_prev, t, f_prev, f_new, g_prev, g_new, gtd_prev,
+                       gtd_new)
+            break
+        t_prev, f_prev, g_prev, gtd_prev = t, f_new, g_new, gtd_new
+        t = min(10.0, t * 2.0)
+    if bracket is None:
+        return f_new, g_new, t, ls_func_evals
+    # zoom
+    lo_t, hi_t, lo_f, hi_f, lo_g, hi_g, lo_gtd, hi_gtd = bracket
+    for _ in range(max_iter):
+        if abs(hi_t - lo_t) * d_norm < tol_x:
+            break
+        t = (lo_t + hi_t) / 2.0
+        f_new, g_new = feval(x + t * d)
+        ls_func_evals += 1
+        gtd_new = _dot(g_new, d)
+        if f_new > (f + c1 * t * gtd) or f_new >= lo_f:
+            hi_t, hi_f, hi_g, hi_gtd = t, f_new, g_new, gtd_new
+        else:
+            if abs(gtd_new) <= -c2 * gtd:
+                return f_new, g_new, t, ls_func_evals
+            if gtd_new * (hi_t - lo_t) >= 0:
+                hi_t, hi_f, hi_g, hi_gtd = lo_t, lo_f, lo_g, lo_gtd
+            lo_t, lo_f, lo_g, lo_gtd = t, f_new, g_new, gtd_new
+    return f_new, g_new, t, ls_func_evals
+
+
+class LBFGS(OptimMethod):
+    """Limited-memory BFGS with an optional strong-Wolfe line search
+    (ref optim/LBFGS.scala).  A host-driven loop over one flat float32
+    vector: each evaluation is one forward and backward on the device,
+    each dot product one read back to the host.  Its state (the
+    curvature pairs, the last direction and step) lives on the method
+    between ``optimize`` calls, as the reference's does."""
+
+    def __init__(self, max_iter: int = 20, max_eval: Optional[float] = None,
+                 tol_fun: float = 1e-5, tol_x: float = 1e-9,
+                 n_correction: int = 100, learning_rate: float = 1.0,
+                 line_search: bool = False):
+        self.max_iter = max_iter
+        self.max_eval = max_eval if max_eval is not None else max_iter * 1.25
+        self.tol_fun = tol_fun
+        self.tol_x = tol_x
+        self.n_correction = n_correction
+        self.learning_rate = learning_rate
+        self.line_search = line_search
+        self._state: Optional[dict] = None
+
+    def optimize(self, feval: Callable, x, epoch: int = 1):
+        """Up to ``max_iter`` iterations from ``x`` (one reference
+        ``optimize`` call, one outer loop).  Returns (x, loss
+        history)."""
+        x = torch.as_tensor(x)
+        st = self._state if self._state is not None else {
+            "old_dirs": [], "old_steps": [], "prev_g": None,
+            "prev_loss": None, "d": None, "t": None, "hdiag": 1.0,
+            "func_evals": 0}
+        f, g = feval(x)
+        f_hist = [float(f)]
+        st["func_evals"] += 1
+        abs_grad_sum = float(g.abs().sum())
+        if abs_grad_sum <= self.tol_fun:
+            self._state = st
+            return x, f_hist
+
+        for n_iter in range(self.max_iter):
+            if st["prev_g"] is None:
+                d = -g
+                st["hdiag"] = 1.0
+            else:
+                y = g - st["prev_g"]
+                s = st["d"] * st["t"]
+                ys = _dot(y, s)
+                if ys > 1e-10:
+                    if len(st["old_dirs"]) == self.n_correction:
+                        st["old_dirs"].pop(0)
+                        st["old_steps"].pop(0)
+                    st["old_dirs"].append(s)
+                    st["old_steps"].append(y)
+                    st["hdiag"] = ys / _dot(y, y)
+                # two-loop recursion
+                k = len(st["old_dirs"])
+                ro = [1.0 / _dot(st["old_steps"][i], st["old_dirs"][i])
+                      for i in range(k)]
+                al = [0.0] * k
+                q = -g
+                for i in range(k - 1, -1, -1):
+                    al[i] = _dot(st["old_dirs"][i], q) * ro[i]
+                    q = q - al[i] * st["old_steps"][i]
+                d = q * st["hdiag"]
+                for i in range(k):
+                    be = _dot(st["old_steps"][i], d) * ro[i]
+                    d = d + st["old_dirs"][i] * (al[i] - be)
+            st["prev_g"] = g
+            gtd = _dot(g, d)
+            if gtd > -self.tol_x:
+                break
+            if n_iter == 0 and st["prev_loss"] is None:
+                t = min(1.0, 1.0 / max(abs_grad_sum, 1e-12)) \
+                    * self.learning_rate
+            else:
+                t = self.learning_rate
+            if self.line_search:
+                f, g, t, evals = ls_wolfe(feval, x, t, d, float(f), g, gtd)
+                x = x + t * d
+                st["func_evals"] += evals
+            else:
+                x = x + t * d
+                f, g = feval(x)
+                st["func_evals"] += 1
+            st["d"], st["t"] = d, t
+            f_hist.append(float(f))
+            abs_grad_sum = float(g.abs().sum())
+            if abs_grad_sum <= self.tol_fun:
+                break
+            if float((d * t).abs().max()) <= self.tol_x:
+                break
+            if st["prev_loss"] is not None and \
+                    abs(f_hist[-1] - f_hist[-2]) < self.tol_fun:
+                break
+            if st["func_evals"] >= self.max_eval:
+                break
+        st["prev_loss"] = f_hist[-1]
+        self._state = st
+        return x, f_hist

@@ -23,8 +23,14 @@ LearningRate and Parameters histograms on their triggers;
 ``set_validation_summary``), the phase counters (``metrics``, published
 as ``train/*``) and the stall watchdog (``BIGDL_TPU_WATCHDOG``): a step
 is bracketed up to the host's read of its loss, and a stall requests an
-emergency checkpoint at the next completed iteration.  Not ported,
-refused when asked for: LBFGS and distributed datasets.
+emergency checkpoint at the next completed iteration.
+
+``LBFGS`` takes the reference's full-batch path instead
+(:meth:`LocalOptimizer._optimize_lbfgs`): the parameters flattened into
+one vector in the reference's ``ravel_pytree`` order, the dataset's
+first batch evaluated by one forward and backward per line-search
+point, validation, checkpoints and preemption after every outer
+iteration.  Distributed datasets are not ported.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ import torch
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.obs.registry import get_registry
 from bigdl_tpu_torch.optim.metrics import Metrics
-from bigdl_tpu_torch.optim.optim_method import (OptimMethod, SGD,
+from bigdl_tpu_torch.optim.optim_method import (LBFGS, OptimMethod, SGD,
                                                 stages_updates)
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import ValidationMethod
@@ -631,6 +637,8 @@ class LocalOptimizer(Optimizer):
 
     def _optimize(self):
         self._updating = False
+        if isinstance(self.optim_method, LBFGS):
+            return self._optimize_lbfgs()
         params = self.model.params
         buffers = getattr(self.model, "buffers", None) or {}
         # a state left by an earlier optimize(), set by the caller or
@@ -759,6 +767,72 @@ class LocalOptimizer(Optimizer):
         log.info("training finished in %.1fs", time.perf_counter() - wall0)
         log.info("phase breakdown: %s", self.metrics.summary())
         self.model.params, self.model.buffers = params, buffers
+
+    def _optimize_lbfgs(self):
+        """The full-batch path for LBFGS (ref optimizer.py
+        ``_optimize_lbfgs``; the reference drives LBFGS through the same
+        feval machinery, optim/LocalOptimizer + LBFGS.scala): one
+        ``optimize`` call of the method an iteration, on the dataset's
+        first batch."""
+        if self._clip_const is not None or self._clip_l2 is not None:
+            # a clipped gradient is inconsistent with the loss the Wolfe
+            # line search evaluates and corrupts the curvature pairs
+            raise ValueError(
+                "gradient clipping is incompatible with LBFGS (the line "
+                "search and curvature pairs need the true gradient) — "
+                "remove the clipping or use SGD/Adam")
+        if self.grad_accum > 1:
+            raise ValueError(
+                "set_gradient_accumulation is not supported with LBFGS "
+                "(the strong-Wolfe line search evaluates the full batch) "
+                "— use SGD/Adam, or drop the accumulation")
+        model, criterion = self.model, self.criterion
+        # ravel_pytree's order: the leaves in sorted-key order, each
+        # raveled row-major
+        flat, _, unravel = model.get_parameters()
+        flat = flat.detach()
+        buffers = getattr(model, "buffers", None) or {}
+        batch = next(self.dataset.data(train=True))
+        data = torch.as_tensor(np.asarray(batch.data), device=flat.device)
+        labels = torch.as_tensor(np.asarray(batch.labels), device=flat.device)
+
+        def feval(v):
+            v = v.detach().requires_grad_(True)
+            with torch.enable_grad():
+                params = unravel(v)
+                if self.compute_dtype is not None:
+                    params = cast_float_leaves(params, self.compute_dtype)
+                out, _ = model.apply(params, data, buffers=buffers,
+                                     training=True)
+                loss = criterion.loss(out.float(), labels)
+                (g,) = torch.autograd.grad(loss, v)
+            return float(loss.detach()), g
+
+        dataset_size = self.dataset.size()
+        records_this_epoch = 0
+        batch_records = int(np.asarray(batch.data).shape[0])
+        while not self.end_when(self.state):
+            self.state["epoch_finished"] = False
+            flat, hist = self.optim_method.optimize(feval, flat)
+            self.state["loss"] = hist[-1]
+            log.info("LBFGS iteration %d: loss %.6f", self.state["neval"],
+                     hist[-1])
+            self.state["neval"] += 1
+            records_this_epoch += batch_records
+            if records_this_epoch >= dataset_size:
+                self.state["epoch"] += 1
+                self.state["epoch_finished"] = True
+                records_this_epoch = 0
+            model.params = unravel(flat)
+            self._maybe_validate()
+            wrote = self._maybe_checkpoint()
+            if self._check_preemption():
+                if self.checkpoint_path is not None and not wrote:
+                    self._checkpoint()
+                log.warning("stopping on preemption at iteration %d",
+                            self.state["neval"] - 1)
+                break
+        return model
 
     def _validate(self):
         if getattr(self, "_validator", None) is None:

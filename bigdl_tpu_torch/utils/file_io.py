@@ -91,14 +91,18 @@ def latest_checkpoint(directory: str):
 # optimizer state                                                       #
 # --------------------------------------------------------------------- #
 def state_to_numpy(state: dict) -> dict:
-    """An optimizer method's state for the file: tensors to numpy, the
-    host ``iteration`` to a 0-d ``np.int32``."""
+    """An optimizer method's state for the file: tensors to numpy (in a
+    list too, as LBFGS keeps its curvature pairs), the host
+    ``iteration`` to a 0-d ``np.int32``."""
     out = {}
     for k, v in state.items():
         if k == "iteration":
             out[k] = np.asarray(int(v), np.int32)
         elif isinstance(v, (dict, torch.Tensor)):
             out[k] = params_to_numpy(v)
+        elif isinstance(v, list):
+            out[k] = [params_to_numpy(x) if isinstance(x, torch.Tensor)
+                      else x for x in v]
         else:
             out[k] = v
     return out
@@ -113,6 +117,9 @@ def state_from_numpy(state: dict, device) -> dict:
             out[k] = int(np.asarray(v))
         elif isinstance(v, (dict, np.ndarray)):
             out[k] = params_from_numpy(v, device)
+        elif isinstance(v, list):
+            out[k] = [params_from_numpy(x, device)
+                      if isinstance(x, np.ndarray) else x for x in v]
         else:
             out[k] = v
     return out

@@ -273,6 +273,36 @@ result line:
    ``Top1Accuracy``, then their eval CLIs on the checkpoint; the
    repository's ``flight/`` and ``TUNNEL_INCIDENTS.json`` unchanged.
 
+19. rnn: the recurrent and text path (eager PyTorch products and
+   elementwise math a step; none of the port's kernels), float32, at
+   the reference CLIs' default widths, on seeded inputs.  Every model is
+   built from seed 1 on the card and on the CPU (bitwise equal) and
+   takes one step on the same batch: the loss within 1e-5 relative and
+   every gradient leaf within 1e-3 of its max |g|, the CPU replaying the
+   card's ReLU masks and max-pool argmaxes.  Then 1 warm-up and 5 timed
+   ``LocalOptimizer`` steps, each printing the median step ms,
+   sequences/s and tokens/s, peak allocated MiB, the ms of one batch's
+   copy from pageable memory and the step's matmul and convolution
+   FLOPs over 67 TFLOP/s.  R1: ``SimpleRNN(4000, 40, 4000)`` and
+   ``LstmLM(4000, 128, 4000)`` on 32 x 24 one-hot ids,
+   ``TimeDistributedCriterion(ClassNLLCriterion(), True)``, SGD(0.1).
+   R2: ``TextClassifier(20, 100, 500)`` with the cnn and the lstm
+   (hidden 128) encoder at batch 128, Adagrad(0.01), and one step of
+   ``TextClassifierWithEmbedding(4000, 20, 100, 128)`` on ids.  R3:
+   ``Autoencoder(32)`` at batch 150 on synthetic MNIST, MSECriterion,
+   Adagrad(0.01); then 2 outer iterations of ``LBFGS(max_iter=5,
+   line_search=True)`` on one batch of 150 through LocalOptimizer's
+   full-batch path, on the card and on the CPU: every loss of the
+   history within 1e-4 relative.  R4: the rnn train CLI (``--synthetic
+   -e 2``, ``--cell rnn`` and ``lstm``; losses falling) with its
+   checkpoint and dictionary in a temporary directory and its eval CLI
+   on them; the text classifier's train CLI (``--synthetic -e 1``, both
+   encoders) and its eval CLI on the saved model; the autoencoder's
+   train CLI (``-e 1``) and eval CLI; every loss finite.  R5: NMS over
+   2,000 seeded boxes (IoU 0.5, at most 100): the card's indices and
+   count equal the CPU's.  The repository's ``flight/`` and
+   ``TUNNEL_INCIDENTS.json`` unchanged; the phase within 240 s.
+
 Every serving engine must keep its captures bounded: prefill entries at
 most the buckets, one decode graph, one verify graph (one per tree
 rung), at most one commit graph, one drafter decode graph (none for the
@@ -283,11 +313,12 @@ bytes of the engine's graph pool.
 ``--profile PATH`` adds one more serve run of fresh prompts on each of
 the two serve engines, one more run of spec arm 2 on each of its two
 engines, one more float32 training step, one more bf16-compute step, one
-more MoE training step and one more C1 step in each layout under
-torch.profiler and writes their kernel tables (device busy time, idle
-share, time by kernel) to PATH and to PATH with ``_eager``, ``_spec``,
-``_spec_eager``, ``_train``, ``_train_bf16``, ``_moe``, ``_cnn_nchw``
-and ``_cnn_nhwc`` before its extension.
+more MoE training step, one more C1 step in each layout and one more
+R2 LSTM step under torch.profiler and writes their kernel tables
+(device busy time, idle share, kernels launched, time by kernel) to
+PATH and to PATH with ``_eager``, ``_spec``, ``_spec_eager``,
+``_train``, ``_train_bf16``, ``_moe``, ``_cnn_nchw``, ``_cnn_nhwc``
+and ``_rnn_lstm`` before its extension.
 
 The flash kernels' bounds, forward and backward, take float32 at the
 3xTF32 tensor-core rate (495 / 3 TFLOP/s), the rate those kernels run
@@ -430,6 +461,19 @@ CNN = dict(c1=("resnet50", 32), c1_formats=("NCHW", "NHWC"),
            lenet_cli=["--synthetic", "-e", "1"],
            resnet_cli=["--synthetic", "--depth", "20", "-e", "1"],
            limit_s=150.0)
+# the recurrent and text path at the reference CLIs' widths (float32)
+RNN = dict(lm=(("simple_rnn", 40), ("lstm_lm", 128)), vocab=4000,
+           lm_batch=32, seq_len=24, lm_records=64, lm_lr=0.1,
+           text=("cnn", "lstm"), classes=20, embed=100, text_seq=500,
+           hidden=128, text_batch=128, text_records=256, text_lr=0.01,
+           ae_code=32, ae_batch=150, ae_lr=0.01, warmup=1, iters=5,
+           lbfgs_max_iter=5, lbfgs_outer=2,
+           nms_boxes=2000, nms_iou=0.5, nms_max=100,
+           tol_loss=1e-5, tol_grad=1e-3, tol_lbfgs=1e-4,
+           rnn_cli=["--synthetic", "-e", "2"],
+           text_cli=["--synthetic", "-e", "1"], text_widths=[],
+           ae_cli=["--synthetic", "-e", "1"],
+           limit_s=240.0)
 
 
 def log(msg: str) -> None:
@@ -1068,10 +1112,12 @@ def _kernel_family(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def profile_device(run, label, out_path):
+def profile_device(run, label, out_path, stats=None):
     """Call ``run()`` once under torch.profiler: device busy time (the
     union of kernel intervals) against the host clock, and the kernels
-    by device time.  Writes the table to ``out_path``."""
+    by device time.  Writes the table to ``out_path``; returns the idle
+    share, and fills ``stats`` (a dict) with the wall and busy ms and
+    the number of kernels when given one."""
     import tempfile
 
     import torch
@@ -1105,6 +1151,9 @@ def profile_device(run, label, out_path):
         t, c = by_family.get(fam, (0.0, 0))
         by_family[fam] = (t + e["dur"], c + 1)
     idle = 1 - busy / wall_us
+    if stats is not None:
+        stats.update(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                     kernels=len(kern), idle_share=idle)
     lines = [f"profiled {label}: host wall {wall_us / 1e3:.3f} ms, device "
              f"busy {busy / 1e3:.3f} ms, device idle share {idle:.4f}, "
              f"{len(kern)} kernels"]
@@ -4798,7 +4847,7 @@ def profile_cnn_step(dev, name, batch, data_format, out_path):
                           out_path)
 
 
-def phase_cnn(dev, cnn=CNN, cli_dir=None, profile_path=None):
+def phase_cnn(dev, cnn=CNN, profile_path=None):
     """The image-classification path (see the module docstring): C1 and
     C2 through the perf harness, C3 a ResNet-50 training step on the card
     against the port's CPU path, C4 the LeNet and ResNet CLIs with a
@@ -4961,7 +5010,7 @@ def phase_cnn(dev, cnn=CNN, cli_dir=None, profile_path=None):
     release(dev)
 
     # C4: the CLIs, checkpoints in a temporary directory
-    tmp = cli_dir or tempfile.mkdtemp(prefix="chip_smoke_cnn_")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cnn_")
     out["c4"] = {}
     logger = logging.getLogger("bigdl_tpu_torch.optim")
     try:
@@ -5007,8 +5056,7 @@ def phase_cnn(dev, cnn=CNN, cli_dir=None, profile_path=None):
                 f"validation {result}; checkpoint model.{n}, eval CLI: "
                 f"{printed.strip()}")
     finally:
-        if cli_dir is None:
-            shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(tmp, ignore_errors=True)
     if _repo_files_state(("flight", "TUNNEL_INCIDENTS.json")) != guarded:
         raise AssertionError("the cnn phase changed the repository's "
                              "flight/ or TUNNEL_INCIDENTS.json")
@@ -5096,6 +5144,404 @@ def _zeroed(tree, paths, prefix=""):
     if isinstance(tree, dict):
         return {k: _zeroed(v, paths, f"{prefix}/{k}") for k, v in tree.items()}
     return torch.zeros_like(tree) if prefix in paths else tree
+
+
+# --------------------------------------------------------------------------- #
+def _lm_records(rnn):
+    """The LM phase's seeded records: one-hot inputs of 1-based ids and
+    the next ids as labels, (seq_len, vocab) and (seq_len,)."""
+    import numpy as np
+    ids = np.random.RandomState(0).randint(
+        1, rnn["vocab"] + 1, size=(rnn["lm_records"], rnn["seq_len"] + 1))
+    eye = np.eye(rnn["vocab"], dtype=np.float32)
+    return [(eye[r[:-1] - 1], r[1:].astype(np.float32)) for r in ids]
+
+
+def _id_records(rnn):
+    """TextClassifierWithEmbedding's records: 1-based ids over the
+    vocabulary and a class label."""
+    import numpy as np
+    rng = np.random.RandomState(3)
+    ids = rng.randint(1, rnn["vocab"] + 1,
+                      (rnn["text_batch"], rnn["text_seq"])).astype(np.float32)
+    labels = (np.arange(rnn["text_batch"]) % rnn["classes"] + 1).astype(
+        np.float32)
+    return list(zip(ids, labels))
+
+
+def _ae_records(rnn, n):
+    """n synthetic MNIST records through the autoencoder CLI's pipeline
+    (grey images scaled to [0, 1], the flattened image as the target)."""
+    from bigdl_tpu_torch.dataset import DataSet, mnist
+    from bigdl_tpu_torch.models.autoencoder.train import image_pipeline
+    b = next((DataSet.array(mnist.synthetic(n)) >> image_pipeline(n)).data(
+        train=False))
+    return list(zip(b.data, b.labels))
+
+
+def _rnn_cases(rnn):
+    """(label, model factory, records, criterion, method factory, batch,
+    tokens a record) for every timed case of R1-R3."""
+    from bigdl_tpu_torch import models, nn
+    from bigdl_tpu_torch.models.textclassifier.train import \
+        _synthetic_samples
+    from bigdl_tpu_torch.optim import SGD, Adagrad
+    v, T = rnn["vocab"], rnn["seq_len"]
+    lm_crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion(), True)
+    lm = _lm_records(rnn)
+    text = [(s.feature, s.label) for s in _synthetic_samples(
+        rnn["text_records"], rnn["classes"], rnn["text_seq"], rnn["embed"])]
+    cases = []
+    for name, hidden in rnn["lm"]:
+        factory = models.SimpleRNN if name == "simple_rnn" else models.LstmLM
+        cases.append((f"R1 {name}({v}, {hidden}, {v})",
+                      lambda f=factory, h=hidden: f(v, h, v), lm, lm_crit,
+                      lambda: SGD(learning_rate=rnn["lm_lr"]),
+                      rnn["lm_batch"], T))
+    for enc in rnn["text"]:
+        cases.append((f"R2 TextClassifier({rnn['classes']}, {rnn['embed']}, "
+                      f"{rnn['text_seq']}, {enc})",
+                      lambda e=enc: models.TextClassifier(
+                          rnn["classes"], rnn["embed"], rnn["text_seq"], e,
+                          hidden=rnn["hidden"]),
+                      text, nn.ClassNLLCriterion(),
+                      lambda: Adagrad(learning_rate=rnn["text_lr"]),
+                      rnn["text_batch"], rnn["text_seq"]))
+    cases.append((f"R2 TextClassifierWithEmbedding({v}, {rnn['classes']}, "
+                  f"{rnn['embed']}, {rnn['hidden']})",
+                  lambda: models.TextClassifierWithEmbedding(
+                      v, rnn["classes"], rnn["embed"], rnn["hidden"]),
+                  _id_records(rnn), nn.ClassNLLCriterion(),
+                  lambda: Adagrad(learning_rate=rnn["text_lr"]),
+                  rnn["text_batch"], rnn["text_seq"]))
+    cases.append((f"R3 Autoencoder({rnn['ae_code']})",
+                  lambda: models.Autoencoder(rnn["ae_code"]),
+                  _ae_records(rnn, 2 * rnn["ae_batch"]), nn.MSECriterion(),
+                  lambda: Adagrad(learning_rate=rnn["ae_lr"]),
+                  rnn["ae_batch"], 1))
+    return cases
+
+
+def _rnn_optimizer(model, records, criterion, method, batch):
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToBatch
+    from bigdl_tpu_torch.optim import LocalOptimizer
+    ds = DataSet.array([Sample(f, l) for f, l in records]) \
+        >> SampleToBatch(batch)
+    return LocalOptimizer(model, ds, criterion).set_optim_method(method)
+
+
+def rnn_step_check(dev, label, make, records, criterion, batch, rnn):
+    """One float32 training step of a model built from seed 1 on the card
+    and on the CPU (bitwise equal) on the same batch: the loss within
+    ``tol_loss`` relative, every gradient leaf within ``tol_grad`` of its
+    max |g|, the CPU replaying the card's ReLU masks and max-pool
+    argmaxes.  Returns the numbers."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.optim import loss_and_grads
+    from bigdl_tpu_torch.utils import keychain
+    from bigdl_tpu_torch.utils.pytree import tree_leaves, tree_map
+    cpu = torch.device("cpu")
+    card, host = make().build(1, device=dev), make().build(1, device=cpu)
+    for a, b in zip(tree_leaves(card.params), tree_leaves(host.params)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{label}: build(seed=1) differs between "
+                                 f"the card and the CPU")
+    x = np.stack([f for f, _ in records[:batch]])
+    y = np.stack([l for _, l in records[:batch]])
+    key = keychain.prng_key(0)
+
+    def step(m, d, pins):
+        with pins:
+            loss, g, _ = loss_and_grads(
+                m, criterion, m.params, torch.as_tensor(x, device=d),
+                torch.as_tensor(y, device=d), buffers=m.buffers, rng=key)
+        return float(loss), tree_map(lambda a: a.cpu(), g)
+
+    pins = []
+    l_card, g_card = step(card, dev, pinned_decisions(record=pins))
+    l_cpu, g_cpu = step(host, cpu, pinned_decisions(replay=pins))
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    if not (np.isfinite(l_card) and rel <= rnn["tol_loss"]):
+        raise AssertionError(f"{label} step-0 loss card {l_card} vs cpu "
+                             f"{l_cpu}: relative {rel:.3e}")
+    worst = _check_grads(f"{label}, the card's decisions", g_card, g_cpu,
+                         rnn["tol_grad"])
+    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel,
+                worst_grad=worst[0], worst_grad_leaf=worst[1],
+                pinned=len(pins))
+
+
+def rnn_perf_row(dev, label, make, records, criterion, method, batch,
+                 tokens, rnn, steps=None):
+    """Warm-up and timed LocalOptimizer steps on the card: the median step
+    (the loop's computing time: the batch's copy, forward, backward and
+    update, up to the loss read), sequences/s and tokens/s, peak, the
+    batch's copy from pageable memory alone, and the step's matmul and
+    convolution FLOPs over 67 TFLOP/s."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.models.utils import perf
+    from bigdl_tpu_torch.optim import Trigger
+    steps = steps or (rnn["warmup"], rnn["iters"])
+    model = make().build(1, device=dev)
+    opt = _rnn_optimizer(model, records, criterion, method, batch)
+    b = next(opt.dataset.data(train=False))
+    copy_ms = perf.input_copy_ms(b.data, dev)
+    flops = perf.step_flops(model, criterion,
+                            torch.as_tensor(b.data, device=dev),
+                            torch.as_tensor(b.labels, device=dev))
+    opt.set_end_when(Trigger.max_iteration(sum(steps)))
+    times = perf._capture_step_times(opt)
+    _peak_reset(dev)
+    opt.optimize()
+    if not np.isfinite(opt.state["loss"]):
+        raise AssertionError(f"{label}: loss {opt.state['loss']}")
+    steady = [t * 1e3 for t in times[steps[0]:]]
+    step_ms = statistics.median(steady)
+    bound_ms = flops / PEAK_FLOPS["float32"] * 1e3
+    row = dict(label=label, batch=batch, step_ms=step_ms, steps_ms=steady,
+               sequences_per_s=batch / step_ms * 1e3,
+               tokens_per_s=batch * tokens / step_ms * 1e3,
+               peak_mib=(_peak(dev) / 2**20 if _peak(dev) else None),
+               input_copy_ms=copy_ms, input_mb=b.data.nbytes / 1e6,
+               step_gflop=flops / 1e9, fp32_bound_ms=bound_ms,
+               fp32_peak_share=bound_ms / step_ms, loss=opt.state["loss"])
+    log(f"[rnn] {label} batch {batch}: median step {step_ms:.3f} ms "
+        f"({_ms_list(steady)}), {row['sequences_per_s']:.1f} sequences/s, "
+        f"{row['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+        f"{_mib(_peak(dev))}, input copy {copy_ms:.3f} ms for "
+        f"{row['input_mb']:.1f} MB, {row['step_gflop']:.2f} GFLOP a step "
+        f"(matmul and convolution, torch.utils.flop_counter), "
+        f"{row['fp32_peak_share'] * 100:.2f}% of 67 TFLOP/s float32 (bound "
+        f"{bound_ms:.3f} ms)")
+    return row, opt
+
+
+def _lbfgs_run(dev, records, rnn):
+    """``lbfgs_outer`` iterations of LBFGS(max_iter, line_search=True)
+    through LocalOptimizer's full-batch path on the Autoencoder built
+    from seed 1: (every loss the method evaluated, in order, and its
+    evaluations)."""
+    from bigdl_tpu_torch import models, nn
+    from bigdl_tpu_torch.optim import LBFGS, Trigger
+    method = LBFGS(max_iter=rnn["lbfgs_max_iter"], line_search=True)
+    hist = []
+    optimize = method.optimize
+
+    def recorded(feval, x, epoch=1):
+        x, h = optimize(feval, x, epoch)
+        hist.extend(h)
+        return x, h
+    method.optimize = recorded
+    model = models.Autoencoder(rnn["ae_code"]).build(1, device=dev)
+    opt = _rnn_optimizer(model, records, nn.MSECriterion(), method,
+                         len(records))
+    opt.set_end_when(Trigger.max_iteration(rnn["lbfgs_outer"]))
+    t0 = time.perf_counter()
+    opt.optimize()
+    return hist, method._state["func_evals"], time.perf_counter() - t0
+
+
+def phase_rnn(dev, rnn=RNN, profile_path=None):
+    """The recurrent and text path (see the module docstring): R1-R3
+    through LocalOptimizer with each model's step held against the CPU,
+    LBFGS on the card against the CPU, R4 the CLIs, R5 NMS;
+    ``profile_path`` adds one profiled R2 LSTM step.  Returns the rows
+    and the checks' numbers."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.autoencoder import test as ae_test
+    from bigdl_tpu_torch.models.autoencoder import train as ae_train
+    from bigdl_tpu_torch.models.rnn import test as rnn_test
+    from bigdl_tpu_torch.models.rnn import train as rnn_train
+    from bigdl_tpu_torch.models.textclassifier import test as tc_test
+    from bigdl_tpu_torch.models.textclassifier import train as tc_train
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.utils import file_io
+    t_phase = time.perf_counter()
+    guarded = _repo_files_state(("flight", "TUNNEL_INCIDENTS.json"))
+    _reset_launches()
+    out = dict(rows=[], checks={})
+
+    # R1-R3: each case's step against the CPU, then its timed steps
+    cpu = torch.device("cpu")
+    for label, make, records, crit, method, batch, tokens in \
+            _rnn_cases(rnn):
+        check = rnn_step_check(dev, label, make, records, crit, batch, rnn)
+        out["checks"][label] = check
+        log(f"[rnn] {label}: one float32 step, card vs CPU: loss "
+            f"{check['loss_card']:.7f} / {check['loss_cpu']:.7f} (relative "
+            f"{check['loss_rel']:.2e}); every gradient leaf within "
+            f"{rnn['tol_grad']} of its max |g|, worst "
+            f"{check['worst_grad']:.2e} at {check['worst_grad_leaf']} "
+            f"({check['pinned']} ReLU masks and max-pool argmaxes pinned)")
+        # one step of the embedding variant, after the others' 1 + 5
+        steps = ((0, 1) if label.startswith("R2 TextClassifierWith")
+                 else None)
+        row, opt = rnn_perf_row(dev, label, make, records, crit, method(),
+                                batch, tokens, rnn, steps)
+        out["rows"].append(row)
+        if profile_path and label.endswith("lstm)"):
+            root, ext = os.path.splitext(profile_path)
+            stats = {}
+            profile_device(lambda: run_iterations(opt, 1),
+                           f"{label} train step (batch {batch})",
+                           f"{root}_rnn_lstm{ext}", stats)
+            row["profile"] = stats
+        del opt
+        release(dev)
+
+    # R3: LBFGS on the card against the CPU, one batch
+    records = _ae_records(rnn, rnn["ae_batch"])
+    h_card, evals_card, s_card = _lbfgs_run(dev, records, rnn)
+    h_cpu, evals_cpu, _ = _lbfgs_run(cpu, records, rnn)
+    worst = max(abs(a - b) / abs(b) for a, b in zip(h_card, h_cpu))
+    if not (len(h_card) == len(h_cpu) and all(np.isfinite(h_card))
+            and worst <= rnn["tol_lbfgs"] and h_card[-1] < h_card[0]):
+        raise AssertionError(f"R3 LBFGS loss history card {h_card} vs cpu "
+                             f"{h_cpu}: worst relative {worst:.3e}")
+    out["lbfgs"] = dict(history=h_card, history_cpu=h_cpu, rel=worst,
+                        evals=evals_card, evals_cpu=evals_cpu,
+                        seconds=s_card)
+    log(f"[rnn] R3 LBFGS(max_iter={rnn['lbfgs_max_iter']}, line_search) x "
+        f"{rnn['lbfgs_outer']} on one batch of {rnn['ae_batch']}: "
+        f"{len(h_card)} losses {h_card[0]:.6f} -> {h_card[-1]:.6f}, "
+        f"{evals_card} evaluations ({evals_cpu} on the CPU) in "
+        f"{s_card:.3f} s; history within {worst:.2e} relative of the CPU's")
+    release(dev)
+
+    # R4: the CLIs, checkpoints in a temporary directory
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rnn_")
+    out["cli"] = {}
+    logger = logging.getLogger("bigdl_tpu_torch.optim")
+
+    def train_cli(main_fn, argv):
+        record, level = _IterationLog(), logger.level
+        logger.setLevel(logging.INFO)
+        logger.addHandler(record)
+        try:
+            opt = main_fn(argv + ["--device", dev.type])
+        finally:
+            logger.removeHandler(record)
+            logger.setLevel(level)
+        if not (record.losses and all(np.isfinite(record.losses))):
+            raise AssertionError(f"R4 {argv}: losses {record.losses}")
+        return opt, record.losses
+
+    def test_cli(main_fn, argv, want):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main_fn(argv + ["--device", dev.type])
+        printed = buf.getvalue().strip()
+        if want not in printed:
+            raise AssertionError(f"R4 eval CLI {argv} printed {printed!r}")
+        return printed
+
+    try:
+        for cell in ("rnn", "lstm"):
+            ck = os.path.join(tmp, f"rnn_{cell}")
+            opt, losses = train_cli(rnn_train.main, rnn["rnn_cli"] + [
+                "--cell", cell, "--checkpoint", ck])
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"R4 rnn --cell {cell}: loss "
+                                     f"{losses[0]} -> {losses[-1]}")
+            model_path, _, n = file_io.latest_checkpoint(ck)
+            printed = test_cli(rnn_test.main, [
+                "--synthetic", "--model", model_path, "--dictionary",
+                os.path.join(ck, "dictionary.json")], "Perplexity is")
+            out["cli"][f"rnn_{cell}"] = dict(
+                losses=losses, validation=str(opt.validation_results[0][1]),
+                eval=printed)
+        for enc in ("cnn", "lstm"):
+            opt, losses = train_cli(tc_train.main, rnn["text_cli"] + rnn[
+                "text_widths"] + ["--encoder", enc])
+            path = os.path.join(tmp, f"text_{enc}.bin")
+            opt.model.save(path)
+            printed = test_cli(tc_test.main, ["--synthetic", "--model", path]
+                               + rnn["text_widths"],
+                               "Top1Accuracy is Accuracy(")
+            out["cli"][f"text_{enc}"] = dict(
+                losses=losses, validation=str(opt.validation_results[0][1]),
+                eval=printed)
+        ck = os.path.join(tmp, "autoencoder")
+        opt, losses = train_cli(ae_train.main, rnn["ae_cli"] + [
+            "--checkpoint", ck])
+        model_path, _, n = file_io.latest_checkpoint(ck)
+        printed = test_cli(ae_test.main, ["--synthetic", "--model",
+                                          model_path], "Loss is")
+        out["cli"]["autoencoder"] = dict(losses=losses, validation=None,
+                                         eval=printed)
+        for name, r in out["cli"].items():
+            log(f"[rnn] R4 {name} CLI: {len(r['losses'])} steps, loss "
+                f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, validation "
+                f"{r['validation']}; eval CLI: {r['eval']!r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    release(dev)
+
+    # R5: NMS on the card against the CPU
+    rng = np.random.RandomState(5)
+    xy = rng.rand(rnn["nms_boxes"], 2) * 1000
+    wh = rng.rand(rnn["nms_boxes"], 2) * 100 + 4
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    scores = rng.rand(rnn["nms_boxes"]).astype(np.float32)
+    args = (rnn["nms_iou"], rnn["nms_max"])
+    keep_cpu, count_cpu = nn.nms(torch.from_numpy(boxes),
+                                 torch.from_numpy(scores), *args)
+    tb = torch.as_tensor(boxes, device=dev)
+    ts = torch.as_tensor(scores, device=dev)
+    keep, count = nn.nms(tb, ts, *args)
+    if not (torch.equal(keep.cpu(), keep_cpu) and int(count) == int(
+            count_cpu) > 0):
+        raise AssertionError(f"R5 NMS: card {int(count)} boxes, CPU "
+                             f"{int(count_cpu)}, indices differ")
+    nms_ms = (cuda_ms(lambda: nn.nms(tb, ts, *args), iters=5, warmup=1)
+              if dev.type == "cuda" else None)
+    out["nms"] = dict(count=int(count), ms=nms_ms)
+    log(f"[rnn] R5 NMS over {rnn['nms_boxes']} boxes (IoU "
+        f"{rnn['nms_iou']}, max {rnn['nms_max']}): {int(count)} kept, "
+        f"indices equal the CPU's; "
+        + ("n/a (CPU)" if nms_ms is None else f"{nms_ms:.3f} ms")
+        + " a call on the device")
+
+    if _repo_files_state(("flight", "TUNNEL_INCIDENTS.json")) != guarded:
+        raise AssertionError("the rnn phase changed the repository's "
+                             "flight/ or TUNNEL_INCIDENTS.json")
+    out["launches"] = _launches()
+    out["seconds"] = time.perf_counter() - t_phase
+    if dev.type == "cuda" and out["seconds"] > rnn["limit_s"]:
+        raise AssertionError(f"the rnn phase took {out['seconds']:.1f} s, "
+                             f"over {rnn['limit_s']} s")
+    return out
+
+
+def rnn_summary(out):
+    """The rnn phase's numbers for its summary line."""
+    return {
+        "rows": [{k: r[k] for k in ("label", "batch", "step_ms",
+                                    "sequences_per_s", "tokens_per_s",
+                                    "peak_mib", "input_copy_ms",
+                                    "step_gflop", "fp32_peak_share")}
+                 | ({"profile": r["profile"]} if "profile" in r else {})
+                 for r in out["rows"]],
+        "checks": {k: {kk: v[kk] for kk in ("loss_rel", "worst_grad",
+                                            "worst_grad_leaf")}
+                   for k, v in out["checks"].items()},
+        "lbfgs": {k: out["lbfgs"][k] for k in ("history", "rel", "evals",
+                                               "seconds")},
+        "cli": {k: {"first_loss": v["losses"][0],
+                    "last_loss": v["losses"][-1],
+                    "validation": v["validation"]}
+                for k, v in out["cli"].items()},
+        "nms": out["nms"], "port_kernel_launches": out["launches"],
+        "seconds": out["seconds"]}
 
 
 def main() -> int:
@@ -5393,6 +5839,12 @@ def main() -> int:
                 for k, v in cnn["c4"].items()},
          "port_kernel_launches": cnn["launches"], "seconds": cnn["seconds"]})
         + f" | {smi}")
+    log_allocated("rnn")
+    release(dev)
+    t0 = time.perf_counter()
+    rnn = phase_rnn(dev, profile_path=args.profile)
+    phases["rnn"] = time.perf_counter() - t0
+    log("[rnn] summary: " + json.dumps(rnn_summary(rnn)) + f" | {smi}")
     log("[done] phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()))
 

@@ -730,7 +730,8 @@ def test_update_snapshot_restores_tables_tuples_and_arrays():
         snap.take({"w": w}, {"opaque": object()})
 
 
-@pytest.mark.parametrize("method", ["sgd", "sgd_nesterov", "adam", "adamw"])
+@pytest.mark.parametrize("method", ["sgd", "sgd_nesterov", "adam", "adamw",
+                                    "adagrad"])
 def test_staged_update_equals_the_reference_step(method):
     """Stage-then-commit keeps the reference's arithmetic: one update of
     each built-in method on seeded leaves equals the JAX package's."""
@@ -743,9 +744,10 @@ def test_staged_update_equals_the_reference_step(method):
           "sgd_nesterov": dict(learning_rate=0.1, momentum=0.9,
                                nesterov=True),
           "adam": dict(learning_rate=3e-3, weight_decay=1e-2),
-          "adamw": dict(learning_rate=3e-3, weight_decay=1e-2)}[method]
+          "adamw": dict(learning_rate=3e-3, weight_decay=1e-2),
+          "adagrad": dict(learning_rate=0.1, learning_rate_decay=0.01)}[method]
     name = {"sgd": "SGD", "sgd_nesterov": "SGD", "adam": "Adam",
-            "adamw": "AdamW"}[method]
+            "adamw": "AdamW", "adagrad": "Adagrad"}[method]
     tm, jm = getattr(optim, name)(**kw), getattr(joptim, name)(**kw)
     tp = params_from_numpy(p, "cpu")
     tg = params_from_numpy(g, "cpu")
