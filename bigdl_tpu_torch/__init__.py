@@ -12,5 +12,7 @@ they raise unless the caller asks for ``device="cpu"``
 (:func:`bigdl_tpu_torch.device.resolve_device`).
 """
 from bigdl_tpu_torch.device import resolve_device
+from bigdl_tpu_torch.utils.engine import Engine
+from bigdl_tpu_torch.utils.table import T, Table
 
-__all__ = ["resolve_device"]
+__all__ = ["Engine", "T", "Table", "resolve_device"]

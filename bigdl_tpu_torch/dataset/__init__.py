@@ -4,7 +4,7 @@ CIFAR-10 readers.  The SequenceFile readers and distributed datasets are
 ROADMAP Queue 1 item 12."""
 from bigdl_tpu_torch.dataset import cifar, image, mnist
 from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, DataSet,
-                                             LocalArrayDataSet,
+                                             LocalArrayDataSet, LocalDataSet,
                                              TransformedDataSet)
 from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
                                                  FuncTransformer, Prefetcher,
@@ -14,6 +14,6 @@ from bigdl_tpu_torch.dataset.types import (ByteRecord, LabeledImage,
 
 __all__ = ["AbstractDataSet", "ByteRecord", "ChainedTransformer", "DataSet",
            "FuncTransformer", "LabeledImage", "LabeledSentence",
-           "LocalArrayDataSet", "MiniBatch", "Prefetcher", "Sample",
+           "LocalArrayDataSet", "LocalDataSet", "MiniBatch", "Prefetcher", "Sample",
            "SampleToBatch", "TransformedDataSet", "Transformer", "cifar",
            "image", "mnist"]

@@ -7,6 +7,7 @@ seed gives the JAX package's record order.
 """
 from __future__ import annotations
 
+import os
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -49,7 +50,11 @@ class TransformedDataSet(AbstractDataSet):
         self.source.shuffle()
 
 
-class LocalArrayDataSet(AbstractDataSet):
+class LocalDataSet(AbstractDataSet):
+    """Marker base for single-host datasets (ref DataSet.scala:110)."""
+
+
+class LocalArrayDataSet(LocalDataSet):
     """In-memory records; train iteration is infinite over a permuted index
     (one permutation per shuffle/epoch), eval iteration is one pass."""
 
@@ -83,6 +88,20 @@ class DataSet:
               seed: int = 1) -> AbstractDataSet:
         if distributed:
             raise NotImplementedError(
-                "distributed datasets are not ported yet (ROADMAP Queue 1: "
-                "DistriOptimizer)")
+                "distributed datasets are not ported yet (ROADMAP Queue 1 "
+                "item 12, 12-DIST: DistriOptimizer)")
         return LocalArrayDataSet(records, seed=seed)
+
+    @staticmethod
+    def image_folder(path: str, distributed: bool = False) -> AbstractDataSet:
+        """Scan <path>/<label-dir>/<img files>; labels are 1-based by
+        sorted dir name (ref DataSet.ImageFolder.paths :318-378).  Returns
+        records of (filepath, label)."""
+        classes = sorted(d for d in os.listdir(path)
+                         if os.path.isdir(os.path.join(path, d)))
+        records = []
+        for li, cls in enumerate(classes, start=1):
+            d = os.path.join(path, cls)
+            for fname in sorted(os.listdir(d)):
+                records.append((os.path.join(d, fname), float(li)))
+        return DataSet.array(records, distributed=distributed)

@@ -10,10 +10,15 @@ leading layer axis (``ln1``, ``attn``, ``ln2``, and ``w1``/``b1``,
 not tied.  Pre-LayerNorm blocks, tanh-approximate GELU, LayerNorm eps
 1e-5.
 
-``f`` is the serving forward (no autograd); ``apply`` is the training
-forward: differentiable through the stacked leaves (each layer reads
-views of them), with dropout drawn from an explicit
-``torch.Generator`` and optional activation recomputation (``remat``).
+``init(rng)`` draws the reference's tree from the key chain
+(:mod:`bigdl_tpu_torch.utils.keychain`, ``jax.random`` bit for bit), so
+``build(seed)`` is the reference's ``build(seed)``.  ``f`` is the
+forward: the serving forward (no autograd) in eval mode, differentiable
+with ``training=True``; ``apply`` is the training forward:
+differentiable through the stacked leaves (each layer reads views of
+them), with dropout drawn from the reference's keys (``rng=``) or from
+an explicit ``torch.Generator`` (``generator=``), and optional
+activation recomputation (``remat``).
 An MoE model's blocks are top-1 switch MoEs
 (``bigdl_tpu_torch.parallel.switch_mlp``) at ``moe_capacity_factor``;
 ``apply`` reports ``moe_aux_weight`` times the summed balance loss as
@@ -37,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+from bigdl_tpu_torch.nn.dropout import keep_masks
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.normalization import layer_norm
 from bigdl_tpu_torch.parallel.expert import init_moe_params, switch_mlp
@@ -45,7 +51,8 @@ from bigdl_tpu_torch.quant.qtensor import is_qtensor
 from bigdl_tpu_torch.quant.transform import (QuantPolicy, dequantize_entry,
                                              publish_quant_report,
                                              quantize_params)
-from bigdl_tpu_torch.utils.params import layer_params
+from bigdl_tpu_torch.utils import keychain
+from bigdl_tpu_torch.utils.params import layer_params, params_from_numpy
 
 
 def apply_rope(x, positions, base: float = 10000.0):
@@ -70,8 +77,8 @@ class TransformerLM(Module):
     :class:`~bigdl_tpu_torch.nn.module.Module` (the Torch-style shell,
     ``serve`` and the padded-batch ``ServingEngine`` take it).
 
-    ``init(generator)`` returns a fresh parameter tree on ``device``
-    from a ``torch.Generator``; ``build(seed)`` stores one as
+    ``init(rng)`` returns the reference's float32 parameter tree (numpy)
+    from a key-chain key; ``build(seed)`` stores it on ``device`` as
     ``self.params``.
     """
 
@@ -80,6 +87,7 @@ class TransformerLM(Module):
                  ffn_size: Optional[int] = None, max_len: int = 512,
                  dropout: float = 0.0, tie_embeddings: bool = True,
                  remat: bool = False, attention_impl: str = "auto",
+                 block_size: Optional[int] = None,
                  pos_encoding: str = "learned", rope_base: float = 10000.0,
                  moe_experts: int = 0,
                  moe_capacity_factor: Optional[float] = 1.25,
@@ -112,74 +120,110 @@ class TransformerLM(Module):
         # capacity (0-d device tensors) as the forwards run
         self.moe_drops: Optional[list] = None
         self.doc_start_id = doc_start_id
+        # a block size pins the flash kernels' tile (MultiHeadAttention
+        # .pinned_tile); the LM never takes the blockwise core
         self._mha = MultiHeadAttention(hidden_size, n_head, causal=True,
                                        with_bias=True,
-                                       attention_impl=attention_impl)
+                                       attention_impl=attention_impl,
+                                       block_size=block_size)
         self.params: Optional[dict] = None
-        self.buffers: dict = self.init_buffers()
+        self.buffers: dict = params_from_numpy(self.init_buffers(),
+                                               self.device)
 
     # -------------------------------------------------------------- #
-    def _init_block(self, g: torch.Generator) -> dict:
+    def _init_block(self, rng) -> dict:
+        """One block's tree from its key: ``split(rng, 3)``, the
+        attention from the first, ``w1`` (or the MoE) from the second,
+        ``w2`` from the third."""
+        ks = keychain.split(rng, 3)
         h, f = self.hidden_size, self.ffn_size
         std_h, std_f = 1.0 / math.sqrt(h), 1.0 / math.sqrt(f)
-        dev = self.device
         p = {
-            "ln1": {"weight": torch.ones((h,), device=dev),
-                    "bias": torch.zeros((h,), device=dev)},
-            "attn": self._mha.init_generator(g, dev),
-            "ln2": {"weight": torch.ones((h,), device=dev),
-                    "bias": torch.zeros((h,), device=dev)},
+            "ln1": {"weight": np.ones((h,), np.float32),
+                    "bias": np.zeros((h,), np.float32)},
+            "attn": self._mha.init(ks[0]),
+            "ln2": {"weight": np.ones((h,), np.float32),
+                    "bias": np.zeros((h,), np.float32)},
         }
         if self.moe_experts:
-            p["moe"] = init_moe_params(g, self.moe_experts, h, f, dev)
+            p["moe"] = init_moe_params(ks[1], self.moe_experts, h, f)
             return p
-        p.update(
-            w1=torch.empty((h, f)).uniform_(-std_h, std_h,
-                                            generator=g).to(dev),
-            b1=torch.zeros((f,), device=dev),
-            w2=torch.empty((f, h)).uniform_(-std_f, std_f,
-                                            generator=g).to(dev),
-            b2=torch.zeros((h,), device=dev))
+        p.update(w1=keychain.uniform(ks[1], (h, f), -std_h, std_h),
+                 b1=np.zeros((f,), np.float32),
+                 w2=keychain.uniform(ks[2], (f, h), -std_f, std_f),
+                 b2=np.zeros((h,), np.float32))
         return p
 
-    def init(self, generator: torch.Generator) -> dict:
-        """A fresh float32 parameter tree on ``self.device``, drawn from
-        ``generator`` (a CPU generator: the same seed gives the same
-        weights on every device)."""
+    def init(self, rng) -> dict:
+        """The reference's float32 parameter tree (numpy) from a
+        key-chain key: ``split(rng, 4)`` into the embedding's, the
+        positions', the head's and the blocks' keys; the blocks' key
+        split once per layer (the reference ``vmap``s one block init over
+        those keys; a loop over the same keys draws the same values) and
+        the layers stacked on a leading axis."""
+        k_emb, k_pos, k_head, k_blocks = keychain.split(rng, 4)
         h, v = self.hidden_size, self.vocab_size
-        std = 1.0 / math.sqrt(h)
-        g = generator
-        layers = [self._init_block(g) for _ in range(self.n_layers)]
+        std = np.float32(1.0 / math.sqrt(h))
+        layers = [self._init_block(k)
+                  for k in keychain.split(k_blocks, self.n_layers)]
 
         def stack(trees):
             if isinstance(trees[0], dict):
                 return {k: stack([t[k] for t in trees]) for k in trees[0]}
-            return torch.stack(trees)
+            return np.stack(trees)
 
         p = {
-            "embed": (torch.randn((v, h), generator=g) * std).to(self.device),
+            "embed": keychain.normal(k_emb, (v, h)) * std,
             "blocks": stack(layers),
-            "ln_f": {"weight": torch.ones((h,), device=self.device),
-                     "bias": torch.zeros((h,), device=self.device)},
+            "ln_f": {"weight": np.ones((h,), np.float32),
+                     "bias": np.zeros((h,), np.float32)},
         }
         if self.pos_encoding == "learned":
-            p["pos"] = (torch.randn((self.max_len, h), generator=g)
-                        * std).to(self.device)
+            p["pos"] = keychain.normal(k_pos, (self.max_len, h)) * std
         if not self.tie_embeddings:
-            p["head"] = torch.empty((h, v)).uniform_(
-                -std, std, generator=g).to(self.device)
+            p["head"] = keychain.uniform(k_head, (h, v), -float(std),
+                                         float(std))
+        return p
+
+    def param_shapes(self) -> dict:
+        """The shapes of :meth:`init`'s tree, drawing nothing."""
+        h, v, f, n = (self.hidden_size, self.vocab_size, self.ffn_size,
+                      self.n_layers)
+        norm = {"weight": (n, h), "bias": (n, h)}
+        block = {"ln1": norm,
+                 "attn": {name: (n,) + shape
+                          for name, shape in self._mha.param_shapes().items()},
+                 "ln2": dict(norm)}
+        if self.moe_experts:
+            e = self.moe_experts
+            block["moe"] = {"gate": (n, h, e), "w1": (n, e, h, f),
+                            "w2": (n, e, f, h)}
+        else:
+            block.update(w1=(n, h, f), b1=(n, f), w2=(n, f, h), b2=(n, h))
+        p = {"embed": (v, h), "blocks": block,
+             "ln_f": {"weight": (h,), "bias": (h,)}}
+        if self.pos_encoding == "learned":
+            p["pos"] = (self.max_len, h)
+        if not self.tie_embeddings:
+            p["head"] = (h, v)
         return p
 
     def init_buffers(self) -> dict:
         """``{"aux_loss": 0}`` for an MoE model; a dense one keeps none."""
         if self.moe_experts:
-            return {"aux_loss": torch.zeros((), device=self.device)}
+            return {"aux_loss": np.zeros((), np.float32)}
         return {}
 
-    def build(self, seed: int = 0) -> "TransformerLM":
-        self.params = self.init(torch.Generator().manual_seed(int(seed)))
-        self.buffers = self.init_buffers()
-        return self
+    def build(self, seed=0, device=None) -> "TransformerLM":
+        """:meth:`Module.build` (the reference's key chain) on ``device``,
+        by default the model's own."""
+        return super().build(seed, self.device if device is None
+                             else device)
+
+    def zero_grad_parameters(self) -> None:
+        """The OO shell's gradients start empty (a backward fills them),
+        so a built model holds no second copy of its weights."""
+        self.grad_params = None
 
     def save(self, path: str, overwrite: bool = False) -> "TransformerLM":
         """Write the model to ``path`` (a local path, ``file://`` or
@@ -253,16 +297,35 @@ class TransformerLM(Module):
                               drops=self.moe_drops)
         return self._dense_mlp(bp, m), None
 
-    def _dropout(self, x, generator: torch.Generator):
+    def _keep_masks(self, x, drop):
+        """The block's two dropout keep masks over ``x``'s shape, or
+        None: from the block's ``torch.Generator`` seed (an int), or from
+        its key as the reference draws them, a split before each site."""
+        if drop is None:
+            return None
         keep = 1.0 - self.dropout
-        return x * torch.empty_like(x).bernoulli_(keep, generator=generator) \
-            / keep
+        if isinstance(drop, int):
+            g = torch.Generator(device=x.device).manual_seed(drop)
+            return [torch.empty_like(x).bernoulli_(keep, generator=g)
+                    for _ in range(2)]
+        subs = []
+        for _ in range(2):
+            drop, sub = keychain.split(drop)
+            subs.append(sub)
+        return keep_masks(subs, x.shape, keep, x.device)
 
-    def _block(self, bp, x, positions, segment_ids=None, seed=None):
-        """One pre-LN block.  ``seed`` (training with dropout only) seeds
-        the block's own generator, so a recomputed block (``remat``)
-        draws the same masks as its first run."""
+    def _dropout(self, x, mask):
+        if mask is None:
+            return x
+        return x * mask.to(x.dtype) / (1.0 - self.dropout)
+
+    def _block(self, bp, x, positions, segment_ids=None, drop=None):
+        """One pre-LN block.  ``drop`` (training with dropout only) is
+        the block's ``torch.Generator`` seed or its key-chain key: both
+        redraw the same masks, so a recomputed block (``remat``) replays
+        its first run."""
         mha = self._mha
+        masks = self._keep_masks(x, drop)
         a = self._layer_norm(bp["ln1"], x)
         q, k, v = mha.project_qkv(bp["attn"], a, a, a)
         q, k = self._rope(q, k, positions)
@@ -270,15 +333,9 @@ class TransformerLM(Module):
         o = mha.attend(q, k, v, segment_ids=segment_ids,
                        allow_blockwise=False)
         o = mha.project_out(bp["attn"], o)
-        g = None
-        if seed is not None:
-            g = torch.Generator(device=x.device).manual_seed(int(seed))
-            o = self._dropout(o, g)
-        x = x + o
+        x = x + self._dropout(o, None if masks is None else masks[0])
         m, aux = self._mlp(bp, self._layer_norm(bp["ln2"], x))
-        if g is not None:
-            m = self._dropout(m, g)
-        return x + m, aux
+        return x + self._dropout(m, None if masks is None else masks[1]), aux
 
     def head_logits(self, params, h):
         """The LM head: ``h @ embed.T`` when tied, ``h @ head`` else (a
@@ -291,7 +348,8 @@ class TransformerLM(Module):
             return qmatmul(h, head)
         return torch.matmul(h, head.to(h.dtype))
 
-    def _forward(self, params, x, training: bool, generator):
+    def _forward(self, params, x, training: bool, generator=None,
+                 rng=None):
         params = dequantize_entry(params)  # int8 clones run the forward too
         ids = torch.as_tensor(x, device=self.device)
         if ids.is_floating_point():
@@ -307,56 +365,60 @@ class TransformerLM(Module):
             # ids are 0-based here; the marker id came in 1-based
             segment_ids = torch.cumsum(
                 (ids == self.doc_start_id - 1).to(torch.int32), dim=-1)
-        seeds = [None] * self.n_layers
+        drops = [None] * self.n_layers
         if training and self.dropout > 0.0:
-            if generator is None:
+            if generator is not None:
+                # one seed per layer, drawn before the loop
+                drops = torch.randint(0, 2 ** 62, (self.n_layers,),
+                                      generator=generator).tolist()
+            elif rng is not None:
+                # the reference's chain: one key per layer, split again
+                # before each of the block's two dropout sites
+                drops = list(keychain.split(keychain.as_key(rng),
+                                            self.n_layers))
+            else:
                 raise ValueError(
-                    "TransformerLM with dropout>0 needs a generator in "
-                    "training mode: a fixed seed would apply the same "
-                    "dropout mask every step")
-            # one seed per layer, drawn before the loop (the reference
-            # splits one key per layer)
-            seeds = torch.randint(0, 2 ** 62, (self.n_layers,),
-                                  generator=generator).tolist()
+                    "TransformerLM with dropout>0 needs an rng (or a "
+                    "generator) in training mode: a fixed key would apply "
+                    "the same dropout mask every step")
         aux = None
         for layer in range(self.n_layers):
             bp = layer_params(params["blocks"], layer)
             if self.remat and torch.is_grad_enabled():
                 h, a = checkpoint(self._block, bp, h, positions, segment_ids,
-                                  seeds[layer], use_reentrant=False,
+                                  drops[layer], use_reentrant=False,
                                   preserve_rng_state=False)
             else:
                 h, a = self._block(bp, h, positions, segment_ids,
-                                   seeds[layer])
+                                   drops[layer])
             if a is not None:
                 aux = a if aux is None else aux + a
         h = self._layer_norm(params["ln_f"], h)
         logp = torch.log_softmax(self.head_logits(params, h).float(), dim=-1)
         return logp, aux
 
-    @torch.no_grad()
-    def f(self, params, x):
+    def f(self, params, x, *, training: bool = False, rng=None):
         """(B, T) 1-based ids (float or int) -> (B, T, V) float32
-        log-probabilities, eval mode, no autograd (the serving
-        forward)."""
-        return self._forward(params, x, False, None)[0]
+        log-probabilities (the reference's ``f``).  Eval mode runs with
+        no autograd (the serving forward); ``training=True`` is
+        differentiable, as :meth:`apply` is, its dropout drawn from
+        ``rng``."""
+        if training:
+            return self._forward(params, x, True, rng=rng)[0]
+        with torch.no_grad():
+            return self._forward(params, x, False)[0]
 
     def apply(self, params, x, *, buffers=None, training: bool = False,
               generator: Optional[torch.Generator] = None, rng=None):
         """The training forward: ``(logp, buffers)``, differentiable in
-        every leaf of ``params``.  ``training`` turns dropout on, drawn
-        from ``generator`` (a CPU ``torch.Generator``; required when
-        ``dropout > 0``), or else from a generator seeded by ``rng``, the
-        reference's key-chain key (the masks are not the reference's).
-        An MoE model returns ``moe_aux_weight`` times the layers' summed
-        balance loss as ``buffers["aux_loss"]``; a dense one adds no
-        key."""
-        if generator is None and rng is not None and training \
-                and self.dropout > 0.0:
-            key = np.asarray(rng, np.uint32)
-            generator = torch.Generator().manual_seed(
-                (int(key[0]) << 32) | int(key[1]))
-        logp, aux = self._forward(params, x, training, generator)
+        every leaf of ``params``.  ``training`` turns dropout on, its
+        masks drawn from ``rng``, a key of the key chain, as the
+        reference draws them, or from ``generator`` (a CPU
+        ``torch.Generator``), which wins when both are given; one of them
+        is required when ``dropout > 0``.  An MoE model returns
+        ``moe_aux_weight`` times the layers' summed balance loss as
+        ``buffers["aux_loss"]``; a dense one adds no key."""
+        logp, aux = self._forward(params, x, training, generator, rng)
         new_buffers = dict(buffers) if buffers else {}
         if self.moe_experts:
             new_buffers["aux_loss"] = self.moe_aux_weight * aux

@@ -12,6 +12,7 @@ from bigdl_tpu_torch.nn.activations import (ELU, GELU, Abs, Clamp, Exp,
                                             Sqrt, Square, Tanh, TanhShrink,
                                             Threshold)
 from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
+                                          blockwise_attention,
                                           dot_product_attention,
                                           segment_mask)
 from bigdl_tpu_torch.nn.containers import (Bottle, Concat, ConcatTable,
@@ -96,5 +97,5 @@ __all__ = [
     "SpatialSubtractiveNormalization", "SpatialZeroPadding", "SplitTable",
     "Sqrt", "Square", "Squeeze", "Sum", "Tanh", "TanhShrink", "Threshold",
     "TimeDistributed", "TimeDistributedCriterion", "Transpose", "Unsqueeze",
-    "View", "Xavier", "dot_product_attention", "layer_norm", "nms",
+    "View", "Xavier", "blockwise_attention", "dot_product_attention", "layer_norm", "nms",
     "segment_mask"]

@@ -205,18 +205,13 @@ class MultiHeadAttention(Module):
                 p[name] = np.zeros((self._bias_size(name),), np.float32)
         return p
 
-    def init_generator(self, generator: torch.Generator,
-                       device="cpu") -> dict:
-        """A tree drawn from a ``torch.Generator`` (``TransformerLM``'s
-        own initializer), on ``device``."""
-        std = 1.0 / math.sqrt(self.hidden_size)
-        p = {name: torch.empty(shape).uniform_(
-                -std, std, generator=generator).to(device)
-             for name, shape in self._shapes()}
+    def param_shapes(self) -> dict:
+        """The shapes of :meth:`init`'s tree, in its order."""
+        shapes = dict(self._shapes())
         if self.with_bias:
             for name in ("bq", "bk", "bv", "bo"):
-                p[name] = torch.zeros((self._bias_size(name),), device=device)
-        return p
+                shapes[name] = (self._bias_size(name),)
+        return shapes
 
     def resolve_use_flash(self, device: torch.device,
                           attention_impl: Optional[str] = None,

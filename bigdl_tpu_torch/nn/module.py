@@ -456,22 +456,57 @@ class Module:
         return file_io.load_module(path, template=template, device=device)
 
     def save_torch(self, path: str, overwrite: bool = False) -> "Module":
-        raise not_ported("Torch7 .t7 writing (save_torch)")
+        """Write a Torch7-readable .t7 (ref AbstractModule.saveTorch);
+        the tensors are read back to the host."""
+        from bigdl_tpu_torch.utils import torch_file
+        torch_file.save_model(self, path, overwrite=overwrite)
+        return self
 
     @staticmethod
-    def load_torch(path: str) -> "Module":
-        raise not_ported("Torch7 .t7 loading (load_torch)")
+    def load_torch(path: str, device=None) -> "Module":
+        """Load a Torch7 .t7 model (ref Module.loadTorch,
+        nn/Module.scala:31), its tensors on ``device`` (default the
+        card)."""
+        from bigdl_tpu_torch.utils import torch_file
+        return torch_file.load_model(path, device=device)
 
     def load_caffe(self, def_path: str, model_path: str,
                    match_all: bool = True) -> "Module":
-        raise not_ported("caffe loading (load_caffe)")
+        """Copy caffe blobs into this model's same-named modules
+        (ref Module.loadCaffe, nn/Module.scala:35-39), on its device."""
+        from bigdl_tpu_torch.utils import caffe_loader
+        self._built()
+        return caffe_loader.load(self, def_path, model_path, match_all)
 
     def save_pytorch(self, path) -> "Module":
-        raise not_ported("state-dict export (save_pytorch)")
+        """Write this model's params/buffers as a ``torch.save``d
+        PyTorch-convention state dict (CPU tensors, the reference's keys
+        in its order).  The file round-trips through ``load_pytorch``;
+        loading it into an actual torch module needs a positional key
+        rename plus ``strict=False`` (no ``num_batches_tracked`` is
+        written), and recurrent cells export the fused layout, which
+        torch RNN modules cannot consume (see
+        ``utils/torch_import.export_torch_state_dict``)."""
+        from bigdl_tpu_torch.utils import torch_import
+        sd = torch_import.export_torch_state_dict(self)
+        torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+                   path)
+        return self
 
     def load_pytorch(self, state_dict_or_path,
                      strict: bool = True) -> "Module":
-        raise not_ported("state-dict import (load_pytorch)")
+        """Import a PyTorch state dict (or a ``torch.save``d checkpoint
+        path) into this model's tensors, on its device (see
+        ``utils/torch_import.py`` for the positional mapping
+        contract)."""
+        import os
+        from bigdl_tpu_torch.utils import torch_import
+        self._built()
+        if isinstance(state_dict_or_path, (str, bytes, os.PathLike)):
+            return torch_import.load_torch_checkpoint(
+                self, state_dict_or_path, strict=strict)
+        return torch_import.load_torch_state_dict(
+            self, state_dict_or_path, strict=strict)
 
     def serve(self, **kwargs) -> "Any":
         """This built module as a servable endpoint on its own device

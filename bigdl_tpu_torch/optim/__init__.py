@@ -8,8 +8,9 @@ from bigdl_tpu_torch.optim.optim_method import (LBFGS, SGD, Adagrad, Adam,
                                                 LearningRateSchedule,
                                                 OptimMethod, Poly, Regime,
                                                 Step, ls_wolfe)
+from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer, LocalValidator,
-                                             Optimizer,
+                                             Optimizer, Validator,
                                              accumulated_loss_and_grads,
                                              loss_and_grads)
 from bigdl_tpu_torch.optim.trigger import Trigger
@@ -22,7 +23,8 @@ from bigdl_tpu_torch.optim.validation import (AccuracyResult, Loss,
 __all__ = ["AccuracyResult", "Adagrad", "Adam", "AdamW", "Default",
            "EpochDecay", "EpochSchedule", "EpochStep", "LBFGS",
            "LearningRateSchedule", "LocalOptimizer", "LocalValidator", "Loss",
-           "LossResult", "OptimMethod", "Optimizer", "Perplexity",
+           "LossResult", "Metrics", "OptimMethod", "Optimizer", "Perplexity",
            "PerplexityResult", "Poly", "Regime", "SGD", "Step", "Top1Accuracy",
            "Top5Accuracy", "Trigger", "ValidationMethod", "ValidationResult",
+           "Validator",
            "accumulated_loss_and_grads", "loss_and_grads", "ls_wolfe"]

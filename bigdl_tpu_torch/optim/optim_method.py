@@ -160,6 +160,20 @@ class OptimMethod:
         torch._foreach_copy_(targets, values)
         state["iteration"] = iteration
 
+    def optimize(self, feval: Callable, x, epoch: int = 1):
+        """One step from ``feval: x -> (loss, grad)`` (ref
+        OptimMethod.optimize): ``(new x, [loss])``.  The caller's ``x``
+        is not written (the step updates a copy), and the method's state
+        lives on the instance between calls, as the reference's state
+        Table does."""
+        x = tree_map(lambda t: torch.as_tensor(t).clone(), x)
+        if getattr(self, "_state", None) is None:
+            self._state = self.init_state(x)
+        loss, grad = feval(x)
+        x, self._state = self.update(tree_map(torch.as_tensor, grad),
+                                     self._state, x, epoch=epoch)
+        return x, [loss]
+
     def clear_history(self) -> None:
         self._state = None
 

@@ -841,13 +841,18 @@ class LocalOptimizer(Optimizer):
         return self._validator.test(self.validation_methods)
 
 
-class LocalValidator:
-    """Eval-mode forward over the dataset, monoid-reducing the per-batch
-    results (ref optim/LocalValidator.scala:29)."""
+class Validator:
+    """Standalone evaluation (ref optim/Validator.scala:23-31): a model
+    and the dataset it is tested on."""
 
     def __init__(self, model, dataset: AbstractDataSet):
         self.model = model
         self.dataset = dataset
+
+
+class LocalValidator(Validator):
+    """Eval-mode forward over the dataset, monoid-reducing the per-batch
+    results (ref optim/LocalValidator.scala:29)."""
 
     @torch.no_grad()
     def test(self, methods: Sequence[ValidationMethod]):

@@ -28,27 +28,31 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.quant.qtensor import is_qtensor
+from bigdl_tpu_torch.utils import keychain
 
 
-def init_moe_params(generator: torch.Generator, n_experts: int,
-                    d_model: int, d_hidden: int, device="cpu") -> dict:
+def init_moe_params(rng, n_experts: int, d_model: int,
+                    d_hidden: int) -> dict:
     """Gate (D, E) and the experts' two products, stacked on a leading
     expert axis: ``w1`` (E, D, F), ``w2`` (E, F, D); all uniform in
-    +-1/sqrt(D), drawn from ``generator`` (a CPU generator) in that
-    order."""
-    scale = 1.0 / math.sqrt(d_model)
+    +-1/sqrt(D), from ``split(rng, 3)`` of a key-chain key, as the
+    reference draws them (float32 numpy)."""
+    kg, k1, k2 = keychain.split(rng, 3)
+    # the reference's scale is float32 (1 / jnp.sqrt(d)): a float64 one
+    # can round to another float32 bound and move every draw
+    scale = np.float32(1.0) / np.sqrt(np.float32(d_model))
 
-    def draw(*shape):
-        return torch.empty(shape).uniform_(-scale, scale,
-                                           generator=generator).to(device)
+    def draw(key, *shape):
+        return keychain.uniform(key, shape, -scale, scale)
 
-    return {"gate": draw(d_model, n_experts),
-            "w1": draw(n_experts, d_model, d_hidden),
-            "w2": draw(n_experts, d_hidden, d_model)}
+    return {"gate": draw(kg, d_model, n_experts),
+            "w1": draw(k1, n_experts, d_model, d_hidden),
+            "w2": draw(k2, n_experts, d_hidden, d_model)}
 
 
 def _top1_route(gate, x2):

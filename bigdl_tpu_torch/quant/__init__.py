@@ -23,8 +23,9 @@ from bigdl_tpu_torch.quant.activations import (ActCalibrator,
                                                fp8_supported,
                                                quantize_per_token,
                                                quantize_per_token_fp8)
-from bigdl_tpu_torch.quant.kernels import (int_mm, qmatmul, qmatmul_f8,
-                                           qmatmul_i8, resolve_compute)
+from bigdl_tpu_torch.quant.kernels import (int_mm, qlinear, qlinear_i8,
+                                           qmatmul, qmatmul_f8, qmatmul_i8,
+                                           resolve_compute)
 from bigdl_tpu_torch.quant.qtensor import (QMAX, QTensor, dequantize_array,
                                            is_qtensor, quantize_array)
 from bigdl_tpu_torch.quant.transform import (QuantPolicy, dequantize_entry,
@@ -39,7 +40,7 @@ __all__ = [
     "ActCalibrator", "QMAX", "QTensor", "QuantPolicy", "attach_act_scales",
     "dequantize_array", "dequantize_entry", "dequantize_params",
     "fp8_supported", "int_mm", "is_qtensor", "params_compute_tag",
-    "params_dtype_tag", "params_nbytes", "qmatmul", "qmatmul_f8",
+    "params_dtype_tag", "params_nbytes", "qlinear", "qlinear_i8", "qmatmul", "qmatmul_f8",
     "qmatmul_i8", "quantize_array", "quantize_params", "quantize_per_token",
     "quantize_per_token_fp8", "resolve_compute", "set_compute_mode",
     "stage_quantized_params",

@@ -20,15 +20,15 @@ from bigdl_tpu_torch.serving.metrics import LatencyHistogram, ServingMetrics
 from bigdl_tpu_torch.serving.router import (LMReplicaSet, RadixRouter,
                                             RadixSummary, RoutedLMStream,
                                             SessionTable)
-from bigdl_tpu_torch.serving.spec import SpecConfig
+from bigdl_tpu_torch.serving.spec import DraftModel, SpecConfig, SpecMetrics
 
-__all__ = ["BlockPool", "CompileCache", "DisaggCoordinator",
+__all__ = ["BlockPool", "CompileCache", "DisaggCoordinator", "DraftModel",
            "DynamicBatcher", "HedgePolicy", "HostBlockStore", "HostStager",
            "KVHandoff", "LMMetrics", "LMReplicaSet", "LMServingEngine",
            "LMStream", "LatencyHistogram", "PoolExhausted", "RadixCache",
            "RadixRouter", "RadixSummary", "RequestExceedsPool",
            "RoutedLMStream", "ServingClosed", "ServingDeadlineExceeded",
            "ServingEngine", "ServingMetrics", "ServingOverloaded",
-           "ServingQueueFull", "SessionTable", "SpecConfig",
+           "ServingQueueFull", "SessionTable", "SpecConfig", "SpecMetrics",
            "StreamTruncation", "power_of_two_buckets",
            "prefill_bucket_lengths"]

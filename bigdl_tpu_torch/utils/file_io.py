@@ -21,7 +21,6 @@ JAX writes it.
 """
 from __future__ import annotations
 
-import copy
 import pickle
 from typing import Any
 
@@ -248,19 +247,20 @@ def _lm_spec(model) -> dict:
         "state": {"hidden_size": mha.hidden_size, "n_head": mha.n_head,
                   "head_dim": mha.head_dim, "causal": mha.causal,
                   "with_bias": mha.with_bias,
+                  "block_size": mha.block_size,
                   "attention_impl": mha.attention_impl}}
     return {"class": _class_path(type(model)), "state": state}
 
 
-def module_spec(model) -> dict:
+def module_spec(module) -> dict:
     """The declarative spec of a port module: its class path, its
     hyperparameters and (a container) its children's specs."""
     from bigdl_tpu_torch.models.transformer import TransformerLM
-    if isinstance(model, TransformerLM):
-        return _lm_spec(model)
-    spec = {"class": _class_path(type(model)),
-            "state": _encode_state(model.__dict__)}
-    children = getattr(model, "modules", None)
+    if isinstance(module, TransformerLM):
+        return _lm_spec(module)
+    spec = {"class": _class_path(type(module)),
+            "state": _encode_state(module.__dict__)}
+    children = getattr(module, "modules", None)
     if children is not None:
         spec["children"] = [module_spec(m) for m in children]
     return spec
@@ -276,9 +276,11 @@ def build_module(spec: dict, device=None):
     state = spec["state"]
     if cls is TransformerLM:
         kw = {k: state[k] for k in _LM_HYPER if k in state}
-        impl = state.get("_mha", {}).get("state", {}).get("attention_impl")
-        if impl in ATTENTION_IMPLS:
-            kw["attention_impl"] = impl
+        mha = state.get("_mha", {}).get("state", {})
+        if mha.get("attention_impl") in ATTENTION_IMPLS:
+            kw["attention_impl"] = mha["attention_impl"]
+        if mha.get("block_size"):
+            kw["block_size"] = mha["block_size"]
         return TransformerLM(device=device, **kw)
     obj = cls.__new__(cls)
     Module.__init__(obj)  # baseline shell state
@@ -290,19 +292,14 @@ def build_module(spec: dict, device=None):
 
 def _param_shapes(model) -> dict:
     """The model's parameter tree as shapes: its params' when it has
-    them, else an init's (a ``TransformerLM``'s on the meta device, no
-    values drawn)."""
-    from bigdl_tpu_torch.models.transformer import TransformerLM
+    them, else an init's (a ``TransformerLM``'s from its
+    ``param_shapes``, no values drawn)."""
     if model.params is not None:
         return tree_map(lambda a: tuple(a.shape), model.params)
-    if not isinstance(model, TransformerLM):
-        from bigdl_tpu_torch.utils.keychain import prng_key
-        return tree_map(lambda a: tuple(np.shape(a)), model.init(prng_key(0)))
-    meta = copy.copy(model)
-    meta.device = torch.device("meta")
-    with torch.device("meta"):
-        tree = meta.init(torch.Generator())
-    return tree_map(lambda a: tuple(a.shape), tree)
+    if hasattr(model, "param_shapes"):
+        return model.param_shapes()
+    from bigdl_tpu_torch.utils.keychain import prng_key
+    return tree_map(lambda a: tuple(np.shape(a)), model.init(prng_key(0)))
 
 
 def _check_tree(params: dict, want: dict, path: str = "") -> None:
@@ -321,20 +318,20 @@ def _check_tree(params: dict, want: dict, path: str = "") -> None:
                          f"{want}")
 
 
-def save_module(model, path: str, overwrite: bool = False) -> int:
+def save_module(module, path: str, overwrite: bool = False) -> int:
     """Write spec + params + buffers (format 1); returns the bytes
     written.  A quantized clone is refused: save the float model."""
-    if model.params is None:
+    if module.params is None:
         raise ValueError("the model has no params to save: build it first")
-    if any(is_qtensor(leaf) for leaf in tree_leaves(model.params)):
+    if any(is_qtensor(leaf) for leaf in tree_leaves(module.params)):
         raise TypeError("quantized params have no format-1 encoding; save "
                         "the float model and quantize after loading")
     state = {
         "format": FORMAT,
         "version": VERSION,
-        "spec": module_spec(model),
-        "params": params_to_numpy(model.params),
-        "buffers": params_to_numpy(model.buffers or {}),
+        "spec": module_spec(module),
+        "params": params_to_numpy(module.params),
+        "buffers": params_to_numpy(module.buffers or {}),
     }
     return save(state, path, overwrite=overwrite)
 

@@ -159,18 +159,24 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
 def _fma_f32(a, b, c) -> np.ndarray:
     """``a * b + c`` rounded once to float32, as XLA's CPU code contracts
     it.  The float32 product is exact in float64, but the float64 sum
-    may round, and a second rounding to float32 can then land on the
-    wrong side of a tie.  So the sum is rounded to odd (the exact error
-    from TwoSum nudges an inexact even sum one float64 ulp toward it),
-    which float64's 29 spare bits make a single correct rounding."""
+    may round, and the second rounding to float32 can then land on the
+    wrong side of a tie.  That happens only where the float64 sum sits
+    exactly halfway between two float32s (its low 29 bits a one and
+    zeros; near zero, below float32's normal range, every sum is
+    checked): there the exact error from TwoSum decides, moving an
+    inexact sum one float64 ulp toward the exact value first."""
     p = a.astype(np.float64) * b.astype(np.float64)
     c = np.broadcast_to(np.asarray(c, np.float64), p.shape)
     s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    bump = (err != 0) & ((s.view(np.int64) & 1) == 0) & np.isfinite(s)
-    s = np.where(bump, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)),
-                 s)
+    tie = ((s.view(np.int64) & 0x1FFFFFFF) == 0x10000000) \
+        | (np.abs(s) < _F32_TINY)
+    if tie.any():
+        i = np.nonzero(tie)
+        pi, ci, si = p[i], c[i], s[i]
+        bb = si - pi
+        err = (pi - (si - bb)) + (ci - bb)
+        s[i] = np.where(err != 0, np.nextafter(
+            si, np.where(err > 0, np.inf, -np.inf)), si)
     return s.astype(np.float32)
 
 
@@ -192,8 +198,14 @@ def normal(key, shape=()) -> np.ndarray:
     ``u = uniform(nextafter(-1, 0), 1)`` (bitwise jax's) and XLA's
     float32 ``erf_inv`` polynomial; within 4 ulp of jax's."""
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
-    u = uniform(key, shape, lo, 1.0)
-    return (np.float32(np.sqrt(2.0)) * _erfinv_f32(u)).astype(np.float32)
+    shape, n = _size(shape)
+    u = uniform(key, (n,), lo, 1.0)
+    out = np.empty(n, np.float32)
+    # a chunk at a time, so the polynomial's temporaries stay in cache
+    for start, m in _chunks(n):
+        out[start:start + m] = np.float32(np.sqrt(2.0)) * _erfinv_f32(
+            u[start:start + m])
+    return out.reshape(shape)
 
 
 def _log1p_f32(x: np.ndarray) -> np.ndarray:

@@ -24,8 +24,9 @@ result line:
    64x128, at head_dim 64 and 128) is held against the plain version at
    edge shapes, and every head-64 tile is timed at (1,12,1024,64) and
    (8,…) beside its bound and SDPA;
-4. serve: a GPT-2-small-width TransformerLM (random weights from a
-   seed, float32) behind LMServingEngine answers 8 requests through the
+4. serve: a GPT-2-small-width TransformerLM (random weights: the
+   reference's ``build(seed)`` tree from the key chain, float32) behind
+   LMServingEngine answers 8 requests through the
    flash prefill and paged decode kernels, every device step a replayed
    CUDA graph: ``warmup()`` captures each prefill bucket and the decode
    step, ``warmup_prefix()`` the (suffix bucket, prefix-chain bucket)
@@ -303,6 +304,31 @@ result line:
    count equal the CPU's.  The repository's ``flight/`` and
    ``TUNNEL_INCIDENTS.json`` unchanged; the phase within 240 s.
 
+20. io: model files and import at ImageNet width (host parsing, one
+   copy to the card, cuDNN/cuBLAS forwards; none of the port's kernels,
+   0 launches).  ResNet-50 (1000 classes, shortcut B) from seed 1 on the
+   card: ``save_pytorch``, then ``load_pytorch`` into a ResNet-50 of seed
+   2; ``save_torch`` and ``Module.load_torch`` of it and of
+   ``Inception_v1(1000)`` (its Concat modules and LRN);
+   AlexNet(1000)'s conv1..fc8 written as a caffemodel by the script's
+   own protobuf encoder and read by ``load_caffe(..., match_all=False)``
+   into an AlexNet of seed 2.  Each format: every loaded leaf bitwise its
+   source's, the log-probs of 32 seeded images (224x224, AlexNet
+   227x227) within 1e-5 of the source model's on the card (0 expected)
+   and within 1e-3 of the port's CPU forward on the same weights with
+   top-1 equal; it prints the file MB, save s, load s (host parse plus
+   the copy into the card), load MB/s and the copy's ms, and the entry
+   point's own seconds.  ``DLClassifier`` on the ResNet-50, batch shape
+   (32, 3, 224, 224), over 100 rows (the tail padded): rows/s, classes
+   equal to argmax + 1 of the model's forward (a top-2 gap under 1e-5
+   is a tie).  The example CLIs: ``load_model`` with ``--modelType``
+   bigdl, torch and caffe (``--modelFactory lenet``) on 2,048 synthetic
+   IDX MNIST images, the three results equal; ``image_classification``
+   on a folder of 8 PNGs.  Last, the seconds of one GPT-2-small
+   ``TransformerLM.build(0)`` (its tree equal to the cached one) and the
+   count of trees the script drew: every phase takes its LM weights from
+   one host draw per (config, seed), copied to the card per model.
+
 Every serving engine must keep its captures bounded: prefill entries at
 most the buckets, one decode graph, one verify graph (one per tree
 rung), at most one commit graph, one drafter decode graph (none for the
@@ -474,6 +500,17 @@ RNN = dict(lm=(("simple_rnn", 40), ("lstm_lm", 128)), vocab=4000,
            text_cli=["--synthetic", "-e", "1"], text_widths=[],
            ae_cli=["--synthetic", "-e", "1"],
            limit_s=240.0)
+# the io phase: model files written and read back at ImageNet width
+# (ResNet-50 1000 classes, shortcut B; Inception v1; AlexNet as Caffe),
+# held bitwise in every leaf; log-probs on 32 seeded images within
+# tol_card of the source on the card (0 expected) and within tol_cpu
+# (the JAX package's whole-net import tolerance) of the port's CPU
+# forward, top-1 equal; DLClassifier over dlc_rows rows in batches of
+# dlc_batch (the tail padded); the example CLIs on mnist_rows synthetic
+# IDX images and a folder of png_per_class x 2 PNGs
+IO = dict(images=32, src_seed=1, dst_seed=2, tol_card=1e-5, tol_cpu=1e-3,
+          dlc_rows=100, dlc_batch=32, mnist_rows=2048, png_per_class=4,
+          limit_s=240.0)
 
 
 def log(msg: str) -> None:
@@ -919,8 +956,7 @@ class Oracle:
         self._make = make_model
         self._model = None
         if make_model is None:
-            self._model = TransformerLM(attention_impl="xla", device=dev,
-                                        **config).build(seed=seed)
+            self._model = build_lm(dev, config, seed, attention_impl="xla")
         self._streams = {}
 
     @property
@@ -1170,13 +1206,47 @@ def profile_device(run, label, out_path, stats=None):
     return idle
 
 
-def build_lm(dev, config, seed, attention_impl="flash"):
+#: each (config, seed)'s parameter tree as numpy, drawn once: the key
+#: chain runs on the host, about 10 s for GPT-2 small's embedding
+_TREES = {}
+TREE_DRAWS = {"count": 0, "seconds": 0.0}
+
+
+def lm_tree(config, seed):
+    """The numpy tree of ``TransformerLM(**config).build(seed)``: the
+    reference's key chain (``split(prng_key(seed))[0]`` into ``init``),
+    drawn on the first call for a (config, seed) and kept."""
     from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.utils import keychain
+    key = (tuple(sorted(config.items())), int(seed))
+    if key not in _TREES:
+        t0 = time.perf_counter()
+        init_rng, _ = keychain.split(keychain.prng_key(int(seed)))
+        _TREES[key] = TransformerLM(device="cpu", **config).init(init_rng)
+        dt = time.perf_counter() - t0
+        TREE_DRAWS["count"] += 1
+        TREE_DRAWS["seconds"] += dt
+        log(f"[model] drew the {config['n_layers']} x "
+            f"{config['hidden_size']} tree of seed {seed} on the host in "
+            f"{dt:.2f} s (draw {TREE_DRAWS['count']})")
+    return _TREES[key]
+
+
+def build_lm(dev, config, seed, attention_impl="flash"):
+    """``TransformerLM(**config).build(seed)`` on ``dev``: the same
+    params, buffers and key as ``build``, the tree drawn once per
+    (config, seed) and copied to the card for each model."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.utils import keychain
+    from bigdl_tpu_torch.utils.params import params_from_numpy
     t0 = time.perf_counter()
     model = TransformerLM(attention_impl=attention_impl, device=dev,
-                          **config).build(seed=seed)
+                          **config)
+    model.params = params_from_numpy(lm_tree(config, seed), dev)
+    model.buffers = params_from_numpy(model.init_buffers(), dev)
+    model._rng = keychain.split(keychain.prng_key(int(seed)))[1]
     log(f"[model] {config['n_layers']} layers x {config['hidden_size']} "
-        f"built from seed {seed} in {time.perf_counter() - t0:.2f} s")
+        f"of seed {seed} on {dev} in {time.perf_counter() - t0:.2f} s")
     return model
 
 
@@ -3029,8 +3099,7 @@ def phase_train(dev, config=GPT2_SMALL, train=TRAIN, cli=TRAIN_CLI,
     crit = TimeDistributedCriterion(ClassNLLCriterion(), True)
 
     def fresh():
-        return TransformerLM(attention_impl="flash", device=dev,
-                             **config).build(seed=train["seed"])
+        return build_lm(dev, config, train["seed"], attention_impl="flash")
 
     def optimizer(model, compute_dtype=None):
         ds = DataSet.array([Sample(f, l) for f, l in zip(x, y)]) \
@@ -3220,8 +3289,7 @@ def phase_moe(dev, config=GPT2_SMALL, moe=MOE, train=TRAIN, serve=SERVE,
     x, y = _train_batch(config, train)
     crit = TimeDistributedCriterion(ClassNLLCriterion(), True)
     t0 = time.perf_counter()
-    model = TransformerLM(attention_impl="flash", device=dev,
-                          **cfg).build(seed=train["seed"])
+    model = build_lm(dev, cfg, train["seed"], attention_impl="flash")
     wbytes = _weight_bytes(model.params)
     if config is GPT2_SMALL and wbytes != moe["weight_bytes"]:
         raise AssertionError(f"MoE weights {wbytes} bytes, not "
@@ -3330,8 +3398,7 @@ def phase_accum(dev, config=GPT2_SMALL, train=TRAIN, micro=ACCUM_MICRO):
     runs = {}
     ref = None
     for n in (1,) + tuple(micro):
-        model = TransformerLM(attention_impl="flash", device=dev,
-                              **config).build(seed=train["seed"])
+        model = build_lm(dev, config, train["seed"], attention_impl="flash")
         _peak_reset(dev)
         loss, grads, _ = accumulated_loss_and_grads(model, crit,
                                                     model.params, xt, yt, n)
@@ -3436,8 +3503,7 @@ def phase_ckpt(dev, config=GPT2_SMALL, ckpt=CKPT, train=TRAIN,
                     f"every {ckpt['every']} iterations")
 
     def fresh(seed=train["seed"]):
-        return TransformerLM(attention_impl="flash", device=dev,
-                             **config).build(seed=seed)
+        return build_lm(dev, config, seed, attention_impl="flash")
 
     def opt_for(model, data=None):
         o = _optimizer(model, x, y, ckpt["batch"], train["learning_rate"])
@@ -4253,8 +4319,7 @@ def obs_train(dev, config, train, obs, root):
     SleepyAdam = _obs_adam_classes()[0]
     x, y = _train_batch(config, train)
     crit = TimeDistributedCriterion(ClassNLLCriterion(), True)
-    model = TransformerLM(attention_impl="flash", device=dev,
-                          **config).build(seed=train["seed"])
+    model = build_lm(dev, config, train["seed"], attention_impl="flash")
     opt = _optimizer(model, x, y, train["batch"], train["learning_rate"])
     opt.set_optim_method(SleepyAdam(obs["stall_at"], obs["stall_s"],
                                     learning_rate=train["learning_rate"]))
@@ -4373,8 +4438,7 @@ def obs_update_failure(dev, config, train, obs, ckpt, root, train_ref):
     n = obs["o5_steps"]
 
     def fresh(seed=train["seed"]):
-        return TransformerLM(attention_impl="flash", device=dev,
-                             **config).build(seed=seed)
+        return build_lm(dev, config, seed, attention_impl="flash")
 
     def opt_for(model, method):
         return _optimizer(model, x, y, train["batch"], lr).set_optim_method(
@@ -5544,6 +5608,394 @@ def rnn_summary(out):
         "seconds": out["seconds"]}
 
 
+# --------------------------------------------------------------------- #
+# io: model files and import                                            #
+# --------------------------------------------------------------------- #
+def _pb_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _pb_len(field: int, payload: bytes) -> bytes:
+    return _pb_varint((field << 3) | 2) + _pb_varint(len(payload)) + payload
+
+
+def caffe_layer(name: str, kind: str, arrays) -> bytes:
+    """One V2 ``LayerParameter`` (field 100 of ``NetParameter``): name 1,
+    type 2, and a ``BlobProto`` (field 7) per array: its shape (field 7,
+    a ``BlobShape`` of packed dims) and packed float32 data (field 5)."""
+    import numpy as np
+    out = _pb_len(1, name.encode()) + _pb_len(2, kind.encode())
+    for a in arrays:
+        a = np.ascontiguousarray(a, "<f4")
+        dims = b"".join(_pb_varint(int(d)) for d in a.shape)
+        out += _pb_len(7, _pb_len(7, _pb_len(1, dims)) + _pb_len(5, a.tobytes()))
+    return _pb_len(100, out)
+
+
+def _named_weights(model):
+    """(name, kind, [weight, bias]) of every named conv or linear leaf of
+    a container tree, host float32."""
+    from bigdl_tpu_torch import nn
+    out = []
+
+    def walk(m, p):
+        if getattr(m, "modules", None):
+            for i, c in enumerate(m.modules):
+                walk(c, p[str(i)])
+        elif m._name and isinstance(m, (nn.SpatialConvolution, nn.Linear)):
+            kind = ("InnerProduct" if isinstance(m, nn.Linear)
+                    else "Convolution")
+            out.append((m._name, kind, [p["weight"].cpu().numpy(),
+                                        p["bias"].cpu().numpy()]))
+    walk(model, model.params)
+    return out
+
+
+def write_caffemodel(model, model_path, def_path):
+    """A caffemodel of ``model``'s named conv and linear weights and a
+    minimal prototxt; returns the layers written."""
+    layers = _named_weights(model)
+    with open(model_path, "wb") as f:
+        f.write(_pb_len(1, b"net") + b"".join(
+            caffe_layer(n, k, a) for n, k, a in layers))
+    with open(def_path, "w") as f:
+        f.write('name: "net"\n')
+    return len(layers)
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _leaves_equal(a, b):
+    """(bitwise equal, leaves) over the params and buffers of two
+    modules."""
+    import torch
+    from bigdl_tpu_torch.utils.pytree import tree_leaves
+    la = tree_leaves((a.params, a.buffers))
+    lb = tree_leaves((b.params, b.buffers))
+    return (len(la) == len(lb) and all(
+        x.shape == y.shape and torch.equal(x, y.to(x.device))
+        for x, y in zip(la, lb))), len(la)
+
+
+def _logp(model, x, dev):
+    import torch
+    with torch.no_grad():
+        y, _ = model.apply(model.params, torch.as_tensor(x, device=dev),
+                           buffers=model.buffers, training=False)
+    return y.float().cpu().numpy()
+
+
+def _io_check(label, src, got, x, dev, tol, host_logp=None, tol_cpu=None):
+    """Every leaf bitwise, then the log-probs on ``x``: the loaded model's
+    within ``tol`` of the source's on the card, and within ``tol_cpu`` of
+    the CPU forward ``host_logp`` with top-1 equal."""
+    import numpy as np
+    same, n = _leaves_equal(src, got)
+    if not same:
+        raise AssertionError(f"[io] {label}: a loaded leaf differs from its "
+                             f"source ({n} leaves)")
+    want, have = _logp(src, x, dev), _logp(got, x, dev)
+    diff = float(np.abs(want - have).max())
+    if not diff <= tol:
+        raise AssertionError(f"[io] {label}: loaded log-probs differ from "
+                             f"the source's by {diff} (tolerance {tol})")
+    row = dict(leaves=n, card_max_abs=diff)
+    if host_logp is not None:
+        cpu_diff = float(np.abs(have - host_logp).max())
+        top_ok = bool((have.argmax(-1) == host_logp.argmax(-1)).all())
+        if not cpu_diff <= tol_cpu or not top_ok:
+            raise AssertionError(f"[io] {label}: card vs CPU log-probs "
+                                 f"{cpu_diff} (tolerance {tol_cpu}), top-1 "
+                                 f"equal {top_ok}")
+        row.update(cpu_max_abs=cpu_diff, top1_equal=top_ok)
+    return row
+
+
+def _write_idx(folder, n, seed=0):
+    """Synthetic t10k IDX files: random bytes with a label-dependent
+    band, labels 0-9."""
+    import struct
+
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 50, size=(n, 28, 28)).astype(np.uint8)
+    labels = (np.arange(n) % 10).astype(np.uint8)
+    for i in range(n):
+        images[i, labels[i] * 2:labels[i] * 2 + 3, :] += 150
+    with open(os.path.join(folder, "t10k-images-idx3-ubyte"), "wb") as f:
+        f.write(struct.pack(">IIII", 2051, n, 28, 28) + images.tobytes())
+    with open(os.path.join(folder, "t10k-labels-idx1-ubyte"), "wb") as f:
+        f.write(struct.pack(">II", 2049, n) + labels.tobytes())
+
+
+def phase_io(dev, io=IO, smi=""):
+    """Model files and import on ``dev``: a state dict, Torch7 files and a
+    caffemodel written and read back at ImageNet width, DLClassifier, the
+    two example CLIs and the key-chain build; returns the rows."""
+    import contextlib
+    import io as sio
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import models, nn
+    from bigdl_tpu_torch.example import image_classification, load_model
+    from bigdl_tpu_torch.ml import DLClassifier
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.utils import torch_file, torch_import
+    from bigdl_tpu_torch.utils.caffe_loader import CaffeLoader
+    from bigdl_tpu_torch.utils.params import params_to_numpy
+    from bigdl_tpu_torch.utils.pytree import tree_leaves
+    t_phase = time.perf_counter()
+    _reset_launches()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    out = dict(formats={})
+    try:
+        def resnet(seed):
+            return models.ResNet(1000, depth=50, shortcut_type="B",
+                                 dataset="imagenet").build(seed=seed,
+                                                           device=dev)
+
+        rs = np.random.RandomState(0)
+        x224 = rs.rand(io["images"], 3, 224, 224).astype(np.float32) * 2 - 1
+        x227 = rs.rand(io["images"], 3, 227, 227).astype(np.float32) * 2 - 1
+        src = resnet(io["src_seed"]).evaluate()
+        n_params = sum(int(a.numel()) for a in tree_leaves(src.params))
+        def host_logp(make, model, x):
+            """The port's CPU forward of ``x`` on ``model``'s weights."""
+            host = make().load_numpy_tree(
+                params_to_numpy(model.params), params_to_numpy(model.buffers),
+                device="cpu").evaluate()
+            return _logp(host, x, torch.device("cpu"))
+
+        t0 = time.perf_counter()
+        resnet_cpu = host_logp(lambda: models.ResNet(
+            1000, depth=50, shortcut_type="B", dataset="imagenet"), src, x224)
+        log(f"[io] ResNet-50 {n_params} parameters; the CPU forward of "
+            f"{io['images']} images took {time.perf_counter() - t0:.2f} s")
+
+        def timed(fn):
+            _sync(dev)
+            t0 = time.perf_counter()
+            r = fn()
+            _sync(dev)
+            return r, time.perf_counter() - t0
+
+        def record(fmt, path, save_s, parse_s, to_card_s, check):
+            mb = os.path.getsize(path) / 1e6
+            load_s = parse_s + to_card_s
+            row = dict(file_mb=mb, save_s=save_s, load_s=load_s,
+                       load_mb_per_s=mb / load_s, parse_s=parse_s,
+                       to_card_ms=to_card_s * 1e3, **check)
+            out["formats"][fmt] = row
+            log(f"[io] {fmt}: file {mb:.3f} MB, save {save_s:.3f} s, load "
+                f"{load_s:.3f} s ({row['load_mb_per_s']:.1f} MB/s: host "
+                f"parse {parse_s:.3f} s, into the card {to_card_s * 1e3:.1f}"
+                f" ms), {check['leaves']} leaves bitwise, log-probs vs "
+                f"source max |d| {check['card_max_abs']:.3g}"
+                + (f", vs CPU {check['cpu_max_abs']:.3g} top-1 equal"
+                   if "cpu_max_abs" in check else "") + f" | {smi}")
+
+        # state dict: save_pytorch, then load_pytorch into seed 2
+        sd_path = os.path.join(tmp, "resnet50.pth")
+        _, save_s = timed(lambda: src.save_pytorch(sd_path))
+        dst = resnet(io["dst_seed"]).evaluate()
+        sd, parse_s = timed(lambda: torch_import.read_torch_checkpoint(
+            sd_path))
+        _, copy_s = timed(lambda: torch_import.load_torch_state_dict(dst, sd))
+        del sd
+        record("state_dict", sd_path, save_s, parse_s, copy_s,
+               _io_check("state dict", src, dst, x224, dev, io["tol_card"],
+                         resnet_cpu, io["tol_cpu"]))
+        # the entry point a user calls, once more on the same file
+        _, entry_s = timed(lambda: dst.load_pytorch(sd_path))
+        out["formats"]["state_dict"]["load_pytorch_s"] = entry_s
+        del dst
+        release(dev)
+
+        # Torch7: save_torch, Module.load_torch on the default device (the
+        # card; a CPU rehearsal names the CPU)
+        default = None if dev.type == "cuda" else dev
+        inception = models.Inception_v1(1000).build(
+            seed=io["src_seed"], device=dev).evaluate()
+        for fmt, model, x, logp in (
+                ("t7_resnet50", src, x224, resnet_cpu),
+                ("t7_inception_v1", inception, x224, host_logp(
+                    lambda: models.Inception_v1(1000), inception, x224))):
+            path = os.path.join(tmp, fmt + ".t7")
+            _, save_s = timed(lambda: model.save_torch(path))
+            obj, parse_s = timed(lambda: torch_file.load(path))
+            got, build_s = timed(
+                lambda: torch_file.module_from_torch(obj, default))
+            del obj
+            if got._device() != dev:
+                raise AssertionError(f"[io] load_torch put {fmt} on "
+                                     f"{got._device()}, not {dev}")
+            record(fmt, path, save_s, parse_s, build_s,
+                   _io_check(fmt, model, got.evaluate(), x, dev,
+                             io["tol_card"], logp, io["tol_cpu"]))
+            _, entry_s = timed(lambda: nn.Module.load_torch(path, default))
+            out["formats"][fmt]["load_torch_s"] = entry_s
+            del got
+            release(dev)
+        del inception
+
+        # Caffe: AlexNet's weights as a caffemodel, into seed 2
+        alex = models.AlexNet(1000).build(seed=io["src_seed"],
+                                          device=dev).evaluate()
+        mp, dp = (os.path.join(tmp, "alexnet.caffemodel"),
+                  os.path.join(tmp, "deploy.prototxt"))
+        n_layers, save_s = timed(lambda: write_caffemodel(alex, mp, dp))
+        if n_layers != 8:
+            raise AssertionError(f"[io] AlexNet wrote {n_layers} caffe "
+                                 f"layers, not 8 (conv1..fc8)")
+        dst = models.AlexNet(1000).build(seed=io["dst_seed"],
+                                         device=dev).evaluate()
+        loader = CaffeLoader(dp, mp, match_all=False)
+        _, parse_s = timed(lambda: loader.net)
+        _, copy_s = timed(lambda: loader.copy_parameters(dst))
+        record("caffe_alexnet", mp, save_s, parse_s, copy_s,
+               _io_check("caffe AlexNet", alex, dst, x227, dev,
+                         io["tol_card"], host_logp(
+                             lambda: models.AlexNet(1000), alex, x227),
+                         io["tol_cpu"]))
+        _, entry_s = timed(lambda: dst.load_caffe(dp, mp, match_all=False))
+        out["formats"]["caffe_alexnet"]["load_caffe_s"] = entry_s
+        del alex, dst, loader
+        release(dev)
+
+        # DLClassifier over dlc_rows rows, the tail padded
+        rows = rs.rand(io["dlc_rows"], 3, 224, 224).astype(np.float32) * 2 - 1
+        clf = DLClassifier(src, (io["dlc_batch"], 3, 224, 224))
+        calls = []
+        fwd = clf._forward_batch
+        clf._forward_batch = lambda b: calls.append(b.shape[0]) or fwd(b)
+        clf.predict_class(rows[:io["dlc_batch"]])  # warm-up
+        calls.clear()
+        pred, dlc_s = timed(lambda: clf.predict_class(rows))
+        own = np.concatenate([
+            _logp(src, rows[i:i + io["dlc_batch"]], dev)
+            for i in range(0, len(rows), io["dlc_batch"])])
+        if calls != [io["dlc_batch"]] * len(calls) or \
+                len(calls) * io["dlc_batch"] < len(rows):
+            raise AssertionError(f"[io] DLClassifier batches {calls}")
+        srt = np.sort(own, axis=-1)
+        ties = srt[:, -1] - srt[:, -2] < 1e-5
+        bad = (pred != own.argmax(-1) + 1) & ~ties
+        if bad.any():
+            raise AssertionError(f"[io] DLClassifier classes differ from the "
+                                 f"model's argmax + 1 at rows "
+                                 f"{np.nonzero(bad)[0].tolist()}")
+        out["dlc"] = dict(rows=len(rows), calls=len(calls),
+                          rows_per_s=len(rows) / dlc_s, seconds=dlc_s,
+                          ties=int((pred != own.argmax(-1) + 1).sum()))
+        log(f"[io] DLClassifier: {len(rows)} rows in {len(calls)} calls of "
+            f"{io['dlc_batch']} (tail padded), {out['dlc']['rows_per_s']:.1f}"
+            f" rows/s, classes equal to argmax + 1 of the model's forward "
+            f"({out['dlc']['ties']} ties) | {smi}")
+        del src, clf
+        release(dev)
+
+        # the example CLIs on synthetic MNIST and a PNG folder
+        _write_idx(tmp, io["mnist_rows"])
+        lenet = models.LeNet5(10).build(seed=io["src_seed"], device=dev)
+        bigdl_path, t7_path = (os.path.join(tmp, "lenet.bin"),
+                               os.path.join(tmp, "lenet.t7"))
+        lenet.save(bigdl_path)
+        lenet.save_torch(t7_path)
+        lmp, ldp = (os.path.join(tmp, "lenet.caffemodel"),
+                    os.path.join(tmp, "lenet.prototxt"))
+        write_caffemodel(lenet, lmp, ldp)
+        cli = {}
+        for kind, extra in (("bigdl", ["--model", bigdl_path]),
+                            ("torch", ["--model", t7_path]),
+                            ("caffe", ["--model", lmp, "--caffeDefPath", ldp,
+                                       "--modelFactory", "lenet"])):
+            buf = sio.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                results = load_model.main(["--modelType", kind, "-f", tmp,
+                                           "--dataset", "mnist", "-b", "128",
+                                           "--device", dev.type] + extra)
+            cli[kind] = dict(results={str(m): str(r) for m, r in results},
+                             seconds=time.perf_counter() - t0,
+                             lines=buf.getvalue().strip().splitlines())
+            log(f"[io] load_model --modelType {kind}: "
+                + "; ".join(cli[kind]["lines"])
+                + f" ({cli[kind]['seconds']:.2f} s) | {smi}")
+        if not (cli["bigdl"]["results"] == cli["torch"]["results"]
+                == cli["caffe"]["results"]):
+            raise AssertionError(f"[io] the three model types disagree: "
+                                 f"{json.dumps(cli)}")
+        from PIL import Image
+        folder = os.path.join(tmp, "images")
+        prs = np.random.RandomState(1)
+        for cls in ("a", "b"):
+            os.makedirs(os.path.join(folder, cls))
+            for i in range(io["png_per_class"]):
+                Image.fromarray(prs.randint(0, 255, size=(40, 40, 3)).astype(
+                    np.uint8)).save(os.path.join(folder, cls, f"{i}.png"))
+        buf = sio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            lines = image_classification.main(
+                ["--model", bigdl_path, "-f", folder, "--modelType", "lenet",
+                 "-b", "4", "--topN", "2", "--device", dev.type])
+        printed = buf.getvalue().strip().splitlines()
+        if len(lines) != 2 * io["png_per_class"] or len(printed) != len(
+                lines) or not all(len(c) == 2 and all(1 <= k <= 10 for k in c)
+                                  for _, c in lines):
+            raise AssertionError(f"[io] image_classification printed "
+                                 f"{printed}")
+        log(f"[io] image_classification: {len(printed)} lines, first "
+            f"{printed[0]!r} | {smi}")
+        cli["image_classification"] = dict(lines=len(printed))
+        out["cli"] = cli
+        del lenet
+
+        # the repaired build: one GPT-2-small tree from the key chain
+        t0 = time.perf_counter()
+        lm = TransformerLM(device=dev, **GPT2_SMALL).build(0)
+        _sync(dev)
+        out["gpt2_build_s"] = time.perf_counter() - t0
+        ref = build_lm(dev, GPT2_SMALL, 0)
+        same, n = _leaves_equal(lm, ref)
+        if not same:
+            raise AssertionError("[io] TransformerLM.build(0) differs from "
+                                 "the script's cached seed-0 tree")
+        del lm, ref
+        release(dev)
+        out["tree_draws"] = dict(TREE_DRAWS)
+        log(f"[io] TransformerLM(**GPT2_SMALL).build(0): "
+            f"{out['gpt2_build_s']:.2f} s on the host and the copy "
+            f"({n} leaves, equal to the cached tree); the script drew "
+            f"{TREE_DRAWS['count']} trees in {TREE_DRAWS['seconds']:.2f} s "
+            f"| {smi}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = _launches()
+    if any(out["launches"].values()):
+        raise AssertionError(f"[io] the port's kernels launched on the io "
+                             f"path: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    if dev.type == "cuda" and out["seconds"] > io["limit_s"]:
+        raise AssertionError(f"[io] the phase took {out['seconds']:.1f} s, "
+                             f"over {io['limit_s']} s")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
         print("chip_smoke.py: the bigdl_tpu_torch package is not beside "
@@ -5845,6 +6297,14 @@ def main() -> int:
     rnn = phase_rnn(dev, profile_path=args.profile)
     phases["rnn"] = time.perf_counter() - t0
     log("[rnn] summary: " + json.dumps(rnn_summary(rnn)) + f" | {smi}")
+    log_allocated("io")
+    release(dev)
+    t0 = time.perf_counter()
+    io = phase_io(dev, smi=smi)
+    phases["io"] = time.perf_counter() - t0
+    log("[io] summary: " + json.dumps(
+        {k: io[k] for k in ("formats", "dlc", "gpt2_build_s", "tree_draws",
+                            "launches", "seconds")}) + f" | {smi}")
     log("[done] phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()))
 
@@ -5862,7 +6322,7 @@ def main() -> int:
                  ckpt=ckpt["launches"], gpt2=gpt2["launches"],
                  obs=total(*(obs[p]["launches"]
                              for p in ("o1", "o2", "o3", "o4", "o5"))),
-                 tune=tune["launches"])
+                 tune=tune["launches"], io=io["launches"])
 
     def by_path(symbol, names):
         return {p: paths[p][symbol] for p in names}
@@ -5877,25 +6337,28 @@ def main() -> int:
              launches=serve["launches"]["bigdl_flash_fwd"],
              launches_by_path=by_path("bigdl_flash_fwd",
                                       serving + ("batch", "train", "accum",
-                                                 "ckpt", "gpt2")),
+                                                 "ckpt", "gpt2", "io")),
              **flash_main),
         dict(name="paged_decode", route="cuda",
              source="bigdl_tpu_torch/csrc/paged_decode.cu",
              replaces="bigdl_tpu/ops/paged_attention.py:34",
              launches=serve["launches"]["bigdl_paged_decode"],
-             launches_by_path=by_path("bigdl_paged_decode", serving),
+             launches_by_path=by_path("bigdl_paged_decode",
+                                      serving + ("io",)),
              **paged_main),
         dict(name="flash_bwd_dkv", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_bwd.cu",
              replaces="bigdl_tpu/ops/flash_attention.py:199",
              launches=train["launches"]["bigdl_flash_bwd_dkv"],
-             launches_by_path=by_path("bigdl_flash_bwd_dkv", training),
+             launches_by_path=by_path("bigdl_flash_bwd_dkv",
+                                      training + ("io",)),
              **dkv_main),
         dict(name="flash_bwd_dq", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_bwd.cu",
              replaces="bigdl_tpu/ops/flash_attention.py:262",
              launches=train["launches"]["bigdl_flash_bwd_dq"],
-             launches_by_path=by_path("bigdl_flash_bwd_dq", training),
+             launches_by_path=by_path("bigdl_flash_bwd_dq",
+                                      training + ("io",)),
              **dq_main),
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

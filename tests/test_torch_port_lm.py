@@ -12,7 +12,8 @@ from bigdl_tpu.models.transformer import generate as jgen
 
 from bigdl_tpu_torch.models.transformer import TransformerLM
 from bigdl_tpu_torch.models.transformer import generate as tgen
-from bigdl_tpu_torch.utils.params import params_from_numpy, params_to_numpy
+from bigdl_tpu_torch.utils import keychain
+from bigdl_tpu_torch.utils.params import params_from_numpy
 
 CONFIGS = {
     "learned": dict(pos_encoding="learned"),
@@ -54,7 +55,7 @@ def test_logprobs_match_jax(name):
 def test_init_layout_matches_jax_tree():
     """init() builds the reference's keys, shapes and stacked blocks."""
     jm, tm = _pair("untied")
-    fresh = params_to_numpy(tm.init(torch.Generator().manual_seed(0)))
+    fresh = tm.init(keychain.prng_key(0))
     ref = jax.tree_util.tree_map(np.asarray, jm.params)
     assert (jax.tree_util.tree_structure(fresh)
             == jax.tree_util.tree_structure(ref))

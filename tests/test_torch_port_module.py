@@ -454,13 +454,24 @@ def test_quantized_linear_is_the_references(compute):
     assert isinstance(qe.params["0"]["weight"], torch.Tensor)
 
 
-def test_unported_loaders_name_their_item():
-    m = tnn.Linear(2, 2).build(device="cpu")
-    for call in (lambda: m.save_torch("x.t7"), lambda: tnn.Module.load_torch(
-            "x.t7"), lambda: m.load_caffe("a", "b"),
-            lambda: m.save_pytorch("x.pt"), lambda: m.load_pytorch({})):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+def test_remaining_item12_refusals_name_their_item():
+    """The loaders are ported; the quantized convolution weight, the
+    CLIs' --distributed and distributed datasets still refuse, naming
+    their item of ROADMAP Queue 1."""
+    from types import SimpleNamespace
+
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models.utils import refuse_distributed
+    from bigdl_tpu_torch.quant import quantize_array
+    conv = tnn.SpatialConvolution(2, 4, 3, 3).build(0, device="cpu")
+    qparams = dict(conv.params,
+                   weight=quantize_array(conv.params["weight"], (1, 2, 3)))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        conv.apply(qparams, torch.from_numpy(_x(1, 2, 6, 6)))
+    with pytest.raises(SystemExit, match="item 12"):
+        refuse_distributed(SimpleNamespace(distributed=True))
+    with pytest.raises(NotImplementedError, match="12-DIST"):
+        DataSet.array([1, 2], distributed=True)
 
 
 def test_transformer_lm_is_a_module_and_takes_the_reference_rng():

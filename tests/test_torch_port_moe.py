@@ -30,6 +30,7 @@ from bigdl_tpu_torch.models.transformer import TransformerLM
 from bigdl_tpu_torch.models.transformer import generate as tgen
 from bigdl_tpu_torch.parallel import init_moe_params, switch_mlp
 from bigdl_tpu_torch.serving import LMServingEngine
+from bigdl_tpu_torch.utils import keychain
 from bigdl_tpu_torch.utils.params import params_from_numpy, params_to_numpy
 
 KW = dict(vocab_size=11, hidden_size=16, n_head=2, n_layers=2, max_len=12,
@@ -142,7 +143,8 @@ def test_argmax_ties_take_the_first_expert():
 def test_switch_mlp_capacity_matches_dense_when_ample():
     """Mirror of tests/test_transformer.py TestMoELM: a capacity no token
     exceeds gives dense dispatch's outputs and balance loss."""
-    p = init_moe_params(torch.Generator().manual_seed(0), 4, 8, 16)
+    p = params_from_numpy(init_moe_params(keychain.prng_key(0), 4, 8, 16),
+                          "cpu")
     x = torch.from_numpy(np.random.RandomState(0).randn(32, 8)
                          .astype(np.float32))
     y_dense, aux_d = switch_mlp(p, x, capacity_factor=None)
