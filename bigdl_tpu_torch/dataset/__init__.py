@@ -1,8 +1,10 @@
 """Host-side data pipeline (port of ``bigdl_tpu/dataset``): local
-datasets, transformers, the text and image pipelines and the MNIST and
-CIFAR-10 readers.  The SequenceFile readers and distributed datasets are
-ROADMAP Queue 1 item 12."""
-from bigdl_tpu_torch.dataset import cifar, image, mnist
+datasets, transformers, the text and image pipelines, the MNIST and
+CIFAR-10 readers, record shards (``seqfile``) and Hadoop SequenceFiles
+(``hadoop_seqfile``).  Distributed datasets are ROADMAP Queue 1 item
+12 (12-DIST)."""
+from bigdl_tpu_torch.dataset import (cifar, hadoop_seqfile, image, mnist,
+                                     seqfile)
 from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, DataSet,
                                              LocalArrayDataSet, LocalDataSet,
                                              TransformedDataSet)
@@ -16,4 +18,4 @@ __all__ = ["AbstractDataSet", "ByteRecord", "ChainedTransformer", "DataSet",
            "FuncTransformer", "LabeledImage", "LabeledSentence",
            "LocalArrayDataSet", "LocalDataSet", "MiniBatch", "Prefetcher", "Sample",
            "SampleToBatch", "TransformedDataSet", "Transformer", "cifar",
-           "image", "mnist"]
+           "hadoop_seqfile", "image", "mnist", "seqfile"]

@@ -1,5 +1,5 @@
 """DataSet sources (port of ``bigdl_tpu/dataset/dataset.py``, local
-datasets only).
+datasets only: arrays, image folders and packed record files).
 
 ``LocalArrayDataSet`` holds in-memory records with an epoch reshuffle
 drawn from the Torch-compatible MT19937 (``utils/rng.py``), so the same
@@ -80,6 +80,12 @@ class LocalArrayDataSet(LocalDataSet):
         return iter(self.records)
 
 
+def _refuse_distributed():
+    raise NotImplementedError(
+        "distributed datasets are not ported yet (ROADMAP Queue 1 item 12, "
+        "12-DIST: DistriOptimizer)")
+
+
 class DataSet:
     """Factories (ref DataSet.scala object)."""
 
@@ -87,9 +93,7 @@ class DataSet:
     def array(records: Sequence, distributed: bool = False,
               seed: int = 1) -> AbstractDataSet:
         if distributed:
-            raise NotImplementedError(
-                "distributed datasets are not ported yet (ROADMAP Queue 1 "
-                "item 12, 12-DIST: DistriOptimizer)")
+            _refuse_distributed()
         return LocalArrayDataSet(records, seed=seed)
 
     @staticmethod
@@ -105,3 +109,23 @@ class DataSet:
             for fname in sorted(os.listdir(d)):
                 records.append((os.path.join(d, fname), float(li)))
         return DataSet.array(records, distributed=distributed)
+
+    @staticmethod
+    def record_files(paths: Sequence[str],
+                     distributed: bool = False) -> AbstractDataSet:
+        """Dataset over packed record files: the repo's own shards and
+        Hadoop SequenceFiles (``*.seq``, the reference's ImageNet layout
+        with its compressed flavors), dispatched per file on the name,
+        so the two mix in one dataset.  Records are the raw (bytes,
+        label) pairs."""
+        from bigdl_tpu_torch.dataset.hadoop_seqfile import file_records
+        from bigdl_tpu_torch.dataset.seqfile import read_shard
+        if distributed:
+            _refuse_distributed()
+        all_records = []
+        for f in list(paths):
+            if f.endswith(".seq"):
+                all_records.extend(file_records(f))
+            else:
+                all_records.extend(read_shard(f))
+        return DataSet.array(all_records)

@@ -1,5 +1,5 @@
 """Text transformers (port of ``bigdl_tpu/dataset/text.py``):
-SentenceSplitter, SentenceTokenizer (its regex path), SentenceBiPadding,
+SentenceSplitter, SentenceTokenizer, SentenceBiPadding,
 Dictionary (with its JSON save and load), TextToLabeledSentence, DocumentPacker and
 LabeledSentenceToSample.  The pipeline is host-side numpy, as in the
 JAX package, and yields the same records for the same text.
@@ -13,6 +13,7 @@ from typing import Iterable, Iterator, Optional
 
 import numpy as np
 
+from bigdl_tpu_torch import native
 from bigdl_tpu_torch.dataset.transformer import Transformer
 from bigdl_tpu_torch.dataset.types import LabeledSentence, Sample
 
@@ -34,12 +35,18 @@ class SentenceSplitter(Transformer):
 
 class SentenceTokenizer(Transformer):
     """Sentence string -> lower-cased token list (words and single
-    punctuation marks)."""
+    punctuation marks).  The host library's tokenizer does the work;
+    the regex is the path under ``BIGDL_TPU_NO_NATIVE=1`` and its
+    oracle."""
 
     _pat = re.compile(r"[A-Za-z0-9']+|[^\sA-Za-z0-9]")
 
     def transform_one(self, sentence: str) -> list[str]:
-        return self._pat.findall(sentence.lower())
+        lowered = sentence.lower()
+        lib = native.get()
+        if lib is not None:
+            return lib.tokenize(lowered)
+        return self._pat.findall(lowered)
 
 
 class SentenceBiPadding(Transformer):

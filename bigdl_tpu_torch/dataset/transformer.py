@@ -1,5 +1,6 @@
 """Transformer combinators (port of ``bigdl_tpu/dataset/transformer.py``:
-``Transformer``, its ``>>`` chaining, ``FuncTransformer``,
+``Transformer``, its ``>>`` chaining (``chain``), ``clone``,
+``FuncTransformer``,
 ``SampleToBatch`` and ``Prefetcher``).
 
 A Transformer maps an iterator to an iterator and chains with ``>>``.
@@ -28,6 +29,16 @@ class Transformer:
 
     def __rshift__(self, other: "Transformer") -> "ChainedTransformer":
         return ChainedTransformer(self, other)
+
+    # `->` in the reference; `>>` here, plus .chain for readability
+    def chain(self, other: "Transformer") -> "ChainedTransformer":
+        return self >> other
+
+    def clone(self) -> "Transformer":
+        """A deep copy: random transformers carry their generator's
+        state into the copy, which then draws on independently."""
+        import copy
+        return copy.deepcopy(self)
 
 
 class ChainedTransformer(Transformer):

@@ -8,9 +8,11 @@ dataset).
     python -m bigdl_tpu_torch.example.load_model --modelType caffe \
         --caffeDefPath deploy.prototxt --model net.caffemodel \
         --modelFactory lenet -f ./mnist
+    python -m bigdl_tpu_torch.example.load_model --modelType bigdl \
+        --model resnet50.bin -f ./shards --dataset imagenet
 
-``--dataset imagenet`` reads record shards, which are not ported yet
-(ROADMAP Queue 1 item 12, 12-DATA).
+``--dataset imagenet`` evaluates over a folder of record shards or
+``.seq`` files: its "val" files, or all of them when none is named so.
 """
 from __future__ import annotations
 
@@ -82,9 +84,11 @@ def _dataset(args):
         return DataSet.array(records) >> (
             image.BGRImgNormalizer(cifar.TRAIN_MEAN, cifar.TRAIN_STD)
             >> image.BGRImgToBatch(args.batchSize))
-    from bigdl_tpu_torch.nn.module import not_ported
-    raise not_ported("--dataset imagenet (record shards, imagenet_shards; "
-                     "12-DATA)")
+    from bigdl_tpu_torch.models.utils import (imagenet_shards,
+                                              imagenet_val_pipe)
+    return DataSet.record_files(
+        imagenet_shards(args.folder, val_fallback="all")[1]) \
+        >> imagenet_val_pipe(args.batchSize)
 
 
 def main(argv=None):

@@ -3,10 +3,12 @@ the same flags and defaults, plus ``--device``).
 
     python -m bigdl_tpu_torch.models.resnet.train -f /path/to/cifar --depth 20
     python -m bigdl_tpu_torch.models.resnet.train --synthetic --device cpu
+    python -m bigdl_tpu_torch.models.resnet.train --dataset imagenet \
+        -f /path/to/shards --depth 50 --dataFormat NHWC
 
-``--dataset imagenet`` reads SequenceFile shards, whose readers are not
-ported yet: it is refused, as ``--distributed`` is (ROADMAP Queue 1 item
-12).
+The ImageNet mode reads a folder of record shards or ``.seq`` files
+(``models/utils`` ``imagenet_seq_datasets``).  ``--distributed`` is
+refused (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -48,13 +50,14 @@ def main(argv=None):
     """Train; returns the optimizer."""
     args = build_parser().parse_args(argv)
     from bigdl_tpu_torch.models.utils import (cifar_datasets,
+                                              imagenet_seq_datasets,
                                               refuse_distributed,
-                                              refuse_imagenet,
                                               resolve_resume,
                                               restore_optim_state)
     refuse_distributed(args)
-    if args.dataset == "imagenet":
-        refuse_imagenet()
+    if args.dataset == "imagenet" and args.synthetic:
+        raise SystemExit("--synthetic is cifar-mode only; imagenet mode "
+                         "reads record/.seq shards from -f")
     resolve_resume(args)
     logging.basicConfig(level=logging.INFO)
 
@@ -63,16 +66,28 @@ def main(argv=None):
     from bigdl_tpu_torch.optim import (SGD, EpochSchedule, Optimizer, Regime,
                                        Top1Accuracy, Trigger)
 
-    train_ds, val_ds = cifar_datasets(args.folder, args.batchSize,
-                                      args.synthetic)
+    if args.dataset == "imagenet":
+        train_ds, val_ds = imagenet_seq_datasets(
+            args.folder, args.batchSize, data_format=args.dataFormat)
+        skeleton = ResNet(args.classNumber, depth=args.depth,
+                          shortcut_type=args.shortcutType,
+                          dataset="imagenet", data_format=args.dataFormat)
+        # the classic ImageNet staircase: lr/10 at epochs 30, 60 and 80
+        schedule = EpochSchedule([Regime(1, 29, 1.0), Regime(30, 59, 0.1),
+                                  Regime(60, 79, 0.01),
+                                  Regime(80, 100000, 0.001)])
+    else:
+        train_ds, val_ds = cifar_datasets(args.folder, args.batchSize,
+                                          args.synthetic)
+        skeleton = ResNet(10, depth=args.depth,
+                          shortcut_type=args.shortcutType,
+                          dataset="cifar10")
+        # the reference's cifar regime: lr, lr/10 after epoch 80, /100
+        # after 121
+        schedule = EpochSchedule([Regime(1, 80, 1.0), Regime(81, 121, 0.1),
+                                  Regime(122, 100000, 0.01)])
     model = (nn.Module.load(args.model, device=args.device) if args.model
-             else ResNet(10, depth=args.depth,
-                         shortcut_type=args.shortcutType,
-                         dataset="cifar10").build(seed=1,
-                                                  device=args.device))
-    # the reference's cifar regime: lr, lr/10 after epoch 80, /100 after 121
-    schedule = EpochSchedule([Regime(1, 80, 1.0), Regime(81, 121, 0.1),
-                              Regime(122, 100000, 0.01)])
+             else skeleton.build(seed=1, device=args.device))
     method = SGD(learning_rate=args.learningRate,
                  weight_decay=args.weightDecay, momentum=args.momentum,
                  dampening=0.0, nesterov=True,

@@ -2,15 +2,17 @@
 the checkpoint plumbing shared by the CLIs (port of
 ``bigdl_tpu/models/utils/__init__.py``: ``lm_corpus``,
 ``lm_sample_pipe``, ``lm_dataset``, ``restore_optim_state``,
-``resolve_resume``; the synthetic corpus of
-``bigdl_tpu/models/rnn/train.py``; and the CIFAR-10 datasets and eval
-main the vgg and resnet CLIs share).  The ImageNet SequenceFile path
-(``imagenet_seq_datasets``) waits for the SequenceFile readers.
+``resolve_resume``, the ImageNet record-shard path
+``imagenet_seq_datasets``/``imagenet_shards``/``imagenet_val_pipe``; the
+synthetic corpus of ``bigdl_tpu/models/rnn/train.py``; and the CIFAR-10
+datasets and eval main the vgg and resnet CLIs share).
 
 The package also holds the measurement CLIs ``attention_bench`` (the
 flash train step against plain attention, and the tile sweep into the
-tuning cache), ``lm_perf`` (TransformerLM train-step throughput) and
-``perf`` (the image classifiers' train-step throughput)."""
+tuning cache), ``lm_perf`` (TransformerLM train-step throughput),
+``perf`` (the image classifiers' train-step throughput) and
+``pipeline_bench`` (ResNet-50 fed from record shards against
+device-resident data), and the shard generator ``seqfile_generator``."""
 from __future__ import annotations
 
 import logging
@@ -121,12 +123,65 @@ def refuse_distributed(args) -> None:
                          "item 12: DistriOptimizer)")
 
 
-def refuse_imagenet() -> None:
-    """The ImageNet mode reads SequenceFile shards: not ported yet."""
-    raise SystemExit("--dataset imagenet reads SequenceFile shards, and the "
-                     "SequenceFile readers (dataset/seqfile.py, "
-                     "dataset/hadoop_seqfile.py) are not ported yet (ROADMAP "
-                     "Queue 1 item 12)")
+IMAGENET_BGR_MEAN = (104.0, 117.0, 123.0)
+IMAGENET_BGR_STD = (1.0, 1.0, 1.0)
+
+
+def imagenet_seq_datasets(folder: str, batch_size: int,
+                          distributed: bool = False,
+                          data_format: str = "NCHW"):
+    """The reference's ImageNet input path, shared by the conv-net CLIs
+    (ref dataset/DataSet.scala:380-433 SeqFileFolder + the ImageNet2012
+    pipeline): shard folder -> per-record decode (record shards or
+    .seq) -> 224 random crop and flip (train) / center crop (val) ->
+    normalize -> threaded batcher.  Returns (train_ds, val_ds)."""
+    from bigdl_tpu_torch.dataset import image
+    from bigdl_tpu_torch.dataset.hadoop_seqfile import AnyBytesToBGRImg
+
+    train, val = imagenet_shards(folder)
+    train_ds = DataSet.record_files(train, distributed=distributed)
+    val_ds = DataSet.record_files(val)
+    train_pipe = image.MTLabeledBGRImgToBatch(
+        224, 224, batch_size,
+        AnyBytesToBGRImg() >> image.BGRImgRdmCropper(224, 224)
+        >> image.HFlip(0.5)
+        >> image.BGRImgNormalizer(IMAGENET_BGR_MEAN, IMAGENET_BGR_STD),
+        data_format=data_format)
+    val_pipe = imagenet_val_pipe(batch_size, data_format=data_format)
+    return train_ds >> train_pipe, val_ds >> val_pipe
+
+
+def imagenet_shards(folder: str, val_fallback: str = "first"
+                    ) -> tuple[list, list]:
+    """(train shards, val shards) under a folder, split by file name.
+    When no name contains "val", the val list is per ``val_fallback``:
+    "first" (one shard: cheap validation during training, the train
+    CLIs' rule) or "all" (the evaluation CLIs: accuracy over one of
+    many unlabeled shards would mislead)."""
+    import glob
+    import os
+
+    if val_fallback not in ("first", "all"):
+        raise ValueError(f"val_fallback must be 'first'|'all', got "
+                         f"{val_fallback!r}")
+    shards = sorted(glob.glob(os.path.join(folder, "*")))
+    train = [s for s in shards if "train" in os.path.basename(s)] or shards
+    val = [s for s in shards if "val" in os.path.basename(s)] or (
+        shards[:1] if val_fallback == "first" else shards)
+    return train, val
+
+
+def imagenet_val_pipe(batch_size: int, data_format: str = "NCHW"):
+    """The center-crop evaluation pipeline (what the evaluation CLIs
+    need on their own)."""
+    from bigdl_tpu_torch.dataset import image
+    from bigdl_tpu_torch.dataset.hadoop_seqfile import AnyBytesToBGRImg
+
+    return image.MTLabeledBGRImgToBatch(
+        224, 224, batch_size,
+        AnyBytesToBGRImg() >> image.BGRImgCropper(224, 224)
+        >> image.BGRImgNormalizer(IMAGENET_BGR_MEAN, IMAGENET_BGR_STD),
+        data_format=data_format)
 
 
 def cifar_datasets(folder: str, batch_size: int, synthetic: bool):

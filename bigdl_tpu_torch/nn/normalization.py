@@ -77,6 +77,11 @@ class BatchNormalization(Module):
             mean, var = mean.clone(), var.clone()  # updated in place below
         w = params.get("weight") if self.affine else None
         b = params.get("bias") if self.affine else None
+        if w is not None and w.dtype != mean.dtype:
+            # bf16 weights cast from float32 masters beside float32
+            # statistics: F.batch_norm's mixed form wants the affine pair
+            # in the statistics' dtype (the output keeps x's)
+            w, b = w.to(mean.dtype), b.to(mean.dtype)
         y = F.batch_norm(xc, mean, var, w, b, training=training,
                          momentum=self.momentum, eps=self.eps)
         if x.ndim == 4:

@@ -1,17 +1,21 @@
 """Torch7-compatible Mersenne-Twister RNG on the host (port of
-``bigdl_tpu/utils/rng.py``, its pure-Python MT19937 path).
+``bigdl_tpu/utils/rng.py``).
 
 Standard MT19937 (state N=624, M=397) with Torch's seeding and its
 53-bit doubles, so ``randperm`` gives the JAX package's permutation for
-the same seed (its native backend, ``csrc/bigdl_tpu_native.cpp``): the
-data pipeline's epoch shuffles match it record for record.  The JAX
-package's pure-Python fallback is not copied as it stands: its
+the same seed: the data pipeline's epoch shuffles match it record for
+record.  The draws run in the port's host library
+(``bigdl_tpu_torch/native``, the generator's state lives there); with
+``BIGDL_TPU_NO_NATIVE=1`` they run in Python, bit for bit the same.
+The JAX package's pure-Python fallback is not copied as it stands: its
 vectorized block update reads words 227-395 before their update, so it
 leaves the standard sequence at the 455th draw.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from bigdl_tpu_torch import native
 
 _N = 624
 _M = 397
@@ -24,10 +28,46 @@ class RandomGenerator:
     def __init__(self, seed: int = 5489):
         self._mt = np.zeros(_N, dtype=np.uint64)
         self._mti = _N + 1
+        self._native = None
+        self._lib = native.get()
+        if self._lib is not None:
+            self._native = self._lib.mt_new(seed)
         self.set_seed(seed)
+
+    def __del__(self):
+        handle = getattr(self, "_native", None)
+        if handle is not None:
+            try:  # may run at interpreter exit, with ctypes half torn down
+                self._lib.mt_free(handle)
+            except Exception:
+                pass
+
+    def __getstate__(self) -> dict:
+        """A copy or pickle carries the generator's state, never the
+        native handle (two owners of one handle would free it twice)."""
+        state = {k: v for k, v in self.__dict__.items()
+                 if k not in ("_native", "_lib")}
+        if self._native is not None:
+            state["_native_state"] = self._lib.mt_get_state(self._native)
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        native_state = state.pop("_native_state", None)
+        self.__dict__.update(state)
+        self._native = None
+        self._lib = native.get() if native_state is not None else None
+        if self._lib is not None:
+            self._native = self._lib.mt_new(self._seed)
+            self._lib.mt_set_state(self._native, *native_state)
+        elif native_state is not None:  # the Python path resumes it
+            self._mt = np.asarray(native_state[0], dtype=np.uint64)
+            self._mti = native_state[1]
 
     def set_seed(self, seed: int) -> "RandomGenerator":
         self._seed = seed
+        if self._native is not None:
+            self._lib.mt_set_seed(self._native, seed)
+            return self
         mt = self._mt
         mt[0] = seed & 0xFFFFFFFF
         for i in range(1, _N):
@@ -58,6 +98,8 @@ class RandomGenerator:
         self._mti = 0
 
     def random_int(self) -> int:
+        if self._native is not None:
+            return self._lib.mt_random_int(self._native)
         if self._mti >= _N:
             self._generate()
         y = int(self._mt[self._mti])
@@ -72,6 +114,8 @@ class RandomGenerator:
 
     def random(self) -> float:
         """53-bit double in [0, 1)."""
+        if self._native is not None:
+            return self._lib.mt_random(self._native)
         a = self.random_int() >> 5
         b = self.random_int() >> 6
         return (a * 67108864.0 + b) * (1.0 / 9007199254740992.0)
@@ -81,6 +125,8 @@ class RandomGenerator:
 
     def randperm(self, n: int) -> np.ndarray:
         """1-based random permutation (Torch randperm semantics)."""
+        if self._native is not None:
+            return self._lib.mt_randperm(self._native, n)
         perm = np.arange(1, n + 1)
         for i in range(n - 1, 0, -1):
             j = int(self.random() * (i + 1))

@@ -3,11 +3,13 @@
 
 tfevents records are framed as ``len + masked_crc(len) + payload +
 masked_crc(payload)`` where ``masked = ((crc >> 15 | crc << 17) +
-0xa282ead8) & 0xffffffff``.  The port has no native library yet, so the
-table-driven pure-Python path is the only one: the reference takes the
-same path when its native library is not built.
+0xa282ead8) & 0xffffffff``.  The CRC runs in the port's host library
+(``bigdl_tpu_torch/native``); the table-driven ``crc32c_py`` is the
+path under ``BIGDL_TPU_NO_NATIVE=1`` and the tests' oracle.
 """
 from __future__ import annotations
+
+from bigdl_tpu_torch import native
 
 _POLY = 0x82F63B78  # reflected Castagnoli polynomial
 
@@ -31,6 +33,9 @@ def crc32c_py(data: bytes, crc: int = 0) -> int:
 
 
 def crc32c(data: bytes, crc: int = 0) -> int:
+    lib = native.get()
+    if lib is not None:
+        return lib.crc32c(data, crc)
     return crc32c_py(data, crc)
 
 

@@ -329,6 +329,31 @@ result line:
    count of trees the script drew: every phase takes its LM weights from
    one host draw per (config, seed), copied to the card per model.
 
+21. data: the record-shard ImageNet path and the host library (no
+   kernel of the port, 0 launches; cuDNN through the conv layers).
+   The host library builds from ``bigdl_tpu_torch/csrc/host_native.cpp``
+   with g++.  D1: ``pipeline_bench`` at the reference's defaults (batch
+   256, 20 timed steps after 3, 2,048 stored 256x256x3 records in 8
+   shards, crop 224): the bf16 ResNet-50 step's images/s on
+   device-resident data and fed from the shards (native crop/flip/pack,
+   the Prefetcher, the copy from pageable memory), their ratio, the copy
+   of one batch, the peak of allocated memory, and the host-only
+   delivery rate with its headroom over this run's synthetic rate; the
+   first fed batch through the native batcher and the Python path
+   (bitwise equal); one step at batch 2 on the card against the port's
+   CPU step from the same uint8 batch (loss within 2e-2 relative, every
+   float32 master leaf finite).  D2: a seeded PNG tree (4 classes, 96
+   train and 32 val images near 256x256) through ``seqfile_generator
+   --validate``, the same images as uncompressed, record- and
+   block-compressed ``.seq`` files, ``record_files`` over the mixed
+   folder equal through the native and the Python index; then the
+   CLIs: ``resnet.train --dataset imagenet --depth 50 --shortcutType B
+   --classNumber 1000 -b 32 -e 1`` on the mixed folder,
+   ``inception.train --modelName inception_v1 -b 32 -i 3`` on the
+   shards and ``inception.test`` on its model, ``load_model --dataset
+   imagenet`` with the trained ResNet-50; every loss finite, every
+   validation printed.  The phase within 120 s.
+
 Every serving engine must keep its captures bounded: prefill entries at
 most the buckets, one decode graph, one verify graph (one per tree
 rung), at most one commit graph, one drafter decode graph (none for the
@@ -511,6 +536,15 @@ RNN = dict(lm=(("simple_rnn", 40), ("lstm_lm", 128)), vocab=4000,
 IO = dict(images=32, src_seed=1, dst_seed=2, tol_card=1e-5, tol_cpu=1e-3,
           dlc_rows=100, dlc_batch=32, mnist_rows=2048, png_per_class=4,
           limit_s=240.0)
+# the data phase: D1 pipeline_bench at the reference's defaults
+# (pipeline_bench.py main), the batch-2 card-vs-CPU step within tol_loss
+# (bf16); D2 a PNG tree of `classes` classes, train_per_class and
+# val_per_class images of `image_sizes` (cycled), through the generator,
+# three .seq flavors and the ImageNet CLIs at cli_batch
+DATA = dict(batch=256, iters=20, warmup=3, records=2048, check_batch=2,
+            tol_loss=2e-2, classes=4, train_per_class=24, val_per_class=8,
+            image_sizes=((256, 256), (248, 264), (264, 240)), shards=4,
+            cli_batch=32, inception_iters=3, limit_s=120.0)
 
 
 def log(msg: str) -> None:
@@ -5996,6 +6030,356 @@ def phase_io(dev, io=IO, smi=""):
     return out
 
 
+def _png_tree(root, data):
+    """``<root>/<split>/<class>/<i>.png`` from seed 0: dark noise with
+    the class's color channel raised (a learnable tie), sizes cycled
+    through ``data["image_sizes"]``."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.RandomState(0)
+    sizes, k = data["image_sizes"], 0
+    for split, n in (("train", data["train_per_class"]),
+                     ("val", data["val_per_class"])):
+        for c in range(data["classes"]):
+            d = os.path.join(root, split, f"class{c}")
+            os.makedirs(d)
+            for i in range(n):
+                h, w = sizes[k % len(sizes)]
+                k += 1
+                arr = rng.randint(0, 60, size=(h, w, 3)).astype(np.uint8)
+                arr[:, :, c % 3] += np.uint8(120)
+                Image.fromarray(arr).save(os.path.join(d, f"{i:03d}.png"))
+
+
+class _python_paths:
+    """Inside it, the port takes its Python paths
+    (``BIGDL_TPU_NO_NATIVE=1``) in place of the host library."""
+
+    def __enter__(self):
+        os.environ["BIGDL_TPU_NO_NATIVE"] = "1"
+
+    def __exit__(self, *exc):
+        os.environ.pop("BIGDL_TPU_NO_NATIVE", None)
+
+
+def _record_pairs(files):
+    """(bytes, label) of every record of ``DataSet.record_files(files)``."""
+    from bigdl_tpu_torch.dataset import DataSet
+    return [(r.data, float(r.label)) for r in
+            DataSet.record_files(files).data(train=False)]
+
+
+def _first_fed_batch(paths, batch):
+    """``pipeline_bench.batch_stream``'s first batch."""
+    from bigdl_tpu_torch.models.utils import pipeline_bench as pb
+    stream = pb.batch_stream(paths, batch)
+    try:
+        return next(stream)
+    finally:
+        stream.close()
+
+
+def _host_stages(paths, batch, repeats=3):
+    """Host ms of the feed's stages, one at a time: ``read_shard`` of one
+    shard with its index built (every payload's CRC checked) and from
+    the index cache, and one native crop/flip/pack of ``batch`` records
+    on ``batch_stream``'s threads (median of ``repeats``)."""
+    import numpy as np
+    from bigdl_tpu_torch import native
+    from bigdl_tpu_torch.dataset import seqfile
+    from bigdl_tpu_torch.models.utils import pipeline_bench as pb
+
+    def ms(fn):
+        t0 = time.perf_counter()
+        r = fn()
+        return (time.perf_counter() - t0) * 1e3, r
+
+    seqfile._INDEX_CACHE.clear()
+    cold, recs = ms(lambda: list(seqfile.read_shard(paths[0])))
+    warm = statistics.median(ms(lambda: list(seqfile.read_shard(paths[0])))[0]
+                             for _ in range(repeats))
+    rng = np.random.RandomState(0)
+    span = pb.STORED - pb.CROP
+    records = [recs[i % len(recs)].data for i in range(batch)]
+    cy, cx = rng.randint(0, span + 1, batch), rng.randint(0, span + 1, batch)
+    flips = rng.randint(0, 2, batch)
+    threads = max(4, (os.cpu_count() or 8) // 2)  # batch_stream's
+    lib = native.get()
+    packs = [ms(lambda: lib.crop_flip_pack(records, pb.STORED, pb.STORED,
+                                           pb.CROP, cy, cx, flips,
+                                           threads))[0]
+             for _ in range(repeats + 1)][1:]
+    return dict(shard_records=len(recs),
+                shard_mb=os.path.getsize(paths[0]) / 1e6,
+                read_shard_indexing_ms=cold, read_shard_cached_ms=warm,
+                pack_ms=statistics.median(packs),
+                pack_threads=min(threads, max(1, batch // 8)),
+                host_cpus=os.cpu_count())
+
+
+def phase_data(dev, data=DATA, smi=""):
+    """The record-shard ImageNet path on ``dev`` (see the module
+    docstring, item 21): D1 ``pipeline_bench`` and its checks, D2 the
+    record formats and the ImageNet CLIs.  Returns the rows."""
+    import contextlib
+    import glob
+    import io as sio
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import native
+    from bigdl_tpu_torch.dataset import hadoop_seqfile as hs
+    from bigdl_tpu_torch.dataset import image
+    from bigdl_tpu_torch.dataset.types import ByteRecord
+    from bigdl_tpu_torch.example import load_model
+    from bigdl_tpu_torch.models.inception import test as inception_test
+    from bigdl_tpu_torch.models.inception import train as inception_train
+    from bigdl_tpu_torch.models.resnet import train as resnet_train
+    from bigdl_tpu_torch.models.utils import pipeline_bench as pb
+    from bigdl_tpu_torch.models.utils import seqfile_generator
+    from bigdl_tpu_torch.utils import keychain
+    from bigdl_tpu_torch.utils.pytree import tree_leaves
+    t_phase = time.perf_counter()
+    guarded = _repo_files_state(("flight", "TUNNEL_INCIDENTS.json"))
+    _reset_launches()
+    t0 = time.perf_counter()
+    lib = native.get()
+    out = dict(native_build_s=time.perf_counter() - t0,
+               native_library=str(native.library_path()))
+    if lib is None:
+        raise AssertionError("[data] the host library is switched off "
+                             "(BIGDL_TPU_NO_NATIVE)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        # D1: pipeline_bench at the reference's defaults
+        work = os.path.join(tmp, "pipe")
+        os.makedirs(work)
+        d1 = pb.run(data["batch"], data["iters"], data["warmup"], work,
+                    data["records"], device=dev)
+        if not d1["native_batcher"]:
+            raise AssertionError("[data] D1 ran without the native batcher")
+        losses = list(d1["last_loss"].values())
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"[data] D1 losses {losses}")
+        paths = sorted(glob.glob(os.path.join(work, "imagenet-*")))
+        x, y = _first_fed_batch(paths, data["batch"])
+        with _python_paths():
+            px, py = _first_fed_batch(paths, data["batch"])
+        fed_equal = bool(np.array_equal(x, px) and np.array_equal(y, py))
+        if not fed_equal:
+            raise AssertionError("[data] the first fed batch differs "
+                                 "between the native and the Python path")
+        host = pb.run_host_only(data["batch"], data["iters"],
+                                data["warmup"], work, data["records"],
+                                card_rate=d1["synthetic_img_s"])
+        stages = _host_stages(paths, data["batch"])
+        log(f"[data] D1 pipeline_bench batch {data['batch']}, "
+            f"{data['iters']} steps after {data['warmup']}, "
+            f"{data['records']} stored records: synthetic_img_s "
+            f"{d1['synthetic_img_s']:.2f} ({d1['synthetic_step_ms']:.3f} ms a "
+            f"step), pipeline_img_s {d1['pipeline_img_s']:.2f} "
+            f"({d1['pipeline_step_ms']:.3f} ms; of it blocked on the "
+            f"Prefetcher {d1['pipeline_wait_ms']:.3f} ms, in the copy call "
+            f"{d1['pipeline_copy_call_ms']:.3f} ms), ratio "
+            f"{d1['ratio']:.4f}; "
+            f"batch copy {d1['input_copy_ms']:.3f} ms for "
+            f"{d1['input_bytes']} bytes; peak allocated "
+            f"{_mib(d1['peak_bytes'])}; native_batcher: "
+            f"{str(d1['native_batcher']).lower()} | {smi}")
+        log(f"[data] D1 host-only delivery {host['value']:.2f} images/s, "
+            f"headroom {host['headroom_vs_card_rate']:.3f} over this run's "
+            f"synthetic rate; native_batcher: "
+            f"{str(host['native_batcher']).lower()}; first fed batch native "
+            f"vs Python bitwise equal: {str(fed_equal).lower()} | {smi}")
+        log(f"[data] D1 host stages: read_shard of one "
+            f"{stages['shard_mb']:.1f} MB shard ({stages['shard_records']} "
+            f"records) {stages['read_shard_indexing_ms']:.3f} ms indexing "
+            f"(every CRC checked), {stages['read_shard_cached_ms']:.3f} ms "
+            f"from the index cache; pack of {data['batch']} on "
+            f"{stages['pack_threads']} threads {stages['pack_ms']:.3f} ms; "
+            f"{stages['host_cpus']} host CPUs | {smi}")
+        # one step at check_batch on the card against the CPU
+        n = data["check_batch"]
+        xb, yb = np.ascontiguousarray(x[:n]), np.ascontiguousarray(y[:n])
+        key = keychain.prng_key(0)
+        losses = {}
+        for where in (dev, torch.device("cpu")):
+            step, params, buffers, opt_state = pb._train_pieces(n, where)
+            params, _, _, loss = step(params, buffers, opt_state,
+                                      torch.as_tensor(xb, device=where),
+                                      torch.as_tensor(yb, device=where), key)
+            losses[where.type] = float(loss)
+            bad = [i for i, a in enumerate(tree_leaves(params))
+                   if a.dtype != torch.float32 or not torch.isfinite(a).all()]
+            if bad:
+                raise AssertionError(f"[data] {where.type} step: master "
+                                     f"leaves {bad[:5]} not finite float32")
+            del step, params, buffers, opt_state
+        rel = abs(losses[dev.type] - losses["cpu"]) / abs(losses["cpu"])
+        if not rel <= data["tol_loss"]:
+            raise AssertionError(f"[data] batch-{n} step loss on the card "
+                                 f"{losses[dev.type]} vs the CPU "
+                                 f"{losses['cpu']}: {rel:.3e} relative "
+                                 f"(tolerance {data['tol_loss']})")
+        log(f"[data] D1 batch-{n} step from the first fed batch: loss card "
+            f"{losses[dev.type]:.6f}, CPU {losses['cpu']:.6f}, relative "
+            f"{rel:.3e} (tolerance {data['tol_loss']}); masters finite "
+            f"float32 | {smi}")
+        out["d1"] = dict(d1, host_only=host, fed_equal=fed_equal,
+                         host_stages=stages, check_losses=losses,
+                         check_rel=rel)
+        del x, y, px, py
+        shutil.rmtree(work, ignore_errors=True)
+        release(dev)
+
+        # D2: the record formats and the ImageNet CLIs
+        tree = os.path.join(tmp, "tree")
+        shards = os.path.join(tmp, "shards")
+        mixed = os.path.join(tmp, "mixed")
+        _png_tree(tree, data)
+        buf = sio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            counts = seqfile_generator.main(
+                ["-f", tree, "-o", shards, "-p", str(data["shards"]),
+                 "--validate"])
+        want = {"train": data["classes"] * data["train_per_class"],
+                "val": data["classes"] * data["val_per_class"]}
+        if counts != want:
+            raise AssertionError(f"[data] seqfile_generator counts {counts}")
+        os.makedirs(mixed)
+        for f in sorted(os.listdir(shards)):
+            os.symlink(os.path.join(shards, f), os.path.join(mixed, f))
+        decode = image.BytesToBGRImg()
+        for split in ("train", "val"):
+            imgs = []
+            for path, label in seqfile_generator._scan_split(
+                    os.path.join(tree, split)):
+                with open(path, "rb") as f:
+                    imgs.append(decode.transform_one(
+                        ByteRecord(f.read(), label)))
+            hs.SeqFileFolder.write_bgr_images(
+                imgs, os.path.join(mixed, f"{split}_raw"), block_size=64)
+            pairs = [(str(int(im.label)).encode(),
+                      hs.encode_bgr_image(im.data)) for im in imgs]
+            for flavor in ("record", "block"):
+                hs.write_sequence_file(
+                    os.path.join(mixed, f"{split}_{flavor}.seq"), pairs,
+                    compression=flavor)
+        files = sorted(os.path.join(mixed, f) for f in os.listdir(mixed))
+        fast = _record_pairs(files)
+        with _python_paths():
+            slow = _record_pairs(files)
+        n_records = 4 * (want["train"] + want["val"])
+        if fast != slow or len(fast) != n_records:
+            raise AssertionError(f"[data] record_files over the mixed folder:"
+                                 f" {len(fast)} native and {len(slow)} "
+                                 f"Python records (want {n_records}), equal "
+                                 f"{fast == slow}")
+        log(f"[data] D2 seqfile_generator {counts} -> {data['shards']} "
+            f"shards a split, validated; mixed folder of {len(files)} files "
+            f"(shards, uncompressed, record- and block-compressed .seq): "
+            f"{len(fast)} records, native and Python index equal | {smi}")
+        logger = logging.getLogger("bigdl_tpu_torch.optim")
+
+        def train_cli(label, main_fn, argv):
+            record, level = _IterationLog(), logger.level
+            logger.setLevel(logging.INFO)
+            logger.addHandler(record)
+            try:
+                opt = main_fn(argv + ["--device", dev.type])
+            finally:
+                logger.removeHandler(record)
+                logger.setLevel(level)
+            if not (record.losses and np.isfinite(record.losses).all()):
+                raise AssertionError(f"[data] D2 {label} losses "
+                                     f"{record.losses}")
+            return opt, record.losses
+
+        def eval_cli(label, main_fn, argv):
+            buf = sio.StringIO()
+            with contextlib.redirect_stdout(buf):
+                results = main_fn(argv + ["--device", dev.type])
+            printed = buf.getvalue().strip()
+            if "Top1Accuracy is" not in printed or \
+                    "Top5Accuracy is" not in printed:
+                raise AssertionError(f"[data] D2 {label} printed "
+                                     f"{printed!r}")
+            return results, printed
+
+        cli = {}
+        b = str(data["cli_batch"])
+        t0 = time.perf_counter()
+        opt, losses = train_cli("resnet.train", resnet_train.main, [
+            "--dataset", "imagenet", "-f", mixed, "--depth", "50",
+            "--shortcutType", "B", "--classNumber", "1000", "-b", b,
+            "-e", "1"])
+        (method, result), = opt.validation_results
+        if str(method) != "Top1Accuracy":
+            raise AssertionError(f"[data] D2 resnet.train validation "
+                                 f"{method}")
+        cli["resnet_train"] = dict(steps=len(losses), first_loss=losses[0],
+                                   last_loss=losses[-1],
+                                   validation=str(result),
+                                   seconds=time.perf_counter() - t0)
+        log(f"[data] D2 resnet.train --dataset imagenet --depth 50 "
+            f"--shortcutType B --classNumber 1000 -b {b} -e 1: "
+            f"{len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+            f"validation {method} is {result}, "
+            f"{cli['resnet_train']['seconds']:.1f} s | {smi}")
+        resnet_path = os.path.join(tmp, "resnet50.bin")
+        opt.model.save(resnet_path)
+        del opt
+        t0 = time.perf_counter()
+        opt, losses = train_cli("inception.train", inception_train.main, [
+            "-f", shards, "--modelName", "inception_v1", "-b", b,
+            "-i", str(data["inception_iters"])])
+        if len(losses) != data["inception_iters"]:
+            raise AssertionError(f"[data] D2 inception.train ran "
+                                 f"{len(losses)} steps")
+        inception_path = os.path.join(tmp, "inception_v1.bin")
+        opt.model.save(inception_path)
+        del opt
+        results, printed = eval_cli("inception.test", inception_test.main, [
+            "-f", shards, "--model", inception_path, "-b", b])
+        cli["inception"] = dict(steps=len(losses), first_loss=losses[0],
+                                last_loss=losses[-1], test=printed,
+                                seconds=time.perf_counter() - t0)
+        log(f"[data] D2 inception.train --modelName inception_v1 -b {b} -i "
+            f"{data['inception_iters']}: loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; inception.test: "
+            f"{printed.replace(chr(10), '; ')} | {smi}")
+        t0 = time.perf_counter()
+        results, printed = eval_cli("load_model", load_model.main, [
+            "--modelType", "bigdl", "--model", resnet_path, "-f", mixed,
+            "--dataset", "imagenet", "-b", b])
+        if results[0][1].count != 4 * want["val"]:
+            raise AssertionError(f"[data] D2 load_model counted "
+                                 f"{results[0][1].count} records")
+        cli["load_model"] = dict(results=printed,
+                                 seconds=time.perf_counter() - t0)
+        log(f"[data] D2 load_model --modelType bigdl --dataset imagenet "
+            f"(the trained ResNet-50): {printed.replace(chr(10), '; ')} "
+            f"| {smi}")
+        out["d2"] = dict(counts=counts, files=len(files), records=len(fast),
+                         cli=cli)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if _repo_files_state(("flight", "TUNNEL_INCIDENTS.json")) != guarded:
+        raise AssertionError("the data phase changed the repository's "
+                             "flight/ or TUNNEL_INCIDENTS.json")
+    out["launches"] = _launches()
+    if any(out["launches"].values()):
+        raise AssertionError(f"[data] the port's kernels launched on the "
+                             f"data path: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    if dev.type == "cuda" and out["seconds"] > data["limit_s"]:
+        raise AssertionError(f"[data] the phase took {out['seconds']:.1f} "
+                             f"s, over {data['limit_s']} s")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
         print("chip_smoke.py: the bigdl_tpu_torch package is not beside "
@@ -6305,6 +6689,23 @@ def main() -> int:
     log("[io] summary: " + json.dumps(
         {k: io[k] for k in ("formats", "dlc", "gpt2_build_s", "tree_draws",
                             "launches", "seconds")}) + f" | {smi}")
+    log_allocated("data")
+    release(dev)
+    t0 = time.perf_counter()
+    data = phase_data(dev, smi=smi)
+    phases["data"] = time.perf_counter() - t0
+    d1 = data["d1"]
+    log("[data] summary: " + json.dumps(
+        {"d1": {k: d1[k] for k in (
+            "synthetic_img_s", "pipeline_img_s", "ratio", "input_copy_ms",
+            "pipeline_wait_ms", "pipeline_copy_call_ms",
+            "peak_bytes", "native_batcher", "fed_equal", "check_rel")},
+         "host_only_img_s": d1["host_only"]["value"],
+         "host_stages": d1["host_stages"],
+         "headroom_vs_card_rate": d1["host_only"]["headroom_vs_card_rate"],
+         "d2": data["d2"], "native_build_s": data["native_build_s"],
+         "launches": data["launches"], "seconds": data["seconds"]})
+        + f" | {smi}")
     log("[done] phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()))
 
@@ -6322,7 +6723,9 @@ def main() -> int:
                  ckpt=ckpt["launches"], gpt2=gpt2["launches"],
                  obs=total(*(obs[p]["launches"]
                              for p in ("o1", "o2", "o3", "o4", "o5"))),
-                 tune=tune["launches"], io=io["launches"])
+                 tune=tune["launches"], cnn=cnn["launches"],
+                 rnn=rnn["launches"], io=io["launches"],
+                 data=data["launches"])
 
     def by_path(symbol, names):
         return {p: paths[p][symbol] for p in names}
@@ -6330,6 +6733,8 @@ def main() -> int:
     serving = ("serve", "serve_sampled", "spec", "quant", "tier", "replicas",
                "moe", "obs", "tune")
     training = ("train", "moe", "accum", "ckpt", "obs", "batch")
+    # the paths on cuDNN and the host, which launch none of the kernels
+    hosted = ("cnn", "rnn", "io", "data")
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_fwd.cu",
@@ -6337,28 +6742,28 @@ def main() -> int:
              launches=serve["launches"]["bigdl_flash_fwd"],
              launches_by_path=by_path("bigdl_flash_fwd",
                                       serving + ("batch", "train", "accum",
-                                                 "ckpt", "gpt2", "io")),
+                                                 "ckpt", "gpt2") + hosted),
              **flash_main),
         dict(name="paged_decode", route="cuda",
              source="bigdl_tpu_torch/csrc/paged_decode.cu",
              replaces="bigdl_tpu/ops/paged_attention.py:34",
              launches=serve["launches"]["bigdl_paged_decode"],
              launches_by_path=by_path("bigdl_paged_decode",
-                                      serving + ("io",)),
+                                      serving + hosted),
              **paged_main),
         dict(name="flash_bwd_dkv", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_bwd.cu",
              replaces="bigdl_tpu/ops/flash_attention.py:199",
              launches=train["launches"]["bigdl_flash_bwd_dkv"],
              launches_by_path=by_path("bigdl_flash_bwd_dkv",
-                                      training + ("io",)),
+                                      training + hosted),
              **dkv_main),
         dict(name="flash_bwd_dq", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_bwd.cu",
              replaces="bigdl_tpu/ops/flash_attention.py:262",
              launches=train["launches"]["bigdl_flash_bwd_dq"],
              launches_by_path=by_path("bigdl_flash_bwd_dq",
-                                      training + ("io",)),
+                                      training + hosted),
              **dq_main),
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

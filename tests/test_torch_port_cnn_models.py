@@ -420,8 +420,6 @@ def test_lenet_cli_trains_checkpoints_and_evaluates(tmp_path, capsys):
 def test_resnet_and_vgg_clis_refuse_what_waits():
     from bigdl_tpu_torch.models.resnet import train as resnet_train
     from bigdl_tpu_torch.models.vgg import train as vgg_train
-    with pytest.raises(SystemExit, match="SequenceFile"):
-        resnet_train.main(["--dataset", "imagenet", "--device", "cpu"])
     for main in (resnet_train.main, vgg_train.main):
         with pytest.raises(SystemExit, match="item 12"):
             main(["--synthetic", "--distributed", "--device", "cpu"])

@@ -255,13 +255,6 @@ class TestLoadModelExample:
             main(["--modelType", "caffe", "--model", lenet_file,
                   "-f", str(tmp_path), "--device", "cpu"])
 
-    def test_imagenet_names_its_item(self, lenet_file, tmp_path):
-        from bigdl_tpu_torch.example.load_model import main
-        with pytest.raises(NotImplementedError, match="12-DATA"):
-            main(["--modelType", "bigdl", "--model", lenet_file,
-                  "-f", str(tmp_path), "--dataset", "imagenet",
-                  "--device", "cpu"])
-
 
 def _named_leaves(model):
     """(caffe name, params) of each parameterized leaf, the names the

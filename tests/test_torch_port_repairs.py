@@ -212,14 +212,8 @@ WAITING = {
         "bigdl_tpu.parallel": "*",
         "bigdl_tpu.dataset": {"DistributedDataSet"},
     },
-    "12-DATA": {
-        "bigdl_tpu.models.utils": {"IMAGENET_BGR_MEAN", "IMAGENET_BGR_STD",
-                                   "imagenet_seq_datasets", "imagenet_shards",
-                                   "imagenet_val_pipe"},
-    },
     "12-HOST": {
         "bigdl_tpu.tensor": "*",
-        "bigdl_tpu.native": "*",
         "bigdl_tpu.quant": {"qconv", "qconv_i8"},
     },
     "11.7": {
