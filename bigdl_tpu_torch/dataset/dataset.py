@@ -1,14 +1,16 @@
-"""DataSet sources (port of ``bigdl_tpu/dataset/dataset.py``, local
-datasets only: arrays, image folders and packed record files).
+"""DataSet sources (port of ``bigdl_tpu/dataset/dataset.py``: arrays,
+image folders and packed record files, local or distributed).
 
 ``LocalArrayDataSet`` holds in-memory records with an epoch reshuffle
 drawn from the Torch-compatible MT19937 (``utils/rng.py``), so the same
-seed gives the JAX package's record order.
+seed gives the JAX package's record order.  ``DistributedDataSet`` is
+one rank's shard of a global record list: rank r of a world of W holds
+``records[r::W]``, shuffled from seed ``seed + r``.
 """
 from __future__ import annotations
 
 import os
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -80,10 +82,45 @@ class LocalArrayDataSet(LocalDataSet):
         return iter(self.records)
 
 
-def _refuse_distributed():
-    raise NotImplementedError(
-        "distributed datasets are not ported yet (ROADMAP Queue 1 item 12, "
-        "12-DIST: DistriOptimizer)")
+class DistributedDataSet(AbstractDataSet):
+    """One rank's shard of a global dataset (ref DistributedDataSet
+    :163 and CachedDistriDataSet :202-262): the global record list split
+    round-robin across the ranks of ``torch.distributed`` (rank 0 of a
+    world of one when no world runs), so every rank holds about 1/W of
+    the data and only ever touches its own shard."""
+
+    def __init__(self, records: Sequence, process_index: Optional[int] = None,
+                 process_count: Optional[int] = None, seed: int = 1):
+        import torch.distributed as dist
+        running = dist.is_available() and dist.is_initialized()
+        pi = (dist.get_rank() if running else 0) \
+            if process_index is None else process_index
+        pc = (dist.get_world_size() if running else 1) \
+            if process_count is None else process_count
+        self.global_size = len(records)
+        self.local = LocalArrayDataSet(list(records)[pi::pc], seed=seed + pi)
+        self.process_index = pi
+        self.process_count = pc
+
+    def size(self) -> int:
+        return self.global_size
+
+    def local_size(self) -> int:
+        return self.local.size()
+
+    def shuffle(self) -> None:
+        self.local.shuffle()
+
+    def data(self, train: bool) -> Iterator:
+        return self.local.data(train)
+
+
+def is_distributed(dataset: AbstractDataSet) -> bool:
+    """Whether ``dataset`` reads a ``DistributedDataSet`` (under any
+    number of transformers)."""
+    while isinstance(dataset, TransformedDataSet):
+        dataset = dataset.source
+    return isinstance(dataset, DistributedDataSet)
 
 
 class DataSet:
@@ -93,7 +130,7 @@ class DataSet:
     def array(records: Sequence, distributed: bool = False,
               seed: int = 1) -> AbstractDataSet:
         if distributed:
-            _refuse_distributed()
+            return DistributedDataSet(records, seed=seed)
         return LocalArrayDataSet(records, seed=seed)
 
     @staticmethod
@@ -120,12 +157,10 @@ class DataSet:
         label) pairs."""
         from bigdl_tpu_torch.dataset.hadoop_seqfile import file_records
         from bigdl_tpu_torch.dataset.seqfile import read_shard
-        if distributed:
-            _refuse_distributed()
         all_records = []
         for f in list(paths):
             if f.endswith(".seq"):
                 all_records.extend(file_records(f))
             else:
                 all_records.extend(read_shard(f))
-        return DataSet.array(all_records)
+        return DataSet.array(all_records, distributed=distributed)

@@ -6,7 +6,8 @@ record-shard folder, the 224x224 crop pipeline, SGD with poly decay).
     python -m bigdl_tpu_torch.models.inception.train -f /path/to/shards --modelName inception_v1
     python -m bigdl_tpu_torch.models.inception.train --synthetic --device cpu
 
-``--distributed`` is refused (ROADMAP Queue 1 item 12).
+``--distributed`` trains data-parallel with ``DistriOptimizer`` over the
+ranks ``torchrun`` starts (one per card), or over a world of one.
 """
 from __future__ import annotations
 
@@ -68,10 +69,10 @@ def main(argv=None):
                                               IMAGENET_BGR_STD,
                                               imagenet_seq_datasets,
                                               imagenet_val_pipe,
-                                              refuse_distributed,
                                               resolve_resume,
-                                              restore_optim_state)
-    refuse_distributed(args)
+                                              restore_optim_state,
+                                              start_distributed)
+    start_distributed(args)
     resolve_resume(args)
     logging.basicConfig(level=logging.INFO)
 
@@ -85,7 +86,8 @@ def main(argv=None):
     if args.synthetic:
         n = max(args.batchSize * 8, 64)
         class_num = 10
-        train_ds = DataSet.array(_synthetic_records(n)) >> \
+        train_ds = DataSet.array(_synthetic_records(n),
+                                 distributed=args.distributed) >> \
             image.MTLabeledBGRImgToBatch(
                 224, 224, args.batchSize,
                 AnyBytesToBGRImg() >> image.BGRImgRdmCropper(224, 224)
@@ -95,7 +97,8 @@ def main(argv=None):
         val_ds = DataSet.array(_synthetic_records(max(n // 4, 32), seed=9)) \
             >> imagenet_val_pipe(args.batchSize)
     else:
-        train_ds, val_ds = imagenet_seq_datasets(args.folder, args.batchSize)
+        train_ds, val_ds = imagenet_seq_datasets(
+            args.folder, args.batchSize, distributed=args.distributed)
         class_num = args.classNumber
 
     factory = Inception_v1 if args.modelName == "inception_v1" \

@@ -8,7 +8,9 @@ the same flags and defaults, plus ``--device``).
 
 ``--checkpoint`` checkpoints every epoch and stops with a checkpoint on
 SIGTERM; ``--resume`` continues from the directory's newest pair (either
-package's).  ``--distributed`` is refused (ROADMAP Queue 1 item 12).
+package's).  ``--distributed`` trains data-parallel with
+``DistriOptimizer`` over the ranks ``torchrun`` starts (one per card),
+or over a world of one.
 """
 from __future__ import annotations
 
@@ -40,10 +42,10 @@ def main(argv=None):
     """Train; returns the optimizer (its ``state`` holds the last loss,
     ``validation_results`` the last validation)."""
     args = build_parser().parse_args(argv)
-    from bigdl_tpu_torch.models.utils import (refuse_distributed,
-                                              resolve_resume,
-                                              restore_optim_state)
-    refuse_distributed(args)
+    from bigdl_tpu_torch.models.utils import (resolve_resume,
+                                              restore_optim_state,
+                                              start_distributed)
+    start_distributed(args)
     resolve_resume(args)
     logging.basicConfig(level=logging.INFO)
 
@@ -63,7 +65,8 @@ def main(argv=None):
     pipeline = (image.BytesToGreyImg(28, 28)
                 >> image.GreyImgNormalizer(mean, std)
                 >> image.GreyImgToBatch(args.batchSize))
-    train_ds = DataSet.array(train_records) >> pipeline
+    train_ds = DataSet.array(train_records,
+                             distributed=args.distributed) >> pipeline
     val_ds = DataSet.array(test_records) >> pipeline
 
     if args.model:

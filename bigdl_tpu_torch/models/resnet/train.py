@@ -7,8 +7,9 @@ the same flags and defaults, plus ``--device``).
         -f /path/to/shards --depth 50 --dataFormat NHWC
 
 The ImageNet mode reads a folder of record shards or ``.seq`` files
-(``models/utils`` ``imagenet_seq_datasets``).  ``--distributed`` is
-refused (ROADMAP Queue 1 item 12).
+(``models/utils`` ``imagenet_seq_datasets``).  ``--distributed`` trains
+data-parallel with ``DistriOptimizer`` over the ranks ``torchrun``
+starts (one per card), or over a world of one.
 """
 from __future__ import annotations
 
@@ -51,13 +52,13 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     from bigdl_tpu_torch.models.utils import (cifar_datasets,
                                               imagenet_seq_datasets,
-                                              refuse_distributed,
                                               resolve_resume,
-                                              restore_optim_state)
-    refuse_distributed(args)
+                                              restore_optim_state,
+                                              start_distributed)
     if args.dataset == "imagenet" and args.synthetic:
         raise SystemExit("--synthetic is cifar-mode only; imagenet mode "
                          "reads record/.seq shards from -f")
+    start_distributed(args)
     resolve_resume(args)
     logging.basicConfig(level=logging.INFO)
 
@@ -68,7 +69,8 @@ def main(argv=None):
 
     if args.dataset == "imagenet":
         train_ds, val_ds = imagenet_seq_datasets(
-            args.folder, args.batchSize, data_format=args.dataFormat)
+            args.folder, args.batchSize, distributed=args.distributed,
+            data_format=args.dataFormat)
         skeleton = ResNet(args.classNumber, depth=args.depth,
                           shortcut_type=args.shortcutType,
                           dataset="imagenet", data_format=args.dataFormat)
@@ -78,7 +80,7 @@ def main(argv=None):
                                   Regime(80, 100000, 0.001)])
     else:
         train_ds, val_ds = cifar_datasets(args.folder, args.batchSize,
-                                          args.synthetic)
+                                          args.synthetic, args.distributed)
         skeleton = ResNet(10, depth=args.depth,
                           shortcut_type=args.shortcutType,
                           dataset="cifar10")

@@ -13,7 +13,8 @@ and both backward kernels) for head widths 64 and 128.  ``--checkpoint``
 saves ``dictionary.json`` there, checkpoints every epoch and stops with
 a checkpoint on SIGTERM; ``--resume`` continues from the directory's
 newest pair (a model and state written by either package).
-``--distributed`` is refused (ROADMAP Queue 1 item 12).
+``--distributed`` trains data-parallel with ``DistriOptimizer`` over the
+ranks ``torchrun`` starts (one per card), or over a world of one.
 """
 from __future__ import annotations
 
@@ -68,20 +69,19 @@ def main(argv=None):
     ``validation_results`` the last validation)."""
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.distributed:
-        raise SystemExit("--distributed is not ported yet (ROADMAP Queue 1 "
-                         "item 12: DistriOptimizer)")
 
     from bigdl_tpu_torch.dataset.text import SENTENCE_START
     from bigdl_tpu_torch.models.transformer import TransformerLM
     from bigdl_tpu_torch.models.utils import (SYNTH_CORPUS, lm_corpus,
                                               lm_dataset, resolve_resume,
-                                              restore_optim_state)
+                                              restore_optim_state,
+                                              start_distributed)
     from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
     from bigdl_tpu_torch.optim import (SGD, Adam, AdamW, Loss, Optimizer,
                                        Trigger)
     from bigdl_tpu_torch.utils import fs
 
+    start_distributed(args)
     resolve_resume(args)
     if args.synthetic or not args.folder:
         raw = SYNTH_CORPUS
@@ -95,7 +95,8 @@ def main(argv=None):
     vocab = dictionary.vocab_size()
     split = int(len(token_lists) * 0.8) or 1
     train_ds = lm_dataset(token_lists[:split], dictionary, args.seqLength,
-                          args.batchSize, packed=args.packed)
+                          args.batchSize, packed=args.packed,
+                          distributed=args.distributed)
     try:
         val_ds = lm_dataset(token_lists[split:] or token_lists[:1],
                             dictionary, args.seqLength, args.batchSize,

@@ -116,11 +116,14 @@ def resolve_resume(args) -> None:
     args.model, args.state = found[0], found[1]
 
 
-def refuse_distributed(args) -> None:
-    """``--distributed`` is not ported: raise naming the item."""
+def start_distributed(args) -> None:
+    """``--distributed``: start the process world on ``--device`` before
+    the model is built (``parallel.mesh.init_world``: torchrun's ranks,
+    else a world of one), so the model lands on this rank's device and
+    the training dataset is this rank's shard."""
     if getattr(args, "distributed", False):
-        raise SystemExit("--distributed is not ported yet (ROADMAP Queue 1 "
-                         "item 12: DistriOptimizer)")
+        from bigdl_tpu_torch.parallel.mesh import init_world
+        init_world(getattr(args, "device", None))
 
 
 IMAGENET_BGR_MEAN = (104.0, 117.0, 123.0)
@@ -184,10 +187,12 @@ def imagenet_val_pipe(batch_size: int, data_format: str = "NCHW"):
         data_format=data_format)
 
 
-def cifar_datasets(folder: str, batch_size: int, synthetic: bool):
+def cifar_datasets(folder: str, batch_size: int, synthetic: bool,
+                   distributed: bool = False):
     """(train, validation) CIFAR-10 datasets, the reference's pipelines:
     flip and normalize for training, normalize for validation; 2048 and
-    512 synthetic records (seeds 0 and 9) with ``synthetic``."""
+    512 synthetic records (seeds 0 and 9) with ``synthetic``; the
+    training records are this rank's shard with ``distributed``."""
     from bigdl_tpu_torch.dataset import cifar, image
     if synthetic:
         train_records = cifar.synthetic(2048)
@@ -200,8 +205,8 @@ def cifar_datasets(folder: str, batch_size: int, synthetic: bool):
                   >> image.BGRImgToBatch(batch_size))
     val_pipe = (image.BGRImgNormalizer(mean, std)
                 >> image.BGRImgToBatch(batch_size))
-    return (DataSet.array(train_records) >> train_pipe,
-            DataSet.array(test_records) >> val_pipe)
+    return (DataSet.array(train_records, distributed=distributed)
+            >> train_pipe, DataSet.array(test_records) >> val_pipe)
 
 
 def cifar_test_main(description: str, argv=None):

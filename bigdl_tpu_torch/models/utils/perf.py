@@ -1,9 +1,12 @@
 """Synthetic-data training throughput of the image classifiers (port of
-``bigdl_tpu/models/utils/perf.py``, local mode; ref
-models/utils/LocalOptimizerPerf.scala).
+``bigdl_tpu/models/utils/perf.py``; ref models/utils/LocalOptimizerPerf.scala
+and DistriOptimizerPerf.scala).
 
     python -m bigdl_tpu_torch.models.utils.perf -m resnet50 -b 32 -i 10
     python -m bigdl_tpu_torch.models.utils.perf -m lenet5 -b 32 -i 5 --device cpu
+    python -m bigdl_tpu_torch.models.utils.perf -m resnet50 --distributed
+    torchrun --nproc-per-node 4 -m bigdl_tpu_torch.models.utils.perf \
+        -m resnet50 --mesh 1,2,4 -b 32 -i 5 --json scaling.json
 
 Each run builds the model from seed 1, trains it with ``LocalOptimizer``
 (SGD, ClassNLL) on two batches of seeded random (or constant) images for
@@ -14,13 +17,17 @@ median step, the peak of allocated device memory, the time of one
 batch's copy from pageable host memory to the device (the copy every
 step makes), the step's matmul and convolution FLOPs counted by
 ``torch.utils.flop_counter`` over one more step, and the device's name
-and power limit.  ``--distributed`` and ``--mesh`` are refused (ROADMAP
-Queue 1 item 12: distributed training).
+and power limit.  ``--distributed`` trains with ``DistriOptimizer``
+over the process world (a world of one unless ``torchrun`` starts
+more).  ``--mesh`` runs the weak-scaling sweep (``run_scaling_sweep``)
+over data-parallel meshes of the given sizes, each at most the world's
+rank count: one rank per card, so one card sweeps only a mesh of 1.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -166,11 +173,10 @@ def run_perf(model_name: str, batch_size: int, iterations: int,
     from bigdl_tpu_torch.device import resolve_device
     from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
 
-    if distributed:
-        raise NotImplementedError(
-            "distributed perf runs are not ported yet (ROADMAP Queue 1 item "
-            "12: distributed training)")
     dev = resolve_device(device)
+    if distributed:
+        from bigdl_tpu_torch.parallel.mesh import init_world
+        dev = init_world(dev.type)
     ds = _make_dataset(model_name, batch_size, data_type, data_format)
     model = build_model(model_name, data_format).build(seed=1, device=dev)
     criterion = nn.ClassNLLCriterion()
@@ -179,7 +185,11 @@ def run_perf(model_name: str, batch_size: int, iterations: int,
     flops = step_flops(model, criterion,
                        torch.as_tensor(batch.data, device=dev),
                        torch.as_tensor(batch.labels, device=dev))
-    opt = LocalOptimizer(model, ds, criterion)
+    if distributed:
+        from bigdl_tpu_torch.parallel import DistriOptimizer
+        opt = DistriOptimizer(model, ds, criterion)
+    else:
+        opt = LocalOptimizer(model, ds, criterion)
     opt.set_optim_method(SGD(learning_rate=0.01)) \
        .set_end_when(Trigger.max_iteration(warmup + iterations))
     times = _capture_step_times(opt)
@@ -188,8 +198,14 @@ def run_perf(model_name: str, batch_size: int, iterations: int,
     opt.optimize()
     steady = times[warmup:]
     mean_step = sum(steady) / len(steady)
+    from bigdl_tpu_torch.utils.pytree import tree_leaves
     return {"model": model_name, "batch_size": batch_size,
             "iterations": iterations, "data_format": data_format,
+            "distributed": distributed,
+            "param_count": sum(int(p.numel())
+                               for p in tree_leaves(model.params)),
+            "collective_bytes": (opt.collective_footprint()
+                                 if distributed else None),
             "throughput_rec_s": batch_size / mean_step,
             "mean_step_s": mean_step,
             "median_step_s": statistics.median(steady),
@@ -201,6 +217,130 @@ def run_perf(model_name: str, batch_size: int, iterations: int,
             "input_bytes": int(batch.data.nbytes),
             "step_flops": flops,
             **device_stamp(dev)}
+
+
+def run_scaling_sweep(model_name: str, per_chip_batch: int, iterations: int,
+                      mesh_sizes: list, data_type: str = "random",
+                      warmup: int = 2, data_format: str = "NCHW",
+                      device=None, ici_gbps: float = None,
+                      assume_compute_s: float = None,
+                      compute_source: str = None,
+                      predict_sizes: list = ()) -> dict:
+    """Weak-scaling sweep (ref DistriOptimizerPerf): a fixed batch a
+    rank, the global batch growing with the mesh, ``DistriOptimizer``
+    over ``data_parallel_mesh(n)`` for each size n.  measured_efficiency
+    (N) = t_step(N0) / t_step(N).  Each row also carries the step's
+    collective bytes (``collective_footprint``), the wire bytes a ring
+    moves for them, and the predicted efficiency interval, compute /
+    (compute + wire / link) to compute / max(compute, wire / link), the
+    link the H100's NVLink unless ``ici_gbps`` says otherwise.
+    ``predict_sizes`` extrapolates the prediction to unswept sizes.
+
+    Every rank of the world calls it (the meshes are made collectively);
+    ranks outside a smaller mesh wait.  A size larger than the world
+    refuses, naming the card count: one rank drives one card."""
+    import torch
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.device import resolve_device
+    from bigdl_tpu_torch.optim import SGD, Trigger
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+    from bigdl_tpu_torch.parallel.mesh import (data_parallel_mesh, in_mesh,
+                                               init_world)
+    from bigdl_tpu_torch.utils import profiling
+
+    # the world this sweep would run in: the one running, else torchrun's
+    # (or one rank), checked before a world is started for nothing
+    world = dist.get_world_size() if dist.is_initialized() \
+        else int(os.environ.get("WORLD_SIZE", 1))
+    if max(mesh_sizes) > world:
+        raise SystemExit(
+            f"--mesh {max(mesh_sizes)} needs {max(mesh_sizes)} ranks, one "
+            f"per card; this world has {world} (CUDA devices visible: "
+            f"{torch.cuda.device_count()}); start more with torchrun")
+    dev = init_world(resolve_device(device).type)
+    if ici_gbps is not None:
+        ici_gbps_source = "--ici-gbps CLI value (caller-supplied)"
+    elif profiling.env_source("BIGDL_TPU_TORCH_LINK_GBPS") == "env":
+        ici_gbps_source = ("BIGDL_TPU_TORCH_LINK_GBPS env override (read "
+                           "at profiling import)")
+    else:
+        ici_gbps_source = (
+            "planning number: NVIDIA H100 SXM5 NVLink 4, 18 links x 25 "
+            "GB/s per direction (utils/profiling.py:LINK_GBPS_DEFAULT); "
+            "not measured")
+    if ici_gbps is None:
+        ici_gbps = profiling.LINK_GBPS_DEFAULT
+    rows = []
+    for n in sorted(mesh_sizes):
+        mesh = data_parallel_mesh(n)
+        ds = _make_dataset(model_name, per_chip_batch, data_type,
+                           data_format)
+        model = build_model(model_name, data_format).build(seed=1,
+                                                           device=dev)
+        opt = DistriOptimizer(model, ds, nn.ClassNLLCriterion(), mesh=mesh)
+        opt.set_optim_method(SGD(learning_rate=0.01)) \
+           .set_end_when(Trigger.max_iteration(warmup + iterations))
+        times = _capture_step_times(opt)
+        opt.optimize()
+        if in_mesh(mesh):
+            steady = times[warmup:]
+            mean_step = sum(steady) / len(steady)
+            fp = opt.collective_footprint()
+            rows.append({"mesh": n, "global_batch": per_chip_batch * n,
+                         "mean_step_s": mean_step,
+                         "records_s": per_chip_batch * n / mean_step,
+                         "records_s_per_chip": per_chip_batch / mean_step,
+                         "collective_bytes_produced": fp,
+                         "collective_wire_bytes_per_chip":
+                             profiling.wire_bytes(fp, n)})
+        dist.barrier()
+    base = rows[0]["mean_step_s"]
+    compute_s = assume_compute_s if assume_compute_s else base
+    for r in rows:
+        r["measured_efficiency"] = base / r["mean_step_s"]
+        r["overhead_share"] = max(0.0, 1.0 - r["measured_efficiency"])
+        r.update(profiling.predict_ici_efficiency(
+            compute_s, r["collective_wire_bytes_per_chip"], ici_gbps))
+    # unswept sizes: the all-gather bytes (the full parameters) and the
+    # reduce-scatter's input bytes do not depend on N
+    predicted = []
+    fp = rows[-1]["collective_bytes_produced"]
+    n_ref = rows[-1]["mesh"]
+    ag = fp.get("all-gather", 0)
+    rs_input = fp.get("reduce-scatter", 0) * n_ref
+    other = {k: v for k, v in fp.items()
+             if k not in ("all-gather", "reduce-scatter")}
+    for n in predict_sizes:
+        if n <= 1:
+            continue
+        scaled = dict(other)
+        if ag:
+            scaled["all-gather"] = ag
+        if rs_input:
+            scaled["reduce-scatter"] = rs_input // n
+        wire = profiling.wire_bytes(scaled, n)
+        row = {"mesh": n, "collective_wire_bytes_per_chip": wire}
+        row.update(profiling.predict_ici_efficiency(compute_s, wire,
+                                                    ici_gbps))
+        predicted.append(row)
+    out = {"model": model_name, "per_chip_batch": per_chip_batch,
+           "data_format": data_format, "iterations": iterations,
+           "ici_model": {
+               "ici_gbps": ici_gbps, "ici_gbps_source": ici_gbps_source,
+               "compute_s": compute_s,
+               "compute_source": (compute_source
+                                  if compute_source and assume_compute_s
+                                  else "assumed (caller-supplied)"
+                                  if assume_compute_s else
+                                  f"measured at mesh={rows[0]['mesh']}"),
+               "formula": "eff(N) = compute / (compute + wire_bytes(N)/link)",
+           },
+           "sweep": rows, **device_stamp(dev)}
+    if predicted:
+        out["predicted"] = predicted
+    return out
 
 
 def main(argv=None) -> dict:
@@ -215,24 +355,45 @@ def main(argv=None) -> dict:
                    help="activation layout")
     p.add_argument("--distributed", action="store_true")
     p.add_argument("--mesh", default=None,
-                   help="scaling sweep over mesh sizes (not ported)")
+                   help="comma-separated mesh sizes for the scaling sweep, "
+                        "e.g. 1,2,4 (at most the world's ranks)")
+    p.add_argument("--predict", default=None,
+                   help="comma-separated mesh sizes to extrapolate the link "
+                        "prediction to")
+    p.add_argument("--ici-gbps", type=float, default=None,
+                   help="per-device link rate for the prediction (default: "
+                        "the H100's NVLink 4 planning number)")
     p.add_argument("--json", default=None,
                    help="write the result as JSON to this path")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
     args = p.parse_args(argv)
-    if args.mesh or args.distributed:
-        raise SystemExit("--distributed and --mesh (run_scaling_sweep) are "
-                         "not ported yet (ROADMAP Queue 1 item 12: "
-                         "distributed training)")
-    result = run_perf(args.model, args.batchSize, args.iteration,
-                      data_type=args.dataType, data_format=args.dataFormat,
-                      device=args.device)
-    print(f"{result['model']}: {result['throughput_rec_s']:.1f} records/s "
-          f"({result['mean_step_s'] * 1e3:.1f} ms/step mean, "
-          f"{result['median_step_s'] * 1e3:.1f} median, batch "
-          f"{result['batch_size']}, {result['data_format']}) on "
-          f"{result['nvidia_smi'] or result['device_name']}")
+    if args.mesh:
+        result = run_scaling_sweep(
+            args.model, args.batchSize, args.iteration,
+            [int(s) for s in args.mesh.split(",")],
+            data_type=args.dataType, data_format=args.dataFormat,
+            device=args.device, ici_gbps=args.ici_gbps,
+            predict_sizes=([int(s) for s in args.predict.split(",")]
+                           if args.predict else ()))
+        for r in result["sweep"]:
+            lo, hi = r["predicted_efficiency_interval"]
+            print(f"mesh {r['mesh']:>3}: {r['mean_step_s'] * 1e3:8.1f} "
+                  f"ms/step, {r['records_s']:9.1f} records/s, measured eff "
+                  f"{r['measured_efficiency'] * 100:6.1f}%, predicted eff "
+                  f"[{lo * 100:.1f}%, {hi * 100:.1f}%] "
+                  f"({r['collective_wire_bytes_per_chip'] / 1e6:.1f} MB "
+                  f"wire)")
+    else:
+        result = run_perf(args.model, args.batchSize, args.iteration,
+                          distributed=args.distributed,
+                          data_type=args.dataType,
+                          data_format=args.dataFormat, device=args.device)
+        print(f"{result['model']}: {result['throughput_rec_s']:.1f} "
+              f"records/s ({result['mean_step_s'] * 1e3:.1f} ms/step mean, "
+              f"{result['median_step_s'] * 1e3:.1f} median, batch "
+              f"{result['batch_size']}, {result['data_format']}) on "
+              f"{result['nvidia_smi'] or result['device_name']}")
     if args.json:
         from bigdl_tpu_torch.utils import fs
         fs.atomic_write(args.json, json.dumps(result, indent=2).encode())

@@ -4,7 +4,8 @@ the same flags and defaults, plus ``--device``).
     python -m bigdl_tpu_torch.models.vgg.train -f /path/to/cifar -b 128
     python -m bigdl_tpu_torch.models.vgg.train --synthetic --device cpu
 
-``--distributed`` is refused (ROADMAP Queue 1 item 12).
+``--distributed`` trains data-parallel with ``DistriOptimizer`` over the
+ranks ``torchrun`` starts (one per card), or over a world of one.
 """
 from __future__ import annotations
 
@@ -37,10 +38,10 @@ def main(argv=None):
     """Train; returns the optimizer."""
     args = build_parser().parse_args(argv)
     from bigdl_tpu_torch.models.utils import (cifar_datasets,
-                                              refuse_distributed,
                                               resolve_resume,
-                                              restore_optim_state)
-    refuse_distributed(args)
+                                              restore_optim_state,
+                                              start_distributed)
+    start_distributed(args)
     resolve_resume(args)
     logging.basicConfig(level=logging.INFO)
 
@@ -50,7 +51,7 @@ def main(argv=None):
                                        Top1Accuracy, Trigger)
 
     train_ds, val_ds = cifar_datasets(args.folder, args.batchSize,
-                                      args.synthetic)
+                                      args.synthetic, args.distributed)
     model = (nn.Module.load(args.model, device=args.device) if args.model
              else VggForCifar10(10).build(seed=1, device=args.device))
     # the reference's schedule: half the rate every 25 epochs

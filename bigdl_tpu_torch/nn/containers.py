@@ -63,6 +63,8 @@ class Container(Module):
         b_in = buffers.get(str(i), {}) if buffers else {}
         r = fold_rng(rng, i)
         child = self.modules[i]
+        if Module._probe is not None:
+            Module._probe(self, i, child, x, p, b_in)
         if self.remat and torch.is_grad_enabled():
             def run(p, x, b_in):
                 return child.apply(p, x, buffers=b_in, training=training,
@@ -210,6 +212,8 @@ class MapTable(Container):
         out = T()
         b = buffers.get("0", {})
         for i, xi in enumerate(_seq(x)):
+            if Module._probe is not None:
+                Module._probe(self, 0, self.modules[0], xi, params["0"], b)
             y, b = self.modules[0].apply(params["0"], xi, buffers=b,
                                          training=training,
                                          rng=fold_rng(rng, i))

@@ -11,8 +11,10 @@ runs its NHWC kernels and writes a channels-last output, and permutes
 that back, again a view.  No activation is copied into another layout.
 
 The products are ``F.conv2d`` / ``F.conv_transpose2d`` (cuDNN on the
-card, with TF32 off: ``device.resolve_device``).  ``init`` draws through
-the key chain, so a built tree is the reference's bit for bit.
+card, with TF32 off: ``device.resolve_device``); a quantized weight
+(``Module.quantize``) goes through ``quant.kernels.qconv``.  ``init``
+draws through the key chain, so a built tree is the reference's bit for
+bit.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn._util import match_compute_dtype
 from bigdl_tpu_torch.nn.initialization import Default, InitializationMethod
-from bigdl_tpu_torch.nn.module import Module, not_ported
+from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.quant.qtensor import is_qtensor
 from bigdl_tpu_torch.utils import keychain
 
@@ -59,11 +61,6 @@ def spatial(fn):
         return y[0] if squeeze else y
     f.__doc__ = fn.__doc__
     return f
-
-
-def _quantized(w):
-    if is_qtensor(w):
-        raise not_ported("a quantized convolution weight (qconv, qconv_i8)")
 
 
 class SpatialConvolution(Module):
@@ -121,12 +118,17 @@ class SpatialConvolution(Module):
     @spatial
     def f(self, params, x):
         w = params["weight"]
-        _quantized(w)
-        return F.conv2d(match_compute_dtype(x, w), w,
-                        params["bias"] if self.with_bias else None,
-                        stride=(self.stride_h, self.stride_w),
-                        padding=(self.pad_h, self.pad_w),
-                        dilation=self._dilation(), groups=self.n_group)
+        bias = params["bias"] if self.with_bias else None
+        kw = dict(stride=(self.stride_h, self.stride_w),
+                  padding=(self.pad_h, self.pad_w),
+                  dilation=self._dilation(), groups=self.n_group)
+        if is_qtensor(w):
+            # the reference's order: the quantized product in the
+            # weight's original dtype, then the float bias
+            from bigdl_tpu_torch.quant.kernels import qconv
+            y = qconv(x, w, **kw)
+            return y if bias is None else y + bias.reshape(1, -1, 1, 1)
+        return F.conv2d(match_compute_dtype(x, w), w, bias, **kw)
 
 
 class SpatialShareConvolution(SpatialConvolution):

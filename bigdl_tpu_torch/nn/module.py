@@ -81,15 +81,15 @@ def _tree_add(a, b):
     return pytree.tree_map(torch.add, a, b)
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 12)")
-
-
 class Module:
     """Base module (ref AbstractModule).  Subclasses implement ``init``
     and either ``f`` (stateless: params, x -> y) or ``apply``
     (stateful)."""
+
+    #: ``fn(parent, index, child, input, child_params, child_buffers)``
+    #: called by containers before each child runs (the per-layer
+    #: recording pass of ``utils.profiling``); None when not recording
+    _probe = None
 
     def __init__(self):
         self._name: Optional[str] = None

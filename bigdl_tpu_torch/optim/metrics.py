@@ -6,9 +6,8 @@ A metric is local to the process.  Storage is
 loop's phase counters publish into the process-wide registry
 (``publish_to``) and ride the same snapshot and tfevents export path as
 the serving metrics.  ``aggregate()``, the reference's cross-process
-mean, is a no-op in one process; under an initialised
-``torch.distributed`` it raises: the port's distributed training is
-ROADMAP Queue 1 item 12.
+mean, is an ``all_reduce`` mean of every counter over the ranks of the
+initialised ``torch.distributed`` world, and ``self`` in one process.
 """
 from __future__ import annotations
 
@@ -60,18 +59,30 @@ class Metrics:
             return c.get() if c is not None else (0.0, 1)
 
     # -- aggregation / reporting ---------------------------------------- #
-    def aggregate(self) -> "Metrics":
-        """Cross-process mean of every counter: ``self`` with one
-        process.  The port trains in one process; under an initialised
-        ``torch.distributed`` this raises instead of returning a local
-        view as the fleet's."""
+    def aggregate(self, group=None) -> "Metrics":
+        """Cross-rank mean of every counter (ref Metrics.scala:24-112:
+        Spark accumulators summed on the driver; here every rank gets the
+        fleet view).  COLLECTIVE: every rank of ``group`` (default: the
+        world) calls it, with the same counter names.  ``self`` in a
+        world of one or none."""
+        import torch
         import torch.distributed as dist
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "Metrics.aggregate across processes is not ported "
-                "(ROADMAP Queue 1 item 12, distributed training)")
-        return self
+        if not (dist.is_available() and dist.is_initialized()) \
+                or dist.get_world_size(group) <= 1:
+            return self
+        with self._lock:
+            names = sorted(self._counters)
+            local = [self._counters[n].value for n in names]
+        # on the host: a world on a card has gloo for host tensors too
+        vals = torch.tensor(local, dtype=torch.float64)
+        dist.all_reduce(vals, op=dist.ReduceOp.SUM, group=group)
+        mean = (vals / dist.get_world_size(group)).tolist()
+        out = Metrics()
+        with self._lock:
+            for i, n in enumerate(names):
+                src = self._counters[n]
+                out.set(n, float(mean[i]), parallel=src.n, unit=src.unit)
+        return out
 
     def summary(self, unit_scale: float = 1.0) -> str:
         """Per-phase means.  Time counters (``unit="s"``, the default —

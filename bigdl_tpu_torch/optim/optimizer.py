@@ -30,7 +30,8 @@ emergency checkpoint at the next completed iteration.
 one vector in the reference's ``ravel_pytree`` order, the dataset's
 first batch evaluated by one forward and backward per line-search
 point, validation, checkpoints and preemption after every outer
-iteration.  Distributed datasets are not ported.
+iteration.  ``Optimizer.create`` picks ``parallel.DistriOptimizer``
+for a ``DistributedDataSet``.
 """
 from __future__ import annotations
 
@@ -219,12 +220,16 @@ class Optimizer:
         self._clip_l2 = float(clip_norm)
         return self
 
-    def _clip_gradients(self, grads):
+    def _clip_gradients(self, grads, psum=None):
+        """Constant clip, then the L2 clip; ``psum`` sums the squared
+        norm across ranks when ``grads`` is one rank's slice."""
         if self._clip_const is not None:
             lo, hi = self._clip_const
             grads = tree_map(lambda g: g.clamp(lo, hi), grads)
         if self._clip_l2 is not None:
             sq = sum((g.float() ** 2).sum() for g in tree_leaves(grads))
+            if psum is not None:
+                sq = psum(sq)
             norm = torch.sqrt(sq)
             scale = torch.clamp(self._clip_l2 / torch.clamp(norm, min=1e-12),
                                 max=1.0)
@@ -288,7 +293,13 @@ class Optimizer:
 
     @staticmethod
     def create(model, dataset: AbstractDataSet, criterion) -> "Optimizer":
-        """The local loop; the port has no distributed dataset yet."""
+        """``DistriOptimizer`` for a ``DistributedDataSet`` (also under
+        transformers), else the local loop."""
+        from bigdl_tpu_torch.dataset.dataset import is_distributed
+        if is_distributed(dataset):
+            from bigdl_tpu_torch.parallel.distri_optimizer import \
+                DistriOptimizer
+            return DistriOptimizer(model, dataset, criterion)
         return LocalOptimizer(model, dataset, criterion)
 
     # -- shared loop plumbing ------------------------------------------- #

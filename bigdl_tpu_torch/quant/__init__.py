@@ -12,7 +12,8 @@ without one) and ``"fp8"`` (e4m3, gated on capable devices).
 Entry points:
 
 - ``model.quantize("int8", compute="int8")``: a quantized clone of a
-  ``TransformerLM``;
+  ``TransformerLM`` or of an image classifier (``Linear`` and
+  ``SpatialConvolution`` weights in their native layouts, ``qconv``);
 - :func:`quantize_params`: the tree-level transform and its policy;
 - ``LMServingEngine(model, spec=4)`` or
   ``SpecConfig(drafter_compute="int8")``: the default int8 drafter;
@@ -23,8 +24,9 @@ from bigdl_tpu_torch.quant.activations import (ActCalibrator,
                                                fp8_supported,
                                                quantize_per_token,
                                                quantize_per_token_fp8)
-from bigdl_tpu_torch.quant.kernels import (int_mm, qlinear, qlinear_i8,
-                                           qmatmul, qmatmul_f8, qmatmul_i8,
+from bigdl_tpu_torch.quant.kernels import (int_mm, qconv, qconv_i8,
+                                           qlinear, qlinear_i8, qmatmul,
+                                           qmatmul_f8, qmatmul_i8,
                                            resolve_compute)
 from bigdl_tpu_torch.quant.qtensor import (QMAX, QTensor, dequantize_array,
                                            is_qtensor, quantize_array)
@@ -40,7 +42,8 @@ __all__ = [
     "ActCalibrator", "QMAX", "QTensor", "QuantPolicy", "attach_act_scales",
     "dequantize_array", "dequantize_entry", "dequantize_params",
     "fp8_supported", "int_mm", "is_qtensor", "params_compute_tag",
-    "params_dtype_tag", "params_nbytes", "qlinear", "qlinear_i8", "qmatmul", "qmatmul_f8",
+    "params_dtype_tag", "params_nbytes", "qconv", "qconv_i8", "qlinear",
+    "qlinear_i8", "qmatmul", "qmatmul_f8",
     "qmatmul_i8", "quantize_array", "quantize_params", "quantize_per_token",
     "quantize_per_token_fp8", "resolve_compute", "set_compute_mode",
     "stage_quantized_params",

@@ -26,8 +26,14 @@ and per-output-channel scales ``(out, 1)``) keeps the reference's
 operands: bfloat16 values of the activation and the expanded weight,
 multiplied with float32 accumulation (``torch.matmul`` of their float32
 copies, exact products), or :func:`qlinear_i8` in int8 compute.
-``qconv`` and its ``_i8`` form wait for the port's
-``SpatialConvolution`` (ROADMAP Queue 1 item 12).
+``qconv`` (``SpatialConvolution``'s product with an OIHW weight and
+per-output-plane scales ``(O, 1, 1, 1)``) does the same: in dequant
+mode a convolution of the bfloat16 values with float32 accumulation
+(``F.conv2d`` of their float32 copies, exact products); in int8 mode
+(:func:`qconv_i8`) one activation scale per sample, the patches
+gathered by ``F.unfold`` and multiplied by :func:`int_mm` for exact
+int32 accumulators (``F.conv2d`` takes no int8 on the card), and one
+float32 rescale.
 """
 from __future__ import annotations
 
@@ -194,4 +200,68 @@ def qmatmul_f8(x, qweight: QTensor):
     acc = acc.reshape(xq.shape[:-1] + (acc.shape[-1],))
     ws = qweight.scale.reshape(-1) * true_div(wmax.reshape(-1), E4M3_MAX)
     y = acc * xs * ws
+    return y.to(torch_dtype(qweight.orig_dtype))
+
+
+def qconv(x, qweight: QTensor, *, stride=(1, 1), padding=(0, 0),
+          dilation=(1, 1), groups: int = 1):
+    """Quantized convolution of an NCHW activation (a view of any
+    strides) with an OIHW QTensor (scales ``(O, 1, 1, 1)``); the compute
+    mode dispatched per the weight's ``compute``.  No bias: the layer
+    adds its float bias after, as the reference's does."""
+    kw = dict(stride=stride, padding=padding, dilation=dilation,
+              groups=groups)
+    if resolve_compute(qweight, _conv_product_shape(x, qweight)) == "int8":
+        return qconv_i8(x, qweight, **kw)
+    w = qweight.dequantize(torch.bfloat16).float()
+    if x.is_floating_point():
+        x = x.to(torch.bfloat16).float()
+    y = F.conv2d(x, w, None, **kw)
+    return y.to(torch_dtype(qweight.orig_dtype))
+
+
+def _conv_product_shape(x, qweight: QTensor):
+    """The (rows, contraction) shape ``resolve_compute`` keys an
+    ``auto`` weight by: one row per sample, the contraction I/g x kH x
+    kW."""
+    k = int(math.prod(qweight.q.shape[1:]))
+    return (int(x.shape[0]), k)
+
+
+def qconv_i8(x, qweight: QTensor, *, stride=(1, 1), padding=(0, 0),
+             dilation=(1, 1), groups: int = 1):
+    """int8 x int8 convolution: per-SAMPLE activation quantization (one
+    scale over C, H and W: a convolution has no per-output-pixel
+    pre-quantization), exact int32 accumulation of the unfolded patches
+    against the int8 weight, one float32 rescale by sample scale x
+    output-plane scale.  Bitwise the reference's ``qconv_i8``."""
+    xf = x.float()
+    n = xf.shape[0]
+    if qweight.act_scale is not None:
+        s = torch.full((n, 1, 1, 1), float(qweight.act_scale),
+                       dtype=torch.float32, device=xf.device)
+    else:
+        amax = xf.abs().amax(dim=(1, 2, 3), keepdim=True)
+        s = true_div(torch.clamp_min(amax, 1e-12), 127.0)
+    xq = torch.clamp(torch.round(xf / s), -127, 127)
+    q = qweight.q
+    o, ig, kh, kw = q.shape
+    h, w = xq.shape[2], xq.shape[3]
+    oh = (h + 2 * padding[0] - dilation[0] * (kh - 1) - 1) // stride[0] + 1
+    ow = (w + 2 * padding[1] - dilation[1] * (kw - 1) - 1) // stride[1] + 1
+    # the patches of the integer-valued activation (exact in float32),
+    # then int8 for the product: (n, C*kH*kW, L) -> (n*L, C*kH*kW)
+    cols = F.unfold(xq, (kh, kw), dilation=dilation, padding=padding,
+                    stride=stride).to(torch.int8)
+    cols = cols.view(n, groups, ig * kh * kw, oh * ow)
+    og = o // groups
+    acc = []
+    for g in range(groups):
+        a = cols[:, g].transpose(1, 2).reshape(n * oh * ow, ig * kh * kw)
+        wg = q[g * og:(g + 1) * og].reshape(og, ig * kh * kw)
+        acc.append(int_mm(a.contiguous(), wg.T))          # (n*L, og)
+    acc = torch.cat(acc, dim=1) if groups > 1 else acc[0]
+    acc = acc.view(n, oh, ow, o).permute(0, 3, 1, 2)      # NCHW view
+    ws = qweight.scale.reshape(1, -1, 1, 1)
+    y = acc.float() * s * ws
     return y.to(torch_dtype(qweight.orig_dtype))

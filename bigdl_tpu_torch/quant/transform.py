@@ -15,8 +15,9 @@ consumer reads them directly.
 With ``module=`` the walk is owner-aware, as the reference's: a
 ``Linear``'s weight gets its native layout (per-output-channel scales,
 reduced over ``in``) and a ``LookupTable``'s table is never quantized.
-``SpatialConvolution``'s native layout waits for that layer (ROADMAP
-Queue 1 item 12).  A transformer's leaves take the generic path in both
+A ``SpatialConvolution``'s OIHW weight (grouped and dilated forms
+included) gets per-output-plane scales, reduced over (I/g, kH, kW).
+A transformer's leaves take the generic path in both
 packages, so its trees quantize leaf for leaf alike.
 """
 from __future__ import annotations
@@ -156,10 +157,17 @@ def _native_spec(owner, name: str):
     embedding table."""
     if owner is None:
         return None
+    from bigdl_tpu_torch.nn.conv import SpatialConvolution
     from bigdl_tpu_torch.nn.linear import Linear, LookupTable
     if isinstance(owner, LookupTable):
         return "skip"
-    if name == "weight" and isinstance(owner, Linear):
+    if name != "weight":
+        return None
+    if isinstance(owner, SpatialConvolution):
+        # OIHW: the contraction is over (I/g, kH, kW); the transposed and
+        # map variants are other classes and take the generic path
+        return (1, 2, 3), True
+    if isinstance(owner, Linear):
         return (-1,), True  # (out, in): the contraction is over in
     return None
 
@@ -169,11 +177,11 @@ def quantize_params(params, dtype: str = "int8", *,
                     module=None, report: Optional[dict] = None):
     """Quantize the eligible leaves of ``params``; returns a new tree
     (other leaves are shared).  ``module`` (the tree's owner) enables the
-    owner-aware decisions: native scale layouts for ``Linear`` and the
-    exclusion of embedding tables.  ``report`` (a dict) is filled with the
-    byte counts, per-leaf max abs dequantization error and, for int8 or
-    auto compute, each leaf's int32-accumulator overflow risk, under the
-    reference's keys."""
+    owner-aware decisions: native scale layouts for ``Linear`` and
+    ``SpatialConvolution`` and the exclusion of embedding tables.
+    ``report`` (a dict) is filled with the byte counts, per-leaf max abs
+    dequantization error and, for int8 or auto compute, each leaf's
+    int32-accumulator overflow risk, under the reference's keys."""
     policy = policy or QuantPolicy(dtype)
     if policy.dtype != dtype:
         policy = QuantPolicy(dtype, min_ndim=policy.min_ndim,

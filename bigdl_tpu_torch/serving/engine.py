@@ -192,9 +192,12 @@ class ServingEngine:
         # (latest engine owns the serving/* names)
         self.metrics = ServingMetrics().publish_to(get_registry())
         self._ledger_keys = self._register_ledger()
-        # dispatch-cadence stall detection
+        # dispatch-cadence stall detection; every knob from this
+        # engine's environment: an unset one takes its default, not the
+        # value an earlier user of the shared watchdog left behind
         self.watchdog = (shared_watchdog("serve_dispatch")
-                         .reset(**env_watchdog_kwargs())
+                         .reset(**{"k": 10.0, "deadline_s": None,
+                                   **env_watchdog_kwargs()})
                          if env_watchdog_enabled() else None)
         self.batcher = None
         if with_batcher:

@@ -353,6 +353,49 @@ result line:
    shards and ``inception.test`` on its model, ``load_model --dataset
    imagenet`` with the trained ResNet-50; every loss finite, every
    validation printed.  The phase within 120 s.
+22. host: the host surface (no kernel of the port, 0 launches).  Z3:
+   ResNet-50 (1000 classes, shortcut B, ``build(seed=1)``) quantized
+   with ``Module.quantize("int8")`` in the int8 and the dequant compute
+   modes, an eval forward at batch 32 of seeded images: each mode's
+   top-1 agreement with the float32 forward, the largest logit gap over
+   the largest float32 logit, and the three forwards' device ms; every
+   quantized convolution (53) on its recorded input's first 4 rows, on
+   the card and on the CPU, bitwise equal (per-sample scales, exact
+   int32 sums: ``qconv_i8`` through ``F.unfold`` and ``torch._int_mm``).
+   Z4: ``utils.profiling`` on the float32 ResNet-50 at batch 32: the
+   summed per-layer training FLOPs (forward and weight gradients) beside
+   the whole step's products (``perf.step_flops``, 2 FLOPs a
+   multiply-add, input gradients included), and the five layers with
+   the largest measured standalone training ms (CUDA events).  Z5: a
+   1,000,000-draw ``normal_array`` twice from one seed (equal), a
+   ``Tensor(1000, 1000).randn()`` fill from ``RNG`` at that seed equal
+   to the draws in float32, its round trip through ``to_torch("cuda")``
+   and ``from_torch`` bitwise, and the first 10,000 draws of the Python
+   path (``BIGDL_TPU_NO_NATIVE=1``) equal to the host library's.
+23. dist: data-parallel training through ``DistriOptimizer`` on a world
+   of one rank on the card (``parallel.mesh.init_world``: NCCL for the
+   card's tensors, over a ``file://`` store).  Z1: ResNet-50 at ImageNet
+   width through ``perf.run_perf`` (batch 32, SGD 0.01, 1 warm-up and 5
+   timed steps), ``distributed=True`` beside the same model's
+   ``LocalOptimizer`` in this run: step ms and images/s of both, and the
+   ``collective_footprint`` (2 bytes x the padded parameter count for
+   each of the bf16 all-gather and reduce-scatter, the loss and the
+   batch-norm buffers' float32 all-reduce); one batch-2 step of
+   ``DistriOptimizer`` on the card and on the CPU (a host mesh of the
+   same world), the CPU replaying the card's ReLU masks and max-pool
+   argmaxes: the loss within 1e-5 relative, each weight leaf's update
+   (the published weights less the built ones) within 1e-2 of its max
+   (one bf16 step of the gradient the reduce-scatter carries) and each
+   BN buffer within 1e-4 of its max.  Z2: the GPT-2-small-width
+   model (``build(0)``, float32, flash) trained through
+   ``DistriOptimizer`` on the train batch (8 x 1024 ids, Adam 3e-4), 1
+   warm-up and 3 timed steps, the flash forward, dK/dV and dQ kernels
+   launched exactly 12 times a step; the step-0 loss and every local
+   gradient leaf of ``step_gradients`` against the same on plain
+   attention (TOL_LOSS, TOL_GRAD), the reduced slice bitwise the bf16
+   rounding of the local gradient (a world of one); then the train CLI
+   with ``--distributed`` (the train phase's flags).  The phase within
+   120 s.
 
 Every serving engine must keep its captures bounded: prefill entries at
 most the buckets, one decode graph, one verify graph (one per tree
@@ -541,6 +584,18 @@ IO = dict(images=32, src_seed=1, dst_seed=2, tol_card=1e-5, tol_cpu=1e-3,
 # (bf16); D2 a PNG tree of `classes` classes, train_per_class and
 # val_per_class images of `image_sizes` (cycled), through the generator,
 # three .seq flavors and the ImageNet CLIs at cli_batch
+# the host phase: Z3's batch, the rows held bitwise card against CPU and
+# Z5's draws; the dist phase: Z1's model and batch, its warm-up and timed
+# steps, the batch-2 card-vs-CPU step on the card's decisions: its loss's
+# relative tolerance, each leaf's update over its max (the gradient
+# travels in bf16, so two values a float32 rounding apart may land one
+# bf16 step apart, up to 2^-7 of themselves: 7.8e-3, plus C3's float32
+# noise), each buffer's over its max; Z2's steps
+HOST = dict(batch=32, bitwise_rows=4, draws=1_000_000, python_draws=10_000,
+            seed=7, layer_iters=5, layer_warmup=1, limit_s=120.0)
+DIST = dict(z1=("resnet50", 32), warmup=1, iters=5, check_batch=2,
+            tol_loss=1e-5, tol_update=1e-2, tol_buffer=1e-4, z2_warmup=1,
+            z2_steps=3, limit_s=120.0)
 DATA = dict(batch=256, iters=20, warmup=3, records=2048, check_batch=2,
             tol_loss=2e-2, classes=4, train_per_class=24, val_per_class=8,
             image_sizes=((256, 256), (248, 264), (264, 240)), shards=4,
@@ -6380,6 +6435,372 @@ def phase_data(dev, data=DATA, smi=""):
     return out
 
 
+# --------------------------------------------------------------------------- #
+def _int8_convs(records):
+    """The recorded (conv, input, params) of every quantized
+    SpatialConvolution."""
+    from bigdl_tpu_torch.nn import SpatialConvolution
+    from bigdl_tpu_torch.quant import is_qtensor
+    return [(child, inp, p) for _, _, child, inp, p, _ in records
+            if isinstance(child, SpatialConvolution)
+            and is_qtensor(p.get("weight"))]
+
+
+def phase_host(dev, smi, host=HOST):
+    """Z3-Z5 (module docstring, phase 22)."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.models.utils import perf
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.tensor import Tensor
+    from bigdl_tpu_torch.utils import profiling
+    from bigdl_tpu_torch.utils.params import params_from_numpy, \
+        params_to_numpy
+    from bigdl_tpu_torch.utils.rng import RNG, RandomGenerator
+    t_phase = time.perf_counter()
+    _reset_launches()
+    out = {}
+    batch = host["batch"]
+    rs = np.random.RandomState(host["seed"])
+    x = torch.as_tensor(rs.randn(batch, 3, 224, 224).astype(np.float32),
+                        device=dev)
+    labels = torch.as_tensor((rs.randint(0, 1000, batch) + 1).astype(
+        np.float32), device=dev)
+    model = perf.build_model("resnet50").build(seed=1, device=dev)
+
+    # Z3: the quantized forwards
+    def fwd(m):
+        with torch.no_grad():
+            return m.apply(m.params, x, buffers=m.buffers,
+                           training=False)[0]
+    model.evaluate()
+    y_f = fwd(model)
+    z3 = {"float32_ms": cuda_ms(lambda: fwd(model), iters=5, warmup=1)}
+    quantized = {}
+    for mode in ("int8", "dequant"):
+        q = model.quantize("int8", compute=mode)
+        quantized[mode] = q
+        y = fwd(q)
+        if not torch.isfinite(y).all():
+            raise AssertionError(f"Z3 {mode}: non-finite logits")
+        z3[mode] = dict(
+            top1_agreement=float((y.argmax(-1) == y_f.argmax(-1))
+                                 .float().mean()),
+            max_rel_logit_gap=float((y - y_f).abs().max()
+                                    / y_f.abs().max()),
+            ms=cuda_ms(lambda: fwd(q), iters=5, warmup=1),
+            payload_ratio=q.quant_report["payload_ratio"])
+    q = quantized["int8"]
+    rows = host["bitwise_rows"]
+    records = profiling.record_layer_inputs(q, x[:rows])
+    convs = _int8_convs(records)
+    unequal = []
+    for child, inp, p in convs:
+        with torch.no_grad():
+            card = child.apply(p, inp)[0].cpu()
+            cpu = child.apply(params_from_numpy(params_to_numpy(p), "cpu"),
+                              inp.cpu())[0]
+        if not torch.equal(card, cpu):
+            unequal.append((child.get_name(),
+                            float((card - cpu).abs().max())))
+    if len(convs) != 53 or unequal:
+        raise AssertionError(f"Z3: {len(convs)} int8 convolutions, card vs "
+                             f"CPU not bitwise on {unequal}")
+    z3["bitwise_convs"] = len(convs)
+    del quantized, q, records, convs
+    log(f"[host] Z3 ResNet-50 batch {batch} eval forward: float32 "
+        f"{z3['float32_ms']:.3f} ms; " + "; ".join(
+            f"{m} {z3[m]['ms']:.3f} ms, top-1 agreement "
+            f"{z3[m]['top1_agreement']:.4f}, max logit gap / max |logit| "
+            f"{z3[m]['max_rel_logit_gap']:.3e}, payload "
+            f"{z3[m]['payload_ratio']:.4f}" for m in ("int8", "dequant"))
+        + f"; {z3['bitwise_convs']} int8 convolutions bitwise card vs CPU "
+        f"on {rows} rows | {smi}")
+    out["z3"] = z3
+
+    # Z4: per-layer profiling of the float32 training step
+    model.training()
+    prof = profiling.profile_layers(model, x, training=True)
+    layer_flops = sum(r["flops_train"] for r in prof)
+    step_flops = perf.step_flops(model, ClassNLLCriterion(), x, labels)
+    timed = profiling.measure_layer_times(model, x, training=True,
+                                          iters=host["layer_iters"],
+                                          warmup=host["layer_warmup"])
+    if any(r["measured_train_s"] is None for r in timed):
+        raise AssertionError("Z4: a layer failed to time")
+    def label(i, m):
+        if hasattr(m, "kernel_h"):
+            return (f"{i}:{m.get_name()}({m.n_input_plane}->"
+                    f"{m.n_output_plane}, {m.kernel_h}x{m.kernel_w}/"
+                    f"{m.stride_h})")
+        return f"{i}:{m.get_name()}"
+    order = {id(r["module"]): i for i, r in enumerate(timed)}
+    top = sorted(timed, key=lambda r: -r["measured_train_s"])[:5]
+    z4 = dict(layers=len(prof), layer_train_flops=layer_flops,
+              step_flops=step_flops, ratio=layer_flops / step_flops,
+              top5=[(label(order[id(r["module"])], r["module"]),
+                     r["measured_train_s"] * 1e3,
+                     r["measured_fwd_s"] * 1e3) for r in top],
+              layer_train_ms_sum=sum(r["measured_train_s"]
+                                     for r in timed) * 1e3)
+    log(f"[host] Z4 ResNet-50 batch {batch}: {z4['layers']} leaf layers, "
+        f"summed training FLOPs (forward + weight gradients) "
+        f"{layer_flops / 1e9:.2f} G against the step's products "
+        f"{step_flops / 1e9:.2f} G (2 x the multiply-adds, input "
+        f"gradients included; ratio {z4['ratio']:.4f}); standalone "
+        f"training ms summed {z4['layer_train_ms_sum']:.2f}; top five: "
+        + ", ".join(f"{n} {t:.3f} ms (forward {f:.3f})"
+                    for n, t, f in z4["top5"]) + f" | {smi}")
+    out["z4"] = z4
+    del model, prof, timed
+
+    # Z5: the draws and the Tensor facade
+    seed, n = host["seed"], host["draws"]
+    a = RandomGenerator(seed).normal_array(n)
+    b = RandomGenerator(seed).normal_array(n)
+    RNG.set_seed(seed)
+    t = Tensor(1000, 1000).randn()
+    if n != 1_000_000 or not np.array_equal(a, b) or not np.array_equal(
+            t.numpy().reshape(-1), a.astype(np.float32)):
+        raise AssertionError("Z5: the draws are not one seed's stream")
+    back = Tensor.from_torch(t.to_torch(dev))
+    if not back == t:
+        raise AssertionError("Z5: the round trip through the card changed "
+                             "the tensor")
+    os.environ["BIGDL_TPU_NO_NATIVE"] = "1"
+    try:
+        py = RandomGenerator(seed)
+        if py._native is not None:
+            raise AssertionError("Z5: BIGDL_TPU_NO_NATIVE kept the library")
+        py_draws = py.normal_array(host["python_draws"])
+    finally:
+        del os.environ["BIGDL_TPU_NO_NATIVE"]
+    if not np.array_equal(py_draws, a[: host["python_draws"]]):
+        raise AssertionError("Z5: the Python path left the stream")
+    out["z5"] = dict(draws=n, mean=float(a.mean()), std=float(a.std()))
+    log(f"[host] Z5 {n} normal draws of seed {seed}: equal twice, equal to "
+        f"the Tensor fill in float32 (mean {a.mean():.5f}, std "
+        f"{a.std():.5f}), round trip through {dev} bitwise, the first "
+        f"{host['python_draws']} equal on the Python path | {smi}")
+    out["launches"] = _launches()
+    out["seconds"] = time.perf_counter() - t_phase
+    if out["seconds"] > host["limit_s"]:
+        raise AssertionError(f"host phase took {out['seconds']:.1f} s > "
+                             f"{host['limit_s']} s")
+    return out
+
+
+def phase_dist(dev, smi, dist_cfg=DIST, config=GPT2_SMALL, train=TRAIN,
+               cli=TRAIN_CLI):
+    """Z1 and Z2 (module docstring, phase 23)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToBatch
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.models.transformer import train as train_cli
+    from bigdl_tpu_torch.models.utils import perf
+    from bigdl_tpu_torch.nn import (ClassNLLCriterion,
+                                    TimeDistributedCriterion)
+    from bigdl_tpu_torch.optim import SGD, Adam, Trigger
+    from bigdl_tpu_torch.parallel import (AllReduceParameter,
+                                          DistriOptimizer,
+                                          data_parallel_mesh, init_world,
+                                          shutdown_world)
+    from bigdl_tpu_torch.utils.pytree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    init_world(dev.type)
+    if dist.get_world_size() != 1 or (
+            dev.type == "cuda" and "nccl" not in str(dist.get_backend())):
+        raise AssertionError(f"dist: world {dist.get_backend()} of "
+                             f"{dist.get_world_size()}")
+    out = {}
+    try:
+        # Z1: ResNet-50 through DistriOptimizer and LocalOptimizer
+        _reset_launches()
+        name, batch = dist_cfg["z1"]
+        z1 = {}
+        for label, distributed in (("distri", True), ("local", False)):
+            r = perf.run_perf(name, batch, dist_cfg["iters"],
+                              distributed=distributed,
+                              warmup=dist_cfg["warmup"], device=dev)
+            if not np.isfinite(r["loss"]):
+                raise AssertionError(f"Z1 {label}: loss {r['loss']}")
+            z1[label] = dict(step_ms=r["median_step_s"] * 1e3,
+                             steps_ms=[t * 1e3 for t in r["step_s"]],
+                             images_per_s=batch / r["median_step_s"],
+                             peak_mib=(r["peak_bytes"] or 0) / 2**20)
+            if distributed:
+                fp, n_params = r["collective_bytes"], r["param_count"]
+        if fp.get("all-gather") != 2 * n_params \
+                or fp.get("reduce-scatter") != 2 * n_params:
+            raise AssertionError(f"Z1 footprint {fp} for {n_params} "
+                                 "parameters")
+        z1["footprint"], z1["param_count"] = fp, n_params
+        # one batch-2 step on the card and on the CPU, the CPU replaying
+        # the card's ReLU masks and max-pool argmaxes (pinned_decisions,
+        # as C3: on its own decisions a flip moves a late weight's
+        # gradient by a whole term): the loss, then each leaf's update
+        # (the weights published after the gather, local gradients,
+        # reduce-scatter, mean and SGD update) and each buffer after the
+        # all-reduce, card against CPU
+        losses, moved, bufs, pins = {}, {}, {}, []
+        for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            decisions = pinned_decisions(record=pins) if label == "card" \
+                else pinned_decisions(replay=pins)
+            m = perf.build_model(name).build(seed=1, device=d)
+            w0 = tree_map(lambda t: t.detach().clone(), m.params)
+            ds = perf._make_dataset(name, dist_cfg["check_batch"], "random",
+                                    "NCHW")
+            opt = DistriOptimizer(m, ds, ClassNLLCriterion(),
+                                  mesh=data_parallel_mesh(device_type=d.type))
+            opt.set_optim_method(SGD(learning_rate=0.01)) \
+               .set_end_when(Trigger.max_iteration(1))
+            with decisions:
+                opt.optimize()
+            if label == "cpu" and next(decisions.replay, None) is not None:
+                raise AssertionError("Z1 check: the CPU left some of the "
+                                     "card's decisions unused")
+            losses[label] = opt.state["loss"]
+            moved[label] = tree_map(lambda a, b: (a - b).cpu(), m.params, w0)
+            bufs[label] = tree_map(lambda t: t.float().cpu(), m.buffers)
+            del opt, m, w0
+        del pins
+        rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        if not rel <= dist_cfg["tol_loss"]:
+            raise AssertionError(f"Z1 batch-2 step: card {losses['card']} vs "
+                                 f"CPU {losses['cpu']}, relative {rel:.3e}")
+        if not any(bool(a.any()) for a in tree_leaves(moved["card"])):
+            raise AssertionError("Z1 batch-2 step: the card's step moved no "
+                                 "weight")
+        worst_w = _check_grads("Z1 update card vs CPU", moved["card"],
+                               moved["cpu"], dist_cfg["tol_update"])
+        worst_b = _check_grads("Z1 buffers card vs CPU", bufs["card"],
+                               bufs["cpu"], dist_cfg["tol_buffer"]) \
+            if tree_leaves(bufs["cpu"]) else (0.0, "none")
+        z1["check"] = dict(card=losses["card"], cpu=losses["cpu"], rel=rel,
+                           worst_update=worst_w, worst_buffer=worst_b)
+        del moved, bufs
+        z1["launches"] = _launches()
+        log(f"[dist] Z1 ResNet-50 batch {batch}: DistriOptimizer median step "
+            f"{z1['distri']['step_ms']:.3f} ms "
+            f"({_ms_list(z1['distri']['steps_ms'])}), "
+            f"{z1['distri']['images_per_s']:.1f} images/s, max_memory_"
+            f"allocated {z1['distri']['peak_mib']:.1f} MiB; LocalOptimizer "
+            f"{z1['local']['step_ms']:.3f} ms "
+            f"({_ms_list(z1['local']['steps_ms'])}), "
+            f"{z1['local']['images_per_s']:.1f} images/s, "
+            f"{z1['local']['peak_mib']:.1f} MiB; collective_footprint "
+            f"{json.dumps(fp)} for {n_params} parameters; batch-2 step on "
+            f"the card's decisions: loss card {losses['card']:.7f} CPU "
+            f"{losses['cpu']:.7f} (relative {rel:.2e}), the update of every "
+            f"leaf within {dist_cfg['tol_update']} of its max (worst "
+            f"{worst_w[0]:.2e} at {worst_w[1]}), buffers within "
+            f"{dist_cfg['tol_buffer']} (worst {worst_b[0]:.2e} at "
+            f"{worst_b[1]}) | {smi}")
+        out["z1"] = z1
+
+        # Z2: the GPT-2-small-width LM through DistriOptimizer
+        x, y = _train_batch(config, train)
+        crit = TimeDistributedCriterion(ClassNLLCriterion(), True)
+
+        def dataset(rows):
+            return DataSet.array([Sample(f, l) for f, l in zip(x, y)]) \
+                >> SampleToBatch(rows)
+        model = build_lm(dev, config, train["seed"], attention_impl="flash")
+        opt = DistriOptimizer(model, dataset(train["batch"]), crit) \
+            .set_optim_method(Adam(learning_rate=train["learning_rate"]))
+        _peak_reset(dev)
+        _reset_launches()
+        steps = dist_cfg["z2_warmup"] + dist_cfg["z2_steps"]
+        z2_losses, step_s = run_iterations(opt, steps)
+        launches = _launches()
+        peak = _peak(dev)
+        step_s = step_s[dist_cfg["z2_warmup"] - 1:]
+        if not all(np.isfinite(z2_losses)):
+            raise AssertionError(f"Z2 losses {z2_losses}")
+        check_launches("dist training path (Z2)", launches,
+                       ("bigdl_flash_fwd", "bigdl_flash_bwd_dkv",
+                        "bigdl_flash_bwd_dq"),
+                       exactly=config["n_layers"] * steps)
+        if launches["bigdl_paged_decode"]:
+            raise AssertionError("Z2 launched the paged decode kernel")
+        fp2 = opt.collective_footprint()
+        step_ms = float(np.median(step_s)) * 1e3
+        z2 = dict(losses=z2_losses, step_ms=step_ms,
+                  steps_ms=[t * 1e3 for t in step_s],
+                  tokens_per_s=train["batch"] * train["seq_len"] / step_ms
+                  * 1e3, peak_bytes=peak, footprint=fp2, launches=launches)
+        del opt, model
+        torch.cuda.empty_cache()
+        # step 0's loss and local gradients, flash against plain attention
+        cb = train["check_batch"]
+        xb, yb = (torch.as_tensor(a[:cb], device=dev) for a in (x, y))
+        flash = build_lm(dev, config, train["seed"], attention_impl="flash")
+        plain = TransformerLM(attention_impl="xla", device=dev, **config)
+        plain.params, plain.buffers = flash.params, flash.buffers
+        grads = {}
+        for label, m in (("flash", flash), ("plain", plain)):
+            o = DistriOptimizer(m, dataset(cb), crit)
+            grads[label] = o.step_gradients(xb, yb)
+        (loss_f, g_f, red_f), (loss_p, g_p, _) = grads["flash"], \
+            grads["plain"]
+        rel = abs(float(loss_f) - float(loss_p)) / abs(float(loss_p))
+        if not rel <= TOL_LOSS:
+            raise AssertionError(f"Z2 step-0 loss flash {float(loss_f)} vs "
+                                 f"plain {float(loss_p)}: {rel:.3e}")
+        worst = _check_grads("dist flash", g_f, g_p, TOL_GRAD)
+        arp = AllReduceParameter(flash.params, 1)
+        want = arp.flatten(g_f).to(torch.bfloat16).float()
+        if not torch.equal(red_f, want):
+            raise AssertionError("Z2: the reduced slice of a world of one "
+                                 "is not the bf16 rounding of its gradient")
+        z2["check"] = dict(loss_flash=float(loss_f), loss_plain=float(loss_p),
+                           rel=rel, worst=worst)
+        del grads, g_f, g_p, red_f, want, flash, plain
+        torch.cuda.empty_cache()
+        # the train CLI with --distributed
+        _reset_launches()
+        cli_opt = train_cli.main(cli + ["--distributed", "--device",
+                                        dev.type])
+        launches_cli = _launches()
+        if not isinstance(cli_opt, DistriOptimizer):
+            raise AssertionError(f"train CLI --distributed ran "
+                                 f"{type(cli_opt).__name__}")
+        (method, result), = cli_opt.validation_results
+        if not (np.isfinite(cli_opt.state["loss"])
+                and np.isfinite(result.result()[0])):
+            raise AssertionError(f"train CLI --distributed: loss "
+                                 f"{cli_opt.state['loss']}, {result}")
+        check_launches("dist train CLI", launches_cli,
+                       ("bigdl_flash_fwd", "bigdl_flash_bwd_dkv",
+                        "bigdl_flash_bwd_dq"))
+        z2["cli"] = dict(loss=cli_opt.state["loss"], validation=str(result),
+                         launches=launches_cli)
+        log(f"[dist] Z2 {train['batch']}x{train['seq_len']} tokens, Adam lr "
+            f"{train['learning_rate']}, {config['n_layers']} layers: losses "
+            f"{[round(v, 4) for v in z2_losses]}; median step {step_ms:.2f} "
+            f"ms ({_ms_list(z2['steps_ms'])}), {z2['tokens_per_s']:.1f} "
+            f"tokens/s, max_memory_allocated {_mib(peak)}; footprint "
+            f"{json.dumps(fp2)}; launches {launches}; step-0 loss flash "
+            f"{float(loss_f):.6f} plain {float(loss_p):.6f} (relative "
+            f"{rel:.2e}), every local gradient leaf within {TOL_GRAD} of its "
+            f"max |g| (worst {worst[0]:.2e} at {worst[1]}); CLI "
+            f"{' '.join(cli)} --distributed: loss "
+            f"{cli_opt.state['loss']:.6f}, validation {method} {result}, "
+            f"launches {launches_cli} | {smi}")
+        out["z2"] = z2
+        out["launches"] = {k: launches[k] + launches_cli[k]
+                           for k in launches}
+    finally:
+        shutdown_world()
+    out["seconds"] = time.perf_counter() - t_phase
+    if out["seconds"] > dist_cfg["limit_s"]:
+        raise AssertionError(f"dist phase took {out['seconds']:.1f} s > "
+                             f"{dist_cfg['limit_s']} s")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
         print("chip_smoke.py: the bigdl_tpu_torch package is not beside "
@@ -6706,6 +7127,27 @@ def main() -> int:
          "d2": data["d2"], "native_build_s": data["native_build_s"],
          "launches": data["launches"], "seconds": data["seconds"]})
         + f" | {smi}")
+    log_allocated("host")
+    release(dev)
+    t0 = time.perf_counter()
+    host = phase_host(dev, smi)
+    phases["host"] = time.perf_counter() - t0
+    log("[host] summary: " + json.dumps(
+        {k: host[k] for k in ("z3", "z4", "z5", "launches", "seconds")})
+        + f" | {smi}")
+    log_allocated("dist")
+    release(dev)
+    t0 = time.perf_counter()
+    dist_run = phase_dist(dev, smi)
+    phases["dist"] = time.perf_counter() - t0
+    log("[dist] summary: " + json.dumps(
+        {"z1": {k: dist_run["z1"][k] for k in (
+            "distri", "local", "footprint", "param_count", "check")},
+         "z2": {k: dist_run["z2"][k] for k in (
+             "step_ms", "tokens_per_s", "footprint", "launches", "check",
+             "cli")},
+         "launches": dist_run["launches"], "seconds": dist_run["seconds"]},
+        default=str) + f" | {smi}")
     log("[done] phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()))
 
@@ -6725,7 +7167,8 @@ def main() -> int:
                              for p in ("o1", "o2", "o3", "o4", "o5"))),
                  tune=tune["launches"], cnn=cnn["launches"],
                  rnn=rnn["launches"], io=io["launches"],
-                 data=data["launches"])
+                 data=data["launches"], host=host["launches"],
+                 dist=dist_run["launches"])
 
     def by_path(symbol, names):
         return {p: paths[p][symbol] for p in names}
@@ -6734,7 +7177,7 @@ def main() -> int:
                "moe", "obs", "tune")
     training = ("train", "moe", "accum", "ckpt", "obs", "batch")
     # the paths on cuDNN and the host, which launch none of the kernels
-    hosted = ("cnn", "rnn", "io", "data")
+    hosted = ("cnn", "rnn", "io", "data", "host")
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_fwd.cu",
@@ -6742,28 +7185,29 @@ def main() -> int:
              launches=serve["launches"]["bigdl_flash_fwd"],
              launches_by_path=by_path("bigdl_flash_fwd",
                                       serving + ("batch", "train", "accum",
-                                                 "ckpt", "gpt2") + hosted),
+                                                 "ckpt", "gpt2", "dist")
+                                      + hosted),
              **flash_main),
         dict(name="paged_decode", route="cuda",
              source="bigdl_tpu_torch/csrc/paged_decode.cu",
              replaces="bigdl_tpu/ops/paged_attention.py:34",
              launches=serve["launches"]["bigdl_paged_decode"],
              launches_by_path=by_path("bigdl_paged_decode",
-                                      serving + hosted),
+                                      serving + hosted + ("dist",)),
              **paged_main),
         dict(name="flash_bwd_dkv", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_bwd.cu",
              replaces="bigdl_tpu/ops/flash_attention.py:199",
              launches=train["launches"]["bigdl_flash_bwd_dkv"],
              launches_by_path=by_path("bigdl_flash_bwd_dkv",
-                                      training + hosted),
+                                      training + ("dist",) + hosted),
              **dkv_main),
         dict(name="flash_bwd_dq", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_bwd.cu",
              replaces="bigdl_tpu/ops/flash_attention.py:262",
              launches=train["launches"]["bigdl_flash_bwd_dq"],
              launches_by_path=by_path("bigdl_flash_bwd_dq",
-                                      training + hosted),
+                                      training + ("dist",) + hosted),
              **dq_main),
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -13,6 +13,7 @@ clock; here the controller ticks by hand after latency it has seen, the
 load runs on a virtual clock, and the sampler samples on demand."""
 import json
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -352,7 +353,15 @@ def test_chaos_soak_span_trees_and_bundles(tmp_path, monkeypatch):
     """r1 dies mid-load while a watchdog stall fires: every accepted
     request has a span tree (the failover hop in the re-dispatched
     ones'), and the recorder writes exactly one bundle per distinct
-    incident, each with a time-series window that covers it."""
+    incident, each with a time-series window that covers it.  The two
+    incidents are the test's own (the fault and its explicit watchdog).
+    The engines' shared dispatch watchdog is off here: it fires on a
+    dispatch held past 10x the median of sub-millisecond ones, which a
+    loaded host produces at random (a 7-22 ms dispatch against a 0.4-0.5
+    ms median), and that third incident is the host's, not the soak's.
+    Its bundle is pinned where it is made to happen on purpose
+    (``test_dispatch_stall_is_an_incident_of_its_own``)."""
+    monkeypatch.setenv("BIGDL_TPU_WATCHDOG", "0")
     monkeypatch.setenv(faults.ENV_SPEC, "serving.dispatch:die:name=r1,"
                        "after=3")
     monkeypatch.setenv(faults.ENV_SEED, "0")
@@ -428,3 +437,57 @@ def test_chaos_soak_span_trees_and_bundles(tmp_path, monkeypatch):
     ledger = json.loads(open(recorder.incidents_path).read())
     assert len(ledger["incidents"]) == 2
     assert all(r.get("flight") for r in ledger["incidents"])
+
+
+def test_dispatch_stall_is_an_incident_of_its_own(tmp_path, monkeypatch):
+    """The engines' shared dispatch watchdog records a stall bundle of
+    its own (key ``serve_dispatch``) when a dispatch is held past 10x
+    the median: the third incident a loaded host can add to the chaos
+    soak, which therefore runs with the dispatch watchdog off.  Here a
+    latency fault holds the 7th dispatch 0.3 s after six fast ones."""
+    from bigdl_tpu_torch.obs import shared_watchdog
+    monkeypatch.setenv("BIGDL_TPU_WATCHDOG", "1")
+    monkeypatch.setenv(faults.ENV_SPEC,
+                       "serving.dispatch:latency:ms=300,after=6")
+    monkeypatch.setenv(faults.ENV_SEED, "0")
+    faults.refresh_from_env()
+    old = flight_mod.get_flight_recorder()
+    flight_mod.configure(enabled=True, out_dir=str(tmp_path),
+                         incidents_path=str(tmp_path / "INC.json"))
+    _, tm = _models()
+    try:
+        with ServingEngine(tm, input_shape=(8,), max_wait_ms=1.0,
+                           **CPU) as eng:
+            wd = eng.watchdog
+            assert wd is shared_watchdog("serve_dispatch")
+            for _ in range(6):
+                eng.predict(np.ones((1, 8), np.float32), timeout=60)
+            fut = eng.submit(np.ones((1, 8), np.float32))
+            time.sleep(0.1)  # the 7th dispatch is held in flight
+            wd.check_now()   # unless the poller fired it first
+            assert fut.result(timeout=60).shape == (1, 4)
+    finally:
+        flight_mod._GLOBAL = old
+        monkeypatch.delenv(faults.ENV_SPEC, raising=False)
+        faults.refresh_from_env()
+    kinds = [json.loads(b.read_text()) for b in tmp_path.glob("FLIGHT_*")]
+    stalls = [d for d in kinds if d["flight"] == "stall"]
+    assert [d["detail"]["watchdog"] for d in stalls] == ["serve_dispatch"]
+
+
+def test_engine_rearms_the_shared_watchdog_from_defaults(monkeypatch):
+    """A ServingEngine re-arms the process-wide dispatch watchdog with
+    every knob from its own environment: a deadline or k an earlier
+    user left on it does not carry over, so no dispatch is held to a
+    deadline its engine's settings never asked for."""
+    from bigdl_tpu_torch.obs import shared_watchdog
+    monkeypatch.setenv("BIGDL_TPU_WATCHDOG", "1")
+    monkeypatch.delenv("BIGDL_TPU_WATCHDOG_K", raising=False)
+    monkeypatch.delenv("BIGDL_TPU_WATCHDOG_DEADLINE_S", raising=False)
+    shared_watchdog("serve_dispatch").reset(k=2.0, deadline_s=0.001)
+    _, tm = _models()
+    with ServingEngine(tm, input_shape=(8,), **CPU) as eng:
+        assert eng.watchdog.k == 10.0 and eng.watchdog.deadline_s is None
+    monkeypatch.setenv("BIGDL_TPU_WATCHDOG_DEADLINE_S", "7")
+    with ServingEngine(tm, input_shape=(8,), **CPU) as eng:
+        assert eng.watchdog.deadline_s == 7.0

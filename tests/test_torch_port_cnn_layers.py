@@ -187,14 +187,18 @@ def test_convolution_map(table):
 
 
 def test_quantized_convolution_weight_names_its_item():
+    """A quantized weight goes through ``qconv`` (it was refused before
+    the quantized convolution was ported): with unit scales and integer
+    weights, exactly the float convolution of bf16-rounded inputs."""
     from bigdl_tpu_torch.quant.qtensor import QTensor
     m = tnn.SpatialConvolution(2, 2, 1, 1).build(1, device="cpu")
-    w = m.params["weight"]
-    q = QTensor(w.to(torch.int8), torch.ones(2, 1, 1, 1), "float32", True,
-                "dequant", None)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        m.apply({"weight": q, "bias": m.params["bias"]}, torch.zeros(1, 2, 2,
-                                                                     2))
+    w = torch.tensor([[1, -2], [3, 0]], dtype=torch.int8).reshape(2, 2, 1, 1)
+    q = QTensor(w, torch.ones(2, 1, 1, 1), "float32", True, "dequant", None)
+    x = torch.from_numpy(np.random.RandomState(4).randn(1, 2, 2, 2).astype(
+        np.float32)).to(torch.bfloat16).float()
+    y, _ = m.apply({"weight": q, "bias": m.params["bias"]}, x)
+    want = torch.nn.functional.conv2d(x, w.float(), m.params["bias"])
+    torch.testing.assert_close(y, want, rtol=0, atol=1e-6)
 
 
 # -------------------------------------------------------------------- #

@@ -417,12 +417,27 @@ def test_lenet_cli_trains_checkpoints_and_evaluates(tmp_path, capsys):
     assert opt2.state["epoch"] == 3 and opt2.state["neval"] == 33
 
 
-def test_resnet_and_vgg_clis_refuse_what_waits():
+def test_resnet_and_vgg_clis_refuse_what_waits(monkeypatch):
+    """``--distributed`` (refused before the data-parallel engine was
+    ported) trains through ``DistriOptimizer`` on a world of one,
+    started by the CLI and torn down here; the synthetic CIFAR records
+    are cut to 64 for time."""
+    from bigdl_tpu_torch.dataset import cifar
     from bigdl_tpu_torch.models.resnet import train as resnet_train
     from bigdl_tpu_torch.models.vgg import train as vgg_train
-    for main in (resnet_train.main, vgg_train.main):
-        with pytest.raises(SystemExit, match="item 12"):
-            main(["--synthetic", "--distributed", "--device", "cpu"])
+    from bigdl_tpu_torch.parallel import DistriOptimizer, shutdown_world
+    real = cifar.synthetic
+    monkeypatch.setattr(cifar, "synthetic",
+                        lambda n, seed=0: real(64, seed=seed))
+    try:
+        for main, extra in ((resnet_train.main, ["--depth", "8"]),
+                            (vgg_train.main, [])):
+            opt = main(["--synthetic", "--distributed", "-e", "1", "-b",
+                        "32", "--device", "cpu"] + extra)
+            assert isinstance(opt, DistriOptimizer)
+            assert np.isfinite(opt.state["loss"]) and opt.state["neval"] == 3
+    finally:
+        shutdown_world()
 
 
 def test_resnet_cli_one_epoch(tmp_path):
@@ -446,7 +461,9 @@ def test_perf_harness_on_the_cpu(capsys):
     # LeNet-5's products, 221,800 MACs an image: 2 FLOPs a MAC forward,
     # twice that backward, less the first convolution's input gradient
     assert r["step_flops"] == 8 * (3 * 2 * 221_800 - 2 * 86_400)
-    with pytest.raises(SystemExit, match="item 12"):
+    # one rank drives one device: a sweep past the world's ranks refuses
+    # before starting a world, naming the count
+    with pytest.raises(SystemExit, match="this world has 1"):
         perf.main(["-m", "lenet5", "--mesh", "1,2", "--device", "cpu"])
     with pytest.raises(ValueError, match="NCHW only"):
         perf.build_model("alexnet", "NHWC")

@@ -117,5 +117,10 @@ def test_sample_to_batch_pads_like_jax():
     jds = JaxDataSet.array([JaxSample(f, l) for f, l in samples]) >> jb
     _assert_same_batches(list(ds.data(train=False)),
                          list(jds.data(train=False)))
-    with pytest.raises(NotImplementedError, match="distributed"):
-        DataSet.array([], distributed=True)
+    # distributed: one rank's shard (rank 0 of 1 with no world running)
+    from bigdl_tpu_torch.dataset import DistributedDataSet
+    dist_ds = DataSet.array([Sample(f, l) for f, l in samples],
+                            distributed=True) >> b
+    assert isinstance(dist_ds.source, DistributedDataSet)
+    _assert_same_batches(list(dist_ds.data(train=False)),
+                         list(jds.data(train=False)))

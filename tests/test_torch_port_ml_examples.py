@@ -167,8 +167,13 @@ def test_image_folder_labels_sorted_one_based(tmp_path):
     assert [(os.path.relpath(p, tmp_path), y) for p, y in got] == [
         ("ant/c.png", 1.0), ("zebra/a.png", 2.0), ("zebra/b.png", 2.0)]
     assert ds.size() == 3
-    with pytest.raises(NotImplementedError, match="12-DIST"):
-        DataSet.image_folder(str(tmp_path), distributed=True)
+    # distributed: each rank's shard is the reference's
+    from bigdl_tpu.dataset.dataset import DistributedDataSet as JDist
+    from bigdl_tpu_torch.dataset import DistributedDataSet
+    shard = DataSet.image_folder(str(tmp_path), distributed=True)
+    assert isinstance(shard, DistributedDataSet) and shard.size() == 3
+    assert list(shard.data(train=False)) == list(JDist(
+        got, process_index=0, process_count=1).data(train=False))
 
 
 # --------------------------------------------------------------------- #

@@ -455,23 +455,35 @@ def test_quantized_linear_is_the_references(compute):
 
 
 def test_remaining_item12_refusals_name_their_item():
-    """The loaders are ported; the quantized convolution weight, the
-    CLIs' --distributed and distributed datasets still refuse, naming
-    their item of ROADMAP Queue 1."""
+    """What item 12 refused now runs: the quantized convolution weight
+    (the reference's qconv, within 1e-5 of its output's scale), the
+    CLIs' --distributed hook (a no-op without the flag) and distributed
+    datasets (rank 0 of 1 with no world running)."""
     from types import SimpleNamespace
 
-    from bigdl_tpu_torch.dataset import DataSet
-    from bigdl_tpu_torch.models.utils import refuse_distributed
-    from bigdl_tpu_torch.quant import quantize_array
-    conv = tnn.SpatialConvolution(2, 4, 3, 3).build(0, device="cpu")
-    qparams = dict(conv.params,
-                   weight=quantize_array(conv.params["weight"], (1, 2, 3)))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        conv.apply(qparams, torch.from_numpy(_x(1, 2, 6, 6)))
-    with pytest.raises(SystemExit, match="item 12"):
-        refuse_distributed(SimpleNamespace(distributed=True))
-    with pytest.raises(NotImplementedError, match="12-DIST"):
-        DataSet.array([1, 2], distributed=True)
+    import jax.numpy as jnp
+    from bigdl_tpu.quant import qconv as jqconv
+    from bigdl_tpu.quant.qtensor import quantize_array as jquantize
+    from bigdl_tpu_torch.dataset import DataSet, DistributedDataSet
+    from bigdl_tpu_torch.models.utils import start_distributed
+    from bigdl_tpu_torch.utils.params import params_from_numpy
+    conv = tnn.SpatialConvolution(2, 4, 3, 3, with_bias=False).build(
+        0, device="cpu")
+    jq = jquantize(conv.params["weight"].numpy(), (1, 2, 3), native=True)
+    x = _x(1, 2, 6, 6)
+    y, _ = conv.apply({"weight": params_from_numpy({"w": jq}, "cpu")["w"]},
+                      torch.from_numpy(x))
+    want = np.asarray(jqconv(jnp.asarray(x), jq, window_strides=(1, 1),
+                             padding=((0, 0), (0, 0)),
+                             dimension_numbers=("NCHW", "OIHW", "NCHW")))
+    np.testing.assert_allclose(y.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    start_distributed(SimpleNamespace(distributed=False, device="cpu"))
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    ds = DataSet.array([1, 2, 3], distributed=True)
+    assert isinstance(ds, DistributedDataSet)
+    assert list(ds.data(train=False)) == [1, 2, 3]
 
 
 def test_transformer_lm_is_a_module_and_takes_the_reference_rng():

@@ -399,8 +399,15 @@ def test_record_files_mixes_shards_and_seq_files(tmp_path, monkeypatch):
 
 
 def test_record_files_refuses_distributed(tmp_path):
-    with pytest.raises(NotImplementedError, match="12-DIST"):
-        DataSet.record_files(_mixed_folder(tmp_path), distributed=True)
+    """distributed=True (refused before the data-parallel engine was
+    ported): this rank's shard of the records, the reference's."""
+    from bigdl_tpu_torch.dataset import DistributedDataSet
+    paths = _mixed_folder(tmp_path)
+    ds = DataSet.record_files(paths, distributed=True)
+    assert isinstance(ds, DistributedDataSet)
+    jd = JDataSet.record_files(paths, distributed=True)
+    assert ds.size() == jd.size()
+    assert _pairs(ds.data(train=False)) == _pairs(jd.data(train=False))
 
 
 def test_chain_and_clone():

@@ -230,12 +230,21 @@ def test_metrics_aggregate_single_process_noop(monkeypatch):
     out = m.aggregate()
     assert out is m
     assert m.get("shard data time") == (2.0, 4)
-    # across processes it names the item instead of answering locally
+    # across ranks: one all_reduce sum of every counter, then the mean
+    # (here two ranks whose counters are equal, so the mean is the value)
     import torch.distributed as dist
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        m.aggregate()
+    monkeypatch.setattr(dist, "get_backend", lambda *a: "gloo")
+    calls = []
+
+    def all_reduce(t, op=None, group=None):
+        calls.append(t.clone())
+        t.mul_(2)
+    monkeypatch.setattr(dist, "all_reduce", all_reduce)
+    out = m.aggregate()
+    assert out is not m and len(calls) == 1
+    assert out.get("shard data time") == (2.0, 4)
 
 
 def test_metrics_publish_to_registry_live():

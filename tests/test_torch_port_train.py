@@ -282,9 +282,18 @@ def test_train_cli_runs_on_cpu(caplog):
     assert any(r.getMessage().startswith("Loss is Loss(")
                for r in caplog.records)
     # --moeExperts, --checkpoint, --model, --state and --resume are
-    # ported (tests/test_torch_port_ckpt.py); --distributed is not
-    with pytest.raises(SystemExit, match="not ported"):
-        train.main(["--synthetic", "--device", "cpu", "--distributed"])
+    # ported (tests/test_torch_port_ckpt.py); --distributed (refused
+    # before the data-parallel engine was ported) trains the same run
+    # through DistriOptimizer on a world of one, torn down here
+    from bigdl_tpu_torch.parallel import DistriOptimizer, shutdown_world
+    try:
+        dopt = train.main(["--synthetic", "--device", "cpu", "-e", "1",
+                           "-b", "16", "--seqLength", "16", "--packed",
+                           "--docIsolate", "--distributed"])
+    finally:
+        shutdown_world()
+    assert isinstance(dopt, DistriOptimizer)
+    assert np.isfinite(dopt.state["loss"]) and dopt.state["epoch"] == 2
 
 
 # --------------------------------------------------------------------------- #
