@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from bigdl_tpu_torch.device import resolve_device
+from bigdl_tpu_torch.nn._util import replicate_like
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.nn.dropout import keep_masks
 from bigdl_tpu_torch.nn.module import Module
@@ -65,7 +66,8 @@ def apply_rope(x, positions, base: float = 10000.0):
         0, half, dtype=torch.float32, device=x.device) * 2.0 / d)
     ang = positions.to(device=x.device, dtype=torch.float32)[..., :, None] \
         * freqs
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos, sin = replicate_like(torch.cos(ang), x), replicate_like(
+        torch.sin(ang), x)
     x1 = x[..., :half].float()
     x2 = x[..., half:].float()
     return torch.cat([(x1 * cos - x2 * sin).to(x.dtype),

@@ -10,6 +10,19 @@ from bigdl_tpu_torch.utils import keychain
 from bigdl_tpu_torch.utils.pytree import tree_map
 
 
+def replicate_like(t, ref):
+    """``t``, a tensor made inside a forward (a mask, positions), as
+    ``ref`` holds its values: a replicated DTensor on ``ref``'s mesh
+    when ``ref`` is a DTensor (a tensor-parallel tree), else ``t``
+    itself.  DTensor ops refuse plain tensors as operands."""
+    if type(ref).__name__ != "DTensor" or type(t).__name__ == "DTensor":
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def to_axis(dim: int, ndim: int, n_input_dims: Optional[int] = None) -> int:
     """Convert a 1-based Torch/BigDL dimension to a 0-based axis.
 

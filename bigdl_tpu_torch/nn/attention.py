@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.nn._util import replicate_like
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.quant.kernels import qmatmul
 from bigdl_tpu_torch.quant.qtensor import is_qtensor
@@ -83,12 +84,12 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if causal:
         tq, tk = q.shape[-2], k.shape[-2]
-        cmask = torch.ones((tq, tk), dtype=torch.bool,
-                           device=q.device).tril(tk - tq)
+        cmask = replicate_like(torch.ones((tq, tk), dtype=torch.bool,
+                                          device=q.device).tril(tk - tq), q)
         mask = cmask if mask is None else torch.logical_and(mask, cmask)
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
     if mask is not None:
-        s = s.masked_fill(~mask, float("-inf"))
+        s = s.masked_fill(~replicate_like(mask, s), float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     empty = torch.isneginf(m)
     p = torch.where(empty, torch.zeros_like(s),

@@ -396,6 +396,34 @@ result line:
    rounding of the local gradient (a world of one); then the train CLI
    with ``--distributed`` (the train phase's flags).  The phase within
    120 s.
+24. par: the model-parallel strategies (``bigdl_tpu_torch.parallel``,
+   ``models/transformer/sp.py``, ``example/long_context_lm.py``) on the
+   one card.  P1: ``long_context_lm`` at GPT-2-small widths (vocab
+   50257, hidden 768, 12 heads of 64, 12 layers), ``--seqLength 4096
+   --batchSize 2``, float32, 1 warm-up and 3 timed Adam steps, once with
+   ``--flash --remat`` on one device and once with ``--sp 1 --remat``
+   over an NCCL world of one (ring attention, "auto" attention: the
+   kernels on a card): the step-0 losses within 1e-5 relative, the flash
+   forward launched exactly 24 times a step (remat runs each block's
+   forward twice) and dK/dV and dQ 12, the paged kernel never; ms/step,
+   tokens/s and the peak printed.  P2: a (2, 12, 4096, 64) causal
+   problem cut into 4 shards of 1024; for each shard r the hops
+   (``parallel.sequence.ring_hop``) in the order rank r receives the
+   blocks, (r - i) mod 4 (10 computed, 6 future ones skipped): the
+   assembled output and the q/k/v gradients of one scalar loss against
+   ``flash_attention`` over the whole 4096 and against the plain
+   version, in float32 and bf16 and once with documents that cross the
+   shard boundaries; forward + backward ms of the ring beside the
+   full-sequence kernels'.  P3, over the world of one:
+   ``ring_lm_apply`` and ``ulysses_lm_apply`` against the model's own
+   forward, ``transformer_lm_tp_rules`` + ``shard_params`` (model axis
+   1, DTensors, the plain attention core) against the unsharded
+   forward, ``pipeline_apply`` of one GPT-2-small block and
+   ``pipeline_apply_hetero`` of ResNet-20 (one stage) against their
+   sequential forward and gradients, ``moe_apply`` (expert axis 1, 8
+   experts) against ``switch_mlp``, dense and at capacity 1.25; each
+   error printed beside its tolerance.  The par path's launches are
+   P1's.  The phase within 240 s.
 
 Every serving engine must keep its captures bounded: prefill entries at
 most the buckets, one decode graph, one verify graph (one per tree
@@ -600,6 +628,19 @@ DATA = dict(batch=256, iters=20, warmup=3, records=2048, check_batch=2,
             tol_loss=2e-2, classes=4, train_per_class=24, val_per_class=8,
             image_sizes=((256, 256), (248, 264), (264, 240)), shards=4,
             cli_batch=32, inception_iters=3, limit_s=120.0)
+# the par phase: long_context_lm at GPT-2-small widths (T 4096, batch 2,
+# 1 warm-up and 3 timed Adam steps a run); the ring's hop schedule
+# replayed for 4 shards of a (2, 12, 4096, 64) causal problem; the
+# world-of-one checks at 1 x 256 ids (the LM ones), a (4, 256, 768)
+# block input, ResNet-20 at batch 32 and 2,048 MoE tokens
+PAR = dict(cli=["--vocabSize", "50257", "--hiddenSize", "768", "--nHead",
+                "12", "--nLayers", "12", "-t", "4096", "-b", "2", "-i", "3"],
+           ring=dict(batch=2, heads=12, seq=4096, d=64, shards=4, seed=0,
+                     docs=6),
+           lm_tokens=256, pipe_rows=4, micro=2, resnet_batch=32,
+           moe_tokens=2048, moe_experts=8, tol_loss=1e-5, tol_lm=1e-4,
+           tol_ulysses=1e-4, tol_tp=1e-5, tol_pipe=1e-5, tol_moe=1e-6,
+           limit_s=240.0)
 
 
 def log(msg: str) -> None:
@@ -6801,6 +6842,301 @@ def phase_dist(dev, smi, dist_cfg=DIST, config=GPT2_SMALL, train=TRAIN,
     return out
 
 
+def ring_replay(dev, ring, dtype, segmented=False):
+    """P2: the ring's hop schedule for ``ring['shards']`` shards of one
+    causal (b, h, t, d) problem on one card: shard r's queries take the
+    blocks in the order rank r receives them, (r - i) mod N, through
+    ``parallel.sequence.ring_hop`` (the future ones skipped).  The
+    assembled output and the q/k/v gradients of one scalar loss are held
+    against ``flash_attention`` over the whole sequence (the kernels) and
+    against the plain version (autograd through
+    ``flash_attention_reference``); both timed forward + backward."""
+    import torch
+    from bigdl_tpu_torch.ops import (flash_attention,
+                                     flash_attention_reference)
+    from bigdl_tpu_torch.parallel.sequence import (ring_finish, ring_hop,
+                                                   ring_init)
+    b, h, t, d, n = (ring[k] for k in ("batch", "heads", "seq", "d",
+                                       "shards"))
+    tl = t // n
+    tdt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(ring["seed"])
+    q, k, v = (torch.randn((b, h, t, d), generator=g, device=dev).to(tdt)
+               for _ in range(3))
+    w = torch.randn((b, h, t, d), generator=g, device=dev)
+    seg = None
+    if segmented:
+        # documents of random lengths, their boundaries anywhere, so
+        # most cross a shard boundary
+        cuts = torch.sort(torch.randint(1, t, (b, ring["docs"] - 1),
+                                        generator=g, device=dev),
+                          dim=1).values
+        seg = (torch.arange(t, device=dev)[None, :, None]
+               >= cuts[:, None, :]).sum(-1).to(torch.int32)
+
+    def shards(x):
+        return [x[:, :, i * tl:(i + 1) * tl].contiguous().requires_grad_()
+                for i in range(n)]
+    qs, ks, vs = shards(q), shards(k), shards(v)
+    sseg = [None if seg is None else seg[:, i * tl:(i + 1) * tl]
+            for i in range(n)]
+    hops = {"computed": 0, "skipped": 0}
+
+    def ring_run():
+        outs = []
+        for r in range(n):
+            state = ring_init(qs[r], "flash")
+            for i in range(n):
+                src = (r - i) % n
+                hops["skipped" if src > r else "computed"] += 1
+                state = ring_hop(state, qs[r], ks[src], vs[src], rank=r,
+                                 src=src, causal=True, impl="flash",
+                                 segment_ids=sseg[r],
+                                 kv_segment_ids=sseg[src])
+            outs.append(ring_finish(state, qs[r], "flash"))
+        o = torch.cat(outs, dim=2)
+        grads = torch.autograd.grad((o.float() * w).sum(), qs + ks + vs)
+        return o, [torch.cat(grads[j * n:(j + 1) * n], dim=2)
+                   for j in range(3)]
+
+    full = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+    def full_run():
+        o = flash_attention(*full, causal=True, segment_ids=seg)
+        return o, torch.autograd.grad((o.float() * w).sum(), full)
+
+    def plain_run():
+        o = flash_attention_reference(*full, causal=True, q_segment_ids=seg,
+                                      kv_segment_ids=seg)[0]
+        return o, torch.autograd.grad((o.float() * w).sum(), full)
+
+    got = ring_run()
+    per_call = dict(hops)
+    name = (f"ring replay {n} x ({b},{h},{tl},{d}) {dtype}"
+            f"{' segmented' if segmented else ''}")
+    tol_o = TOL_F32 if dtype == "float32" else TOL_BF16_O
+    errs = {}
+    for label, fn in (("flash", full_run), ("plain", plain_run)):
+        want = fn()
+        for gname, a, ref, tol in zip(
+                ("o", "dq", "dk", "dv"), [got[0]] + list(got[1]),
+                [want[0]] + list(want[1]),
+                [tol_o] + [TOL_BWD[dtype]] * 3):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{name}: non-finite {gname}")
+            top = ref.float().abs().max().item()
+            err = (a.float() - ref.float()).abs().max().item()
+            if not err <= tol * top:
+                raise AssertionError(f"{name}: {gname} against {label} "
+                                     f"max_abs_err {err:.3e} over max "
+                                     f"|{gname}| {top:.3e} > {tol}")
+            errs[f"{gname}_vs_{label}"] = err / top
+        del want
+    ring_ms = cuda_ms(ring_run, iters=5, warmup=1)
+    full_ms = cuda_ms(full_run, iters=5, warmup=1)
+    log(f"[par] {name}: {per_call['computed']} hops computed, "
+        f"{per_call['skipped']} skipped (of {n * n}); max_abs_err over max "
+        f"|x| " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tol o {tol_o}, gradients {TOL_BWD[dtype]}); forward + "
+        f"backward: ring {ring_ms:.3f} ms, full-sequence flash "
+        f"{full_ms:.3f} ms")
+    return dict(hops=per_call, errs=errs, ring_ms=ring_ms, full_ms=full_ms,
+                tol=dict(o=tol_o, grad=TOL_BWD[dtype]))
+
+
+def _rel_err(got, want):
+    got = got.full_tensor() if type(got).__name__ == "DTensor" else got
+    top = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() / top
+
+
+def world_of_one(dev, par, config):
+    """P3: every strategy over the running world of one, against the
+    single-device computation it stands for."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.models.transformer.sp import (ring_lm_apply,
+                                                       ulysses_lm_apply)
+    from bigdl_tpu_torch.parallel import (constrain_batch, create_mesh,
+                                          init_moe_params, moe_apply,
+                                          pin_xla_attention, pipeline_apply,
+                                          pipeline_apply_hetero,
+                                          shard_params, split_sequential,
+                                          switch_mlp,
+                                          transformer_lm_tp_rules)
+    from bigdl_tpu_torch.utils import keychain
+    from bigdl_tpu_torch.utils.params import layer_params, params_from_numpy
+    from bigdl_tpu_torch.utils.pytree import tree_leaves, tree_map
+    out = {}
+
+    def held(label, err, tol):
+        if not err <= tol:
+            raise AssertionError(f"par world of one: {label} error {err:.3e} "
+                                 f"> {tol}")
+        out[label] = dict(err=err, tol=tol)
+
+    model = build_lm(dev, config, 0, attention_impl="flash")
+    t = par["lm_tokens"]
+    ids = torch.as_tensor(np.random.RandomState(1).randint(
+        1, config["vocab_size"] + 1, size=(1, t)).astype(np.float32),
+        device=dev)
+    seq = create_mesh({"sequence": 1}, dev.type)
+    with torch.no_grad():
+        want = model.apply(model.params, ids)[0]
+        held("ring_lm_apply", _rel_err(ring_lm_apply(
+            model, model.params, ids, seq), want), par["tol_lm"])
+        held("ulysses_lm_apply", _rel_err(ulysses_lm_apply(
+            model, model.params, ids, seq), want), par["tol_ulysses"])
+        plain = TransformerLM(attention_impl="xla", device=dev, **config)
+        plain.params = model.params
+        pin_xla_attention(plain)
+        mesh = create_mesh({"data": 1, "model": 1}, dev.type)
+        tp = shard_params(model.params, transformer_lm_tp_rules(mesh), mesh)
+        held("tensor_parallel", _rel_err(plain.apply(tp, constrain_batch(
+            ids, mesh))[0], plain.apply(plain.params, ids)[0]),
+            par["tol_tp"])
+        del tp, want
+    # GPipe, one stage: a GPT-2-small block (the flash kernels inside)
+    pipe = create_mesh({"pipeline": 1}, dev.type)
+    stacked = tree_map(lambda a: a[0:1].detach().clone().requires_grad_(),
+                       model.params["blocks"])
+    positions = torch.arange(t, device=dev)
+
+    def block(bp, x):
+        return model._block(bp, x, positions)[0]
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((par["pipe_rows"], t, config["hidden_size"]),
+                    generator=g, device=dev, requires_grad=True)
+    wy = torch.randn(x.shape, generator=g, device=dev)
+    leaves = tree_leaves(stacked) + [x]
+    y = pipeline_apply(block, stacked, x, pipe,
+                       n_microbatches=par["micro"])
+    gp = torch.autograd.grad((y * wy).sum(), leaves)
+    y_seq = block(layer_params(stacked, 0), x)
+    gs = torch.autograd.grad((y_seq * wy).sum(), leaves)
+    held("pipeline_apply", _rel_err(y, y_seq), par["tol_pipe"])
+    # TOL_GRAD's floor: bk's gradient is zero in exact arithmetic, and
+    # microbatches change the products' shapes, so their rounding
+    held("pipeline_apply grads", _check_grads(
+        "par pipeline_apply", dict(enumerate(gp)), dict(enumerate(gs)),
+        TOL_GRAD)[0], TOL_GRAD)
+    del model, plain, stacked, x, y, y_seq, gp, gs
+    release(dev)
+    # GPipe, one stage of different shapes: ResNet-20 cut by FLOPs
+    resnet = ResNet(class_num=10, depth=20, dataset="cifar10").build(
+        seed=1, device=dev)
+    xr = torch.randn((par["resnet_batch"], 3, 32, 32), generator=g,
+                     device=dev)
+    fns, stage_params = split_sequential(resnet, 1, xr)
+    leaves = tree_leaves(stage_params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    yh = pipeline_apply_hetero(fns, stage_params, xr, pipe,
+                               n_microbatches=par["micro"])
+    gh = torch.autograd.grad((yh ** 2).mean(), leaves)
+    y_seq = resnet.apply(resnet.params, xr, buffers=resnet.buffers,
+                         training=False)[0]
+    gs = torch.autograd.grad((y_seq ** 2).mean(), leaves)
+    held("pipeline_apply_hetero", _rel_err(yh, y_seq), par["tol_pipe"])
+    held("pipeline_apply_hetero grads", _check_grads(
+        "par pipeline_apply_hetero", dict(enumerate(gh)),
+        dict(enumerate(gs)), TOL_GRAD)[0], TOL_GRAD)
+    del resnet, yh, gh, y_seq, gs
+    # the expert axis: 8 GPT-2-width experts, dense and capacity 1.25
+    experts = create_mesh({"expert": 1}, dev.type)
+    p = params_from_numpy(init_moe_params(
+        keychain.prng_key(0), par["moe_experts"], config["hidden_size"],
+        config["ffn_size"]), dev)
+    xm = torch.randn((par["moe_tokens"], config["hidden_size"]),
+                     generator=g, device=dev)
+    with torch.no_grad():
+        for cf in (None, 1.25):
+            y, aux = moe_apply(p, xm, experts, capacity_factor=cf)
+            y_ref, aux_ref = switch_mlp(p, xm, capacity_factor=cf)
+            held(f"moe_apply capacity {cf}", max(
+                _rel_err(y, y_ref), abs(float(aux) - float(aux_ref))),
+                par["tol_moe"])
+    log("[par] world of one (error over the reference's max |x|, "
+        "tolerance): " + ", ".join(f"{k} {v['err']:.2e} (tol {v['tol']})"
+                                   for k, v in out.items()))
+    return out
+
+
+def phase_par(dev, smi, par=PAR, config=GPT2_SMALL):
+    """P1-P3 (module docstring, phase 24)."""
+    import torch
+    import torch.distributed as dist
+    from bigdl_tpu_torch.example import long_context_lm
+    from bigdl_tpu_torch.parallel import shutdown_world
+    t_phase = time.perf_counter()
+    if dist.is_initialized():
+        raise AssertionError("par: a process world is already running")
+    flash3 = ("bigdl_flash_fwd", "bigdl_flash_bwd_dkv", "bigdl_flash_bwd_dq")
+    out = {}
+    try:
+        # P1: long_context_lm on one device and over a world of one
+        steps = 1 + int(par["cli"][par["cli"].index("-i") + 1])
+        layers = int(par["cli"][par["cli"].index("--nLayers") + 1])
+        runs = {}
+        for label, flags in (("single", ["--flash", "--remat"]),
+                             ("sp1", ["--sp", "1", "--remat"])):
+            release(dev)
+            _reset_launches()
+            run = long_context_lm.main(par["cli"] + flags
+                                       + ["--device", dev.type])
+            run["launches"] = _launches()
+            # remat runs each block's forward twice a step
+            check_launches(f"long_context_lm {label}", run["launches"],
+                           ("bigdl_flash_fwd",), exactly=2 * layers * steps)
+            check_launches(f"long_context_lm {label}", run["launches"],
+                           flash3[1:], exactly=layers * steps)
+            if run["launches"]["bigdl_paged_decode"]:
+                raise AssertionError(f"long_context_lm {label} launched the "
+                                     "paged decode kernel")
+            runs[label] = run
+            log(f"[par] P1 long_context_lm {' '.join(par['cli'])} "
+                f"{' '.join(flags)}: {run['mode']}, {run['ms_per_step']:.2f} "
+                f"ms/step, {run['tokens_per_s']:.1f} tokens/s, step-0 loss "
+                f"{run['first_loss']:.7f}, final loss {run['loss']:.6f}, "
+                f"max_memory_allocated {_mib(run['peak_bytes'])}, launches "
+                f"{run['launches']} | {smi}")
+        if dev.type == "cuda" and not (dist.get_world_size() == 1 and "nccl"
+                                       in str(dist.get_backend())):
+            raise AssertionError(f"par: world {dist.get_backend()} of "
+                                 f"{dist.get_world_size()}")
+        a, b = runs["single"]["first_loss"], runs["sp1"]["first_loss"]
+        rel = abs(a - b) / abs(a)
+        if not rel <= par["tol_loss"]:
+            raise AssertionError(f"par P1: step-0 loss single {a} vs sp=1 "
+                                 f"{b}: {rel:.3e} > {par['tol_loss']}")
+        log(f"[par] P1 step-0 loss single-device {a:.7f}, sp=1 {b:.7f} "
+            f"(relative {rel:.2e}, tol {par['tol_loss']})")
+        out["p1"] = dict(runs=runs, rel=rel)
+        out["launches"] = {k: runs["single"]["launches"][k]
+                           + runs["sp1"]["launches"][k]
+                           for k in runs["single"]["launches"]}
+        release(dev)
+        # P2: the ring's hop schedule at 4 shards on one card
+        out["p2"] = {
+            "float32": ring_replay(dev, par["ring"], "float32"),
+            "bfloat16": ring_replay(dev, par["ring"], "bfloat16"),
+            "float32_segmented": ring_replay(dev, par["ring"], "float32",
+                                             segmented=True)}
+        release(dev)
+        # P3: each strategy over the world of one
+        out["p3"] = world_of_one(dev, par, config)
+        release(dev)
+    finally:
+        shutdown_world()
+    out["seconds"] = time.perf_counter() - t_phase
+    if out["seconds"] > par["limit_s"]:
+        raise AssertionError(f"par phase took {out['seconds']:.1f} s > "
+                             f"{par['limit_s']} s")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
         print("chip_smoke.py: the bigdl_tpu_torch package is not beside "
@@ -7148,6 +7484,19 @@ def main() -> int:
              "cli")},
          "launches": dist_run["launches"], "seconds": dist_run["seconds"]},
         default=str) + f" | {smi}")
+    log_allocated("par")
+    release(dev)
+    t0 = time.perf_counter()
+    par = phase_par(dev, smi)
+    phases["par"] = time.perf_counter() - t0
+    log("[par] summary: " + json.dumps(
+        {"p1": {k: {f: r[f] for f in ("mode", "first_loss", "loss",
+                                      "ms_per_step", "tokens_per_s",
+                                      "peak_bytes", "launches")}
+                for k, r in par["p1"]["runs"].items()},
+         "p1_step0_rel": par["p1"]["rel"],
+         "p2": par["p2"], "p3": par["p3"], "launches": par["launches"],
+         "seconds": par["seconds"]}) + f" | {smi}")
     log("[done] phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()))
 
@@ -7168,14 +7517,14 @@ def main() -> int:
                  tune=tune["launches"], cnn=cnn["launches"],
                  rnn=rnn["launches"], io=io["launches"],
                  data=data["launches"], host=host["launches"],
-                 dist=dist_run["launches"])
+                 dist=dist_run["launches"], par=par["launches"])
 
     def by_path(symbol, names):
         return {p: paths[p][symbol] for p in names}
 
     serving = ("serve", "serve_sampled", "spec", "quant", "tier", "replicas",
                "moe", "obs", "tune")
-    training = ("train", "moe", "accum", "ckpt", "obs", "batch")
+    training = ("train", "moe", "accum", "ckpt", "obs", "batch", "par")
     # the paths on cuDNN and the host, which launch none of the kernels
     hosted = ("cnn", "rnn", "io", "data", "host")
     kernels = [
@@ -7185,15 +7534,15 @@ def main() -> int:
              launches=serve["launches"]["bigdl_flash_fwd"],
              launches_by_path=by_path("bigdl_flash_fwd",
                                       serving + ("batch", "train", "accum",
-                                                 "ckpt", "gpt2", "dist")
-                                      + hosted),
+                                                 "ckpt", "gpt2", "dist",
+                                                 "par") + hosted),
              **flash_main),
         dict(name="paged_decode", route="cuda",
              source="bigdl_tpu_torch/csrc/paged_decode.cu",
              replaces="bigdl_tpu/ops/paged_attention.py:34",
              launches=serve["launches"]["bigdl_paged_decode"],
              launches_by_path=by_path("bigdl_paged_decode",
-                                      serving + hosted + ("dist",)),
+                                      serving + hosted + ("dist", "par")),
              **paged_main),
         dict(name="flash_bwd_dkv", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_bwd.cu",

@@ -208,17 +208,6 @@ def test_block_size_survives_save_and_load(tmp_path):
 # --------------------------------------------------------------------- #
 #: names of the reference packages that wait for ROADMAP Queue 1, by item
 WAITING = {
-    "12-DIST": {
-        # tensor, pipeline and sequence parallelism, the MoE dispatch
-        "bigdl_tpu.parallel": {
-            "column_parallel_spec", "row_parallel_spec", "shard_params",
-            "mha_tp_rules", "mlp_tp_rules", "transformer_lm_tp_rules",
-            "constrain_batch", "pin_xla_attention", "pipeline_apply",
-            "pipeline_apply_local", "ring_attention", "ring_attention_local",
-            "ulysses_attention", "ulysses_attention_local",
-            "sequence_parallel_self_attention", "moe_apply",
-            "moe_apply_local"},
-    },
     "11.7": {
         "bigdl_tpu.serving.placement": "*",
         "bigdl_tpu.serving": {"DeviceTopology", "MeshSlice", "MeshSlicer",
