@@ -38,6 +38,7 @@ import torch
 
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.models.transformer import TransformerLM
+from bigdl_tpu_torch.nn._util import replicate_like, whole
 from bigdl_tpu_torch.nn.attention import dot_product_attention
 from bigdl_tpu_torch.ops import flash_attention, paged_decode_attention
 from bigdl_tpu_torch.parallel.expert import switch_mlp
@@ -103,10 +104,20 @@ def _gather_rows(arena, scale, index):
     return x if scale is None else x * scale[index][..., None]
 
 
+def _lookup(table, index):
+    """``table[index]``: a tensor-parallel tree's table (a DTensor)
+    takes the step's plain ids or positions as replicated."""
+    return table[replicate_like(index, table)]
+
+
 def _block_qkv(model, bp, h):
-    """One block's q/k/v for a (B, T, hidden) slice, pre-attention."""
+    """One block's q/k/v for a (B, T, hidden) slice, pre-attention,
+    whole: a tensor-parallel tree's head-sharded projections are
+    gathered here, so the attention core and the KV arenas only ever
+    see plain tensors (every rank of the slot holds the same rows)."""
     a = model._layer_norm(bp["ln1"], h)
-    return model._mha.project_qkv(bp["attn"], a, a, a)
+    q, k, v = model._mha.project_qkv(bp["attn"], a, a, a)
+    return whole(q), whole(k), whole(v)
 
 
 def _head_logits(model, params, h):
@@ -119,7 +130,7 @@ def _row_at(h, index):
     device int tensor (any shape holding one value) gathers on the
     device."""
     if isinstance(index, torch.Tensor):
-        return h.index_select(1, index.reshape(1).long())
+        return h.index_select(1, replicate_like(index.reshape(1).long(), h))
     return h[:, index:index + 1]
 
 
@@ -130,7 +141,9 @@ def _finish_block(model, bp, h, o):
     which other rows share the dispatch; dense per-token routing is
     batch-independent and has static shapes (the balance loss, a
     training term, is dropped)."""
-    h = h + model._mha.project_out(bp["attn"], o)
+    # a tensor-parallel tree's row-parallel wo takes the whole attention
+    # output as replicated
+    h = h + model._mha.project_out(bp["attn"], replicate_like(o, h))
     m = model._layer_norm(bp["ln2"], h)
     if model.moe_experts:
         return h + switch_mlp(bp["moe"], m, capacity_factor=None)[0]
@@ -152,7 +165,7 @@ def _prefill_parts(model, params, ids0, last_index, *,
     engine's per-bucket resolution)."""
     params = _entry(params)
     b, t = ids0.shape
-    h = params["embed"][ids0]
+    h = _lookup(params["embed"], ids0)
     if model.pos_encoding == "learned":
         h = h + params["pos"][:t]
     positions = torch.arange(t, device=ids0.device)
@@ -198,12 +211,12 @@ def _decode_step_slots(model, params, token, pos, k_cache, v_cache):
     s = token.shape[0]
     hd = model._mha.head_dim
     pos = pos.long()
-    h = params["embed"][token.long()][:, None, :]
+    h = _lookup(params["embed"], token.long())[:, None, :]
     if model.pos_encoding == "learned":
         # clamped: a drafter's scratch row sits one past max_len when
         # cache_len == max_len (the reference's gather clamps the same)
-        h = h + params["pos"][pos.clamp(max=params["pos"].shape[0] - 1)][
-            :, None, :]
+        h = h + _lookup(params["pos"],
+                        pos.clamp(max=params["pos"].shape[0] - 1))[:, None, :]
     positions = pos[:, None, None]
     cache_len = k_cache.shape[3]
     mask = (torch.arange(cache_len, device=pos.device)[None, :]
@@ -247,11 +260,12 @@ def _prefill_suffix_parts(model, params, ids0, last_index, prefix_len,
     dev = ids0.device
     blen = k_arena.shape[3]
     pb = blocks.shape[0]
-    h = params["embed"][ids0]
+    h = _lookup(params["embed"], ids0)
     positions = prefix_len + torch.arange(ts, device=dev)
     if model.pos_encoding == "learned":
         # clamped for padded tail rows, which stay causally invisible
-        h = h + params["pos"][positions.clamp(max=params["pos"].shape[0] - 1)]
+        h = h + _lookup(params["pos"],
+                        positions.clamp(max=params["pos"].shape[0] - 1))
     jq = torch.arange(ts, device=dev)[:, None]
     jk = torch.arange(pb * blen + ts, device=dev)[None, :]
     mask = ((jk < prefix_len)
@@ -340,9 +354,9 @@ def _decode_step_paged(model, params, token, pos, tables, k_arena,
     B = k_arena.shape[3]
     ctx = m * B
     pos_l, tables_l = pos.long(), tables.long()
-    h = params["embed"][token.long()][:, None, :]
+    h = _lookup(params["embed"], token.long())[:, None, :]
     if model.pos_encoding == "learned":
-        h = h + params["pos"][pos_l][:, None, :]
+        h = h + _lookup(params["pos"], pos_l)[:, None, :]
     positions = pos_l[:, None, None]
     rows = torch.arange(s, device=pos.device)
     blk = tables_l[rows, pos_l // B]
@@ -395,10 +409,11 @@ def _score_candidates(model, params, tokens, rope_pos, store, n_cand, mask,
     ctx = m * B
     dev = tokens.device
     tables_l = tables.long()
-    h = params["embed"][tokens.long()]               # (S, W, hidden)
+    h = _lookup(params["embed"], tokens.long())      # (S, W, hidden)
     if model.pos_encoding == "learned":
         # clamped: padded rows of a near-full slot may index past the table
-        h = h + params["pos"][rope_pos.clamp(max=params["pos"].shape[0] - 1)]
+        h = h + _lookup(params["pos"],
+                        rope_pos.clamp(max=params["pos"].shape[0] - 1))
     positions = rope_pos[:, None, :]                 # (S, 1, W)
     # the column index clamps to the table width (a padded row of a
     # chain-filling slot would otherwise index past it), and rows >=

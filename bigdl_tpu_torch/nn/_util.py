@@ -23,6 +23,13 @@ def replicate_like(t, ref):
                               run_check=False)
 
 
+def whole(t):
+    """The global value of a DTensor (gathered from its shards), a
+    plain tensor as it is: a tensor-parallel step hands the attention
+    core, the KV arenas and the host plain tensors."""
+    return t.full_tensor() if type(t).__name__ == "DTensor" else t
+
+
 def to_axis(dim: int, ndim: int, n_input_dims: Optional[int] = None) -> int:
     """Convert a 1-based Torch/BigDL dimension to a 0-based axis.
 

@@ -11,7 +11,9 @@ parallel (input dim split, one all-reduce), means one collective per
 attention block and one per MLP.
 
 The hand-written kernels never see a DTensor: a tensor-parallel model
-runs its plain attention core (:func:`pin_xla_attention`).
+runs its plain attention core (:func:`pin_xla_attention`).  Serving's
+cached steps (``models/transformer/generate.py``) gather q/k/v whole
+before attention instead, so a served slot keeps the kernels.
 """
 from __future__ import annotations
 
@@ -123,6 +125,29 @@ def constrain_batch(x, mesh, axis: str = DATA_AXIS):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
     return x.redistribute(mesh, placements)
+
+
+def replicate_on(x, mesh):
+    """``x``, a plain tensor every rank holds whole (a served batch), as
+    a replicated DTensor on ``mesh``; a DTensor stays as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def sharded_step(fn):
+    """``fn`` (a serving step over a tensor-parallel tree) with its
+    outputs made whole leaf by leaf (``nn._util.whole``) for the host
+    pull."""
+    from bigdl_tpu_torch.nn._util import whole
+    from bigdl_tpu_torch.utils.pytree import tree_map
+
+    def run(*args):
+        return tree_map(whole, fn(*args))
+
+    return run
 
 
 def pin_xla_attention(model) -> None:

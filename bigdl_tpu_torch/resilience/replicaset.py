@@ -15,8 +15,11 @@ the padded-batch one.  Its members are ``ServingEngine`` replicas built
 with ``with_batcher=False`` (one queue for the set), each with its own
 graph cache, stager and watchdog bracket.  As in the reference, the
 padded-batch set does not hedge (its core's ``hedge_policy`` stays
-None): a batch is re-dispatched only after a failure.  Placement on a
-device mesh is not ported (ROADMAP Queue 1 item 11.7).
+None): a batch is re-dispatched only after a failure.  Under a
+``PlacementPolicy`` each replica holds one slot.  Every slot must hold
+this process: a set whose replicas sit on other ranks' devices would
+need each request carried to those ranks, which the port does not do
+yet (ROADMAP Queue 1 item 11.8), and raises ``PlacementError``.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ class _Replica:
         self.failures = 0
         self.consecutive_failures = 0
         self.opened_at = 0.0
-        self.slot = slot  # a placement slice (none in the port yet)
+        self.slot = slot  # the replica's MeshSlice under placement
 
 
 class HedgePolicy:
@@ -310,8 +313,16 @@ class ReplicaSet(ReplicaSetCore):
             :class:`ReplicaSetCore`) — e.g. the serving router's
             prefix-affinity scorer.  None keeps least-loaded.
         clock: injectable monotonic clock (tests drive breaker timing).
-        placement: one mesh slot per replica, not ported yet (ROADMAP
-            Queue 1 item 11.7): it raises.
+        placement: optional
+            :class:`~bigdl_tpu_torch.serving.placement.PlacementPolicy`:
+            one replica = one slot.  Every member engine is built on its
+            own acquired :class:`MeshSlice` (params staged onto it,
+            tensor-parallel across a ``tp > 1`` slot's ranks),
+            ``scale_to`` acquires and releases slots, and growth past
+            the policy's headroom is refused instead of oversubscribing
+            devices (see :meth:`try_scale_up`).  A slot that does not
+            hold this process raises ``PlacementError`` (ROADMAP Queue 1
+            item 11.8).
         Remaining kwargs mirror :class:`ServingEngine` / DynamicBatcher
         policy knobs (``device=`` among them: default the card).
     """
@@ -345,9 +356,6 @@ class ReplicaSet(ReplicaSetCore):
             n_replicas = 2
         if n_replicas < 1:
             raise ValueError("n_replicas must be >= 1")
-        if placement is not None:
-            raise NotImplementedError(
-                "placement is not ported yet (ROADMAP Queue 1 item 11.7)")
         from bigdl_tpu_torch.serving.batcher import DynamicBatcher
         from bigdl_tpu_torch.serving.engine import ServingEngine
         from bigdl_tpu_torch.serving.metrics import ServingMetrics
@@ -367,16 +375,33 @@ class ReplicaSet(ReplicaSetCore):
         self._engine_cfg = dict(input_shape=input_shape, buckets=buckets,
                                 max_batch_size=max_batch_size, dtype=dtype,
                                 platform=platform, **engine_kwargs)
-        self.placement = None
+        self.placement = placement
         self._next_idx = n_replicas
         self._replicas = []
-        for i in range(n_replicas):
-            name = f"r{i}"
-            engine = ServingEngine(
-                modules[i] if modules is not None else module,
-                name=name, with_batcher=False, **self._engine_cfg)
-            self._replicas.append(_Replica(name, engine))
+        slot = None   # acquired, its replica not built yet
+        try:
+            for i in range(n_replicas):
+                if placement is not None:
+                    slot = self._acquire_slot(required=True)
+                engine = ServingEngine(
+                    modules[i] if modules is not None else module,
+                    name=f"r{i}", with_batcher=False,
+                    **self._with_slot(slot))
+                self._replicas.append(_Replica(f"r{i}", engine, slot=slot))
+                slot = None
+        except BaseException:
+            # give back every slot taken: the built replicas' and one
+            # whose engine failed
+            for r in self._replicas:
+                r.engine.close()
+                if r.slot is not None:
+                    placement.release(r.slot)
+            if slot is not None:
+                placement.release(slot)
+            raise
         ref = self._replicas[0].engine
+        # a tensor-parallel slot's ranks dispatch the same batches
+        lead = self._replicas[0].slot
         # one batching policy for the whole set, published as the
         # process's serving/* metrics (created after the member engines
         # so the set owns the names)
@@ -388,7 +413,8 @@ class ReplicaSet(ReplicaSetCore):
             max_queue=max_queue,
             buckets=ref.buckets,
             metrics=self.metrics,
-            pool=Engine.default_or_create() if use_shared_pool else None)
+            pool=Engine.default_or_create() if use_shared_pool else None,
+            lockstep=lead.lockstep() if lead is not None else None)
         self._closed = False
         self._publish_open_circuits()
         self._publish_replica_count()
@@ -407,6 +433,34 @@ class ReplicaSet(ReplicaSetCore):
             flight.register_state("replicaset", _flight_state)
         except Exception:
             pass
+
+    def _acquire_slot(self, *, required: bool):
+        """One slot from the placement policy; raises (required) or
+        returns None (opportunistic growth) when the device set is fully
+        packed.  A slot that does not hold this process raises
+        ``PlacementError`` either way."""
+        from bigdl_tpu_torch.serving.placement import PlacementError
+        slot = self.placement.acquire()
+        if slot is None:
+            if required:
+                raise PlacementError(
+                    f"placement policy exhausted: "
+                    f"{self.placement.slots_total} slot(s) total, none "
+                    "free — fewer replicas or a smaller TP degree")
+            return None
+        if not slot.holds_this_rank():
+            self.placement.release(slot)
+            raise PlacementError(
+                f"{slot!r} is held by ranks {list(slot.ranks)}, not by this "
+                "process: a replica set over slots on other ranks needs "
+                "each request carried to them (ROADMAP Queue 1 item 11.8)")
+        return slot
+
+    def _with_slot(self, slot) -> dict:
+        cfg = dict(self._engine_cfg)
+        if slot is not None:
+            cfg["placement"] = slot
+        return cfg
 
     # ---------------------------------------------------------------- #
     # dispatch                                                         #
@@ -512,15 +566,30 @@ class ReplicaSet(ReplicaSetCore):
             warm_shape = live[0].engine.input_shape if live else None
             added = 0
             for _ in range(n - len(live)):
+                slot = None
+                if self.placement is not None:
+                    slot = self._acquire_slot(required=False)
+                    if slot is None:
+                        # full device set: grow as far as the slots go
+                        # rather than stacking replicas on shared devices
+                        log.warning(
+                            "scale_to(%d): placement headroom exhausted "
+                            "after +%d replica(s)", n, added)
+                        break
                 name = f"r{self._next_idx}"
                 self._next_idx += 1
-                engine = self._engine_cls(
-                    self._scale_module, name=name, with_batcher=False,
-                    **self._engine_cfg)
+                try:
+                    engine = self._engine_cls(
+                        self._scale_module, name=name, with_batcher=False,
+                        **self._with_slot(slot))
+                except BaseException:
+                    if slot is not None:
+                        self.placement.release(slot)
+                    raise
                 if warm_shape is not None:
                     engine.warmup(warm_shape)
                 with self._lock:
-                    self._replicas.append(_Replica(name, engine))
+                    self._replicas.append(_Replica(name, engine, slot=slot))
                 added += 1
                 log.info("replica %s: added by scale_to(%d)", name, n)
             self._registry.counter("resilience/scale_ups").add(added)
@@ -534,6 +603,9 @@ class ReplicaSet(ReplicaSetCore):
                 while r.inflight > 0 and time.monotonic() < deadline:
                     time.sleep(0.005)
                 r.engine.close()
+                if r.slot is not None:
+                    self.placement.release(r.slot)
+                    r.slot = None
                 log.info("replica %s: drained and closed by scale_to(%d)",
                          r.name, n)
             with self._lock:
@@ -547,13 +619,17 @@ class ReplicaSet(ReplicaSetCore):
             return sum(1 for r in self._replicas if r.state != DRAINING)
 
     def try_scale_up(self, max_replicas: Optional[int] = None) -> bool:
-        """The SLO controller's scale_up hook: add ONE replica while
-        under ``max_replicas``; returns whether capacity was actually
-        added (False makes the controller's ladder fall through to
-        admission tightening)."""
+        """The SLO controller's device-aware scale_up hook: add ONE
+        replica if the placement policy has a free slot (always, when
+        unplaced) and the set is under ``max_replicas``; returns whether
+        capacity was actually added (False makes the controller's ladder
+        fall through to admission tightening instead of
+        oversubscribing)."""
         with self._lock:
             live = sum(1 for r in self._replicas if r.state != DRAINING)
         if max_replicas is not None and live >= int(max_replicas):
+            return False
+        if self.placement is not None and self.placement.headroom() < 1:
             return False
         return self.scale_to(live + 1) > live
 
@@ -578,13 +654,15 @@ class ReplicaSet(ReplicaSetCore):
                          "dispatched": r.dispatched,
                          "failures": r.failures,
                          "consecutive_failures": r.consecutive_failures,
-                         "placement": None}
+                         "placement": (r.slot.describe()
+                                       if r.slot is not None else None)}
                 for r in self._replicas}
         return {
             "replicas": replicas,
             "pending": self.batcher.pending(),
             "buckets": list(self.batcher.buckets),
-            "placement": None,
+            "placement": (self.placement.stats()
+                          if self.placement is not None else None),
             "metrics": self.metrics.snapshot(
                 self._replicas[0].engine.cache.stats()),
         }
@@ -599,6 +677,9 @@ class ReplicaSet(ReplicaSetCore):
                 r.state = DRAINING
         for r in self._replicas:
             r.engine.close()
+            if r.slot is not None:
+                self.placement.release(r.slot)
+                r.slot = None
         self._publish_open_circuits()
 
     def __enter__(self) -> "ReplicaSet":

@@ -17,18 +17,25 @@ from bigdl_tpu_torch.serving.lm_engine import (KVHandoff, LMMetrics,
                                                StreamTruncation,
                                                prefill_bucket_lengths)
 from bigdl_tpu_torch.serving.metrics import LatencyHistogram, ServingMetrics
+from bigdl_tpu_torch.serving.placement import (DeviceTopology, MeshSlice,
+                                               MeshSlicer, PlacementError,
+                                               PlacementPolicy,
+                                               serving_tp_rules,
+                                               shard_params_chunked)
 from bigdl_tpu_torch.serving.router import (LMReplicaSet, RadixRouter,
                                             RadixSummary, RoutedLMStream,
                                             SessionTable)
 from bigdl_tpu_torch.serving.spec import DraftModel, SpecConfig, SpecMetrics
 
-__all__ = ["BlockPool", "CompileCache", "DisaggCoordinator", "DraftModel",
-           "DynamicBatcher", "HedgePolicy", "HostBlockStore", "HostStager",
-           "KVHandoff", "LMMetrics", "LMReplicaSet", "LMServingEngine",
-           "LMStream", "LatencyHistogram", "PoolExhausted", "RadixCache",
-           "RadixRouter", "RadixSummary", "RequestExceedsPool",
-           "RoutedLMStream", "ServingClosed", "ServingDeadlineExceeded",
-           "ServingEngine", "ServingMetrics", "ServingOverloaded",
-           "ServingQueueFull", "SessionTable", "SpecConfig", "SpecMetrics",
-           "StreamTruncation", "power_of_two_buckets",
-           "prefill_bucket_lengths"]
+__all__ = ["BlockPool", "CompileCache", "DeviceTopology", "DisaggCoordinator",
+           "DraftModel", "DynamicBatcher", "HedgePolicy", "HostBlockStore",
+           "HostStager", "KVHandoff", "LMMetrics", "LMReplicaSet",
+           "LMServingEngine", "LMStream", "LatencyHistogram", "MeshSlice",
+           "MeshSlicer", "PlacementError", "PlacementPolicy",
+           "PoolExhausted", "RadixCache", "RadixRouter", "RadixSummary",
+           "RequestExceedsPool", "RoutedLMStream", "ServingClosed",
+           "ServingDeadlineExceeded", "ServingEngine", "ServingMetrics",
+           "ServingOverloaded", "ServingQueueFull", "SessionTable",
+           "SpecConfig", "SpecMetrics", "StreamTruncation",
+           "power_of_two_buckets", "prefill_bucket_lengths",
+           "serving_tp_rules", "shard_params_chunked"]

@@ -68,10 +68,13 @@ def _tree_concat(parts: list):
 
 
 class _Request:
-    __slots__ = ("x", "n", "future", "t_enqueue", "rid", "deadline_at")
+    __slots__ = ("x", "n", "future", "t_enqueue", "rid", "deadline_at",
+                 "key")
 
     def __init__(self, x, n: int, future: Future, rid: str,
-                 deadline_at: Optional[float] = None):
+                 deadline_at: Optional[float] = None,
+                 key: Optional[int] = None):
+        self.key = key  # the lockstep key (tensor-parallel slots only)
         self.x = x
         self.n = n
         self.future = future
@@ -108,6 +111,14 @@ class DynamicBatcher:
     oversized-chunk reassembly are leaf-wise.  A single request larger
     than ``max_batch_size`` is served alone, chunked into
     ``max_batch_size`` slices (each slice still bucket-shaped).
+
+    ``lockstep`` (a tensor-parallel slot's ``MeshSlice.lockstep()``)
+    makes the ranks of one slot dispatch the same batches: each round is
+    decided by the slot (``placement.lockstep``), not by this rank's
+    clock.  A batch is the run of requests every rank holds, cut at
+    ``max_batch_size``; it goes when full, when the lead rank's oldest
+    request has waited ``max_wait_ms``, or at close.  Cancels, deadlines
+    and refusals seen on any rank retire the request on all of them.
     """
 
     def __init__(self, run_batch: Callable, *,
@@ -116,10 +127,12 @@ class DynamicBatcher:
                  max_queue: int = 256,
                  buckets: Optional[Sequence[int]] = None,
                  metrics=None,
-                 pool=None):
+                 pool=None,
+                 lockstep=None):
         if max_batch_size < 1:
             raise ValueError("max_batch_size must be >= 1")
         self._run = run_batch
+        self._ls = lockstep
         self._max_batch = int(max_batch_size)
         self._max_wait = max(0.0, float(max_wait_ms)) / 1000.0
         self._max_queue = int(max_queue)
@@ -196,17 +209,22 @@ class DynamicBatcher:
         try:
             fault_point("serving.enqueue", n=n)
         except ServingOverloaded:
+            self._refuse_key()
             raise
         except TransientBackendError as e:
+            self._refuse_key()
             count_rejection()
             raise ServingOverloaded(
                 f"admission shed (injected at serving.enqueue): {e}") from e
         fut: Future = Future()
         rid = mint_request_id()
         with self._cv:
+            key = self._ls.key() if self._ls is not None else None
             if self._stop:
+                self._refuse_key(key)
                 raise ServingClosed("batcher is closed")
             if len(self._queue) >= self._max_queue:
+                self._refuse_key(key)
                 if self._metrics is not None:
                     self._metrics.record_reject()
                 count_rejection()
@@ -216,7 +234,8 @@ class DynamicBatcher:
             self._queue.append(_Request(
                 x, n, fut, rid,
                 deadline_at=(time.monotonic() + float(deadline_s)
-                             if deadline_s is not None else None)))
+                             if deadline_s is not None else None),
+                key=key))
             depth = len(self._queue)
             self._cv.notify()
         fut.request_id = rid  # clients correlate responses with traces
@@ -229,6 +248,16 @@ class DynamicBatcher:
             _tracer.instant("serve/enqueue", cat="serve", n=n,
                             queue_depth=depth)
         return fut
+
+    def _refuse_key(self, key: Optional[int] = None) -> None:
+        """A lockstep batcher's refused submission: its key is drawn (if
+        not yet) and named to the other ranks, which retire their copy."""
+        if self._ls is None:
+            return
+        if key is None:
+            with self._cv:
+                key = self._ls.key()
+        self._ls.refuse(key)
 
     def pending(self) -> int:
         with self._cv:
@@ -292,28 +321,46 @@ class DynamicBatcher:
         """Lifecycle gate at batch assembly: a cancelled future or a
         blown deadline never reaches the device.  Returns True when
         the request was consumed (shed) here."""
+        why = self._dead_reason(r, time.monotonic())
+        if why is not None:
+            self._shed(r, why)
+        return why is not None
+
+    @staticmethod
+    def _dead_reason(r: _Request, now: float) -> Optional[str]:
         if r.future.cancelled():
+            return "cancelled"
+        if r.deadline_at is not None and now >= r.deadline_at:
+            return "deadline"
+        return None
+
+    def _shed(self, r: _Request, why: str) -> None:
+        """Retire a queued request: ``why`` is "cancelled", "deadline",
+        or "refused" (another rank of a lockstep slot refused it)."""
+        if why == "refused":
+            _safe_resolve(r.future, exc=ServingOverloaded(
+                "refused at submission by another rank of the slot"))
+            return
+        if why == "cancelled":
+            r.future.cancel()  # another rank's cancel: this copy too
             from bigdl_tpu_torch.obs import get_registry
             get_registry().counter("serving/lifecycle/cancelled").add(1)
             if _tracer.sampled(r.rid):
                 _tracer.instant("serve/lifecycle_shed", cat="serve",
                                 request_id=r.rid, reason="cancelled")
-            return True
-        if r.deadline_at is not None and time.monotonic() >= r.deadline_at:
-            if self._metrics is not None:
-                self._metrics.record_reject()
-            count_rejection()
-            from bigdl_tpu_torch.obs import get_registry
-            get_registry().counter(
-                "serving/lifecycle/expired_preadmission").add(1)
-            _safe_resolve(r.future, exc=ServingDeadlineExceeded(
-                "deadline expired while queued; request shed before "
-                "dispatch"))
-            if _tracer.sampled(r.rid):
-                _tracer.instant("serve/lifecycle_shed", cat="serve",
-                                request_id=r.rid, reason="deadline")
-            return True
-        return False
+            return
+        if self._metrics is not None:
+            self._metrics.record_reject()
+        count_rejection()
+        from bigdl_tpu_torch.obs import get_registry
+        get_registry().counter(
+            "serving/lifecycle/expired_preadmission").add(1)
+        _safe_resolve(r.future, exc=ServingDeadlineExceeded(
+            "deadline expired while queued; request shed before "
+            "dispatch"))
+        if _tracer.sampled(r.rid):
+            _tracer.instant("serve/lifecycle_shed", cat="serve",
+                            request_id=r.rid, reason="deadline")
 
     def _take_batch(self) -> Optional[list]:
         """Block for the first request, then gather until the batch is
@@ -349,6 +396,54 @@ class DynamicBatcher:
                     break  # timeout flush (possibly a partial batch)
                 self._cv.wait(timeout=min(remaining, 0.05))
             return batch
+
+    def _take_round(self, idle: bool) -> Optional[list]:
+        """The lockstep batcher's take: one round of the slot (see the
+        class docstring).  Returns the batch, [] when the round runs
+        none, None once every rank is closing and no batch is left.
+        ``idle``: the last round ran nothing, so wait a little first."""
+        ls = self._ls
+        with self._cv:
+            if idle and not self._stop:
+                wait = ls.IDLE_S
+                if self._queue:
+                    wait = min(wait, max(0.0, self._queue[0].t_enqueue
+                                         + self._max_wait
+                                         - time.perf_counter()))
+                self._cv.wait(wait)
+            now = time.monotonic()
+            queued = [r.key for r in self._queue]
+            dead = {r.key: why for r in self._queue
+                    for why in (self._dead_reason(r, now),) if why}
+            flush = bool(self._queue) and (
+                time.perf_counter() - self._queue[0].t_enqueue
+                >= self._max_wait)
+            closing = self._stop
+        rnd = ls.round(queued, dead, closing, flush=flush)
+        with self._cv:
+            live = []
+            for r in self._queue:
+                why = rnd.dead.get(r.key)
+                if why is None:
+                    live.append(r)
+                else:
+                    self._shed(r, why)
+            self._queue = deque(live)
+            if not rnd.admit:
+                return None if rnd.closing else []
+            # the batch rule of _take_batch, over the keys all ranks hold
+            # (the queue's front, in order)
+            take, total = 0, 0
+            for r in list(self._queue)[:len(rnd.admit)]:
+                if take and total + r.n > self._max_batch:
+                    break
+                take, total = take + 1, total + r.n
+                if total >= self._max_batch:
+                    break
+            full = total >= self._max_batch or take < len(rnd.admit)
+            if not (full or rnd.leader["flush"] or rnd.closing):
+                return []
+            return [self._queue.popleft() for _ in range(take)]
 
     def _dispatch(self, xs: list, bucket: int, rids=()):
         """Pad a concatenated batch to ``bucket`` rows and run it.
@@ -438,10 +533,16 @@ class DynamicBatcher:
                         args={"request_id": r.rid, "n": r.n})
 
     def _loop(self) -> None:
+        batch = []
         while True:
-            batch = self._take_batch()
+            if self._ls is None:
+                batch = self._take_batch()
+            else:
+                batch = self._take_round(idle=not batch)
             if batch is None:
                 return
+            if not batch:
+                continue
             with self._cv:
                 self._inflight = list(batch)
             try:

@@ -9,7 +9,7 @@ state.  The CUDA counterpart of an executable is one
 are keyed on
 
     (per-leaf (shape, dtype) of the inputs, params dtype tag,
-     params compute tag)
+     params compute tag, placement tag)
 
 where the dtype tag is the reference's ``quant.params_dtype_tag``
 ("int8" when a params leaf is a QTensor, else "bf16" when one is
@@ -17,7 +17,9 @@ bfloat16, else "f32") and the compute tag the dominant compute mode of
 the QTensor leaves (``quant.params_compute_tag``; None for a float
 tree), which the reference's pytree aux keeps apart: an int8 tree and a
 float tree, or one int8 payload under two compute modes, never share a
-graph.  The port has no placement, so it has no placement tag.
+graph.  The placement tag is the engine's slot (``MeshSlice.tag``, ""
+unplaced), which also qualifies the cache's ledger tag, so two slots
+never share a captured graph.
 
 On a CUDA device an entry is a captured graph (:class:`GraphPool`
 makes it): static device tensors for the inputs, pinned host buffers to
@@ -327,12 +329,17 @@ class CompileCache:
     every call, captured by address; only the params dtype tag is in
     the key); ``x`` is the padded input, one host array or a flat dict
     of them, whose per-leaf (shape, dtype) keys the entry.  ``name`` is
-    the memory-ledger tag of its rows (default: the function's name).
+    the memory-ledger tag of its rows (default: the function's name),
+    qualified as ``name@placement_tag`` for a placed engine's cache.
     """
 
     def __init__(self, fn: Callable, *, graphs: GraphPool,
-                 max_entries: int = 16, name: str = ""):
-        self.ledger_tag = name or getattr(fn, "__name__", "fn").lstrip("_")
+                 max_entries: int = 16, name: str = "",
+                 placement_tag: str = ""):
+        self._placement_tag = placement_tag
+        base = name or getattr(fn, "__name__", "fn").lstrip("_")
+        self.ledger_tag = (f"{base}@{placement_tag}" if placement_tag
+                           else base)
         self._fn = fn
         self._graphs = graphs
         self._max_entries = max(1, int(max_entries))
@@ -345,9 +352,9 @@ class CompileCache:
     # ------------------------------------------------------------------ #
     def key_for(self, x, params=None) -> Key:
         if params is None:
-            return (input_signature(x), "f32", None)
+            return (input_signature(x), "f32", None, self._placement_tag)
         return (input_signature(x), params_dtype_tag(params),
-                params_compute_tag(params))
+                params_compute_tag(params), self._placement_tag)
 
     @staticmethod
     def _ledger_key(key: Key) -> str:

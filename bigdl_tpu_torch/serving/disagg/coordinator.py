@@ -33,15 +33,20 @@ prefill pool's concern and the inter-token gap the decode pool's.
   :class:`LMMetrics` per phase (``serving/lm/prefill/*``,
   ``serving/lm/decode/*``).
 
-Every replica shares the model's parameter tensors (read-only; each
-engine's CUDA graphs captured their addresses).  ``placement=`` (mesh
-slices per phase) waits for ROADMAP Queue 1 item 11.7.
+Every unplaced replica shares the model's parameter tensors (read-only;
+each engine's CUDA graphs captured their addresses).  Under a
+``PlacementPolicy`` each replica acquires a slot tagged with its phase,
+and its engine stages the params onto it: a prefill replica on one card
+and a decode replica on another need no copy path of their own, since
+the hop already goes through host memory.  Every slot must hold this
+process (a phase on other ranks would need the hop carried between
+processes, ROADMAP Queue 1 item 11.8).
 """
 from __future__ import annotations
 
 import logging
 import threading
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from bigdl_tpu_torch.obs import get_tracer
 from bigdl_tpu_torch.resilience.errors import BackendLostError
@@ -49,8 +54,7 @@ from bigdl_tpu_torch.resilience.faults import fault_point
 from bigdl_tpu_torch.resilience.retry import with_backoff
 from bigdl_tpu_torch.serving.errors import ServingClosed
 from bigdl_tpu_torch.serving.lm_engine import (KVHandoff, LMMetrics,
-                                               LMServingEngine, LMStream,
-                                               _not_ported)
+                                               LMServingEngine, LMStream)
 
 _tracer = get_tracer()
 log = logging.getLogger("bigdl_tpu_torch.serving")
@@ -62,9 +66,15 @@ class DisaggCoordinator:
     Args:
         model: a ``TransformerLM`` with params, shared by every replica.
         prefill_replicas / decode_replicas: initial pool sizes.
-        placement: not ported (raises ``NotImplementedError``, ROADMAP
-            Queue 1 item 11.7); replicas share the model's device.
-        max_replicas_per_phase: the scale-up ceiling of each phase.
+        placement: optional
+            :class:`~bigdl_tpu_torch.serving.placement.PlacementPolicy`;
+            each replica acquires its own slot (``acquire(phase=...)``,
+            so the policy reports per-phase occupancy), and a full
+            device set refuses a replica ("no free placement slot")
+            rather than stacking it on a held slot.  None: every replica
+            on the model's device.
+        max_replicas_per_phase: the scale-up ceiling of each phase (the
+            placement policy's headroom bounds it too).
         migrate_retries / migrate_base_delay_s: ``with_backoff``'s
             parameters for the export at the ``serving.migrate`` site.
         name: prefix of the replica names (``<name>-prefill0``, ...).
@@ -83,12 +93,11 @@ class DisaggCoordinator:
                  name: str = "disagg",
                  spec=None,
                  **engine_kwargs):
-        if placement is not None:
-            raise _not_ported("DisaggCoordinator placement", "11.7")
         if prefill_replicas < 1 or decode_replicas < 1:
             raise ValueError("each phase needs at least one replica")
         self.model = model
         self.name = name
+        self.placement = placement
         self.max_replicas_per_phase = int(max_replicas_per_phase)
         self.migrate_retries = int(migrate_retries)
         self.migrate_base_delay_s = float(migrate_base_delay_s)
@@ -98,6 +107,7 @@ class DisaggCoordinator:
         self._prefill_metrics = LMMetrics(slots * prefill_replicas)
         self._decode_metrics = LMMetrics(slots * decode_replicas)
         self._lock = threading.Lock()
+        self._slices: Dict[str, object] = {}   # engine name -> MeshSlice
         self._rr = 0                           # round-robin submit cursor
         self.migrations = 0
         self.migrated_blocks = 0
@@ -116,10 +126,27 @@ class DisaggCoordinator:
         except BaseException:
             for eng in self.prefill + self.decode:
                 eng.close()
+            self._release_slots()
             raise
 
     # -- replica construction ------------------------------------------- #
     def _make_engine(self, phase: str, idx: int) -> LMServingEngine:
+        ename = f"{self.name}-{phase}{idx}"
+        slot = None
+        if self.placement is not None:
+            from bigdl_tpu_torch.serving.placement import PlacementError
+            slot = self.placement.acquire(phase=phase)
+            if slot is None:
+                raise RuntimeError(
+                    f"no free placement slot for {ename} "
+                    f"({self.placement!r})")
+            if not slot.holds_this_rank():
+                self.placement.release(slot)
+                raise PlacementError(
+                    f"{slot!r} for {ename} is held by ranks "
+                    f"{list(slot.ranks)}, not by this process: a phase on "
+                    "other ranks needs the hop carried between processes "
+                    "(ROADMAP Queue 1 item 11.8)")
         kw = dict(self._kw)
         if phase == "prefill":
             kw["migrate"] = self._migrate
@@ -128,8 +155,16 @@ class DisaggCoordinator:
             if self._spec is not None:
                 kw["spec"] = self._spec
             metrics, prefix = self._decode_metrics, "serving/lm/decode/"
-        eng = LMServingEngine(self.model, name=f"{self.name}-{phase}{idx}",
-                              metrics=metrics, metrics_prefix=prefix, **kw)
+        try:
+            eng = LMServingEngine(self.model, name=ename, placement=slot,
+                                  metrics=metrics, metrics_prefix=prefix,
+                                  **kw)
+        except BaseException:
+            if slot is not None:
+                self.placement.release(slot)
+            raise
+        if slot is not None:
+            self._slices[ename] = slot
         # a decode replica is a co-located engine from the inside; the
         # pool it serves is not
         eng.phase = phase
@@ -231,11 +266,11 @@ class DisaggCoordinator:
     # -- independent phase scaling --------------------------------------- #
     def try_scale_up(self, phase: str) -> bool:
         """Add one replica to ``phase`` ("prefill" or "decode").  False,
-        without side effects, when the phase is at its ceiling or the
-        coordinator is closing: the SLO ladder then falls through to
-        admission control.  The new replica is built cold: call its
-        ``warmup()`` before it takes traffic to keep captures out of
-        requests."""
+        without side effects, when the phase is at its ceiling, the
+        placement policy has no free slot or the coordinator is closing:
+        the SLO ladder then falls through to admission control.  The new
+        replica is built cold: call its ``warmup()`` before it takes
+        traffic to keep captures out of requests."""
         if phase not in ("prefill", "decode"):
             raise ValueError(f"unknown phase {phase!r}")
         with self._lock:
@@ -245,7 +280,14 @@ class DisaggCoordinator:
             idx = len(pool)
             if idx >= self.max_replicas_per_phase:
                 return False
-            eng = self._make_engine(phase, idx)
+            if self.placement is not None and self.placement.headroom() == 0:
+                return False
+            try:
+                eng = self._make_engine(phase, idx)
+            except RuntimeError as e:
+                if "no free placement slot" not in str(e):
+                    raise
+                return False   # raced out of the last placement slot
             pool.append(eng)
         metrics = (self._prefill_metrics if phase == "prefill"
                    else self._decode_metrics)
@@ -309,6 +351,8 @@ class DisaggCoordinator:
             decode = list(self.decode)
         out["re_prefills"] = sum(e.re_prefills for e in decode)
         out["adopted"] = sum(e.adopted for e in decode)
+        out["phase_counts"] = (self.placement.phase_counts()
+                               if self.placement is not None else None)
         out["prefill"] = self._prefill_metrics.snapshot()
         out["decode"] = self._decode_metrics.snapshot()
         out["engines"] = {e.name: e.stats() for e in engines}
@@ -317,7 +361,8 @@ class DisaggCoordinator:
     # -- lifecycle -------------------------------------------------------- #
     def close(self, timeout: Optional[float] = 30.0) -> None:
         """Drain the prefill replicas first (their last requests migrate
-        out), then the decode replicas."""
+        out), then the decode replicas, then release the placement
+        slots."""
         with self._lock:
             if self._closing:
                 return
@@ -327,6 +372,15 @@ class DisaggCoordinator:
             eng.close(timeout)
         for eng in decode:
             eng.close(timeout)
+        self._release_slots()
+
+    def _release_slots(self) -> None:
+        for ename, slot in self._slices.items():
+            try:
+                self.placement.release(slot)
+            except Exception:
+                log.exception("releasing %s's slot failed", ename)
+        self._slices.clear()
 
     def __enter__(self) -> "DisaggCoordinator":
         return self

@@ -24,6 +24,17 @@ replay, so each batch's output leaves are copied to the host before the
 batcher slices them back.  The output may be one array or any nest of
 arrays (multi-headed models, Tables); every leaf must carry the batch
 dim first, which is checked.
+
+Placement (``placement=``, a
+:class:`~bigdl_tpu_torch.serving.placement.MeshSlice`): the params are
+staged onto the slot by ``shard_params_chunked``, the buffers whole.  A
+slot of one card serves as an unplaced engine on that card does.  A
+``tp > 1`` slot holds DTensor params (``serving_tp_rules``: Megatron
+col/row over the module's Linears); its forward meets the plain batch
+as replicated, its outputs are made whole before the host pull, it runs
+eagerly, and its batcher decides each round with the slot's other ranks
+(``placement.lockstep``): every rank is handed the same requests, in
+the same order, and runs the same batches.
 """
 from __future__ import annotations
 
@@ -38,6 +49,8 @@ import torch
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.obs import (env_watchdog_enabled, env_watchdog_kwargs,
                                  get_registry, get_tracer, shared_watchdog)
+from bigdl_tpu_torch.parallel.tensor_parallel import (replicate_on,
+                                                      sharded_step)
 from bigdl_tpu_torch.quant.transform import (dequantize_entry,
                                              params_dtype_tag,
                                              params_nbytes,
@@ -96,12 +109,19 @@ class ServingEngine:
         with_batcher: when False the engine is built WITHOUT its own
             DynamicBatcher: batches arrive through ``_run_batch`` from an
             external dispatcher (the ReplicaSet mode).
-        placement, tp_rules: tensor-parallel placement, not ported yet
-            (ROADMAP Queue 1 item 11.7): they raise.
+        placement: a
+            :class:`~bigdl_tpu_torch.serving.placement.MeshSlice`, the
+            engine's slot (see the module docstring); its device is the
+            engine's, and a slot that does not hold this process raises
+            ``PlacementError``.  None keeps the unplaced engine.
+        tp_rules: ``rules(path, leaf) -> NamedSharding | None``
+            overriding the derived ``serving_tp_rules`` of a ``tp > 1``
+            slot.
         cuda_graphs: one captured graph per bucket (default: on a CUDA
-            device); False runs every batch eagerly.
+            device, unless the slot is tensor-parallel); False runs every
+            batch eagerly.
         device: where the module's params live and batches run (default
-            the card).
+            the card; under placement, the slot's).
     """
 
     def __init__(self, module, *,
@@ -122,27 +142,36 @@ class ServingEngine:
                  tp_rules=None,
                  cuda_graphs: Optional[bool] = None,
                  device=None):
-        if placement is not None or tp_rules is not None:
-            raise NotImplementedError(
-                "placement is not ported yet (ROADMAP Queue 1 item 11.7)")
         if platform is not None:
             raise ValueError("platform= pins a JAX backend; pass device= "
                              "('cuda' or 'cpu') instead")
-        self.device = resolve_device(device)
         module._built()
-        where = _params_device(module.params)
-        if where is not None and where != self.device:
-            raise ValueError(f"engine on {self.device}, but the module's "
-                             f"params live on {where}")
+        tp = 1 if placement is None else placement.tp
+        if placement is not None:
+            # raises PlacementError for a slot this process does not hold
+            self.device = placement.device
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device={device} but the placement slot "
+                                 f"is on {self.device}")
+        else:
+            self.device = resolve_device(device)
+            where = _params_device(module.params)
+            if where is not None and where != self.device:
+                raise ValueError(f"engine on {self.device}, but the "
+                                 f"module's params live on {where}")
         if cuda_graphs is None:
-            cuda_graphs = self.device.type == "cuda"
+            cuda_graphs = self.device.type == "cuda" and tp == 1
         elif cuda_graphs and self.device.type != "cuda":
             raise ValueError(f"cuda_graphs=True needs a CUDA device, the "
                              f"engine is on {self.device}")
+        elif cuda_graphs and tp > 1:
+            raise ValueError("cuda_graphs=True with a tensor-parallel slot: "
+                             "its batches run eagerly (DTensor dispatch and "
+                             "its collectives are not captured)")
         self.cuda_graphs = bool(cuda_graphs)
         self.module = module
         self.name = name
-        self.placement = None
+        self.placement = placement
         # freeze: the engine holds its own references; later training
         # steps rebind module.params and never touch these
         self._params = module.params
@@ -154,7 +183,23 @@ class ServingEngine:
         # as the LM engine does: on the device, its bytes counted
         self.quant_dtype = params_dtype_tag(self._params)
         self._quant_bytes_staged = 0
-        if self.quant_dtype == "int8":
+        if placement is not None:
+            # one chunked pass straight to the slot's layout
+            from bigdl_tpu_torch.serving.placement import (
+                serving_tp_rules, shard_params_chunked)
+            if tp_rules is None and tp > 1:
+                tp_rules = serving_tp_rules(module, placement.mesh)
+            self._params = shard_params_chunked(
+                self._params, tp_rules or (lambda path, leaf: None),
+                placement, chunk_bytes=chunk_bytes)
+            self._buffers = shard_params_chunked(
+                self._buffers, lambda path, leaf: None, placement,
+                chunk_bytes=chunk_bytes)
+            if self.quant_dtype == "int8":
+                self._quant_bytes_staged = params_nbytes(self._params)
+                get_registry().gauge("quant/serving_bytes_staged", unit="B") \
+                    .set(self._quant_bytes_staged)
+        elif self.quant_dtype == "int8":
             self._params, self._quant_bytes_staged = stage_quantized_params(
                 self._params, device=self.device)
             get_registry().gauge("quant/serving_bytes_staged", unit="B") \
@@ -182,10 +227,23 @@ class ServingEngine:
                                 buffers=buffers, training=False, rng=rng)
             return y
 
+        if tp > 1:
+            # the batch enters replicated on the slot's mesh (DTensor ops
+            # refuse plain operands); a col-parallel tail leaves the
+            # output sharded: made whole for the host pull
+            mesh, unplaced = placement.mesh, _infer
+
+            def _infer(params, buffers, x):
+                return unplaced(params, buffers, pytree.tree_map(
+                    lambda t: replicate_on(t, mesh), x))
+
+            _infer = sharded_step(_infer)
+
         self.graphs = GraphPool(self.device, capture=self.cuda_graphs)
-        self.cache = CompileCache(_infer, graphs=self.graphs,
-                                  max_entries=max_cache_entries,
-                                  name=f"serve/{name}/infer")
+        self.cache = CompileCache(
+            _infer, graphs=self.graphs, max_entries=max_cache_entries,
+            placement_tag=placement.tag if placement is not None else "",
+            name=f"serve/{name}/infer")
         self.stager = HostStager(self._dtype, chunk_bytes=chunk_bytes,
                                  device=self.device)
         # live metrics, published into the process-wide obs registry
@@ -208,7 +266,8 @@ class ServingEngine:
                 max_queue=max_queue,
                 buckets=buckets,
                 metrics=self.metrics,
-                pool=Engine.default_or_create() if use_shared_pool else None)
+                pool=Engine.default_or_create() if use_shared_pool else None,
+                lockstep=placement.lockstep() if tp > 1 else None)
         self._closed = False
 
     def _register_ledger(self) -> list:
@@ -220,9 +279,10 @@ class ServingEngine:
             from bigdl_tpu_torch.obs.ledger import get_ledger
             led = get_ledger()
             name = self.name
+            dev = self.placement.tag if self.placement is not None else None
             keys.append(led.register(
                 "params", f"{name}/staged", params_nbytes(self._params),
-                note=f"quant={self.quant_dtype}"))
+                device=dev, note=f"quant={self.quant_dtype}"))
             stager_ref = weakref.ref(self.stager)
 
             def _staged_bytes():
@@ -231,7 +291,7 @@ class ServingEngine:
 
             keys.append(led.register(
                 "host_stager", f"{name}/bytes_staged", _staged_bytes,
-                note="cumulative h2d traffic"))
+                device=dev, note="cumulative h2d traffic"))
             if self.graphs.capture:
                 graphs_ref = weakref.ref(self.graphs)
 
@@ -240,7 +300,7 @@ class ServingEngine:
                     return g.pool_bytes() if g is not None else None
 
                 keys.append(led.register(
-                    "graphs", f"{name}/graph_pool", _pool_bytes,
+                    "graphs", f"{name}/graph_pool", _pool_bytes, device=dev,
                     note="CUDA-graph pool of the padded-batch engine"))
         except Exception:
             pass
@@ -345,7 +405,8 @@ class ServingEngine:
             "buckets": list(self.buckets),
             "quant_dtype": self.quant_dtype,
             "quant_bytes_staged": self._quant_bytes_staged,
-            "placement": None,
+            "placement": (self.placement.describe()
+                          if self.placement is not None else None),
             "compile_cache": self.cache.stats(),
             "cuda_graphs": self.graphs.stats(),
             "host_transfer": self.stager.stats(),

@@ -120,8 +120,28 @@ an admission while the ledger reads the device past its watermark
 (one ``mem_pressure`` flight bundle), and registers its ``stats()`` and
 request ids with the flight recorder as ``lm_engine/<name>``.
 
-Not ported yet, and refused with ``NotImplementedError`` when asked
-for: ``placement`` (ROADMAP Queue 1 item 11.7).
+Placement (``placement=``, a
+:class:`~bigdl_tpu_torch.serving.placement.MeshSlice`): the engine
+builds on the slot's device, its params staged there by
+``shard_params_chunked``.  A slot of one card (``tp == 1``) serves as an
+unplaced engine on that card does, kernels and graphs included.  A
+``tp > 1`` slot runs on DTensor parameters sharded by
+``transformer_lm_tp_rules``, one engine on every rank of the slot: its
+steps gather the head-sharded q/k/v whole before attention
+(``generate._block_qkv``), so the attention core, the KV arenas (plain
+tensors, the same rows on every rank) and the host pulls see plain
+tensors; the ids and positions enter the embedding lookups, and the
+whole attention output the row-parallel ``wo``, as replicated DTensors
+(``nn._util.replicate_like``), and ``tensor_parallel.sharded_step``
+makes the outputs whole.  So the attention runs as the model was built:
+on a card, "auto" takes the flash forward and the paged decode kernel.
+Such a slot runs eagerly unless ``cuda_graphs=True`` is asked for.
+Every rank must be handed the same requests in the same order; each
+scheduler round is decided by the slot, not by one rank's clock
+(``placement.lockstep``): the requests every rank holds are admitted,
+and a cancel, a blown deadline, a refusal at submission, a hibernation
+or a resume seen on any rank applies on all of them, so the ranks run
+the same rounds and return the same streams.
 """
 from __future__ import annotations
 
@@ -141,6 +161,7 @@ from bigdl_tpu_torch.models.transformer.generate import (
     _decode_step_paged, _insert_blocks, _prefill_parts,
     _prefill_suffix_parts, _tree_commit_paged, _tree_verify_step_paged,
     _verify_step_paged)
+from bigdl_tpu_torch.parallel.tensor_parallel import sharded_step
 from bigdl_tpu_torch.quant.transform import (params_dtype_tag,
                                              set_compute_mode)
 from bigdl_tpu_torch.serving.compile_cache import (CompileCache, GraphPool,
@@ -181,11 +202,6 @@ def prefill_bucket_lengths(max_len: int, min_bucket: int = 8) -> tuple:
         b *= 2
     buckets.append(int(max_len))
     return tuple(sorted(set(buckets)))
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 # ---------------------------------------------------------------------- #
@@ -242,6 +258,7 @@ class LMStream:
         self._cancel_requested = False
         self._cancel_at_gen = 0         # generated length when cancelled
         self._wake_cb = None            # engine nudge, set at enqueue
+        self.slot_key: Optional[int] = None  # lockstep key (tp > 1 slot)
 
     # lifecycle --------------------------------------------------------- #
     def cancel(self) -> bool:
@@ -692,7 +709,18 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         metrics / metrics_prefix: a shared :class:`LMMetrics` (replicas
             of one phase or one set record into one) and the registry
             prefix it publishes under (default ``"serving/lm/"``).
-        device: must be the model's device (default ``"cuda"``).
+        placement: a :class:`~bigdl_tpu_torch.serving.placement.\
+MeshSlice` (see the module docstring).  The engine's device is then the
+            slot's (the model may live elsewhere: its params are staged
+            onto the slot); a slot that does not hold this process
+            raises ``PlacementError``.  A ``tp > 1`` slot runs eagerly
+            by default; it takes no ``migrate=`` (and no ``adopt``): a
+            disaggregated pair over rank groups is ROADMAP Queue 1 item
+            11.8.
+        tp_rules: ``rules(path, leaf) -> NamedSharding | None`` for a
+            ``tp > 1`` slot (default ``transformer_lm_tp_rules``).
+        device: must be the model's device (default ``"cuda"``); under
+            placement, the slot's.
     """
 
     def __init__(self, model, *,
@@ -710,6 +738,7 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                  decode_attn: str = "auto",
                  kv_quant: Optional[str] = None,
                  spec=None, kvtier=None, migrate=None, placement=None,
+                 tp_rules=None,
                  max_cache_entries: int = 16,
                  cuda_graphs: Optional[bool] = None,
                  honor_lifecycle: bool = True,
@@ -718,8 +747,6 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                  metrics_prefix: str = "serving/lm/",
                  name: str = "lm",
                  device=None):
-        if placement is not None:
-            raise _not_ported("placement", "11.7")
         if isinstance(spec, int) and not isinstance(spec, bool):
             spec = SpecConfig(k=spec)
         if spec is not None and not isinstance(spec, SpecConfig):
@@ -736,22 +763,53 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                 "handoff protocol carries full-precision wire payloads "
                 "(the host KV tier, not the coordinator, is the "
                 "quantized-chain migration path)")
-        self.device = resolve_device(device)
-        if self.device != model.device:
-            raise ValueError(f"engine on {self.device}, but the model lives "
-                             f"on {model.device}")
+        tp = 1 if placement is None else placement.tp
+        if placement is not None:
+            # raises PlacementError for a slot this process does not hold
+            self.device = placement.device
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device={device} but the placement slot "
+                                 f"is on {self.device}")
+        else:
+            self.device = resolve_device(device)
+            if self.device != model.device:
+                raise ValueError(f"engine on {self.device}, but the model "
+                                 f"lives on {model.device}")
         if model.params is None:
             raise ValueError("the model has no params: call model.build(seed) "
                              "or set model.params")
+        if tp > 1 and migrate is not None:
+            from bigdl_tpu_torch.serving.placement import PlacementError
+            raise PlacementError(
+                "a prefill-phase replica (migrate=...) on a tensor-parallel "
+                "slot hands its requests to a replica on other ranks; "
+                "carrying a request between rank groups is ROADMAP Queue 1 "
+                "item 11.8")
         if cuda_graphs is None:
-            cuda_graphs = self.device.type == "cuda"
+            # a tensor-parallel slot's captured collectives are unmeasured
+            cuda_graphs = self.device.type == "cuda" and tp == 1
         elif cuda_graphs and self.device.type != "cuda":
             raise ValueError(f"cuda_graphs=True needs a CUDA device, the "
                              f"engine is on {self.device}")
         self.cuda_graphs = bool(cuda_graphs)
         self.model = model
         self.name = name
+        self.placement = placement
+        # a tensor-parallel slot's scheduler decides each round with the
+        # slot's other ranks (see _loop)
+        self._ls = placement.lockstep() if placement is not None else None
+        self._pressure = False   # the lockstep round's memory verdict
+        self._resume_req: set = set()   # lockstep: keys asked to resume
         self._params = model.params
+        if placement is not None:
+            from bigdl_tpu_torch.parallel.tensor_parallel import (
+                transformer_lm_tp_rules)
+            from bigdl_tpu_torch.serving.placement import shard_params_chunked
+            if tp > 1 and tp_rules is None:
+                tp_rules = transformer_lm_tp_rules(placement.mesh)
+            self._params = shard_params_chunked(
+                model.params, tp_rules or (lambda path, leaf: None),
+                placement)
         self.slots = int(slots)
         self.cache_len = int(cache_len or model.max_len)
         if self.cache_len > model.max_len:
@@ -847,6 +905,8 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         # -- the device steps, one graph per shape ---------------------- #
         self.graphs = GraphPool(self.device, capture=self.cuda_graphs)
         pool = self.pool
+        step = sharded_step if tp > 1 else (lambda fn: fn)
+        ptag = placement.tag if placement is not None else ""
 
         def _prefill_fn(params, buffers, x):
             del buffers  # part of the CompileCache signature only
@@ -859,7 +919,8 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             return logits
 
         self.prefill_cache = CompileCache(
-            _prefill_fn, graphs=self.graphs, max_entries=max_cache_entries,
+            step(_prefill_fn), graphs=self.graphs,
+            max_entries=max_cache_entries, placement_tag=ptag,
             name=f"lm/{name}/prefill")
 
         def _prefix_prefill_fn(params, buffers, x):
@@ -872,15 +933,16 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             return logits
 
         self.prefix_prefill_cache = CompileCache(
-            _prefix_prefill_fn, graphs=self.graphs,
-            max_entries=max_cache_entries, name=f"lm/{name}/prefix_prefill")
+            step(_prefix_prefill_fn), graphs=self.graphs,
+            max_entries=max_cache_entries, placement_tag=ptag,
+            name=f"lm/{name}/prefix_prefill")
 
         def _decode_fn(x):
             return _decode_step_paged(
                 model, self._params, x["token"], x["pos"], x["tables"],
                 pool.k, pool.v, pool.ks, pool.vs, attn_impl=decode_attn)[0]
 
-        self._decode_exec = StepGraph(_decode_fn, self.graphs,
+        self._decode_exec = StepGraph(step(_decode_fn), self.graphs,
                                       name=f"lm/{name}/decode",
                                       key=f"slots={self.slots}")
 
@@ -911,14 +973,15 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                     draft_lm, slots=self.slots, cache_len=self.cache_len,
                     prefill_buckets=self.prefill_buckets,
                     max_cache_entries=max_cache_entries,
-                    sampling=spec.sampling, graphs=self.graphs)
+                    sampling=spec.sampling, graphs=self.graphs,
+                    placement_tag=ptag)
             self.spec_metrics = SpecMetrics().publish_to(get_registry())
             self.spec_metrics.compute_mode = self.draft.compute_mode
             if self.draft.compute_mode != "ngram":
                 report = getattr(draft_lm, "quant_report", None) or {}
                 self.spec_metrics.overflow_risk = float(
                     report.get("overflow_risk") or 0.0)
-            self._verify_execs = self._verify_steps(spec)
+            self._verify_execs = self._verify_steps(spec, step)
             if spec.tree:
                 # the accepted-path commit moves rows only for shapes
                 # with off-spine nodes, up to the deepest alternate
@@ -931,7 +994,7 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                                        pool.k, pool.v, pool.ks, pool.vs)
 
                 self._commit_exec = StepGraph(
-                    _commit_fn, self.graphs, name=f"lm/{name}/commit",
+                    step(_commit_fn), self.graphs, name=f"lm/{name}/commit",
                     key=f"dmax={self._commit_dmax}")
 
         reg = get_registry()
@@ -1003,6 +1066,7 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             from bigdl_tpu_torch.quant.transform import params_nbytes
             led = get_ledger()
             name = self.name
+            dev = self.placement.tag if self.placement is not None else None
             pool_ref = weakref.ref(self.pool)
 
             def _kv_bytes():
@@ -1011,7 +1075,8 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
 
             keys.append(led.register(
                 "kvcache", f"{name}/kv_arena", _kv_bytes,
-                shape=self.pool.shape, dtype=_dtype_name(self.pool.k.dtype)))
+                shape=self.pool.shape, dtype=_dtype_name(self.pool.k.dtype),
+                device=dev))
             if self.kv_quant is not None:
                 def _scale_bytes():
                     p = pool_ref()
@@ -1019,10 +1084,10 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
 
                 keys.append(led.register(
                     "kvcache", f"{name}/scale_arena", _scale_bytes,
-                    shape=self.pool.shape[:4], dtype="float32"))
+                    shape=self.pool.shape[:4], dtype="float32", device=dev))
             keys.append(led.register(
                 "params", f"{name}/staged", params_nbytes(self._params),
-                note=f"quant={params_dtype_tag(self._params)}"))
+                device=dev, note=f"quant={params_dtype_tag(self._params)}"))
             if self.draft is not None and \
                     getattr(self.draft, "k", None) is not None:
                 # (the n-gram drafter has no arena)
@@ -1035,7 +1100,7 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                 keys.append(led.register(
                     "spec", f"{name}/draft_arena", _draft_bytes,
                     shape=tuple(self.draft.k.shape),
-                    dtype=_dtype_name(self.draft.k.dtype)))
+                    dtype=_dtype_name(self.draft.k.dtype), device=dev))
             if self.graphs.capture:
                 graphs_ref = weakref.ref(self.graphs)
 
@@ -1044,7 +1109,7 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                     return g.pool_bytes() if g is not None else None
 
                 keys.append(led.register(
-                    "graphs", f"{name}/graph_pool", _pool_bytes,
+                    "graphs", f"{name}/graph_pool", _pool_bytes, device=dev,
                     note="CUDA-graph pool of the engine and its drafter"))
         except Exception:
             log.exception("memory-ledger registration failed")
@@ -1137,9 +1202,10 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         draft.params = set_compute_mode(model.params, compute)
         return draft
 
-    def _verify_steps(self, spec) -> List[StepGraph]:
+    def _verify_steps(self, spec, step) -> List[StepGraph]:
         """The verify steps: one at (S, k+1), or one per tree rung, each
-        rung's depths and ancestor matrix on the device once, here."""
+        rung's depths and ancestor matrix on the device once, here;
+        ``step`` wraps each function (a tensor-parallel slot's)."""
         model, pool = self.model, self.pool
         if not spec.tree:
             def _verify_fn(x):
@@ -1147,7 +1213,7 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                     model, self._params, x["tokens"], x["pos"], x["ncand"],
                     x["tables"], pool.k, pool.v, pool.ks, pool.vs)[0]
 
-            return [StepGraph(_verify_fn, self.graphs,
+            return [StepGraph(step(_verify_fn), self.graphs,
                               name=f"lm/{self.name}/verify",
                               key=f"k={spec.k}")]
         self._tree_shapes = list(spec.shapes)
@@ -1164,7 +1230,7 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                     x["tables"], pool.k, pool.v, pool.ks, pool.vs,
                     depths=depths, anc=anc)[0]
 
-            steps.append(StepGraph(_tree_fn, self.graphs,
+            steps.append(StepGraph(step(_tree_fn), self.graphs,
                                    name=f"lm/{self.name}/verify",
                                    key=f"rung={len(steps)}"))
         return steps
@@ -1366,8 +1432,10 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         try:
             fault_point("serving.enqueue", name=self.name, n=t)
         except ServingOverloaded:
+            self._refuse_key()
             raise
         except TransientBackendError as e:
+            self._refuse_key()
             self.metrics.record_reject()
             count_rejection()
             raise ServingOverloaded(
@@ -1387,9 +1455,14 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         req = _Request(stream, prompt - 1, max_new, temp, eos0, first_key,
                        step_keys, rid)
         with self._cv:
+            if self._ls is not None:
+                # drawn where the request joins the queue (or is refused)
+                stream.slot_key = self._ls.key()
             if self._closing:
+                self._refuse_key(stream.slot_key)
                 raise ServingClosed("LMServingEngine is closed")
             if len(self._queue) >= self._max_queue:
+                self._refuse_key(stream.slot_key)
                 self.metrics.record_reject()
                 count_rejection()
                 raise ServingQueueFull(
@@ -1404,6 +1477,17 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                             queue_depth=depth)
         return stream
 
+    def _refuse_key(self, key: Optional[int] = None) -> None:
+        """A tensor-parallel slot's refused submission: its lockstep key
+        is drawn (if not yet) and named to the other ranks, which retire
+        their copy."""
+        if self._ls is None:
+            return
+        if key is None:
+            with self._cv:
+                key = self._ls.key()
+        self._ls.refuse(key)
+
     def generate(self, prompt_ids, *, timeout: Optional[float] = None,
                  **kw) -> np.ndarray:
         """Sync convenience: submit + wait; returns (t + generated,)
@@ -1417,6 +1501,12 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         from the token the prefill replica emitted.  Adoptions rank
         ahead of queued submissions and defer under pool pressure like
         them."""
+        if self._ls is not None:
+            from bigdl_tpu_torch.serving.placement import PlacementError
+            raise PlacementError(
+                "a decode-phase replica on a tensor-parallel slot takes "
+                "requests migrated from other rank groups; carrying them "
+                "is ROADMAP Queue 1 item 11.8")
         # a cancel now has to wake THIS worker
         handoff.stream._wake_cb = self._lc_wake
         with self._cv:
@@ -1489,36 +1579,59 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         self._fail_all(ServingClosed("engine closed before completion"))
 
     def _loop(self):
+        hibernate = None   # the lockstep round's hibernations
         while True:
             with self._cv:
-                while (not self._queue and not self._adopt_q
-                       and not self._resume_q and not self._n_active
-                       and not self._prefilling and not self._hibernate_req
-                       and not self._closing and not self._abort
-                       and not self._lc_nudge):
-                    if not self._cv.wait(self._lc_wait_timeout()):
-                        # a holding station's deadline came due while
-                        # the engine idled (a hibernated stream, say)
-                        self._lc_nudge = True
-                if self._abort:
-                    return
-                if (self._closing and not self._queue and not self._adopt_q
-                        and not self._resume_q and not self._n_active
-                        and not self._prefilling):
-                    # the caller's _fail_all resolves streams still
-                    # hibernated with ServingClosed
-                    return
-                # cancelled or expired requests leave their holding
-                # stations before this round admits anything
-                self._lifecycle_sweep_locked()
+                if self._ls is None:
+                    while (not self._queue and not self._adopt_q
+                           and not self._resume_q and not self._n_active
+                           and not self._prefilling
+                           and not self._hibernate_req
+                           and not self._closing and not self._abort
+                           and not self._lc_nudge):
+                        if not self._cv.wait(self._lc_wait_timeout()):
+                            # a holding station's deadline came due while
+                            # the engine idled (a hibernated stream, say)
+                            self._lc_nudge = True
+                    if self._abort:
+                        return
+                    if (self._closing and not self._queue
+                            and not self._adopt_q and not self._resume_q
+                            and not self._n_active and not self._prefilling):
+                        # the caller's _fail_all resolves streams still
+                        # hibernated with ServingClosed
+                        return
+                    # cancelled or expired requests leave their holding
+                    # stations before this round admits anything
+                    verdict = self._lc_local(time.monotonic())
+                    self._lifecycle_sweep_locked(verdict)
+                    slot_limit, fresh = self._slot_limit, None
+                else:
+                    rnd = self._lockstep_round_locked()
+                    if rnd is None:
+                        return
+                    verdict = (lambda s, dead=rnd.dead:
+                               dead.get(s.slot_key))
+                    self._lifecycle_sweep_locked(verdict)
+                    hibernate = {k for what, k in rnd.asked
+                                 if what == "hibernate"}
+                    slot_limit = rnd.leader["slot_limit"]
+                    self._pressure = rnd.leader["pressure"]
+                    fresh = len(rnd.admit)
+                    if (rnd.closing and not fresh and not self._n_active
+                            and not self._prefilling
+                            and not self._resume_q):
+                        # every rank is closing and drained alike: the
+                        # caller's _fail_all resolves the rest
+                        return
                 # in flight = decoding + mid-prefill: both hold slots
                 inflight = self._n_active + len(self._prefilling)
 
-                def take(q, taken):
+                def take(q, taken, most=None):
                     out = []
                     while (self._free and q
-                           and inflight + taken + len(out)
-                           < self._slot_limit):
+                           and inflight + taken + len(out) < slot_limit
+                           and (most is None or len(out) < most)):
                         out.append((self._free.pop(), q.popleft()))
                     return out
 
@@ -1526,7 +1639,8 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                 # (their first token is paid), adoptions first
                 adopts = take(self._adopt_q, 0)
                 resumes = take(self._resume_q, len(adopts))
-                admits = take(self._queue, len(adopts) + len(resumes))
+                admits = take(self._queue, len(adopts) + len(resumes),
+                              fresh)
             if self.migrate is not None:
                 # a prefill replica's occupancy, one sample a round (it
                 # has no decode steps)
@@ -1558,8 +1672,12 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                             q.appendleft(item)
                     if not self._n_active and not self._prefilling:
                         self._cv.wait(0.05)
-            self._lifecycle_round()
-            if self._hibernate_req:
+            self._lifecycle_round(verdict if self._ls is not None
+                                  else None)
+            if self._ls is not None:
+                if hibernate:
+                    self._service_hibernations(hibernate)
+            elif self._hibernate_req:
                 self._service_hibernations()
             if self._prefilling:
                 # the interleave: ONE chunk of the oldest prefill in
@@ -1616,16 +1734,73 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             return None
         return max(0.0, min(dls) - time.monotonic()) + 0.005
 
-    def _lc_shed_queued(self, stream: LMStream, rid) -> None:
+    def _lc_local(self, now: float):
+        """This rank's lifecycle verdict on a stream: "cancelled",
+        "deadline", or None while it lives."""
+        def verdict(s: LMStream) -> Optional[str]:
+            if s.cancel_requested:
+                return "cancelled"
+            return "deadline" if s.expired(now) else None
+        return verdict
+
+    def _lockstep_round_locked(self):
+        """A tensor-parallel slot's round (``placement.lockstep``): this
+        rank reports its queue, the streams it sees dead, its close, its
+        callers' hibernate and resume asks, and (read by the lead rank's
+        only) its slot limit and memory pressure; the slot's round comes
+        back.  Caller holds ``_cv``, released around the gather.  None
+        on abort."""
+        idle = (not self._n_active and not self._prefilling
+                and not self._resume_q and not self._closing)
+        if idle and not self._lc_nudge and not self._abort:
+            self._cv.wait(self._ls.IDLE_S)
+        if self._abort:
+            return None
+        self._lc_nudge = False
+        dead = {}
+        if self.honor_lifecycle:
+            verdict = self._lc_local(time.monotonic())
+            held = [r.stream for r in self._queue]
+            held += [pf.req.stream for pf in self._prefilling]
+            held += [st.stream for st in self._slots if st is not None]
+            held += [h.stream for h in self._resume_q]
+            held += [h.stream for h in self._hibernated.values()]
+            dead = {s.slot_key: why for s in held
+                    for why in (verdict(s),) if why}
+        asked = {("hibernate", st.stream.slot_key) for st in self._slots
+                 if st is not None and st.rid in self._hibernate_req}
+        asked |= {("resume", k) for k in self._resume_req}
+        self._resume_req.clear()
+        queued = [r.stream.slot_key for r in self._queue]
+        report = dict(queued=queued, dead=dead, closing=self._closing,
+                      asked=asked, slot_limit=self._slot_limit,
+                      pressure=bool(queued) and self._over_watermark())
+        self._cv.release()
+        try:
+            rnd = self._ls.round(**report)
+        finally:
+            self._cv.acquire()
+        for what, k in rnd.asked:
+            if what == "resume":
+                rid = next((rid for rid, h in self._hibernated.items()
+                            if h.stream.slot_key == k), None)
+                if rid is not None:
+                    self._resume_q.append(self._hibernated.pop(rid))
+        return rnd
+
+    def _lc_shed_queued(self, stream: LMStream, rid,
+                        reason: str) -> None:
         """A queued, never-prefilled request left: a cancel truncates
         quietly; a blown deadline is the typed pre-admission shed,
-        counted like an admission-control rejection."""
-        if stream.cancel_requested:
-            reason = "cancelled"
+        counted like an admission-control rejection; a request another
+        rank of a tensor-parallel slot refused is shed as overload."""
+        if reason == "refused":
+            stream._finish(error=ServingOverloaded(
+                "refused at submission by another rank of the slot"))
+        elif reason == "cancelled":
             self._lc_count("cancelled")
             stream._finish_truncated("cancelled")
         else:
-            reason = "deadline"
             self.metrics.record_reject()
             count_rejection()
             self._lc_count("expired_preadmission")
@@ -1636,15 +1811,13 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
             _tracer.instant("lm/lifecycle_shed", cat="serve",
                             request_id=rid, reason=reason, station="queue")
 
-    def _lc_truncate(self, stream: LMStream, rid, *,
+    def _lc_truncate(self, stream: LMStream, rid, reason: str, *,
                      station: str = "seated") -> None:
         """Finish a request that got past admission with the truncation
         marker; the tokens already emitted stay valid."""
-        if stream.cancel_requested:
-            reason = "cancelled"
+        if reason == "cancelled":
             self._lc_count("cancelled")
         else:
-            reason = "deadline"
             self._lc_count("expired_midstream")
         stream._finish_truncated(reason)
         self.metrics.record_complete()
@@ -1653,58 +1826,53 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                             request_id=rid, reason=reason, station=station,
                             at_tokens=len(stream.generated))
 
-    def _lifecycle_sweep_locked(self) -> None:
-        """Shed cancelled or expired requests from every station that
-        holds no decode slot: the admission queue (before prefill), the
-        adoption queue, the resume queue and the hibernated set (a
-        hibernated stream is
+    def _lifecycle_sweep_locked(self, verdict) -> None:
+        """Shed the requests ``verdict`` (stream -> reason or None)
+        names, from every station that holds no decode slot: the
+        admission queue (before prefill), the adoption queue, the resume
+        queue and the hibernated set (a hibernated stream is
         cancellable without a resume: its chain drops out of the host
         tier, no transfer).  Caller holds ``_cv``."""
         self._lc_nudge = False
-        if not self.honor_lifecycle:
+        if not self.honor_lifecycle and self._ls is None:
             return
-        now = time.monotonic()
-        if any(r.stream.dead(now) for r in self._queue):
+
+        def sift(q, drop):
+            if not any(verdict(x.stream) for x in q):
+                return
             live = []
-            while self._queue:
-                r = self._queue.popleft()
-                if r.stream.dead(now):
-                    self._lc_shed_queued(r.stream, r.rid)
+            while q:
+                x = q.popleft()
+                why = verdict(x.stream)
+                if why:
+                    drop(x, why)
                 else:
-                    live.append(r)
-            self._queue.extend(live)
-        if any(h.stream.dead(now) for h in self._adopt_q):
-            live = []
-            while self._adopt_q:
-                h = self._adopt_q.popleft()
-                if h.stream.dead(now):
-                    # its retained decode-pool blocks go back
-                    if h.matched:
-                        self.pool.release(h.matched)
-                    self._lc_truncate(h.stream, h.rid, station="adopt_q")
-                else:
-                    live.append(h)
-            self._adopt_q.extend(live)
-        if any(h.stream.dead(now) for h in self._resume_q):
-            live = []
-            while self._resume_q:
-                hib = self._resume_q.popleft()
-                if hib.stream.dead(now):
-                    # a fetched payload rides the handle: dropping the
-                    # handle drops the chain
-                    self._lc_truncate(hib.stream, hib.rid,
-                                      station="resume_q")
-                else:
-                    live.append(hib)
-            self._resume_q.extend(live)
-        for rid in [rid for rid, hib in self._hibernated.items()
-                    if hib.stream.dead(now)]:
+                    live.append(x)
+            q.extend(live)
+
+        def drop_adopt(h, why):
+            # its retained decode-pool blocks go back
+            if h.matched:
+                self.pool.release(h.matched)
+            self._lc_truncate(h.stream, h.rid, why, station="adopt_q")
+
+        sift(self._queue,
+             lambda r, why: self._lc_shed_queued(r.stream, r.rid, why))
+        sift(self._adopt_q, drop_adopt)
+        # a fetched payload rides the handle: dropping the handle drops
+        # the chain
+        sift(self._resume_q, lambda hib, why: self._lc_truncate(
+            hib.stream, hib.rid, why, station="resume_q"))
+        for rid, why in [(rid, verdict(hib.stream))
+                         for rid, hib in self._hibernated.items()]:
+            if not why:
+                continue
             hib = self._hibernated.pop(rid)
             if self.kvtier is not None:
                 self.kvtier.get(("session", rid), pop=True)
-            self._lc_truncate(hib.stream, rid, station="hibernated")
+            self._lc_truncate(hib.stream, rid, why, station="hibernated")
 
-    def _lifecycle_round(self) -> None:
+    def _lifecycle_round(self, verdict=None) -> None:
         """The per-round pass over seated (and mid-prefill) streams, at a
         round boundary (never inside a step).  The ``serving.cancel`` fault site is
         crossed once per seated stream, and a fault there IS that client
@@ -1712,7 +1880,10 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         like a finished one (slot freed, blocks released, drafter state
         dropped) and finished with the truncation marker.  With
         ``honor_lifecycle=False`` nothing is freed: every dead seated
-        stream counts one wasted decode slot-step per round."""
+        stream counts one wasted decode slot-step per round.
+        ``verdict`` (stream -> reason or None) is a tensor-parallel
+        slot's round's; by default this rank's own, read after the
+        fault site."""
         with self._cv:
             seated = [st.stream for st in self._slots if st is not None]
             seated += [pf.req.stream for pf in self._prefilling]
@@ -1729,25 +1900,28 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                              if st is not None and st.stream.dead(now))
             self._lc_count("wasted_decode_steps", n_dead)
             return
+        verdict = verdict or self._lc_local(now)
         with self._cv:
-            if any(pf.req.stream.dead(now) for pf in self._prefilling):
+            if any(verdict(pf.req.stream) for pf in self._prefilling):
                 live = []
                 while self._prefilling:
                     pf = self._prefilling.popleft()
-                    if pf.req.stream.dead(now):
+                    why = verdict(pf.req.stream)
+                    if why:
                         self.pool.release(pf.blocks)
                         self._free.append(pf.slot)
-                        self._lc_truncate(pf.req.stream, pf.req.rid,
+                        self._lc_truncate(pf.req.stream, pf.req.rid, why,
                                           station="prefilling")
                     else:
                         live.append(pf)
                 self._prefilling.extend(live)
             freed = False
             for i, st in enumerate(self._slots):
-                if st is None or not st.stream.dead(now):
+                why = verdict(st.stream) if st is not None else None
+                if not why:
                     continue
                 s = st.stream
-                if s.cancel_requested:
+                if why == "cancelled" and s.cancel_requested:
                     # decode steps between the cancel landing and this
                     # round were wasted
                     self._lc_count(
@@ -1760,16 +1934,15 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                     self.draft.release(i)
                 self._free.append(i)
                 self._n_active -= 1
-                self._lc_truncate(s, st.rid)
+                self._lc_truncate(s, st.rid, why)
                 freed = True
             if freed:
                 self._cv.notify_all()
 
-    def _mem_pressure_deferred(self) -> bool:
-        """The byte-level admission gate: past the memory ledger's
-        watermark, defer the admission exactly like pool pressure, and
-        let the ledger dump ONE ``mem_pressure`` bundle while the
-        attribution table can still be written."""
+    def _over_watermark(self) -> bool:
+        """Whether the memory ledger reads this engine's device past its
+        watermark (letting it dump ONE ``mem_pressure`` bundle while the
+        attribution table can still be written)."""
         try:
             from bigdl_tpu_torch.obs.ledger import get_ledger
             led = get_ledger()
@@ -1781,6 +1954,14 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         except Exception:
             pass
         return False
+
+    def _mem_pressure_deferred(self) -> bool:
+        """The byte-level admission gate: past the memory ledger's
+        watermark, defer the admission exactly like pool pressure.  A
+        tensor-parallel slot's lead rank reads it once a round."""
+        if self._ls is not None:
+            return self._pressure
+        return self._over_watermark()
 
     def _admit(self, slot: int, req: _Request) -> bool:
         """Prefill + insert one request into ``slot``.  Returns False
@@ -2573,10 +2754,17 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         with self._cv:
             if self._closing:
                 raise ServingClosed("LMServingEngine is closed")
-            hib = self._hibernated.pop(rid, None)
-            if hib is None:
-                return False
-            self._resume_q.append(hib)
+            if self._ls is not None:
+                # the slot's next round moves it, on every rank
+                hib = self._hibernated.get(rid)
+                if hib is None:
+                    return False
+                self._resume_req.add(stream.slot_key)
+            else:
+                hib = self._hibernated.pop(rid, None)
+                if hib is None:
+                    return False
+                self._resume_q.append(hib)
             self._cv.notify_all()
         if _tracer.sampled(rid):
             _tracer.instant("lm/resume_enqueue", cat="serve", request_id=rid,
@@ -2584,16 +2772,29 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
                                 time.perf_counter() - hib.hibernated_at, 4))
         return True
 
-    def _service_hibernations(self) -> None:
+    def _service_hibernations(self, keys=None) -> None:
         """Worker-side swap-out of each requested seated slot; requests
         for streams no longer seated are dropped so their waiters
-        unblock."""
+        unblock.  ``keys``: a tensor-parallel slot's round's
+        hibernations (lockstep keys), which every rank performs,
+        whichever rank's caller asked."""
         with self._cv:
+            if keys is None:
+                asked = {st.rid for st in self._slots
+                         if st is not None and st.rid in self._hibernate_req}
+            else:
+                asked = {st.rid for st in self._slots
+                         if st is not None and st.stream.slot_key in keys}
             todo = [(i, st) for i, st in enumerate(self._slots)
-                    if st is not None and st.rid in self._hibernate_req
+                    if st is not None and st.rid in asked
                     and not st.replay]
             self._hibernating.update(st.rid for _, st in todo)
-            self._hibernate_req.clear()     # taken, or stale: not seated
+            if keys is None:
+                self._hibernate_req.clear()  # taken, or stale: not seated
+            else:
+                # taken, or stale; an ask this round did not carry stays
+                seated = {st.rid for st in self._slots if st is not None}
+                self._hibernate_req &= seated - asked
             self._cv.notify_all()
         for i, st in todo:
             try:
@@ -2793,6 +2994,8 @@ HostBlockStore`, the host KV tier: radix-tail eviction demotes blocks
         return {
             "name": self.name,
             "device": str(self.device),
+            "placement": (self.placement.describe()
+                          if self.placement is not None else None),
             "slots": self.slots,
             "slot_limit": slot_limit,
             "max_queue": max_queue,

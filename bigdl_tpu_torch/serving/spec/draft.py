@@ -100,7 +100,8 @@ class DraftModel:
     def __init__(self, model, *, slots: int, cache_len: int,
                  prefill_buckets, max_cache_entries: int = 16,
                  sampling: str = "replay",
-                 graphs: Optional[GraphPool] = None):
+                 graphs: Optional[GraphPool] = None,
+                 placement_tag: str = ""):
         if model.params is None:
             raise ValueError("the draft model has no params: call "
                              "model.build(seed) or set model.params")
@@ -140,7 +141,7 @@ class DraftModel:
 
         self.prefill_cache = CompileCache(
             _prefill_fn, graphs=self.graphs, max_entries=max_cache_entries,
-            name="draft/insert")
+            placement_tag=placement_tag, name="draft/insert")
 
         def _decode_fn(x):
             logits, _, _ = _decode_step_slots(model, self._params, x["token"],

@@ -424,6 +424,23 @@ result line:
    experts) against ``switch_mlp``, dense and at capacity 1.25; each
    error printed beside its tolerance.  The par path's launches are
    P1's.  The phase within 240 s.
+25. place: serving placement on the one card (runs after replicas).
+   P1: ``PlacementPolicy(DeviceTopology.detect(), tp=1)`` carves one
+   slot, ``cuda:0``; ``LMServingEngine(placement=slot)`` serves the
+   serve phase's model and 8 requests with graphs, then eagerly: every
+   greedy stream equal to the unplaced serve run's and to offline
+   generate, the flash forward and paged decode launched, the backward
+   pair not, captures bounded, ``stats()["placement"]`` slot 0, tp 1,
+   ``[0]``; TTFT p50, decode tokens/s and the peak printed beside the
+   serve run's.  P2: the batch phase's scoring model behind
+   ``ServingEngine(placement=slot)``: its rows bitwise the unplaced
+   engine's on the same batches.  P3: ``ReplicaSet(placement=policy)``
+   of 1 replica serves P2's rows; packed, ``try_scale_up()`` is falsy;
+   2 replicas raise ``PlacementError`` ("exhausted").  P4: a
+   ``DisaggCoordinator`` of 1 prefill + 1 decode replica on the one slot
+   raises "no free placement slot".  P5: ``MeshSlicer().carve(1, 2)``
+   raises ``PlacementError`` (one card: tensor parallelism across cards
+   is proven on the CPU, over gloo worlds, not here).
 
 Every serving engine must keep its captures bounded: prefill entries at
 most the buckets, one decode graph, one verify graph (one per tree
@@ -571,7 +588,7 @@ BATCH = dict(seq_len=128, max_batch=8, threads=4, requests=64, predicts=8,
              sizes=(1, 2, 4, 3, 8, 5, 7, 1, 6, 2, 4, 1, 8), oversized=19,
              oversized_n=2, id_seed=12, tol=1e-3,
              fault="serving.dispatch:die:name=r1,after=4", b3_shape=(4, 256),
-             b3_steps=3, split_reps=3)
+             b3_steps=3, split_reps=3, place_rows=4)
 # the image classifiers: C1 ResNet-50 in both layouts, C2 the others in
 # NCHW, each through perf.run_perf (warm-up + timed steps); C3 one
 # ResNet-50 step on the card against the CPU; C4 the CLIs
@@ -1437,14 +1454,15 @@ def serve_once(dev, model, serve, prompts, oracle, label, profile_path=None,
         release(dev)
     peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
             else None)
-    ties = check_streams(label, oracle, prompts, out.pop("results"),
-                         max_new)
+    out["streams"] = out.pop("results")
+    ties = check_streams(label, oracle, prompts, out["streams"], max_new)
     hits = stats["kvcache"]["prefix_cache"]["hits"]
     if hits < 1:
         raise AssertionError("the shared-head prompts missed the radix cache")
     out.update(peak_bytes=peak, resident_bytes=resident, ties=ties,
                radix_hits=hits, warm=warm,
                itl_p99_s=stats["metrics"]["itl"]["p99_s"],
+               placement=stats["placement"],
                matched_streams=len(prompts) - len(ties),
                prefix_prefill=stats["prefix_prefill_cache"])
     log(f"[{label}] {len(prompts)} requests, prompt lengths "
@@ -2813,6 +2831,162 @@ def phase_replicas(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC,
         check_launches("replicas R2", l_r2, ("bigdl_paged_decode",))
     del model
     release(dev)
+    out["launches"] = acc.total
+    return out
+
+
+def phase_place(dev, config=GPT2_SMALL, serve=SERVE, prompts=None,
+                oracle=None, colocated=None, batch=BATCH):
+    """Serving placement on one card (see the module docstring): P1 the
+    placed LM engine with graphs, then eagerly, P2 the placed scoring
+    engine, P3 the placed replica set, P4 a disaggregated pair on one
+    slot, P5 the tensor-parallel guard.  ``colocated`` is the greedy
+    serve run: its streams are the placed runs' and its numbers are
+    printed beside theirs.  Returns the phase's numbers and its
+    launches."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.resilience import ReplicaSet
+    from bigdl_tpu_torch.serving import (DeviceTopology, DisaggCoordinator,
+                                         MeshSlicer, PlacementError,
+                                         PlacementPolicy, ServingEngine)
+    oracle = oracle or Oracle(dev, config, serve["seed"])
+    prompts = serve_prompts() if prompts is None else prompts
+    cuda = dev.type == "cuda"
+    topo = DeviceTopology.detect(None if cuda else "cpu")
+    policy = PlacementPolicy(topo, tp=1)
+    if policy.slots_total != topo.n_devices or topo.degraded:
+        raise AssertionError(f"place: {policy!r} from {topo!r}")
+    acc = _PathLaunches()
+    out = {"topology": topo.describe()}
+    log(f"[place] {topo!r}: {json.dumps(topo.describe())}; {policy!r}")
+
+    # -- P1: the placed LM engine, graphs then eager -------------------- #
+    model = build_lm(dev, config, serve["seed"])
+    slot = policy.acquire()
+    if slot.device != dev or slot.describe() != {
+            "slot_id": 0, "tp": 1, "device_ids": [0]}:
+        raise AssertionError(f"place: slot {slot!r} on {slot.device}")
+    for label, kw in (("graphs", {}), ("eager", {"cuda_graphs": False})):
+        run = acc.run(lambda: serve_once(dev, model, serve, prompts, oracle,
+                                         f"place {label}", placement=slot,
+                                         **kw))
+        launches = dict(acc.last)
+        if colocated is not None:
+            for i, (a, b) in enumerate(zip(run["streams"],
+                                           colocated["streams"])):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"place {label}: stream {i} differs "
+                                         "from the unplaced serve run's")
+        if run["placement"] != slot.describe():
+            raise AssertionError(f"place {label}: stats placement "
+                                 f"{run['placement']}")
+        if cuda:
+            check_launches(f"place {label} path", launches,
+                           ("bigdl_flash_fwd", "bigdl_paged_decode"))
+            for symbol in ("bigdl_flash_bwd_dkv", "bigdl_flash_bwd_dq"):
+                if launches[symbol]:
+                    raise AssertionError(f"place {label}: {symbol} launched "
+                                         f"{launches[symbol]} times")
+        run.pop("streams")
+        out[f"p1_{label}"] = dict(run, launches=launches)
+        base = colocated or {}
+        log(f"[place] P1 {label}: TTFT p50 {run['ttft_p50_s'] * 1e3:.2f} ms "
+            f"(serve {base.get('ttft_p50_s', float('nan')) * 1e3:.2f}), "
+            f"decode {run['decode_tokens_per_s']:.1f} tokens/s (serve "
+            f"{base.get('decode_tokens_per_s', float('nan')):.1f}), "
+            f"max_memory_allocated {_mib(run['peak_bytes'])} (serve "
+            f"{_mib(base.get('peak_bytes'))}), streams identical to the "
+            f"unplaced run's, launches {launches}, {graph_line(run)}")
+    del model
+    release(dev)
+
+    # -- P2: the placed scoring engine ----------------------------------- #
+    T, V, n = batch["seq_len"], config["vocab_size"], batch["place_rows"]
+    scorer = TransformerLM(attention_impl="auto", device=dev, **config)
+    scorer.params = oracle.model.params
+    x = np.random.RandomState(batch["id_seed"]).randint(
+        1, V + 1, size=(n, T)).astype(np.float32)
+    kw = dict(input_shape=(T,), buckets=(n,), max_batch_size=n,
+              max_wait_ms=1.0)
+    with ServingEngine(scorer, name="unplaced", device=dev, **kw) as eng:
+        eng.warmup()
+        want = eng.predict(x, timeout=600)
+    with ServingEngine(scorer, name="placed", placement=slot, **kw) as eng:
+        eng.warmup()
+        got = acc.run(lambda: eng.predict(x, timeout=600))
+        st = eng.stats()
+    if not np.array_equal(got, want) or st["placement"] != slot.describe():
+        raise AssertionError(f"place P2: rows bitwise "
+                             f"{np.array_equal(got, want)}, placement "
+                             f"{st['placement']}")
+    if cuda:
+        check_launches("place P2", acc.last, ("bigdl_flash_fwd",))
+    out["p2"] = dict(rows=int(got.shape[0]), launches=dict(acc.last),
+                     ledger_tag=st["compile_cache"]["ledger_tag"])
+    log(f"[place] P2 placed scoring engine: {n} x {T} rows bitwise the "
+        f"unplaced engine's, cache {st['compile_cache']['ledger_tag']}, "
+        f"launches {acc.last}")
+    policy.release(slot)
+
+    # -- P3: the placed replica set --------------------------------------- #
+    rs = ReplicaSet(scorer, n_replicas=1, placement=policy, **kw)
+    try:
+        rs.warmup()
+        rows = acc.run(lambda: rs.predict(x, timeout=600))
+        packed = rs.try_scale_up()
+        st = rs.stats()
+    finally:
+        rs.close()
+    if not np.array_equal(rows, want) or packed or \
+            st["placement"]["slots_used"] != 1 or policy.headroom() != 1:
+        raise AssertionError(f"place P3: rows bitwise "
+                             f"{np.array_equal(rows, want)}, try_scale_up "
+                             f"{packed!r}, {st['placement']}")
+    try:
+        ReplicaSet(scorer, n_replicas=2, placement=policy, **kw)
+    except PlacementError as e:
+        if "exhausted" not in str(e) or policy.headroom() != 1:
+            raise
+        exhausted = str(e)
+    else:
+        raise AssertionError("place P3: 2 replicas on 1 slot did not raise")
+    out["p3"] = dict(try_scale_up=packed, exhausted=exhausted,
+                     launches=dict(acc.last))
+    log(f"[place] P3 replica set: 1 replica serves the P2 rows bitwise, "
+        f"try_scale_up() {packed!r} when packed; 2 replicas: "
+        f"PlacementError({exhausted!r})")
+    del scorer
+    release(dev)
+
+    # -- P4: a disaggregated pair on one slot ----------------------------- #
+    model = build_lm(dev, config, serve["seed"])
+    try:
+        DisaggCoordinator(model, prefill_replicas=1, decode_replicas=1,
+                          placement=policy, slots=serve["slots"],
+                          cache_len=serve["cache_len"],
+                          block_len=serve["block_len"],
+                          max_new_tokens=serve["max_new"])
+    except RuntimeError as e:
+        if "no free placement slot" not in str(e) or policy.headroom() != 1:
+            raise
+        out["p4"] = str(e)
+    else:
+        raise AssertionError("place P4: a prefill and a decode replica on "
+                             "one slot did not raise")
+    del model
+    release(dev)
+    log(f"[place] P4 DisaggCoordinator(1 + 1) on 1 slot: {out['p4']}")
+
+    # -- P5: tensor parallelism needs a slot of several devices ----------- #
+    try:
+        MeshSlicer().carve(1, 2)
+    except PlacementError as e:
+        out["p5"] = str(e)
+    else:
+        raise AssertionError("place P5: carve(1, 2) did not raise")
+    log(f"[place] P5 MeshSlicer().carve(1, 2): PlacementError({out['p5']!r})")
     out["launches"] = acc.total
     return out
 
@@ -7288,6 +7462,13 @@ def main() -> int:
                    ("bigdl_flash_fwd", "bigdl_paged_decode"))
     log(f"[replicas] launches over the replicas runs: "
         f"{replicas['launches']} | {smi}")
+    log_allocated("place")
+    t0 = time.perf_counter()
+    place = phase_place(dev, oracle=oracle, colocated=serve)
+    phases["place"] = time.perf_counter() - t0
+    check_launches("place path", place["launches"],
+                   ("bigdl_flash_fwd", "bigdl_paged_decode"))
+    log(f"[place] launches over the place runs: {place['launches']} | {smi}")
     log_allocated("batch")
     t0 = time.perf_counter()
     batch = phase_batch(dev, oracle=oracle)
@@ -7508,7 +7689,8 @@ def main() -> int:
     paths = dict(serve=serve["launches"], serve_sampled=sampled["launches"],
                  spec=spec_launches, quant=quant_launches,
                  tier=tier["launches"], replicas=replicas["launches"],
-                 batch=batch["launches"], train=train["launches"],
+                 place=place["launches"], batch=batch["launches"],
+                 train=train["launches"],
                  moe=total(m1["launches"], m2["launches"]),
                  accum=total(*(r["launches"] for r in accum.values())),
                  ckpt=ckpt["launches"], gpt2=gpt2["launches"],
@@ -7523,7 +7705,7 @@ def main() -> int:
         return {p: paths[p][symbol] for p in names}
 
     serving = ("serve", "serve_sampled", "spec", "quant", "tier", "replicas",
-               "moe", "obs", "tune")
+               "place", "moe", "obs", "tune")
     training = ("train", "moe", "accum", "ckpt", "obs", "batch", "par")
     # the paths on cuDNN and the host, which launch none of the kernels
     hosted = ("cnn", "rnn", "io", "data", "host")
@@ -7549,14 +7731,14 @@ def main() -> int:
              replaces="bigdl_tpu/ops/flash_attention.py:199",
              launches=train["launches"]["bigdl_flash_bwd_dkv"],
              launches_by_path=by_path("bigdl_flash_bwd_dkv",
-                                      training + ("dist",) + hosted),
+                                      training + ("dist", "place") + hosted),
              **dkv_main),
         dict(name="flash_bwd_dq", route="cuda",
              source="bigdl_tpu_torch/csrc/flash_bwd.cu",
              replaces="bigdl_tpu/ops/flash_attention.py:262",
              launches=train["launches"]["bigdl_flash_bwd_dq"],
              launches_by_path=by_path("bigdl_flash_bwd_dq",
-                                      training + ("dist",) + hosted),
+                                      training + ("dist", "place") + hosted),
              **dq_main),
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -508,8 +508,11 @@ def test_engine_refuses_what_the_port_does_not_do():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServingEngine(tm)              # the card unless asked
-    with pytest.raises(NotImplementedError, match="11.7"):
-        ServingEngine(tm, placement=object(), **CPU)
+    # a slot another rank holds (placement itself is ported)
+    from bigdl_tpu_torch.serving import MeshSlice, PlacementError
+    with pytest.raises(PlacementError, match="not by this process"):
+        ServingEngine(tm, placement=MeshSlice(1, ["cpu"], 1, (1,),
+                                              per_rank=True))
     with pytest.raises(ValueError, match="CUDA device"):
         ServingEngine(tm, cuda_graphs=True, **CPU)
     with pytest.raises(ValueError, match="device="):

@@ -9,9 +9,10 @@ engines, on the same tiny model (vocab 31, hidden 16, 2 heads, 1 layer,
 rope) and engine arguments.  Streams are token-exact; the counters the
 traffic fixes deterministically (prefill passes, migrations, migrated
 blocks, lost payloads, re-prefills) equal the JAX package's.  The two
-placement tests of the reference wait for ROADMAP Queue 1 item 11.7:
-in their place, ``try_scale_up`` is held against
-``max_replicas_per_phase`` and ``placement=`` must raise naming 11.7."""
+placement tests of the reference are mirrored in
+``tests/test_torch_port_placement.py``; here ``try_scale_up`` is held
+against ``max_replicas_per_phase``, and a placement slot held by another
+rank must raise naming ROADMAP Queue 1 item 11.8."""
 import time
 
 import jax
@@ -275,10 +276,15 @@ def test_prefill_replica_refusals(pair):
 
 
 def test_coordinator_placement_refused_names_its_item(pair):
-    """Placement (mesh slices per phase) is ROADMAP Queue 1 item 11.7."""
+    """A phase on a slot of another rank (the hop between processes) is
+    ROADMAP Queue 1 item 11.8; the policy gets its slot back."""
+    from bigdl_tpu_torch.serving import (DeviceTopology, PlacementError,
+                                         PlacementPolicy)
     _, tm = pair
-    with pytest.raises(NotImplementedError, match="11.7"):
-        DisaggCoordinator(tm, placement=object(), device="cpu", **_ENG)
+    pol = PlacementPolicy(DeviceTopology(["cpu"] * 2, per_rank=True))
+    with pytest.raises(PlacementError, match="11.8"):
+        DisaggCoordinator(tm, placement=pol, **_ENG)
+    assert pol.headroom() == 2
 
 
 def test_try_scale_up_respects_max_replicas_per_phase(pair, colocated_ref):

@@ -162,8 +162,10 @@ def test_generate_greedy_token_exact_vs_jax(name):
 
 
 def test_unported_options_raise():
-    # moe_experts (tests/test_torch_port_moe.py) and train summaries
-    # (tests/test_torch_port_summary.py) are ported; placement is not
+    # moe_experts (tests/test_torch_port_moe.py), train summaries
+    # (tests/test_torch_port_summary.py) and placement
+    # (tests/test_torch_port_placement.py) are ported; a slot another
+    # rank holds is refused
     from bigdl_tpu_torch.optim import LocalOptimizer
     from bigdl_tpu_torch.serving import LMServingEngine
     opt = LocalOptimizer(None, None, None)
@@ -172,8 +174,10 @@ def test_unported_options_raise():
     assert opt.train_summary is summary
     tm = TransformerLM(vocab_size=11, hidden_size=8, n_head=2, n_layers=1,
                        max_len=16, device="cpu").build(0)
-    with pytest.raises(NotImplementedError, match="item 11.7"):
-        LMServingEngine(tm, placement=object(), device="cpu")
+    from bigdl_tpu_torch.serving import MeshSlice, PlacementError
+    with pytest.raises(PlacementError, match="not by this process"):
+        LMServingEngine(tm, placement=MeshSlice(1, ["cpu"], 1, (1,),
+                                                per_rank=True))
     with pytest.raises(ValueError, match="max_len"):
         tgen.generate(tm, tm.params, np.ones((1, 10), np.int32), 8,
                       device="cpu")

@@ -207,14 +207,7 @@ def test_block_size_survives_save_and_load(tmp_path):
 # the names the reference exports                                       #
 # --------------------------------------------------------------------- #
 #: names of the reference packages that wait for ROADMAP Queue 1, by item
-WAITING = {
-    "11.7": {
-        "bigdl_tpu.serving.placement": "*",
-        "bigdl_tpu.serving": {"DeviceTopology", "MeshSlice", "MeshSlicer",
-                              "PlacementError", "PlacementPolicy",
-                              "serving_tp_rules", "shard_params_chunked"},
-    },
-}
+WAITING = {}
 
 
 def _waiting(module: str) -> set:

@@ -132,8 +132,10 @@ def test_typed_rejections(pair):
 
 def test_unported_options_raise(pair):
     _, tm = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.*11.7"):
-        LMServingEngine(tm, device="cpu", placement=object())
+    from bigdl_tpu_torch.serving import MeshSlice, PlacementError
+    with pytest.raises(PlacementError, match="not by this process"):
+        LMServingEngine(tm, device="cpu", placement=MeshSlice(
+            1, ["cpu"], 1, (1,), per_rank=True))
     # ported since disaggregated serving: a prefill replica (migrate=)
     with LMServingEngine(tm, cache_len=32, device="cpu",
                          migrate=print) as eng:
