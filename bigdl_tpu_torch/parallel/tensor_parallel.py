@@ -172,8 +172,10 @@ def transformer_lm_tp_rules(mesh, axis: str = MODEL_AXIS):
     shift right by one): attention q/k/v column-parallel over heads, wo
     row-parallel, MLP w1 column / w2 row, embeddings, norms and head
     replicated, MoE stacks replicated (experts shard over the expert
-    axis, ``parallel.expert``).  Use with the plain attention core
-    (:func:`pin_xla_attention`)."""
+    axis, ``parallel.expert``).  The model's own forward then runs the
+    plain attention core (:func:`pin_xla_attention`); a served slot's
+    cached steps gather q/k/v whole before attention and keep the
+    kernels."""
 
     def rules(path, leaf):
         name = keystr(path)

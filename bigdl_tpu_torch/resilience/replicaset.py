@@ -16,13 +16,20 @@ with ``with_batcher=False`` (one queue for the set), each with its own
 graph cache, stager and watchdog bracket.  As in the reference, the
 padded-batch set does not hedge (its core's ``hedge_policy`` stays
 None): a batch is re-dispatched only after a failure.  Under a
-``PlacementPolicy`` each replica holds one slot.  Every slot must hold
-this process: a set whose replicas sit on other ranks' devices would
-need each request carried to those ranks, which the port does not do
-yet (ROADMAP Queue 1 item 11.8), and raises ``PlacementError``.
+``PlacementPolicy`` each replica holds one slot.  A set whose policy has
+slots on other ranks of a process world runs *forwarded*
+(``serving.placement.forward``): every rank builds it with the same
+arguments and closes it, world rank 0 (the driver) takes every request,
+and a replica on other ranks is a handle whose ``_run_batch`` carries
+the padded batch to its slot's ranks and returns the lead rank's rows.
+Those ranks run the real ``ServingEngine._run_batch`` (its
+``serving.dispatch`` fault site included); an error comes back as its
+class, so the breaker counts a remote failure as a local one, and a
+reply that never comes is the replica's death.
 """
 from __future__ import annotations
 
+import functools
 import logging
 import threading
 import time
@@ -36,6 +43,12 @@ from bigdl_tpu_torch.obs import get_registry
 from bigdl_tpu_torch.resilience.errors import BackendLostError, classify_error
 
 log = logging.getLogger("bigdl_tpu_torch.resilience")
+
+
+def _forward():
+    # serving imports this module: the placement package is imported late
+    from bigdl_tpu_torch.serving.placement import forward
+    return forward
 
 HEALTHY = "healthy"
 OPEN = "open"
@@ -287,6 +300,57 @@ class ReplicaSetCore:
             self._publish_open_circuits()
 
 
+class _ForwardedEngine:
+    """The driver's handle on a forwarded replica (see the module
+    docstring): its slot's ranks hold the engine (the driver among them
+    when it holds the slot: its engine then runs on the channel's
+    executor like theirs).  Each batch goes to the slot's ranks in the
+    channel's order, and the lead rank's rows come back."""
+
+    def __init__(self, name: str, link):
+        self.name = name
+        self.link = link
+        self.cache = self
+
+    @functools.cached_property
+    def _desc(self) -> dict:
+        return self.link.control("describe")
+
+    @property
+    def input_shape(self):
+        return self._desc["input_shape"]
+
+    @property
+    def max_batch_size(self) -> int:
+        return self._desc["max_batch_size"]
+
+    @property
+    def buckets(self) -> tuple:
+        return tuple(self._desc["buckets"])
+
+    def stats(self) -> dict:
+        """The remote engine's graph-cache stats (this handle stands in
+        for its ``cache``)."""
+        return self.link.call("cache_stats")
+
+    def _coerce(self, x, batched: bool) -> np.ndarray:
+        x = np.asarray(x, np.dtype(self._desc["dtype"]))
+        return x if batched else x[None]
+
+    def _run_batch(self, x_padded: np.ndarray):
+        return self.link.call("run", x_padded)
+
+    def warmup(self, input_shape: Optional[tuple] = None) -> int:
+        n = self.link.control("warmup", input_shape)
+        self.__dict__.pop("_desc", None)   # the input shape may be set now
+        return n
+
+    def close(self, timeout: Optional[float] = None) -> None:
+        """The replica leaves its slot (the channel stays, for a later
+        replica there)."""
+        self.link.control("drop")
+
+
 class ReplicaSet(ReplicaSetCore):
     """Serve a built module from ``n_replicas`` engines with failover.
 
@@ -320,9 +384,10 @@ class ReplicaSet(ReplicaSetCore):
             tensor-parallel across a ``tp > 1`` slot's ranks),
             ``scale_to`` acquires and releases slots, and growth past
             the policy's headroom is refused instead of oversubscribing
-            devices (see :meth:`try_scale_up`).  A slot that does not
-            hold this process raises ``PlacementError`` (ROADMAP Queue 1
-            item 11.8).
+            devices (see :meth:`try_scale_up`).  Slots on other ranks of
+            a process world make the set forwarded (see the module
+            docstring): build and close it on every rank, submit on rank
+            0.  Without a world such a slot raises ``PlacementError``.
         Remaining kwargs mirror :class:`ServingEngine` / DynamicBatcher
         policy knobs (``device=`` among them: default the card).
     """
@@ -370,6 +435,7 @@ class ReplicaSet(ReplicaSetCore):
         # kept for scale_to(): new replicas are built from the same
         # module (heterogeneous sets grow with their FIRST module) and
         # the same engine policy the constructor used
+        self._modules = modules
         self._scale_module = modules[0] if modules is not None else module
         self._engine_cls = ServingEngine
         self._engine_cfg = dict(input_shape=input_shape, buckets=buckets,
@@ -378,30 +444,49 @@ class ReplicaSet(ReplicaSetCore):
         self.placement = placement
         self._next_idx = n_replicas
         self._replicas = []
-        slot = None   # acquired, its replica not built yet
+        # forwarded (see the module docstring): this rank's share of the
+        # world; a rank other than the driver (a follower) keeps no
+        # replicas, only its engines of the slots that hold it and the
+        # slots it acquired
+        self._fw = (_forward().Forwarding(placement, self._build)
+                    if _forward().forwarded(placement) else None)
+        self._follower = self._fw is not None and not self._fw.driver
+        held, err = [], None
         try:
             for i in range(n_replicas):
+                slot = None
                 if placement is not None:
                     slot = self._acquire_slot(required=True)
-                engine = ServingEngine(
-                    modules[i] if modules is not None else module,
-                    name=f"r{i}", with_batcher=False,
-                    **self._with_slot(slot))
-                self._replicas.append(_Replica(f"r{i}", engine, slot=slot))
-                slot = None
-        except BaseException:
+                    held.append(slot)
+                engine = self._engine_for(f"r{i}", slot, i)
+                if engine is not None:
+                    self._replicas.append(_Replica(f"r{i}", engine,
+                                                   slot=slot))
+        except BaseException as e:
+            err = e
+        if self._fw is not None:
+            # every rank's outcome: one rank's failure fails every rank
+            err = self._fw.settle(err)
+        if err is not None:
             # give back every slot taken: the built replicas' and one
-            # whose engine failed
+            # whose engine failed (a handle's engine is its ranks' own)
             for r in self._replicas:
-                r.engine.close()
-                if r.slot is not None:
-                    placement.release(r.slot)
-            if slot is not None:
-                placement.release(slot)
-            raise
+                if not isinstance(r.engine, _ForwardedEngine):
+                    r.engine.close()
+            if self._fw is not None:
+                self._fw.close_engines()
+            for s in held:
+                placement.release(s)
+            raise err
+        self._held = held if self._follower else []
+        self._closed = False
+        if self._follower:
+            self.batcher = self.metrics = None
+            return
         ref = self._replicas[0].engine
-        # a tensor-parallel slot's ranks dispatch the same batches
-        lead = self._replicas[0].slot
+        # a tensor-parallel slot's ranks dispatch the same batches (in a
+        # forwarded set only the driver's batcher takes requests)
+        lead = None if self._fw is not None else self._replicas[0].slot
         # one batching policy for the whole set, published as the
         # process's serving/* metrics (created after the member engines
         # so the set owns the names)
@@ -415,7 +500,6 @@ class ReplicaSet(ReplicaSetCore):
             metrics=self.metrics,
             pool=Engine.default_or_create() if use_shared_pool else None,
             lockstep=lead.lockstep() if lead is not None else None)
-        self._closed = False
         self._publish_open_circuits()
         self._publish_replica_count()
         # flight-recorder state: circuit states + pending depth land in
@@ -437,8 +521,8 @@ class ReplicaSet(ReplicaSetCore):
     def _acquire_slot(self, *, required: bool):
         """One slot from the placement policy; raises (required) or
         returns None (opportunistic growth) when the device set is fully
-        packed.  A slot that does not hold this process raises
-        ``PlacementError`` either way."""
+        packed.  A slot on other ranks with no process world running
+        raises ``PlacementError`` either way."""
         from bigdl_tpu_torch.serving.placement import PlacementError
         slot = self.placement.acquire()
         if slot is None:
@@ -448,12 +532,9 @@ class ReplicaSet(ReplicaSetCore):
                     f"{self.placement.slots_total} slot(s) total, none "
                     "free — fewer replicas or a smaller TP degree")
             return None
-        if not slot.holds_this_rank():
+        if not slot.holds_this_rank() and self._fw is None:
             self.placement.release(slot)
-            raise PlacementError(
-                f"{slot!r} is held by ranks {list(slot.ranks)}, not by this "
-                "process: a replica set over slots on other ranks needs "
-                "each request carried to them (ROADMAP Queue 1 item 11.8)")
+            raise _forward().no_world(slot, "a replica set")
         return slot
 
     def _with_slot(self, slot) -> dict:
@@ -461,6 +542,27 @@ class ReplicaSet(ReplicaSetCore):
         if slot is not None:
             cfg["placement"] = slot
         return cfg
+
+    def _build(self, slot, name: str, idx: Optional[int] = None):
+        """An engine of replica ``name`` on ``slot``: of module ``idx``
+        (an initial replica), or of the scale-up module (None)."""
+        module = (self._modules[idx] if idx is not None
+                  and self._modules is not None else self._scale_module)
+        return self._engine_cls(module, name=name, with_batcher=False,
+                                **self._with_slot(slot))
+
+    def _engine_for(self, name: str, slot, idx: Optional[int] = None):
+        """This rank's engine of replica ``name`` on ``slot`` (``idx``:
+        see :meth:`_build`; None for a scale-up, which the driver alone
+        makes).  In a forwarded set: on the driver, a
+        :class:`_ForwardedEngine` for a slot other ranks hold (their
+        engines built now, or by their executors for a scale-up); on a
+        follower, None."""
+        link = self._fw.link(slot) if self._fw is not None else None
+        if link is None:
+            return None if self._follower else self._build(slot, name, idx)
+        self._fw.add(link, name, idx, initial=idx is not None)
+        return _ForwardedEngine(name, link) if self._fw.driver else None
 
     # ---------------------------------------------------------------- #
     # dispatch                                                         #
@@ -542,7 +644,8 @@ class ReplicaSet(ReplicaSetCore):
 
     def warmup(self, input_shape: Optional[tuple] = None) -> int:
         """Pre-compile every bucket on every replica; returns the total
-        number of executables compiled."""
+        number of executables compiled (in a forwarded set the driver's
+        call warms every slot: on any other rank, 0)."""
         return sum(r.engine.warmup(input_shape) for r in self._replicas
                    if r.state != DRAINING)
 
@@ -560,6 +663,7 @@ class ReplicaSet(ReplicaSetCore):
         n = int(n)
         if n < 1:
             raise ValueError("scale_to needs n >= 1")
+        self._driver_only("scale_to")
         with self._lock:
             live = [r for r in self._replicas if r.state != DRAINING]
         if n > len(live):
@@ -579,9 +683,7 @@ class ReplicaSet(ReplicaSetCore):
                 name = f"r{self._next_idx}"
                 self._next_idx += 1
                 try:
-                    engine = self._engine_cls(
-                        self._scale_module, name=name, with_batcher=False,
-                        **self._with_slot(slot))
+                    engine = self._engine_for(name, slot)
                 except BaseException:
                     if slot is not None:
                         self.placement.release(slot)
@@ -625,6 +727,7 @@ class ReplicaSet(ReplicaSetCore):
         capacity was actually added (False makes the controller's ladder
         fall through to admission tightening instead of
         oversubscribing)."""
+        self._driver_only("try_scale_up")
         with self._lock:
             live = sum(1 for r in self._replicas if r.state != DRAINING)
         if max_replicas is not None and live >= int(max_replicas):
@@ -633,7 +736,12 @@ class ReplicaSet(ReplicaSetCore):
             return False
         return self.scale_to(live + 1) > live
 
+    def _driver_only(self, what: str) -> None:
+        if self._follower:
+            self._fw.require_driver(f"ReplicaSet.{what}")
+
     def submit(self, x, *, batched: bool = True) -> Future:
+        self._driver_only("submit")
         if self._closed:
             from bigdl_tpu_torch.serving.errors import ServingClosed
             raise ServingClosed("replica set is closed")
@@ -648,6 +756,12 @@ class ReplicaSet(ReplicaSetCore):
         return fut.result(timeout=timeout)[0]
 
     def stats(self) -> dict:
+        if self.batcher is None:
+            # a forwarded set's rank other than the driver: its own slots
+            return {"replicas": {}, "pending": 0,
+                    "local": {sid: e.stats() for sid, e in
+                              self._fw.engines.items()},
+                    "placement": self.placement.stats()}
         with self._lock:
             replicas = {
                 r.name: {"state": r.state, "inflight": r.inflight,
@@ -669,8 +783,17 @@ class ReplicaSet(ReplicaSetCore):
 
     def close(self, timeout: Optional[float] = 30.0) -> None:
         """Graceful drain: stop intake, serve what is queued, then shut
-        the replicas down."""
+        the replicas down.  A forwarded set's rank other than the driver
+        returns once the driver's close has drained the set."""
+        if self._closed:
+            return
         self._closed = True
+        if self._follower:
+            self._fw.shutdown()
+            for s in self._held:
+                self.placement.release(s)
+            self._held.clear()
+            return
         self.batcher.close(timeout=timeout)
         with self._lock:
             for r in self._replicas:
@@ -680,6 +803,8 @@ class ReplicaSet(ReplicaSetCore):
             if r.slot is not None:
                 self.placement.release(r.slot)
                 r.slot = None
+        if self._fw is not None:
+            self._fw.shutdown()
         self._publish_open_circuits()
 
     def __enter__(self) -> "ReplicaSet":

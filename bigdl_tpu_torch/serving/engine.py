@@ -354,6 +354,25 @@ class ServingEngine:
             if self.watchdog is not None:
                 self.watchdog.step_finished()
 
+    def forwarded(self, op: str, *args):
+        """A slot rank's side of a forwarded replica set
+        (``serving.placement.forward``): run the driver's ``op`` on this
+        engine, in the order the driver handed them out.  ``"run"`` a
+        padded batch (its rows back to the driver; the ``serving.dispatch``
+        fault site fires here), ``"warmup"`` a shape, ``"describe"`` what
+        the driver's handle needs, ``"cache_stats"``."""
+        if op == "run":
+            return self._run_batch(args[0])
+        if op == "warmup":
+            return self.warmup(args[0])
+        if op == "describe":
+            return dict(input_shape=self.input_shape,
+                        max_batch_size=self.max_batch_size,
+                        buckets=self.buckets, dtype=self._dtype.str)
+        if op == "cache_stats":
+            return self.cache.stats()
+        raise ValueError(f"unknown forwarded op {op!r}")
+
     def _coerce(self, x, batched: bool) -> np.ndarray:
         x = np.asarray(x, self._dtype)
         if not batched:

@@ -15,18 +15,21 @@ import threading
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.utils.transfer import (DEFAULT_CHUNK_BYTES,
                                             chunked_device_put)
 
 
 class HostStager:
-    """Stages host batches onto the device with chunking + counters."""
+    """Stages host batches onto the device with chunking + counters.
+    ``device``: where batches land (default the card; ``"cpu"`` asks for
+    the host)."""
 
     def __init__(self, dtype=None, *,
-                 chunk_bytes: int = DEFAULT_CHUNK_BYTES, device="cpu"):
+                 chunk_bytes: int = DEFAULT_CHUNK_BYTES, device=None):
         self.dtype = dtype
         self.chunk_bytes = int(chunk_bytes)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._lock = threading.Lock()
         self.bytes_staged = 0
         self.batches_staged = 0

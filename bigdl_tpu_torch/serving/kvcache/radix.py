@@ -144,6 +144,22 @@ class RadixCache:
                 self.pool.retain(out)
         return out
 
+    def peek(self, tokens0) -> int:
+        """How many blocks :meth:`match` would match now, with nothing
+        retained, counted or made recent: a forwarded hop sizes its
+        payload by it without touching the trie, whose every rank of a
+        tensor-parallel slot must stay alike."""
+        cap = max(0, (len(tokens0) - 1) // self.block_len)
+        n = 0
+        with self._lock:
+            node = self._root
+            for i in range(cap):
+                node = node.children.get(self._block_key(tokens0, i))
+                if node is None:
+                    break
+                n += 1
+        return n
+
     def record_saved(self, n_tokens: int) -> None:
         """Count ``n_tokens`` of prefill saved outside :meth:`match` (the
         host tier's promoted blocks), as a trie hit counts them."""

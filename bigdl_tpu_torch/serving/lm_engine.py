@@ -259,6 +259,7 @@ class LMStream:
         self._cancel_at_gen = 0         # generated length when cancelled
         self._wake_cb = None            # engine nudge, set at enqueue
         self.slot_key: Optional[int] = None  # lockstep key (tp > 1 slot)
+        self._observer = None           # a forwarding relay, see _observe
 
     # lifecycle --------------------------------------------------------- #
     def cancel(self) -> bool:
@@ -310,6 +311,8 @@ class LMStream:
             if self.first_token_at is None:
                 self.first_token_at = time.perf_counter()
             self._tokens.append(int(token_1b))
+            if self._observer is not None:
+                self._observer("tok", int(token_1b))
             self._cond.notify_all()
 
     def _finish(self, error: Optional[BaseException] = None) -> None:
@@ -322,7 +325,22 @@ class LMStream:
             # a finished stream wakes nothing: a client holding it must
             # not keep a closed engine (and its arenas) alive
             self._wake_cb = None
+            if self._observer is not None:
+                self._observer("end", self.truncation, error)
             self._cond.notify_all()
+
+    def _observe(self, cb) -> None:
+        """Hand ``cb`` every token and the end of this stream, in order:
+        what already landed at once, the rest as it lands (``cb("tok",
+        token_1b)``, ``cb("end", truncation, error)``; called under the
+        stream's lock, so ``cb`` must not block).  A forwarded set's slot
+        rank relays its streams to the driver through it."""
+        with self._cond:
+            for tok in self._tokens:
+                cb("tok", tok)
+            if self._done:
+                cb("end", self.truncation, self._error)
+            self._observer = cb
 
     def _finish_truncated(self, reason: str) -> None:
         """Finish early with a truncation marker (no error)."""
@@ -564,7 +582,11 @@ class KVHandoff:
 
     __slots__ = ("stream", "prompt0", "max_new", "temperature", "eos0",
                  "step_keys", "rid", "first0", "payload", "matched",
-                 "src_name")
+                 "src_name", "expect")
+
+    #: what crosses between processes with a forwarded handoff
+    FIELDS = ("prompt0", "max_new", "temperature", "eos0", "step_keys",
+              "rid", "first0", "src_name")
 
     def __init__(self, req: _Request, first0: int, src_name: str):
         self.stream = req.stream
@@ -578,6 +600,23 @@ class KVHandoff:
         self.payload = None             # {"k", "v", "blocks"} or None
         self.matched = []               # decode-pool blocks, retained
         self.src_name = src_name
+        # forwarded hops: the decode slot's lead peeked ``expect`` blocks
+        # of its radix (the payload skips them); the adoption matches
+        # them in the round that seats it, on every rank of the slot
+        self.expect: Optional[int] = None
+
+    def fields(self) -> dict:
+        return {k: getattr(self, k) for k in self.FIELDS}
+
+    @classmethod
+    def carried(cls, stream: "LMStream", fields: dict) -> "KVHandoff":
+        """A handoff rebuilt from :meth:`fields` on another process, for
+        ``stream`` (that process's handle of the request)."""
+        h = cls.__new__(cls)
+        for k in cls.FIELDS:
+            setattr(h, k, fields[k])
+        h.stream, h.payload, h.matched, h.expect = stream, None, [], None
+        return h
 
 
 class _Hibernated:
@@ -624,6 +663,17 @@ class _Prefill:
         self.t = req.prompt0.shape[0]
         self.logits = None
         self.handoff = handoff          # set: a re-prefill, no emit
+
+
+def _head_in(q, keys) -> int:
+    """How many entries at the head of ``q`` (requests or handoffs) have
+    their stream's lockstep key in ``keys``."""
+    n = 0
+    for item in q:
+        if item.stream.slot_key not in keys:
+            break
+        n += 1
+    return n
 
 
 # ---------------------------------------------------------------------- #
@@ -714,9 +764,9 @@ MeshSlice` (see the module docstring).  The engine's device is then the
             slot's (the model may live elsewhere: its params are staged
             onto the slot); a slot that does not hold this process
             raises ``PlacementError``.  A ``tp > 1`` slot runs eagerly
-            by default; it takes no ``migrate=`` (and no ``adopt``): a
-            disaggregated pair over rank groups is ROADMAP Queue 1 item
-            11.8.
+            by default; with ``migrate=`` every rank of the slot calls
+            it with the same handoff, and an :meth:`adopt` is seated in
+            the lockstep round that admits it on every rank.
         tp_rules: ``rules(path, leaf) -> NamedSharding | None`` for a
             ``tp > 1`` slot (default ``transformer_lm_tp_rules``).
         device: must be the model's device (default ``"cuda"``); under
@@ -778,13 +828,6 @@ MeshSlice` (see the module docstring).  The engine's device is then the
         if model.params is None:
             raise ValueError("the model has no params: call model.build(seed) "
                              "or set model.params")
-        if tp > 1 and migrate is not None:
-            from bigdl_tpu_torch.serving.placement import PlacementError
-            raise PlacementError(
-                "a prefill-phase replica (migrate=...) on a tensor-parallel "
-                "slot hands its requests to a replica on other ranks; "
-                "carrying a request between rank groups is ROADMAP Queue 1 "
-                "item 11.8")
         if cuda_graphs is None:
             # a tensor-parallel slot's captured collectives are unmeasured
             cuda_graphs = self.device.type == "cuda" and tp == 1
@@ -1477,6 +1520,44 @@ MeshSlice` (see the module docstring).  The engine's device is then the
                             queue_depth=depth)
         return stream
 
+    # -- a forwarded set's slot rank ----------------------------------- #
+    def forwarded(self, op: str, *args):
+        """A slot rank's side of a forwarded set
+        (``serving.placement.forward``): run the driver's ``op`` on this
+        engine, in the order the driver handed them out.  ``"submit"``
+        (prompt, submit kwargs) and ``"adopt"`` (the handoff's fields,
+        its payload, the peeked block count) return this rank's stream
+        of the request; ``"peek"`` the radix (no block retained, no
+        recency touched); ``"warmup"``, ``"warmup_adopt"`` (widths),
+        ``"stats"``, ``"describe"``."""
+        if op == "submit":
+            prompt, kw = args
+            return self.submit(prompt, **kw)
+        if op == "adopt":
+            fields, payload, expect = args
+            stream = LMStream(np.asarray(fields["prompt0"]) + 1,
+                              fields["max_new"], request_id=fields["rid"])
+            h = KVHandoff.carried(stream, fields)
+            h.payload, h.expect = payload, expect
+            self.adopt(h)
+            return stream
+        if op == "peek":
+            return (self.radix.peek(np.asarray(args[0]))
+                    if self.radix is not None else 0)
+        if op == "warmup":
+            return self.warmup()
+        if op == "warmup_adopt":
+            n = self.pool.warmup_adopt(args[0])
+            self._follow_caller()
+            return n
+        if op == "stats":
+            return self.stats()
+        if op == "describe":
+            return dict(slots=self.slots, table_width=self.table_width,
+                        decode_attn=self.decode_attn,
+                        max_new_tokens=self.max_new_tokens)
+        raise ValueError(f"unknown forwarded op {op!r}")
+
     def _refuse_key(self, key: Optional[int] = None) -> None:
         """A tensor-parallel slot's refused submission: its lockstep key
         is drawn (if not yet) and named to the other ranks, which retire
@@ -1500,17 +1581,17 @@ MeshSlice` (see the module docstring).  The engine's device is then the
         blocks the local radix already held) into a slot and decodes on
         from the token the prefill replica emitted.  Adoptions rank
         ahead of queued submissions and defer under pool pressure like
-        them."""
-        if self._ls is not None:
-            from bigdl_tpu_torch.serving.placement import PlacementError
-            raise PlacementError(
-                "a decode-phase replica on a tensor-parallel slot takes "
-                "requests migrated from other rank groups; carrying them "
-                "is ROADMAP Queue 1 item 11.8")
+        them.  On a tensor-parallel slot an adoption takes a lockstep
+        key like a submission (every rank of the slot adopts the same
+        handoffs in the same order) and is seated in the round that
+        admits it on every rank."""
         # a cancel now has to wake THIS worker
         handoff.stream._wake_cb = self._lc_wake
         with self._cv:
+            if self._ls is not None:
+                handoff.stream.slot_key = self._ls.key()
             if self._closing:
+                self._refuse_key(handoff.stream.slot_key)
                 raise ServingClosed("LMServingEngine is closed")
             self._adopt_q.append(handoff)
             self._cv.notify_all()
@@ -1605,7 +1686,7 @@ MeshSlice` (see the module docstring).  The engine's device is then the
                     # stations before this round admits anything
                     verdict = self._lc_local(time.monotonic())
                     self._lifecycle_sweep_locked(verdict)
-                    slot_limit, fresh = self._slot_limit, None
+                    slot_limit, fresh, n_adopt = self._slot_limit, None, None
                 else:
                     rnd = self._lockstep_round_locked()
                     if rnd is None:
@@ -1617,8 +1698,12 @@ MeshSlice` (see the module docstring).  The engine's device is then the
                                  if what == "hibernate"}
                     slot_limit = rnd.leader["slot_limit"]
                     self._pressure = rnd.leader["pressure"]
-                    fresh = len(rnd.admit)
-                    if (rnd.closing and not fresh and not self._n_active
+                    # the admitted keys: a head of each queue
+                    admit = set(rnd.admit)
+                    n_adopt = _head_in(self._adopt_q, admit)
+                    fresh = _head_in(self._queue, admit)
+                    if (rnd.closing and not fresh and not n_adopt
+                            and not self._n_active
                             and not self._prefilling
                             and not self._resume_q):
                         # every rank is closing and drained alike: the
@@ -1637,7 +1722,7 @@ MeshSlice` (see the module docstring).  The engine's device is then the
 
                 # adoptions and resumes rank ahead of fresh admissions
                 # (their first token is paid), adoptions first
-                adopts = take(self._adopt_q, 0)
+                adopts = take(self._adopt_q, 0, n_adopt)
                 resumes = take(self._resume_q, len(adopts))
                 admits = take(self._queue, len(adopts) + len(resumes),
                               fresh)
@@ -1765,13 +1850,16 @@ MeshSlice` (see the module docstring).  The engine's device is then the
             held += [st.stream for st in self._slots if st is not None]
             held += [h.stream for h in self._resume_q]
             held += [h.stream for h in self._hibernated.values()]
+            held += [h.stream for h in self._adopt_q]
             dead = {s.slot_key: why for s in held
                     for why in (verdict(s),) if why}
         asked = {("hibernate", st.stream.slot_key) for st in self._slots
                  if st is not None and st.rid in self._hibernate_req}
         asked |= {("resume", k) for k in self._resume_req}
         self._resume_req.clear()
-        queued = [r.stream.slot_key for r in self._queue]
+        # submissions and adoptions draw from one key sequence
+        queued = sorted([r.stream.slot_key for r in self._queue]
+                        + [h.stream.slot_key for h in self._adopt_q])
         report = dict(queued=queued, dead=dead, closing=self._closing,
                       asked=asked, slot_limit=self._slot_limit,
                       pressure=bool(queued) and self._over_watermark())
@@ -2161,6 +2249,8 @@ MeshSlice` (see the module docstring).  The engine's device is then the
         t = h.prompt0.shape[0]
         B = self.block_len
         need_total = self.pool.blocks_for(t + h.max_new)
+        if h.expect is not None:
+            h.matched = self._match_expected(h)
         matched = list(h.matched)
         if need_total > self.pool.capacity:
             if matched:
@@ -2170,12 +2260,15 @@ MeshSlice` (see the module docstring).  The engine's device is then the
                 f"pool holds {self.pool.capacity}")
         req = _Request(h.stream, h.prompt0, h.max_new, h.temperature,
                        h.eos0, None, h.step_keys, h.rid)
-        if h.payload is None:
-            # the payload was lost in transit: recompute the rows here
-            # (deterministic prefill, bitwise the same); the first token
-            # rides the handoff and is never picked or emitted again
+        if h.payload is None or len(matched) < (h.expect or 0):
+            # the payload was lost in transit (or, on a forwarded hop, a
+            # block it skips left the radix since the peek): recompute
+            # the rows here (deterministic prefill, bitwise the same);
+            # the first token rides the handoff and is never picked or
+            # emitted again
             fresh = self._alloc_or_evict(need_total - len(matched))
             if fresh is None:
+                self._unmatch_deferred(h)
                 return False
             self.re_prefills += 1
             self._run_prefill(_Prefill(req, matched + fresh, slot,
@@ -2197,6 +2290,7 @@ MeshSlice` (see the module docstring).  The engine's device is then the
                 self.pool.release(matched)
             raise
         if fresh is None:
+            self._unmatch_deferred(h)
             return False
         blocks = matched + fresh
         self.adopted += 1
@@ -2210,6 +2304,24 @@ MeshSlice` (see the module docstring).  The engine's device is then the
                             matched_blocks=len(matched), src=h.src_name)
         self._seat(req, t, h.first0, blocks, slot)
         return True
+
+    def _match_expected(self, h: KVHandoff) -> List[int]:
+        """A forwarded hop's radix match, made in the round that seats it
+        (so every rank of a tensor-parallel slot matches the same trie):
+        at most the ``expect`` blocks the payload skips; fewer when some
+        left the trie since the peek."""
+        got = self.radix.match(h.prompt0) if self.radix is not None else []
+        if len(got) > h.expect:
+            self.pool.release(got[h.expect:])
+            got = got[:h.expect]
+        return got
+
+    def _unmatch_deferred(self, h: KVHandoff) -> None:
+        """A deferred forwarded adoption gives its match back: the round
+        that seats it matches again."""
+        if h.expect is not None and h.matched:
+            self.pool.release(h.matched)
+            h.matched = []
 
     # -- decode rounds ------------------------------------------------- #
     def _emit(self, st: _Slot, token0: int, now: float, itls: list) -> bool:

@@ -22,10 +22,16 @@ Three layers, smallest first:
 - :class:`PlacementPolicy`: pack replicas onto slots (acquire/release
   with headroom accounting), publish ``serving/placement/*`` gauges.
 
+A replica set or a disaggregated pair whose slots sit on other ranks of
+a world runs *forwarded*: world rank 0 drives, and a :class:`Channel`
+per slot carries its requests to the slot's ranks
+(:mod:`~bigdl_tpu_torch.serving.placement.forward`).
+
 :func:`serving_tp_rules` and :func:`shard_params_chunked` stage a served
 module's parameters onto a slot: copied onto its card, or each rank's
 shard wrapped as a DTensor.
 """
+from bigdl_tpu_torch.serving.placement.forward import Channel
 from bigdl_tpu_torch.serving.placement.policy import PlacementPolicy
 from bigdl_tpu_torch.serving.placement.rules import (serving_tp_rules,
                                                      shard_params_chunked)
@@ -34,6 +40,6 @@ from bigdl_tpu_torch.serving.placement.slicer import (MeshSlice, MeshSlicer,
 from bigdl_tpu_torch.serving.placement.topology import DeviceTopology
 
 __all__ = [
-    "DeviceTopology", "MeshSlice", "MeshSlicer", "PlacementError",
+    "Channel", "DeviceTopology", "MeshSlice", "MeshSlicer", "PlacementError",
     "PlacementPolicy", "serving_tp_rules", "shard_params_chunked",
 ]

@@ -100,6 +100,11 @@ class PlacementPolicy:
     # -- accounting -----------------------------------------------------
 
     @property
+    def slices(self) -> tuple:
+        """Every slot of the carve, held or free, by slot id."""
+        return tuple(self._slices)
+
+    @property
     def slots_total(self) -> int:
         return len(self._slices)
 

@@ -27,6 +27,7 @@ two forms:
 """
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional, Sequence
 
 import torch
@@ -35,6 +36,9 @@ import torch.distributed as dist
 from bigdl_tpu_torch.parallel.mesh import MODEL_AXIS, replicated
 from bigdl_tpu_torch.serving.placement.topology import (DeviceTopology,
                                                         world_rank)
+
+
+_CARVES = itertools.count()
 
 
 class PlacementError(RuntimeError):
@@ -95,6 +99,15 @@ class MeshSlice:
             self.mesh = DeviceMesh(self.devices[0].type,
                                    list(self.device_ids),
                                    mesh_dim_names=(MODEL_AXIS,))
+            # DTensor caches sharding decisions per thread, keyed by the
+            # mesh, and a mesh compares equal to any earlier one over the
+            # same ranks: a thread that served an earlier carve would
+            # reach that carve's groups while a fresh thread on another
+            # rank reaches this one's, and their collectives never pair.
+            # A token drawn in carve order (the same on every rank) makes
+            # this mesh its own.
+            self.mesh._thread_id = ("carve", next(_CARVES))
+            self.mesh._hash = None
             self.control = dist.new_group(list(self.device_ids),
                                           backend="gloo")
 
@@ -104,6 +117,13 @@ class MeshSlice:
         made for another slot (other devices) must not share an entry."""
         return (f"slot{self.slot_id}:tp{self.tp}:"
                 f"d{','.join(str(i) for i in self.device_ids)}")
+
+    @property
+    def lead(self) -> Optional[int]:
+        """The slot's lead rank (its first): the one that answers for
+        the slot when a driver forwards work to it; None for a slot of
+        this process's own cards."""
+        return self.ranks[0] if self.ranks is not None else None
 
     def holds_this_rank(self) -> bool:
         """Whether the calling process drives a device of this slot:

@@ -440,7 +440,23 @@ result line:
    ``DisaggCoordinator`` of 1 prefill + 1 decode replica on the one slot
    raises "no free placement slot".  P5: ``MeshSlicer().carve(1, 2)``
    raises ``PlacementError`` (one card: tensor parallelism across cards
-   is proven on the CPU, over gloo worlds, not here).
+   is proven on the CPU, over gloo worlds, not here).  P6: forwarded sets
+   (``serving.placement.forward``) over two gloo ranks spawned on the one
+   card (``nvidia-smi``'s compute mode printed; ``Exclusive_Process``
+   fails the phase), ``PlacementPolicy(DeviceTopology([dev, dev],
+   per_rank=True), slots=2, tp=1)``, rank 0 the driver, both ranks
+   building from the serve model's tree.  P6a: a ``ReplicaSet`` of 2
+   serves P2's batch twice: each replica dispatches once, the rows
+   bitwise P2's unplaced rows.  P6b: a ``DisaggCoordinator`` of 1
+   prefill + 1 decode replica (decode on rank 0, prefill on rank 1, as
+   the coordinator acquires them) serves the 8 prompts greedily with
+   graphs: every stream bitwise D1's and offline generate's, 8
+   migrations, no lost payload, D1's migrated_blocks, the prefill rank
+   never launching the paged kernel and the decode rank never the flash
+   forward; TTFT p50, decode tokens/s and the median ``lm/migrate`` span
+   (on the prefill rank) printed beside D1's.  Each rank counts its own
+   launches from 0 around P6a's and P6b's traffic and sends them back;
+   they join the place path's.
 
 Every serving engine must keep its captures bounded: prefill entries at
 most the buckets, one decode graph, one verify graph (one per tree
@@ -650,6 +666,10 @@ DATA = dict(batch=256, iters=20, warmup=3, records=2048, check_batch=2,
 # replayed for 4 shards of a (2, 12, 4096, 64) causal problem; the
 # world-of-one checks at 1 x 256 ids (the LM ones), a (4, 256, 768)
 # block input, ResNet-20 at batch 32 and 2,048 MoE tokens
+#: the place phase's P6: two ranks spawned on the one card, and the most
+#: seconds they may take (start, build, serve and close)
+PLACE_WORLD = 2
+PLACE_LIMIT_S = 420
 PAR = dict(cli=["--vocabSize", "50257", "--hiddenSize", "768", "--nHead",
                 "12", "--nLayers", "12", "-t", "4096", "-b", "2", "-i", "3"],
            ring=dict(batch=2, heads=12, seq=4096, d=64, shards=4, seed=0,
@@ -2680,6 +2700,8 @@ def phase_replicas(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC,
                if colocated and t == 0.0 else "")
             + f"; {len(prompts) - len(ties)} of {len(prompts)} streams "
             "identical to offline generate; no capture after warmup")
+    # the place phase's forwarded pair holds its streams against these
+    out["d1_streams"] = d1["D1 greedy"]["run"]["results"]
     out["d1"] = {k: dict(migrated_blocks=v["stats"]["migrated_blocks"],
                          migrated_bytes=v["stats"]["migrated_bytes"],
                          decode_radix_hits=v["radix"]["hits"],
@@ -2836,14 +2858,15 @@ def phase_replicas(dev, config=GPT2_SMALL, serve=SERVE, spec=SPEC,
 
 
 def phase_place(dev, config=GPT2_SMALL, serve=SERVE, prompts=None,
-                oracle=None, colocated=None, batch=BATCH):
+                oracle=None, colocated=None, batch=BATCH, disagg=None):
     """Serving placement on one card (see the module docstring): P1 the
     placed LM engine with graphs, then eagerly, P2 the placed scoring
     engine, P3 the placed replica set, P4 a disaggregated pair on one
-    slot, P5 the tensor-parallel guard.  ``colocated`` is the greedy
-    serve run: its streams are the placed runs' and its numbers are
-    printed beside theirs.  Returns the phase's numbers and its
-    launches."""
+    slot, P5 the tensor-parallel guard, P6 forwarded sets over two
+    spawned ranks.  ``colocated`` is the greedy serve run: its streams
+    are the placed runs' and its numbers are printed beside theirs;
+    ``disagg`` is the replicas phase's numbers (D1's streams and hop).
+    Returns the phase's numbers and its launches, the ranks' included."""
     import numpy as np
     import torch
     from bigdl_tpu_torch.models.transformer import TransformerLM
@@ -2987,8 +3010,277 @@ def phase_place(dev, config=GPT2_SMALL, serve=SERVE, prompts=None,
     else:
         raise AssertionError("place P5: carve(1, 2) did not raise")
     log(f"[place] P5 MeshSlicer().carve(1, 2): PlacementError({out['p5']!r})")
+
+    # -- P6: forwarded sets over two ranks on the one card ---------------- #
+    d1 = disagg or {}
+    out["p6"] = place_forwarded(
+        dev, config, serve, prompts, oracle, acc, x=x, want=want,
+        d1_streams=d1.get("d1_streams"),
+        d1=d1.get("d1", {}).get("D1 greedy"), batch=batch)
     out["launches"] = acc.total
     return out
+
+
+def _gpu_compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def place_forwarded(dev, config, serve, prompts, oracle, acc, *, x, want,
+                    d1_streams, d1, batch=BATCH):
+    """P6 (see the module docstring): two gloo ranks spawned on ``dev``,
+    ``PlacementPolicy(DeviceTopology([dev, dev], per_rank=True), slots=2,
+    tp=1)``, rank 0 the driver.  P6a a forwarded ``ReplicaSet`` of 2
+    serving P2's batch ``x`` twice (rows bitwise ``want``, both replicas
+    dispatching); P6b a forwarded ``DisaggCoordinator`` of 1 prefill + 1
+    decode serving the prompts greedily with graphs (streams bitwise
+    ``d1_streams`` and offline generate, D1's hop counters, the flash
+    forward only on the prefill rank and the paged kernel only on the
+    decode rank).  Each rank's launches join ``acc``."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+    cuda = dev.type == "cuda"
+    if cuda:
+        mode = _gpu_compute_mode()
+        log(f"[place] P6 compute mode: {mode}")
+        if "Exclusive_Process" in mode:
+            raise AssertionError(f"place P6: the card's compute mode is "
+                                 f"{mode}: two processes cannot share it")
+    max_new = serve["max_new"]
+    want_streams = [oracle.stream(p, max_new) for p in prompts]
+    work = tempfile.mkdtemp(prefix="chip_smoke_place_")
+    try:
+        job = dict(device=str(dev), config=config, serve=serve,
+                   prompts=list(prompts), tree=lm_tree(config, serve["seed"]),
+                   seed=serve["seed"], x=x, pairs=shared_heads(
+                       prompts, serve["block_len"]),
+                   rows=int(x.shape[0]))
+        job_path = os.path.join(work, "job.pkl")
+        with open(job_path, "wb") as f:
+            pickle.dump(job, f, protocol=pickle.HIGHEST_PROTOCOL)
+        del job
+        store = f"file://{os.path.join(work, 'store')}"
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(place_rank, args=(PLACE_WORLD, store,
+                                                   job_path, work),
+                                 nprocs=PLACE_WORLD, join=False,
+                                 start_method="spawn")
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() - t0 > PLACE_LIMIT_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise AssertionError(f"place P6: the ranks did not finish "
+                                     f"in {PLACE_LIMIT_S} s")
+        seconds = time.perf_counter() - t0
+        res = []
+        for r in range(PLACE_WORLD):
+            with open(os.path.join(work, f"p6.{r}.pkl"), "rb") as f:
+                got = pickle.load(f)
+            if "error" in got:
+                raise AssertionError(f"place P6 rank {r}:\n{got['error']}")
+            res.append(got["ok"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    drv = res[0]
+    for r in res:
+        for label in ("p6a", "p6b"):
+            for symbol, n in r[label + "_launches"].items():
+                acc.total[symbol] = acc.total.get(symbol, 0) + n
+
+    # P6a: both replicas dispatched, every batch's rows bitwise P2's
+    a = drv["p6a"]
+    if any(not np.array_equal(y, want) for y in a["rows"]) or \
+            min(a["dispatched"].values()) < 1:
+        raise AssertionError(f"place P6a: rows bitwise "
+                             f"{[np.array_equal(y, want) for y in a['rows']]},"
+                             f" dispatched {a['dispatched']}")
+    if cuda:
+        for r in res:
+            check_launches(f"place P6a rank {r['rank']}", r["p6a_launches"],
+                           ("bigdl_flash_fwd",))
+    log(f"[place] P6a forwarded ReplicaSet of 2 over ranks 0 and 1: "
+        f"{len(a['rows'])} batches of {x.shape[0]} x {x.shape[1]} rows "
+        f"bitwise P2's unplaced rows, dispatched {a['dispatched']}, "
+        f"placement {a['placement']}, launches by rank "
+        f"{[r['p6a_launches'] for r in res]}")
+
+    # P6b: the forwarded pair, against D1 and offline generate
+    b = drv["p6b"]
+    for i, got in enumerate(b["results"]):
+        if d1_streams is not None and not np.array_equal(got, d1_streams[i]):
+            raise AssertionError(f"place P6b: stream {i} differs from D1's")
+        if not np.array_equal(got, want_streams[i]):
+            raise AssertionError(f"place P6b: stream {i} differs from "
+                                 "offline generate")
+    st = b["stats"]
+    if (st["migrations"], st["adopted"], st["lost_payloads"]) != (
+            len(prompts), len(prompts), 0) or (
+            d1 is not None and st["migrated_blocks"] != d1["migrated_blocks"]):
+        raise AssertionError(f"place P6b: {st}, D1 migrated_blocks "
+                             f"{d1 and d1['migrated_blocks']}")
+    phase_of = {r["phase"]: r for r in res}
+    pre, dec = phase_of["prefill"], phase_of["decode"]
+    if cuda:
+        if pre["p6b_launches"]["bigdl_paged_decode"] or \
+                dec["p6b_launches"]["bigdl_flash_fwd"]:
+            raise AssertionError(
+                f"place P6b: prefill rank {pre['rank']} launches "
+                f"{pre['p6b_launches']}, decode rank {dec['rank']} launches "
+                f"{dec['p6b_launches']}")
+        check_launches(f"place P6b prefill rank {pre['rank']}",
+                       pre["p6b_launches"], ("bigdl_flash_fwd",))
+        check_launches(f"place P6b decode rank {dec['rank']}",
+                       dec["p6b_launches"], ("bigdl_paged_decode",))
+    hop = pre["migrate_ms"]
+    run = b["run"]
+    d1 = d1 or {}
+    log(f"[place] P6b forwarded DisaggCoordinator, prefill on rank "
+        f"{pre['rank']}, decode on rank {dec['rank']}: {len(prompts)} greedy "
+        f"streams bitwise D1's and offline generate; migrations "
+        f"{st['migrations']}, adopted {st['adopted']}, lost_payloads 0, "
+        f"migrated_blocks {st['migrated_blocks']} (D1 "
+        f"{d1.get('migrated_blocks')}); TTFT p50 "
+        f"{run['ttft_p50_s'] * 1e3:.2f} ms (D1 "
+        f"{d1.get('ttft_p50_s', float('nan')) * 1e3:.2f}), decode "
+        f"{run['decode_tokens_per_s']:.1f} tokens/s (D1 "
+        f"{d1.get('decode_tokens_per_s', float('nan')):.1f}), lm/migrate ms "
+        f"median {statistics.median(hop):.3f} on the prefill rank (D1 "
+        + (f"{statistics.median(d1['migrate_ms']):.3f}"
+           if d1.get("migrate_ms") else "nan")
+        + f"); launches by rank {[r['p6b_launches'] for r in res]}; ranks "
+        f"{seconds:.1f} s | {nvidia_smi_line() if cuda else 'cpu'}")
+    return dict(seconds=seconds, p6a_dispatched=a["dispatched"],
+                migrated_blocks=st["migrated_blocks"],
+                ttft_p50_s=run["ttft_p50_s"],
+                decode_tokens_per_s=run["decode_tokens_per_s"],
+                migrate_ms=hop,
+                launches={r["rank"]: {"p6a": r["p6a_launches"],
+                                      "p6b": r["p6b_launches"]}
+                          for r in res})
+
+
+def place_rank(rank, world, store, job_path, out_dir):
+    """One rank of P6, spawned (so this module is imported again in the
+    child, as ``__mp_main__`` when it runs as a script): runs
+    :func:`_place_rank` and pickles its numbers, or its traceback, to
+    ``p6.<rank>.pkl``."""
+    import pickle
+    import traceback
+    try:
+        res = {"ok": _place_rank(rank, world, store, job_path)}
+    except Exception:  # noqa: BLE001 - the parent reports it
+        res = {"error": traceback.format_exc()}
+    with open(os.path.join(out_dir, f"p6.{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def _place_rank(rank, world, store, job_path):
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    from bigdl_tpu_torch import resolve_device
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.obs import get_tracer
+    from bigdl_tpu_torch.parallel.mesh import init_world, shutdown_world
+    from bigdl_tpu_torch.resilience import ReplicaSet
+    from bigdl_tpu_torch.serving import (DeviceTopology, DisaggCoordinator,
+                                         PlacementPolicy)
+    from bigdl_tpu_torch.utils import keychain
+    from bigdl_tpu_torch.utils.params import params_from_numpy
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    dev = resolve_device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    config, serve = job["config"], job["serve"]
+    # the slots' traffic is host messages: a gloo world, each rank on dev
+    init_world("cpu", init_method=store, rank=rank, world_size=world)
+    out = {"rank": rank}
+    try:
+        topo = DeviceTopology([dev] * world, per_rank=True)
+        params = params_from_numpy(job["tree"], dev)
+        del job["tree"]
+
+        # -- P6a: the scoring model in a forwarded replica set -------- #
+        n, x = job["rows"], job["x"]
+        scorer = TransformerLM(attention_impl="auto", device=dev, **config)
+        scorer.params = params
+        rs = ReplicaSet(scorer, n_replicas=2,
+                        placement=PlacementPolicy(topo, slots=2, tp=1),
+                        input_shape=(x.shape[1],), buckets=(n,),
+                        max_batch_size=n, max_wait_ms=1.0)
+        try:
+            if rank == 0:
+                rs.warmup()
+            dist.barrier()
+            _reset_launches()
+            dist.barrier()
+            if rank == 0:
+                rows = [rs.predict(x, timeout=600) for _ in range(2)]
+                st = rs.stats()
+                out["p6a"] = dict(
+                    rows=rows,
+                    dispatched={k: v["dispatched"]
+                                for k, v in st["replicas"].items()},
+                    placement={k: v["placement"]
+                               for k, v in st["replicas"].items()})
+            dist.barrier()
+            out["p6a_launches"] = _launches()
+        finally:
+            rs.close()
+        del rs, scorer
+        release(dev)
+
+        # -- P6b: a forwarded disaggregated pair ---------------------- #
+        model = TransformerLM(attention_impl="flash", device=dev, **config)
+        model.params = params
+        model.buffers = params_from_numpy(model.init_buffers(), dev)
+        model._rng = keychain.split(keychain.prng_key(int(job["seed"])))[1]
+        co = DisaggCoordinator(
+            model, prefill_replicas=1, decode_replicas=1,
+            placement=PlacementPolicy(topo, slots=2, tp=1),
+            name="place-P6b", slots=serve["slots"],
+            cache_len=serve["cache_len"], block_len=serve["block_len"],
+            max_new_tokens=serve["max_new"], device=dev,
+            attention_impl="flash", decode_attn="paged_kernel")
+        tracer = get_tracer()
+        try:
+            mine = co.prefill + co.decode + list(co._fw.engines.values())
+            mine = [e for e in mine if hasattr(e, "warmup_prefix")]
+            out["phase"] = mine[0].phase
+            if rank != 0:
+                warm_pairs(mine[0], job["pairs"])
+            dist.barrier()
+            if rank == 0:
+                co.warmup()
+                warm_pairs(mine[0], job["pairs"])
+            dist.barrier()
+            tracer.clear()
+            tracer.enable()
+            _reset_launches()
+            dist.barrier()
+            if rank == 0:
+                run = serve_run(co, job["prompts"], serve["max_new"])
+                out["p6b"] = dict(results=run.pop("results"), run=run,
+                                  stats={k: v for k, v in co.stats().items()
+                                         if k != "engines"})
+            dist.barrier()
+            out["p6b_launches"] = _launches()
+            tracer.disable()
+            out["migrate_ms"] = [e["dur"] / 1e3
+                                 for e in _spans(tracer, "lm/migrate")]
+        finally:
+            co.close()
+        return out
+    finally:
+        shutdown_world()
 
 
 def batch_requests(batch, vocab):
@@ -7464,7 +7756,8 @@ def main() -> int:
         f"{replicas['launches']} | {smi}")
     log_allocated("place")
     t0 = time.perf_counter()
-    place = phase_place(dev, oracle=oracle, colocated=serve)
+    place = phase_place(dev, oracle=oracle, colocated=serve,
+                        disagg=replicas)
     phases["place"] = time.perf_counter() - t0
     check_launches("place path", place["launches"],
                    ("bigdl_flash_fwd", "bigdl_paged_decode"))

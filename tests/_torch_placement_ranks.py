@@ -67,10 +67,27 @@ def spec_of(t):
     return tuple(spec)
 
 
-def _policy(world, slots, tp):
+def _policy(world, slots, tp, per_rank=False):
     from bigdl_tpu_torch.serving import DeviceTopology, PlacementPolicy
-    return PlacementPolicy(DeviceTopology(["cpu"] * world), slots=slots,
-                           tp=tp)
+    return PlacementPolicy(DeviceTopology(["cpu"] * world, per_rank=per_rank),
+                           slots=slots, tp=tp)
+
+
+def _two_slots(world):
+    """Two slots over the whole world: TP2 each in a world of 4, one
+    rank each (per-rank ``tp == 1`` slots) in a world of 2."""
+    return _policy(world, 2, world // 2, per_rank=world == 2)
+
+
+def _inject(spec):
+    """Arm (or, with None, disarm) the fault injector in this rank."""
+    from bigdl_tpu_torch.resilience import faults
+    if spec is None:
+        os.environ.pop(faults.ENV_SPEC, None)
+    else:
+        os.environ[faults.ENV_SPEC] = spec
+        os.environ[faults.ENV_SEED] = "0"
+    faults.refresh_from_env()
 
 
 # --------------------------------------------------------------------- #
@@ -337,8 +354,9 @@ def serve_lifecycle(rank, world):
 
 
 def refusals(rank, world):
-    """What a rank may not build: an engine on a slot other ranks hold,
-    a replica set or a disaggregated pair across rank groups."""
+    """What a rank may not build: an engine on a slot other ranks hold.
+    A replica set and a disaggregated pair across rank groups build on
+    every rank and serve from the driver."""
     from bigdl_tpu_torch.resilience import ReplicaSet
     from bigdl_tpu_torch.serving import (DisaggCoordinator, PlacementError,
                                          ServingEngine)
@@ -353,18 +371,321 @@ def refusals(rank, world):
         out["engine"] = str(e)
     for s in slots:
         pol.release(s)
+    rs = ReplicaSet(mlp(), n_replicas=2, input_shape=(16,), buckets=(8,),
+                    max_batch_size=8, max_wait_ms=1.0, placement=pol)
     try:
-        ReplicaSet(mlp(), n_replicas=2, input_shape=(16,), buckets=(8,),
-                   max_batch_size=8, placement=pol)
-    except PlacementError as e:
-        out["replicaset"] = str(e)
+        if rank == 0:
+            out["replicaset"] = rs.predict(batch(), timeout=120)
+    finally:
+        rs.close()
     out["headroom_after_set"] = pol.headroom()
+    co = DisaggCoordinator(lm(), prefill_replicas=1, decode_replicas=1,
+                           placement=pol, **LM_ENGINE)
     try:
-        DisaggCoordinator(lm(), prefill_replicas=1, decode_replicas=1,
-                          placement=pol, **LM_ENGINE)
-    except PlacementError as e:
-        out["disagg"] = str(e)
+        if rank == 0:
+            out["disagg"] = list(co.submit(np.asarray(LM_PROMPTS[0]))
+                                 .tokens(timeout=120))
+    finally:
+        co.close()
     out["headroom_after_disagg"] = pol.headroom()
+    return out
+
+
+# --------------------------------------------------------------------- #
+# forwarded sets: every rank builds and closes, rank 0 (the driver)     #
+# submits; the slots are other ranks' (serving.placement.forward)       #
+# --------------------------------------------------------------------- #
+def _replicaset_rows(rs, x, n):
+    """``n`` predicts of ``x`` (one after another, so the least-loaded
+    pick alternates the replicas), and the set's stats."""
+    ys = [rs.predict(x, timeout=120) for _ in range(n)]
+    return ys, rs.stats()
+
+
+def fwd_replicaset(rank, world):
+    """A forwarded ReplicaSet of 2 over the two slots, float32 and int8:
+    rows, placement stats, the slots given back; on a rank other than
+    the driver, submit's refusal."""
+    from bigdl_tpu_torch.resilience import ReplicaSet
+    from bigdl_tpu_torch.serving import PlacementError
+    out = {}
+    for label, model in (("float", mlp()), ("int8", mlp().quantize())):
+        pol = _two_slots(world)
+        rs = ReplicaSet(model, n_replicas=2, input_shape=(16,),
+                        buckets=(8,), max_batch_size=8, max_wait_ms=1.0,
+                        placement=pol)
+        try:
+            if rank == 0:
+                out[label + "_made"] = rs.warmup()
+                ys, st = _replicaset_rows(rs, batch(), 3)
+                out[label] = ys
+                out[label + "_stats"] = {
+                    "device_ids": [st["replicas"][r]["placement"]
+                                   ["device_ids"] for r in ("r0", "r1")],
+                    "dispatched": [st["replicas"][r]["dispatched"]
+                                   for r in ("r0", "r1")],
+                    "slots_used": st["placement"]["slots_used"]}
+            else:
+                try:
+                    rs.submit(batch())
+                except PlacementError as e:
+                    out["refused"] = str(e)
+        finally:
+            rs.close()
+        out[label + "_headroom"] = pol.headroom()
+    if world > 2:
+        # both replicas off the driver (slot 0 held first): r0 on rank 1
+        # is the set's reference replica, reached over its channel
+        pol, held = _held_slot0(world)
+        rs = ReplicaSet(mlp(), n_replicas=2, input_shape=(16,),
+                        buckets=(8,), max_batch_size=8, max_wait_ms=1.0,
+                        placement=pol)
+        try:
+            if rank == 0:
+                ys, st = _replicaset_rows(rs, batch(), 2)
+                out["off_driver"] = ys
+                out["off_driver_stats"] = {
+                    r: (v["placement"]["device_ids"], v["dispatched"])
+                    for r, v in st["replicas"].items()}
+                out["off_driver_cache"] = st["metrics"]["compile_cache"]
+        finally:
+            rs.close()
+        pol.release(held)
+    return out
+
+
+def fwd_failover(rank, world):
+    """Placed failover across ranks: r1's ranks die from its 3rd
+    dispatch on (``serving.dispatch:die:name=r1,after=3``), 12
+    single-row requests, every row served; the single engine's rows
+    for the same requests."""
+    from bigdl_tpu_torch.resilience import ReplicaSet
+    from bigdl_tpu_torch.serving import ServingEngine
+    xs = np.random.RandomState(3).randn(12, 16).astype(np.float32)
+    out = {}
+    if rank == 0:
+        with ServingEngine(mlp(), input_shape=(16,), max_batch_size=4,
+                           max_wait_ms=1.0, device="cpu") as single:
+            out["expected"] = [single.predict(xs[i:i + 1], timeout=120)
+                               for i in range(len(xs))]
+    _inject("serving.dispatch:die:name=r1,after=3")
+    try:
+        pol = _two_slots(world)
+        rs = ReplicaSet(mlp(), n_replicas=2, input_shape=(16,),
+                        max_batch_size=4, max_wait_ms=1.0,
+                        failure_threshold=2, cooldown_s=300.0,
+                        placement=pol)
+        try:
+            if rank == 0:
+                out["got"] = [rs.predict(xs[i:i + 1], timeout=120)
+                              for i in range(len(xs))]
+                st = rs.stats()
+                out["replicas"] = {r: (v["state"], v["placement"]["slot_id"],
+                                       v["failures"])
+                                   for r, v in st["replicas"].items()}
+        finally:
+            rs.close()
+    finally:
+        _inject(None)
+    return out
+
+
+def fwd_scale(rank, world):
+    """scale_to and try_scale_up reach the other slot's ranks: 1 replica,
+    scale_to(5) builds the second on its slot (2), try_scale_up() is
+    refused (packed), scale_to(1) drains it and gives the slot back."""
+    from bigdl_tpu_torch.resilience import ReplicaSet
+    pol = _two_slots(world)
+    rs = ReplicaSet(mlp(), n_replicas=1, input_shape=(16,), buckets=(8,),
+                    max_batch_size=8, max_wait_ms=1.0, placement=pol)
+    out = {}
+    try:
+        if rank == 0:
+            out["grown"] = rs.scale_to(5)
+            out["headroom_grown"] = pol.headroom()
+            ys, st = _replicaset_rows(rs, batch(), 2)
+            out["rows"] = ys
+            out["dispatched"] = {r: v["dispatched"]
+                                 for r, v in st["replicas"].items()}
+            out["packed"] = rs.try_scale_up()
+            out["shrunk"] = rs.scale_to(1)
+            out["headroom_shrunk"] = pol.headroom()
+            out["after"] = rs.predict(batch(), timeout=120)
+    finally:
+        rs.close()
+    out["headroom_closed"] = pol.headroom()
+    return out
+
+
+def _pair_streams(co, prompts, **kw):
+    streams = [co.submit(np.asarray(p), **kw) for p in prompts]
+    return [list(s.tokens(timeout=120)) for s in streams]
+
+
+def _pair_stats(st):
+    return {k: st[k] for k in ("migrations", "migrated_blocks",
+                               "migrated_bytes", "lost_payloads",
+                               "re_prefills", "adopted", "phase_counts")}
+
+
+def fwd_disagg(rank, world):
+    """A forwarded DisaggCoordinator, 1 prefill + 1 decode over the two
+    slots: greedy streams and the hop's accounting; then the same under
+    ``serving.migrate:backend_lost`` (every payload lost: the decode
+    slot re-prefills)."""
+    from bigdl_tpu_torch.serving import DisaggCoordinator, PlacementError
+    out = {}
+    for label, fault in (("clean", None), ("lost", "serving.migrate:"
+                                           "backend_lost")):
+        pol = _two_slots(world)
+        _inject(fault)
+        try:
+            co = DisaggCoordinator(lm(), prefill_replicas=1,
+                                   decode_replicas=1, placement=pol,
+                                   name=f"fwd-{label}", **LM_ENGINE)
+            try:
+                if rank == 0:
+                    co.warmup()
+                    out[label] = _pair_streams(co, LM_PROMPTS)
+                    st = co.stats()
+                    out[label + "_stats"] = _pair_stats(st)
+                    out[label + "_placement"] = {
+                        n: e["placement"] for n, e in st["engines"].items()}
+                elif label == "clean":
+                    try:
+                        co.submit(np.asarray(LM_PROMPTS[0]))
+                    except PlacementError as e:
+                        out["refused"] = str(e)
+            finally:
+                co.close()
+        finally:
+            _inject(None)
+        out[label + "_headroom"] = pol.headroom()
+    return out
+
+
+def _held_slot0(world):
+    """Per-rank slots with slot 0 held beforehand on every rank: a pair
+    built next takes decode on rank 1 and prefill on rank 2 (a world of
+    4), or decode on the driver and prefill on rank 1 (a world of 2,
+    slot 0 then given back first)."""
+    pol = _policy(world, world, 1, per_rank=True)
+    held = pol.acquire() if world > 2 else None
+    return pol, held
+
+
+def fwd_cancel(rank, world):
+    """A cancel on the driver ends the stream on the decode rank (rank 1
+    in a world of 4; the driver's own decode replica, fed by rank 1's
+    prefill, in a world of 2): the decode replica's rounds are slowed
+    (``serving.cancel:latency``, its engine only), the client cancels
+    after two tokens, and the decode engine retires the stream as
+    cancelled."""
+    from bigdl_tpu_torch.serving import DisaggCoordinator
+    pol, held = _held_slot0(world)
+    out = {}
+    _inject("serving.cancel:latency:ms=20,name=fwd-cancel-decode0")
+    try:
+        co = DisaggCoordinator(lm(), prefill_replicas=1, decode_replicas=1,
+                               placement=pol, name="fwd-cancel",
+                               **dict(LM_ENGINE, cache_len=64))
+        try:
+            if rank == 0:
+                s = co.submit(np.asarray(LM_PROMPTS[0]), max_new_tokens=56)
+                it = s.tokens(timeout=120)
+                got = [next(it), next(it)]
+                s.cancel()
+                got += list(it)
+                out["tokens"] = got
+                out["truncation"] = (s.truncation.reason
+                                     if s.truncation is not None else None)
+                st = co.stats()
+                out["lifecycle"] = {n: e["lifecycle"]
+                                    for n, e in st["engines"].items()}
+                out["placement"] = {n: e["placement"]
+                                    for n, e in st["engines"].items()}
+        finally:
+            co.close()
+    finally:
+        _inject(None)
+    if held is not None:
+        pol.release(held)
+    return out
+
+
+def fwd_remote_pair(rank, world):
+    """A forwarded pair whose two replicas both sit on ranks other than
+    the driver (slot 0 held beforehand on every rank: decode on rank 1,
+    prefill on rank 2), the prefix cache on: two prompts sharing a
+    17-token head, one after the other, so the second hop skips the
+    block the decode radix holds (its lead's peek) and the adoption
+    matches it."""
+    from bigdl_tpu_torch.serving import DisaggCoordinator
+    pol, held = _held_slot0(world)
+    head = list(range(2, 19))
+    prompts = (head + [40, 41], head + [50], LM_PROMPTS[2])
+    out = {}
+    co = DisaggCoordinator(lm(), prefill_replicas=1, decode_replicas=1,
+                           placement=pol, name="fwd-remote",
+                           **dict(LM_ENGINE, enable_prefix_cache=True,
+                                  prefill_buckets=(32,)))
+    try:
+        if rank == 0:
+            co.warmup()
+            out["streams"] = [list(co.submit(np.asarray(p)).tokens(
+                timeout=120)) for p in prompts]
+            st = co.stats()
+            out["stats"] = _pair_stats(st)
+            out["placement"] = {n: e["placement"]
+                                for n, e in st["engines"].items()}
+            out["prompts"] = prompts
+    finally:
+        co.close()
+    if held is not None:
+        pol.release(held)
+    out["headroom"] = pol.headroom()
+    return out
+
+
+def fwd_build_fails(rank, world):
+    """Forwarded sets whose build fails, each on a fresh policy of the
+    two slots: a ReplicaSet of 3 (the policy runs out on every rank), a
+    pair of 2 prefill + 1 decode (no free placement slot on every rank),
+    and a ReplicaSet whose second module cannot be served (only slot 1's
+    ranks fail).  Each rank's error and seconds, the headroom after; then
+    a set built in the same world serves."""
+    from bigdl_tpu_torch.resilience import ReplicaSet
+    from bigdl_tpu_torch.serving import DisaggCoordinator
+    rs_kw = dict(input_shape=(16,), buckets=(8,), max_batch_size=8,
+                 max_wait_ms=1.0)
+    cases = (
+        ("replicaset", lambda pol: ReplicaSet(mlp(), n_replicas=3,
+                                              placement=pol, **rs_kw)),
+        ("pair", lambda pol: DisaggCoordinator(
+            lm(), prefill_replicas=2, decode_replicas=1, placement=pol,
+            name="fwd-fails", **LM_ENGINE)),
+        ("bad_module", lambda pol: ReplicaSet([mlp(), object()],
+                                              placement=pol, **rs_kw)))
+    out = {}
+    for label, make in cases:
+        pol = _two_slots(world)
+        t0 = time.monotonic()
+        try:
+            made = make(pol)
+        except Exception as e:  # noqa: BLE001 - the refusal under test
+            out[label] = (type(e).__name__, str(e))
+        else:
+            made.close()
+            out[label] = None
+        out[label + "_s"] = time.monotonic() - t0
+        out[label + "_headroom"] = pol.headroom()
+    pol = _two_slots(world)
+    rs = ReplicaSet(mlp(), n_replicas=2, placement=pol, **rs_kw)
+    try:
+        if rank == 0:
+            out["after"] = rs.predict(batch(), timeout=120)
+    finally:
+        rs.close()
     return out
 
 

@@ -522,7 +522,7 @@ def test_engine_refuses_what_the_port_does_not_do():
 
 
 def test_host_stager_chunks_and_counts():
-    st = HostStager(np.float32, chunk_bytes=7 * 4 * 5)
+    st = HostStager(np.float32, chunk_bytes=7 * 4 * 5, device="cpu")
     x = np.random.RandomState(0).randn(64, 7)
     y = st.stage(x)                       # float64 -> float32 on the wire
     assert y.dtype == torch.float32
@@ -530,6 +530,22 @@ def test_host_stager_chunks_and_counts():
     st.count(np.zeros((2, 7), np.float32))
     assert st.stats() == {"bytes_staged": 66 * 7 * 4, "batches_staged": 2,
                           "chunk_bytes": 140}
+
+
+def test_host_stager_defaults_to_the_card():
+    """The stager lands batches on the card unless the caller asks for
+    the host, as the reference's lands them on its accelerator; here,
+    with no card, the default raises ``resolve_device``'s error, and
+    ``device="cpu"`` stages the rows bitwise."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            HostStager(np.float32)
+    else:
+        assert HostStager(np.float32).device.type == "cuda"
+    x = np.random.RandomState(1).randn(5, 3).astype(np.float32)
+    y = HostStager(np.float32, device="cpu").stage(x)
+    assert y.device == torch.device("cpu")
+    np.testing.assert_array_equal(y.numpy(), x)
 
 
 class _TwoHeaded:

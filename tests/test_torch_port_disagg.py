@@ -12,7 +12,8 @@ blocks, lost payloads, re-prefills) equal the JAX package's.  The two
 placement tests of the reference are mirrored in
 ``tests/test_torch_port_placement.py``; here ``try_scale_up`` is held
 against ``max_replicas_per_phase``, and a placement slot held by another
-rank must raise naming ROADMAP Queue 1 item 11.8."""
+rank, with no process world to reach it through, must raise naming the
+missing world (the forwarded pairs run in that module's gloo worlds)."""
 import time
 
 import jax
@@ -276,14 +277,17 @@ def test_prefill_replica_refusals(pair):
 
 
 def test_coordinator_placement_refused_names_its_item(pair):
-    """A phase on a slot of another rank (the hop between processes) is
-    ROADMAP Queue 1 item 11.8; the policy gets its slot back."""
+    """A phase on a slot of another rank is reached only through the
+    driver of a process world: with none running, building the pair
+    raises naming the missing world and the way to start one, and the
+    policy gets its slot back."""
     from bigdl_tpu_torch.serving import (DeviceTopology, PlacementError,
                                          PlacementPolicy)
     _, tm = pair
     pol = PlacementPolicy(DeviceTopology(["cpu"] * 2, per_rank=True))
-    with pytest.raises(PlacementError, match="11.8"):
+    with pytest.raises(PlacementError, match="no process world") as e:
         DisaggCoordinator(tm, placement=pol, **_ENG)
+    assert "init_world" in str(e.value) and "ranks [0]" in str(e.value)
     assert pol.headroom() == 2
 
 

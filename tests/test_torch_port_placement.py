@@ -36,9 +36,11 @@ from tests import _torch_placement_ranks as ranks
 
 TOL = 1e-5
 CPU8 = ["cpu"] * 8
+FWD_JOBS = ("fwd_replicaset", "fwd_failover", "fwd_scale", "fwd_disagg",
+            "fwd_cancel", "fwd_remote_pair", "fwd_build_fails")
 WORLD_JOBS = {2: ("topology", "rules", "serve", "serve_int8", "replicaset",
-                  "lm_serve", "serve_lifecycle", "lm_lifecycle"),
-              4: ("topology", "rules", "serve", "refusals")}
+                  "lm_serve", "serve_lifecycle", "lm_lifecycle") + FWD_JOBS,
+              4: ("topology", "rules", "serve", "refusals") + FWD_JOBS}
 
 
 @pytest.fixture
@@ -112,6 +114,36 @@ def _ref_policy(fake_mesh, slots, tp):
                                tp=tp)
 
 
+def _ref_replicaset(model, fake_mesh, tp):
+    """The reference's ReplicaSet of 2 over two TP ``tp`` slots (its
+    ``test_replicaset_two_slots_tp2_matches_oracle``): the rows of one
+    batch."""
+    from bigdl_tpu.resilience import ReplicaSet
+    rs = ReplicaSet(model, n_replicas=2, input_shape=(16,), buckets=(8,),
+                    max_batch_size=8, max_wait_ms=1.0,
+                    placement=_ref_policy(fake_mesh, 2, tp))
+    try:
+        rs.warmup()
+        return rs.predict(ranks.batch(), timeout=120)
+    finally:
+        rs.close()
+
+
+def _ref_pair(placement, prompts=ranks.LM_PROMPTS, **kw):
+    """The reference's DisaggCoordinator, 1 prefill + 1 decode: the
+    greedy streams of ``prompts`` (one after another) and its hop
+    counters."""
+    from bigdl_tpu.serving.disagg import DisaggCoordinator
+    with DisaggCoordinator(_jlm(), prefill_replicas=1, decode_replicas=1,
+                           placement=placement,
+                           **{**ranks.LM_ENGINE, **kw}) as co:
+        co.warmup()
+        streams = [list(co.submit(np.asarray(p)).tokens()) for p in prompts]
+        st = co.stats()
+    return streams, {k: st[k] for k in ("migrations", "migrated_blocks",
+                                        "lost_payloads", "adopted")}
+
+
 # --------------------------------------------------------------------- #
 # the reference's results, and the gloo worlds                          #
 # --------------------------------------------------------------------- #
@@ -145,6 +177,26 @@ def ref(fake_mesh):
                                  m.params)[0])}
     out["streams"] = _ref_streams()
     out["streams_tp2"] = _ref_streams(_ref_policy(fake_mesh, 1, 2).acquire())
+    # the forwarded sets' counterparts: the world of 2 holds two TP1
+    # slots, the world of 4 two TP2 slots
+    for tp in (1, 2):
+        out[f"rs_tp{tp}"] = _ref_replicaset(_jmlp(), fake_mesh, tp)
+        out[f"rs_int8_tp{tp}"] = _ref_replicaset(_jmlp().quantize(),
+                                                 fake_mesh, tp)
+        out[f"pair_tp{tp}"] = _ref_pair(_ref_policy(fake_mesh, 2, tp))
+    from bigdl_tpu.serving import ServingEngine
+    xs = np.random.RandomState(3).randn(12, 16).astype(np.float32)
+    with ServingEngine(_jmlp(), input_shape=(16,), max_batch_size=4,
+                       max_wait_ms=1.0) as single:
+        out["failover"] = [single.predict(xs[i:i + 1], timeout=120)
+                           for i in range(len(xs))]
+    pol = _ref_policy(fake_mesh, 4, 1)
+    held = pol.acquire()
+    head = list(range(2, 19))
+    out["remote_pair"] = _ref_pair(
+        pol, (head + [40, 41], head + [50], ranks.LM_PROMPTS[2]),
+        enable_prefix_cache=True, prefill_buckets=(32,))
+    pol.release(held)
     return out
 
 
@@ -243,7 +295,8 @@ def test_placement_and_the_rank_module_import_no_jax():
     root = pathlib.Path(__file__).resolve().parents[1]
     files = sorted((root / "bigdl_tpu_torch/serving/placement").glob("*.py"))
     files.append(root / "tests/_torch_placement_ranks.py")
-    assert len(files) == 7
+    assert len(files) == 8
+    assert root / "bigdl_tpu_torch/serving/placement/forward.py" in files
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             names = ([a.name for a in node.names]
@@ -804,14 +857,210 @@ def test_world_lm_engine_tp2_speculates_token_exact(worlds, ref):
         assert got["spec_verify_compiles"] == 1
 
 
-def test_world_placement_errors(worlds):
+def test_world_placement_errors(worlds, ref):
     """In a world of 4 carved into two TP2 slots: an engine on the other
-    group's slot, and a replica set or a disaggregated pair spanning
-    both groups (ROADMAP Queue 1 item 11.8), raise PlacementError on
-    every rank, and the policy gets its slots back."""
+    group's slot raises PlacementError on every rank; a replica set and
+    a disaggregated pair spanning both groups build on every rank, serve
+    from the driver (rank 0) and give the policy its slots back."""
     for rank in range(4):
         got = worlds[4]("refusals", rank)
         assert "not by this process" in got["engine"]
-        assert "11.8" in got["replicaset"] and "11.8" in got["disagg"]
         assert got["headroom_after_set"] == 2
         assert got["headroom_after_disagg"] == 2
+    got = worlds[4]("refusals", 0)
+    np.testing.assert_allclose(got["replicaset"], ref["oracle"], atol=TOL)
+    assert got["disagg"] == ref["streams"][0]
+
+
+# --------------------------------------------------------------------- #
+# forwarded sets (serving.placement.forward): every rank builds and     #
+# closes, rank 0 drives; world of 4 = two TP2 slots, world of 2 = two   #
+# per-rank TP1 slots                                                    #
+# --------------------------------------------------------------------- #
+WORLDS = pytest.mark.parametrize("world", [2, 4])
+
+
+def _ids(world, slot):
+    tp = world // 2
+    return list(range(slot * tp, (slot + 1) * tp))
+
+
+@WORLDS
+def test_world_forwarded_replicaset_matches_the_reference(worlds, ref,
+                                                          world):
+    """A ReplicaSet of 2 over slots on other ranks, float32 and int8:
+    every batch's rows within 1e-5 of the reference's placed set (its
+    ``test_replicaset_two_slots_tp2_matches_oracle`` and the int8 one)
+    and of the oracle, both replicas dispatching; the placement stats;
+    both slots back after close on every rank."""
+    tp = world // 2
+    got = worlds[world]("fwd_replicaset", 0)
+    for label, oracle, placed in (
+            ("float", ref["oracle"], ref[f"rs_tp{tp}"]),
+            ("int8", ref["int8_oracle"], ref[f"rs_int8_tp{tp}"])):
+        assert got[label + "_made"] == 2
+        for y in got[label]:
+            np.testing.assert_allclose(y, placed, atol=TOL)
+            np.testing.assert_allclose(y, oracle, atol=TOL)
+        st = got[label + "_stats"]
+        assert st["device_ids"] == [_ids(world, 0), _ids(world, 1)]
+        assert st["slots_used"] == 2 and min(st["dispatched"]) >= 1
+    for rank in range(world):
+        got = worlds[world]("fwd_replicaset", rank)
+        assert got["float_headroom"] == got["int8_headroom"] == 2
+
+
+def test_world_forwarded_replicaset_off_the_driver(worlds, ref):
+    """Both replicas on ranks other than the driver (slot 0 held first):
+    the set's first replica, whose engine the batcher and ``stats()``
+    consult, is a handle that asks its rank; the rows are the
+    reference's."""
+    got = worlds[4]("fwd_replicaset", 0)
+    for y in got["off_driver"]:
+        np.testing.assert_allclose(y, ref["rs_tp1"], atol=TOL)
+    assert got["off_driver_stats"] == {"r0": ([1], 1), "r1": ([2], 1)}
+    assert got["off_driver_cache"]["misses"] >= 1
+
+
+@WORLDS
+def test_world_forwarded_submit_is_the_drivers(worlds, world):
+    """On a rank other than the driver, submit raises PlacementError
+    naming the driver, for a replica set and a disaggregated pair."""
+    for rank in range(1, world):
+        for job in ("fwd_replicaset", "fwd_disagg"):
+            msg = worlds[world](job, rank)["refused"]
+            assert "driver, world rank 0" in msg and f"rank {rank}" in msg
+
+
+@WORLDS
+def test_world_forwarded_build_failure_fails_every_rank(worlds, ref, world):
+    """A forwarded set whose build fails raises on every rank within
+    seconds and gives the slots back: a ReplicaSet of 3 on two slots
+    (PlacementError, the slots exhausted), a pair of 2 prefill + 1
+    decode (RuntimeError, no free placement slot), and a set whose
+    second module cannot be served (slot 1's ranks raise its error, every
+    other rank the same class naming the first of them).  A set built
+    next in the same world serves the oracle's rows."""
+    first_bad = _ids(world, 1)[0]
+    for rank in range(world):
+        got = worlds[world]("fwd_build_fails", rank)
+        assert got["replicaset"][0] == "PlacementError"
+        assert "none free" in got["replicaset"][1]
+        assert got["pair"][0] == "RuntimeError"
+        assert "no free placement slot" in got["pair"][1]
+        cls, msg = got["bad_module"]
+        assert cls not in ("BackendLostError", "PlacementError"), msg
+        if rank not in _ids(world, 1):
+            assert (f"world rank {first_bad} could not build its part"
+                    in msg), msg
+        for label in ("replicaset", "pair", "bad_module"):
+            assert got[label + "_headroom"] == 2
+            assert got[label + "_s"] < 10, (label, got[label + "_s"])
+    np.testing.assert_allclose(worlds[world]("fwd_build_fails", 0)["after"],
+                               ref["oracle"], atol=TOL)
+
+
+@WORLDS
+def test_world_forwarded_failover_loses_no_requests(worlds, ref, world):
+    """Placed failover across ranks (the reference's
+    ``test_replica_death_failover_with_placement_loses_no_requests``):
+    r1's ranks raise BackendLostError from its 3rd dispatch on; the
+    driver sees the same class, so only r1's breaker opens, r1 keeps
+    slot 1, and every one of the 12 rows is the single engine's."""
+    got = worlds[world]("fwd_failover", 0)
+    for g, e, r in zip(got["got"], got["expected"], ref["failover"]):
+        np.testing.assert_allclose(g, e, atol=TOL)
+        np.testing.assert_allclose(g, r, atol=TOL)
+    assert got["replicas"]["r0"] == ("healthy", 0, 0)
+    state, slot_id, failures = got["replicas"]["r1"]
+    assert (state, slot_id) == ("open", 1) and failures == 2
+
+
+@WORLDS
+def test_world_forwarded_scale_to_reaches_the_other_slot(worlds, ref,
+                                                         world):
+    """scale_to builds a replica on the other slot's ranks, as far as
+    the headroom goes; try_scale_up is refused when packed; a shrink
+    drains it and gives the slot back."""
+    got = worlds[world]("fwd_scale", 0)
+    assert got["grown"] == 2 and got["headroom_grown"] == 0
+    assert got["dispatched"] == {"r0": 1, "r1": 1}
+    for y in got["rows"] + [got["after"]]:
+        np.testing.assert_allclose(y, ref["oracle"], atol=TOL)
+    assert not got["packed"]
+    assert got["shrunk"] == 1 and got["headroom_shrunk"] == 1
+    for rank in range(world):
+        assert worlds[world]("fwd_scale", rank)["headroom_closed"] == 2
+
+
+@WORLDS
+def test_world_forwarded_disagg_is_token_exact(worlds, ref, world):
+    """A disaggregated pair over slots on other ranks (decode on slot 0,
+    prefill on slot 1, as the reference acquires them): greedy streams
+    token for token the reference pair's on the same slots and the
+    port's unplaced engine's, with the reference's migrations and
+    migrated blocks; under ``serving.migrate:backend_lost`` every
+    payload is lost, the decode slot re-prefills each, and the streams
+    are unchanged."""
+    tp = world // 2
+    got = worlds[world]("fwd_disagg", 0)
+    streams, st = ref[f"pair_tp{tp}"]
+    assert got["clean"] == streams == worlds["port_streams"]
+    mine = got["clean_stats"]
+    assert (mine["migrations"], mine["migrated_blocks"],
+            mine["lost_payloads"], mine["adopted"]) == (
+        st["migrations"], st["migrated_blocks"], st["lost_payloads"],
+        st["adopted"]) == (3, mine["migrated_blocks"], 0, 3)
+    assert mine["re_prefills"] == 0
+    assert mine["phase_counts"] == {"decode": 1, "prefill": 1}
+    assert got["clean_placement"] == {
+        "fwd-clean-decode0": {"slot_id": 0, "tp": tp,
+                              "device_ids": _ids(world, 0)},
+        "fwd-clean-prefill0": {"slot_id": 1, "tp": tp,
+                               "device_ids": _ids(world, 1)}}
+    lost = got["lost_stats"]
+    assert got["lost"] == got["clean"]
+    assert lost["re_prefills"] == lost["lost_payloads"] == 3
+    assert lost["migrated_blocks"] == 0
+    for rank in range(world):
+        got = worlds[world]("fwd_disagg", rank)
+        assert got["clean_headroom"] == got["lost_headroom"] == 2
+
+
+@WORLDS
+def test_world_forwarded_cancel_reaches_the_decode_rank(worlds, world):
+    """The client cancels on the driver after two tokens while the
+    decode replica (on rank 1 in the world of 4; the driver's own, fed
+    by rank 1's prefill, in the world of 2) decodes: the decode engine
+    retires the stream as cancelled, and the client's stream ends
+    truncated with the tokens it had."""
+    got = worlds[world]("fwd_cancel", 0)
+    assert got["truncation"] == "cancelled"
+    assert got["tokens"] == worlds["port_streams"][0][:len(got["tokens"])]
+    assert 2 <= len(got["tokens"]) < 56
+    life = got["lifecycle"]
+    assert life["fwd-cancel-decode0"]["cancelled"] == 1
+    assert life["fwd-cancel-prefill0"]["cancelled"] == 0
+    decode = got["placement"]["fwd-cancel-decode0"]["device_ids"]
+    assert decode == ([1] if world == 4 else [0])
+
+
+@WORLDS
+def test_world_forwarded_pair_peeks_the_decode_radix(worlds, ref, world):
+    """A pair with the prefix cache on, two prompts sharing a 17-token
+    head served one after the other (in the world of 4 both replicas on
+    ranks other than the driver): the second hop skips the block the
+    decode radix holds, so the migrated blocks and the streams are the
+    reference pair's."""
+    got = worlds[world]("fwd_remote_pair", 0)
+    streams, st = ref["remote_pair"]
+    assert got["streams"] == streams
+    assert got["stats"]["migrated_blocks"] == st["migrated_blocks"] == 4
+    assert got["stats"]["migrations"] == st["migrations"] == 3
+    if world == 4:
+        assert got["placement"] == {
+            "fwd-remote-decode0": {"slot_id": 1, "tp": 1, "device_ids": [1]},
+            "fwd-remote-prefill0": {"slot_id": 2, "tp": 1,
+                                    "device_ids": [2]}}
+    for rank in range(world):
+        assert worlds[world]("fwd_remote_pair", rank)["headroom"] == world
