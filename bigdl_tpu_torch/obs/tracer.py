@@ -17,14 +17,27 @@ span ``args``; ``BIGDL_TPU_TRACE_SAMPLE`` (0..1, default 1) decides,
 by a deterministic hash of the id, which requests record their
 per-round events, and :meth:`Tracer.span_tree` reassembles one
 request's timeline from the ring.
+
+Batch-level spans that ask where a worker's time went (``cpu_span``, or
+``add_complete(..., cpu_ns0=...)``) also carry ``cpu_us``, the thread's
+CPU time across the span (``time.thread_time_ns``): a span whose wall
+time is long and whose CPU time is short waited for the interpreter
+lock, a lock or the device.  While enabled, the tracer records each pass
+of Python's garbage collector as a ``py/gc`` span on the thread that ran
+it (a collection stops every Python thread).  The ring keeps the newest
+``capacity`` events (:meth:`Tracer.set_capacity`); ``dropped`` counts
+what a full ring evicted since tracing was turned on, and the exports
+carry it.
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import os
 import threading
 import time
+import weakref
 import zlib
 from collections import deque
 from functools import wraps
@@ -93,15 +106,18 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """One live span; records a Chrome 'X' (complete) event on exit."""
-    __slots__ = ("_tracer", "name", "cat", "args", "_t0")
+    """One live span; records a Chrome 'X' (complete) event on exit, with
+    the thread's CPU time across it when ``cpu``."""
+    __slots__ = ("_tracer", "name", "cat", "args", "_t0", "_c0")
 
-    def __init__(self, tracer: "Tracer", name: str, cat: str, args: dict):
+    def __init__(self, tracer: "Tracer", name: str, cat: str, args: dict,
+                 cpu: bool = False):
         self._tracer = tracer
         self.name = name
         self.cat = cat
         self.args = args
         self._t0 = time.perf_counter()
+        self._c0 = time.thread_time_ns() if cpu else None
 
     def __enter__(self):
         return self
@@ -112,8 +128,31 @@ class _Span:
             self.args = dict(self.args)
             self.args["error"] = f"{exc_type.__name__}: {exc}"
         self._tracer.add_complete(self.name, self._t0, t1 - self._t0,
-                                  cat=self.cat, args=self.args)
+                                  cat=self.cat, args=self.args,
+                                  cpu_ns0=self._c0)
         return False
+
+
+class _GcWatch:
+    """A ``gc.callbacks`` entry that times each collector pass for one
+    tracer.  It holds the tracer weakly, so a tracer dropped while
+    enabled is still freed, and records nothing while the tracer is
+    disabled or gone."""
+    __slots__ = ("_ref", "_t0")
+
+    def __init__(self, tracer: "Tracer"):
+        self._ref = weakref.ref(tracer)
+        self._t0 = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+            return
+        t0, self._t0 = self._t0, None
+        tracer = self._ref()
+        if t0 is None or tracer is None or not tracer.enabled:
+            return
+        tracer._gc_pass(t0, time.perf_counter() - t0, info)
 
 
 class Tracer:
@@ -132,6 +171,12 @@ class Tracer:
                             else min(max(float(sample_rate), 0.0), 1.0))
         self._events: deque = deque(maxlen=int(capacity))
         self._lock = threading.Lock()
+        self._dropped = 0
+        # collector passes that found the lock taken (the pass ran inside
+        # a locked section, or another thread held it); moved into the
+        # ring by the next locked section
+        self._gc_pending: deque = deque()
+        self._gc_watch: Optional[_GcWatch] = None
         # perf_counter epoch; the unix pair stamps exports with wall time
         self._epoch_perf = time.perf_counter()
         self._epoch_unix = time.time()
@@ -139,10 +184,41 @@ class Tracer:
 
     # -- control -------------------------------------------------------- #
     def enable(self) -> None:
-        self.enabled = True
+        """Turn tracing on: zero ``dropped`` (when it was off) and time
+        the garbage collector's passes (``py/gc``) until ``disable()``."""
+        watch = _GcWatch(self)
+        with self._lock:
+            if not self.enabled:
+                self._dropped = 0
+            self.enabled = True
+            if self._gc_watch is not None:
+                return
+            self._gc_watch = watch
+        gc.callbacks.append(watch)
 
     def disable(self) -> None:
-        self.enabled = False
+        with self._lock:
+            self.enabled = False
+            watch, self._gc_watch = self._gc_watch, None
+        if watch is not None and watch in gc.callbacks:
+            gc.callbacks.remove(watch)
+
+    def set_capacity(self, n: int) -> None:
+        """Keep the newest ``n`` events; the older ones a smaller ring
+        lets go count as dropped."""
+        n = int(n)
+        if n < 1:
+            raise ValueError(f"a ring holds at least one event, got {n}")
+        with self._lock:
+            self._flush_gc_locked()
+            old = self._events
+            self._dropped += max(0, len(old) - n)
+            self._events = deque(old, maxlen=n)
+
+    @property
+    def dropped(self) -> int:
+        """Events a full ring evicted since tracing was turned on."""
+        return self._dropped
 
     def set_sample_rate(self, rate: float) -> None:
         self.sample_rate = min(max(float(rate), 0.0), 1.0)
@@ -166,9 +242,11 @@ class Tracer:
     def clear(self) -> None:
         with self._lock:
             self._events.clear()
+            self._gc_pending.clear()
 
     def __len__(self) -> int:
         with self._lock:
+            self._flush_gc_locked()
             return len(self._events)
 
     # -- recording ------------------------------------------------------ #
@@ -177,6 +255,13 @@ class Tracer:
         if not self.enabled:
             return _NULL_SPAN
         return _Span(self, name, cat, args)
+
+    def cpu_span(self, name: str, cat: str = "obs", **args):
+        """``span`` that also records ``cpu_us``, the thread's CPU time
+        across it.  Disabled: the shared no-op."""
+        if not self.enabled:
+            return _NULL_SPAN
+        return _Span(self, name, cat, args, cpu=True)
 
     def traced(self, name: Optional[str] = None, cat: str = "obs"):
         """Decorator form of ``span`` (span name defaults to the
@@ -198,12 +283,19 @@ class Tracer:
 
     def add_complete(self, name: str, t0_perf: float, dur_s: float,
                      cat: str = "obs", args: Optional[dict] = None,
-                     tid: Optional[int] = None) -> None:
+                     tid: Optional[int] = None,
+                     cpu_ns0: Optional[int] = None) -> None:
         """Record a finished span retroactively (``t0_perf`` from
         ``time.perf_counter``) — how the batcher reports a request's
-        queue wait it only knows at dispatch time."""
+        queue wait it only knows at dispatch time.  With ``cpu_ns0``
+        (``time.thread_time_ns()`` at the span's start, on this thread)
+        the span carries ``cpu_us``, the thread's CPU time since."""
         if not self.enabled:
             return
+        if cpu_ns0 is not None:
+            cpu_ns = time.thread_time_ns() - cpu_ns0
+            args = dict(args or {})
+            args["cpu_us"] = cpu_ns / 1e3
         ev = {"name": name, "cat": cat, "ph": "X",
               "ts": self._ts_us(t0_perf), "dur": max(dur_s, 0.0) * 1e6,
               "pid": self._pid,
@@ -211,7 +303,7 @@ class Tracer:
         if args:
             ev["args"] = args
         with self._lock:
-            self._events.append(ev)
+            self._append_locked(ev)
 
     def instant(self, name: str, cat: str = "obs", **args) -> None:
         """Point-in-time event (Chrome ph='i', thread scope)."""
@@ -223,7 +315,42 @@ class Tracer:
         if args:
             ev["args"] = args
         with self._lock:
-            self._events.append(ev)
+            self._append_locked(ev)
+
+    def _append_locked(self, ev: dict) -> None:
+        self._flush_gc_locked()
+        self._push_locked(ev)
+
+    def _flush_gc_locked(self) -> None:
+        while self._gc_pending:
+            self._push_locked(self._gc_pending.popleft())
+
+    def _push_locked(self, ev: dict) -> None:
+        """Append under the lock, counting what a full ring evicts (by
+        the ring's own bound, so a ring swapped in from outside counts
+        right too)."""
+        ring = self._events
+        if len(ring) == ring.maxlen:
+            self._dropped += 1
+        ring.append(ev)
+
+    def _gc_pass(self, t0_perf: float, dur_s: float, info: dict) -> None:
+        """One collector pass, from ``_GcWatch``.  It may run inside any
+        allocation, a locked section of this tracer's included, so it
+        never waits for the lock: a pass that finds it taken is parked
+        and moved into the ring by the next locked section."""
+        ev = {"name": "py/gc", "cat": "gc", "ph": "X",
+              "ts": self._ts_us(t0_perf), "dur": max(dur_s, 0.0) * 1e6,
+              "pid": self._pid, "tid": threading.get_ident(),
+              "args": {"generation": info.get("generation"),
+                       "collected": info.get("collected")}}
+        if self._lock.acquire(blocking=False):
+            try:
+                self._append_locked(ev)
+            finally:
+                self._lock.release()
+        else:
+            self._gc_pending.append(ev)
 
     # -- reading / export ---------------------------------------------- #
     def events(self) -> list:
@@ -237,6 +364,7 @@ class Tracer:
         copied under the lock, so a reader never sees a span another
         thread is still assembling."""
         with self._lock:
+            self._flush_gc_locked()
             evs = [dict(e) for e in self._events]
         evs.sort(key=lambda e: e.get("ts", 0.0))
         return evs
@@ -303,6 +431,8 @@ class Tracer:
             "otherData": {
                 "producer": "bigdl_tpu_torch.obs",
                 "epoch_unix": self._epoch_unix,
+                "epoch_perf": self._epoch_perf,
+                "dropped": self.dropped,
                 "request_id": request_id,
             },
         }
@@ -336,6 +466,8 @@ class Tracer:
             "otherData": {
                 "producer": "bigdl_tpu_torch.obs",
                 "epoch_unix": self._epoch_unix,
+                "epoch_perf": self._epoch_perf,
+                "dropped": self.dropped,
             },
         }
         if path:
@@ -359,6 +491,8 @@ class Tracer:
 
 #: process-wide tracer — instrumented modules bind this once at import
 _GLOBAL = Tracer()
+if _GLOBAL.enabled:
+    _GLOBAL.enable()        # BIGDL_TPU_TRACE=1: time the collector too
 
 
 def get_tracer() -> Tracer:

@@ -55,6 +55,12 @@ capture runs nothing; another thread's launches meanwhile still count)
 and adds them on every replay, so a counter reads the launches the
 device ran.
 
+With tracing on (``bigdl_tpu_torch.obs``), a graph's call records
+``graph/stage`` (the wait on the previous copy out of the pinned
+buffers, the pinned copies and the asynchronous copies to the device)
+and ``graph/replay`` (the replay's launch and its bookkeeping) on the
+calling thread; an eager entry records neither.
+
 Each entry made (a captured graph on the card, the eager function on
 the CPU) files a row with the memory ledger under the cache's
 ``ledger_tag`` (``MemoryLedger.record_compiled``): the owner's graph-pool
@@ -74,6 +80,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.obs.tracer import get_tracer
 from bigdl_tpu_torch.quant.transform import (params_compute_tag,
                                              params_dtype_tag)
 
@@ -81,6 +88,8 @@ __all__ = ["CompileCache", "GraphPool", "StepGraph", "input_signature",
            "params_dtype_tag"]
 
 Key = Tuple[tuple, str, Optional[str]]
+
+_tracer = get_tracer()
 
 
 def _dtype_name(dtype) -> str:
@@ -227,11 +236,13 @@ class _Graph:
                 for (_, a), s in zip(leaves, self._static)):
             raise ValueError("a captured graph replays the shapes it was "
                              "captured with")
-        self._stage(leaves)
-        self._graph.replay()
-        for kernel, n in self._deltas:
-            kernel.count(n)
-        self._owner._replayed()
+        with _tracer.span("graph/stage", cat="graph"):
+            self._stage(leaves)
+        with _tracer.span("graph/replay", cat="graph"):
+            self._graph.replay()
+            for kernel, n in self._deltas:
+                kernel.count(n)
+            self._owner._replayed()
         return self._out
 
 

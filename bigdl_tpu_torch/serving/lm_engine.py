@@ -77,7 +77,13 @@ a graph's outputs live in a pool the next graph reuses.
   lifecycle counters (``serving/lifecycle/*``) publish into the
   process-wide registry (``bigdl_tpu_torch.obs``); every request gets
   an id, and a sampled one records ``lm/*`` spans and instants on the
-  host clock.  Fault sites: ``serving.enqueue`` (a transient becomes
+  host clock.  Whenever tracing is on, the worker also records the
+  batch's own spans, unsampled: ``lm/round`` (one scheduler round with
+  work, its wait for work left out), ``lm/token_pick`` (the host's
+  token pick, emits and retirements of a decode step) and ``lm/fetch``
+  (the logits' wait and copy to the host); ``lm/round`` and
+  ``lm/fetch`` carry ``cpu_us``, the worker's CPU time across them.
+  Fault sites: ``serving.enqueue`` (a transient becomes
   :class:`ServingOverloaded`), ``serving.verify`` (a transient demotes
   the speculating slots for the round) and ``serving.cancel`` (a fault
   cancels the stream).
@@ -188,6 +194,12 @@ from bigdl_tpu_torch.utils import keychain
 log = logging.getLogger("bigdl_tpu_torch.serving")
 
 _tracer = get_tracer()
+
+
+def _round_mark() -> tuple:
+    """A round's start for its ``lm/round`` span: the host clock and the
+    thread's CPU clock."""
+    return time.perf_counter(), time.thread_time_ns()
 
 
 def prefill_bucket_lengths(max_len: int, min_bucket: int = 8) -> tuple:
@@ -1662,6 +1674,9 @@ MeshSlice` (see the module docstring).  The engine's device is then the
     def _loop(self):
         hibernate = None   # the lockstep round's hibernations
         while True:
+            # the round's start (the ``lm/round`` span): here, or the wake
+            # when the round waits for work, the wait left out
+            mark = _round_mark() if _tracer.enabled else None
             with self._cv:
                 if self._ls is None:
                     while (not self._queue and not self._adopt_q
@@ -1674,6 +1689,7 @@ MeshSlice` (see the module docstring).  The engine's device is then the
                             # a holding station's deadline came due while
                             # the engine idled (a hibernated stream, say)
                             self._lc_nudge = True
+                        mark = _round_mark() if _tracer.enabled else None
                     if self._abort:
                         return
                     if (self._closing and not self._queue
@@ -1691,6 +1707,7 @@ MeshSlice` (see the module docstring).  The engine's device is then the
                     rnd = self._lockstep_round_locked()
                     if rnd is None:
                         return
+                    mark = _round_mark() if _tracer.enabled else None
                     verdict = (lambda s, dead=rnd.dead:
                                dead.get(s.slot_key))
                     self._lifecycle_sweep_locked(verdict)
@@ -1764,7 +1781,8 @@ MeshSlice` (see the module docstring).  The engine's device is then the
                     self._service_hibernations(hibernate)
             elif self._hibernate_req:
                 self._service_hibernations()
-            if self._prefilling:
+            prefilled = bool(self._prefilling)
+            if prefilled:
                 # the interleave: ONE chunk of the oldest prefill in
                 # progress a round, then back to decoding
                 pf = self._prefilling[0]
@@ -1779,13 +1797,24 @@ MeshSlice` (see the module docstring).  The engine's device is then the
                     pf.req.stream._finish(error=e)
                     with self._cv:
                         self._free.append(pf.slot)
-            if self._n_active:
+            active = self._n_active
+            if active:
                 if self.draft is None:
                     self._step()
                 elif self.spec.tree:
                     self._step_spec_tree()
                 else:
                     self._step_spec()
+            if mark is not None:
+                seated = (len(adopts) + len(resumes) + len(admits)
+                          - sum(len(d) for d in deferred))
+                if active or prefilled or seated:
+                    t0, c0 = mark
+                    _tracer.add_complete(
+                        "lm/round", t0, time.perf_counter() - t0,
+                        cat="serve",
+                        args={"active": active, "admitted": seated},
+                        cpu_ns0=c0)
 
     # -- request lifecycle (deadlines, cooperative cancel) -------------- #
     def _lc_wake(self):
@@ -2167,7 +2196,7 @@ MeshSlice` (see the module docstring).  The engine's device is then the
         if pf.p >= t:
             # only the last chunk's logits are read, before any other
             # step replays over them
-            pf.logits = logits.cpu().numpy()  # synchronises; (1, V)
+            pf.logits = self._fetch(logits, "prefill")  # (1, V)
         return pf.p >= t
 
     def _finish_prefill(self, pf: _Prefill) -> None:
@@ -2419,25 +2448,38 @@ MeshSlice` (see the module docstring).  The engine's device is then the
             logits = self._decode(token, pos, tables)
         now = time.perf_counter()
         self._trace_rounds("lm/decode_round", active, t0, now)
-        itls = []
-        freed = []
-        for i in active:
-            st = self._slots[i]
-            if st.replay:
-                self._replay_one(st)
-                continue
-            nxt0 = pick_token(logits[i], st.temperature, st.key(), clamp=True)
-            if self._emit(st, nxt0, now, itls):
-                freed.append(i)
-        self._record_step(len(active), itls)
-        self._retire(freed)
+        with _tracer.span("lm/token_pick", cat="serve",
+                          active=len(active)):
+            itls = []
+            freed = []
+            for i in active:
+                st = self._slots[i]
+                if st.replay:
+                    self._replay_one(st)
+                    continue
+                nxt0 = pick_token(logits[i], st.temperature, st.key(),
+                                  clamp=True)
+                if self._emit(st, nxt0, now, itls):
+                    freed.append(i)
+            self._record_step(len(active), itls)
+            self._retire(freed)
+
+    @staticmethod
+    def _fetch(logits: torch.Tensor, what: str) -> np.ndarray:
+        """The logits on the host: waits for the device's work and copies
+        them back (the ``lm/fetch`` span)."""
+        if not _tracer.enabled:
+            return logits.cpu().numpy()  # synchronises
+        with _tracer.cpu_span("lm/fetch", cat="serve", what=what,
+                              bytes=logits.numel() * logits.element_size()):
+            return logits.cpu().numpy()
 
     def _decode(self, token, pos, tables) -> np.ndarray:
         """One decode step over every slot, the arenas written in place;
         returns the (S, V) float32 logits on the host."""
         logits = self._decode_exec({"token": token, "pos": pos,
                                     "tables": tables})
-        return logits.cpu().numpy()  # synchronises
+        return self._fetch(logits, "decode")
 
     # -- speculation ---------------------------------------------------- #
     def _verify(self, tokens, pos, ncand, tables, rung=None) -> np.ndarray:
@@ -2447,7 +2489,7 @@ MeshSlice` (see the module docstring).  The engine's device is then the
         step = self._verify_execs[0 if rung is None else rung]
         logits = step({"tokens": tokens, "pos": pos, "ncand": ncand,
                        "tables": tables})
-        return logits.cpu().numpy()  # synchronises
+        return self._fetch(logits, "verify")
 
     def _commit(self, src, pos, tables) -> None:
         self._commit_exec({"src": src, "pos": pos, "tables": tables})

@@ -292,6 +292,136 @@ def test_tracer_env_knobs(monkeypatch):
     assert not tr.enabled and tr.sample_rate == 1.0
 
 
+def test_set_capacity_keeps_the_newest_and_counts_dropped():
+    tr = Tracer(capacity=8, enabled=True)
+    for i in range(6):
+        tr.instant(f"e{i}")
+    assert tr.dropped == 0
+    tr.set_capacity(4)
+    assert [e["name"] for e in tr.events()] == ["e2", "e3", "e4", "e5"]
+    assert tr.dropped == 2                     # the two a smaller ring let go
+    for i in range(6, 9):
+        tr.instant(f"e{i}")
+    assert [e["name"] for e in tr.events()] == ["e5", "e6", "e7", "e8"]
+    assert tr.dropped == 5
+    tr.set_capacity(16)                        # growing keeps every event
+    assert len(tr) == 4 and tr.dropped == 5
+    with pytest.raises(ValueError):
+        tr.set_capacity(0)
+
+
+def test_dropped_counts_against_a_swapped_in_ring_and_resets_on_enable():
+    from collections import deque
+    tr = Tracer(enabled=False)
+    tr.enable()
+    tr._events = deque(maxlen=3)               # a ring replaced from outside
+    t = time.perf_counter()
+    for i in range(5):
+        tr.add_complete(f"s{i}", t, 0.001)
+    assert len(tr) == 3 and tr.dropped == 2
+    tr.clear()
+    assert tr.dropped == 2                     # since tracing was turned on
+    tr.enable()                                # already on: kept
+    assert tr.dropped == 2
+    tr.disable()
+    tr.enable()
+    assert tr.dropped == 0
+    tr.disable()
+
+
+def test_exports_carry_the_epoch_and_dropped(tmp_path):
+    tr = Tracer(capacity=2, enabled=True)
+    for i in range(3):
+        with tr.span("lm/request", request_id="r1-1", i=i):
+            pass
+    doc = tr.export_chrome(str(tmp_path / "t.json"))
+    assert doc["otherData"]["epoch_perf"] == tr._epoch_perf
+    assert doc["otherData"]["dropped"] == 1
+    assert validate_trace(str(tmp_path / "t.json")) == []
+    req = tr.export_request("r1-1")
+    assert req["otherData"]["epoch_perf"] == tr._epoch_perf
+    assert req["otherData"]["dropped"] == 1
+
+
+def test_cpu_span_records_the_threads_cpu_time():
+    tr = Tracer(enabled=True)
+    with tr.cpu_span("work", cat="t", n=3):
+        sum(i * i for i in range(20000))
+    with tr.cpu_span("wait", cat="t"):
+        time.sleep(0.05)
+    t0, c0 = time.perf_counter(), time.thread_time_ns()
+    tr.add_complete("later", t0, time.perf_counter() - t0, cat="t",
+                    args={"k": 1}, cpu_ns0=c0)
+    work, wait, later = tr.events()
+    assert work["args"]["n"] == 3 and work["args"]["cpu_us"] > 0
+    assert 0 <= wait["args"]["cpu_us"] < 0.5 * wait["dur"]
+    assert later["args"] == {"k": 1, "cpu_us": later["args"]["cpu_us"]}
+    assert later["args"]["cpu_us"] >= 0
+    off = Tracer(enabled=False)
+    assert off.cpu_span("x") is off.span("y")  # the shared no-op
+
+
+def _gc_quiet():
+    """Automatic collections off, so a test's forced pass is the only
+    one; restored by the caller."""
+    import gc
+    was = gc.isenabled()
+    gc.disable()
+    return was
+
+
+def test_gc_pass_is_a_span_while_enabled():
+    import gc
+    was = _gc_quiet()
+    tr = Tracer(enabled=False)
+    try:
+        tr.enable()
+        assert sum(1 for cb in gc.callbacks if cb is tr._gc_watch) == 1
+        tr.enable()                            # a second enable hooks once
+        assert sum(1 for cb in gc.callbacks if cb is tr._gc_watch) == 1
+        gc.collect()
+        (ev,) = [e for e in tr.events() if e["name"] == "py/gc"]
+        assert ev["ph"] == "X" and ev["args"]["generation"] == 2
+        assert ev["args"]["collected"] >= 0 and ev["dur"] >= 0
+        assert ev["tid"] == threading.get_ident()
+    finally:
+        tr.disable()
+        if was:
+            gc.enable()
+
+
+def test_gc_callback_leaves_with_disable_and_a_disabled_tracer_has_none():
+    import gc
+    was = _gc_quiet()
+    try:
+        before = list(gc.callbacks)
+        off = Tracer(enabled=False)
+        on_by_arg = Tracer(enabled=True)       # only enable() hooks
+        assert gc.callbacks == before
+        tr = Tracer(enabled=False)
+        tr.enable()
+        watch = tr._gc_watch
+        assert watch in gc.callbacks
+        tr.disable()
+        assert watch not in gc.callbacks and gc.callbacks == before
+        gc.collect()
+        assert not [e for t in (off, on_by_arg, tr) for e in t.events()
+                    if e["name"] == "py/gc"]
+    finally:
+        if was:
+            gc.enable()
+
+
+def test_gc_pass_inside_a_locked_section_is_parked_not_deadlocked():
+    tr = Tracer(enabled=True)
+    t = time.perf_counter()
+    with tr._lock:                             # as if a pass ran in events()
+        tr._gc_pass(t, 0.001, {"generation": 0, "collected": 0})
+    assert [e["name"] for e in tr.events()] == ["py/gc"]
+    tr._gc_pass(t, 0.001, {"generation": 1, "collected": 2})
+    assert len(tr) == 2
+
+
 # --------------------------------------------------------------------- #
 # resilience: taxonomy and the injector
 # --------------------------------------------------------------------- #
