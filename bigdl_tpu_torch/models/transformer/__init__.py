@@ -47,6 +47,7 @@ from bigdl_tpu_torch.nn.dropout import keep_masks
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.normalization import layer_norm
 from bigdl_tpu_torch.parallel.expert import init_moe_params, switch_mlp
+from bigdl_tpu_torch.ops.f32_gemm import weight_matmul
 from bigdl_tpu_torch.quant.kernels import qmatmul
 from bigdl_tpu_torch.quant.qtensor import is_qtensor
 from bigdl_tpu_torch.quant.transform import (QuantPolicy, dequantize_entry,
@@ -342,13 +343,14 @@ class TransformerLM(Module):
     def head_logits(self, params, h):
         """The LM head: ``h @ embed.T`` when tied, ``h @ head`` else (a
         quantized untied head through ``qmatmul``; the policy never
-        quantizes the embedding)."""
+        quantizes the embedding).  Plain float32 operands on the card take
+        the 3xTF32 kernel (``ops.f32_gemm.weight_matmul``)."""
         if self.tie_embeddings:
-            return torch.matmul(h, params["embed"].T.to(h.dtype))
+            return weight_matmul(h, params["embed"].T.to(h.dtype))
         head = params["head"]
         if is_qtensor(head):
             return qmatmul(h, head)
-        return torch.matmul(h, head.to(h.dtype))
+        return weight_matmul(h, head.to(h.dtype))
 
     def _forward(self, params, x, training: bool, generator=None,
                  rng=None):

@@ -42,6 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from bigdl_tpu_torch.ops import f32_gemm
 from bigdl_tpu_torch.quant.activations import (E4M3_MAX, FP8_DTYPE,
                                                quantize_per_token,
                                                quantize_per_token_fp8)
@@ -151,8 +152,9 @@ def qlinear_i8(x, qweight: QTensor, bias=None):
 def qmatmul(x, w):
     """``x @ w`` for the ``(in, out)`` weights the transformer consumes
     directly (attention projections, MLP halves, the untied head):
-    plain tensors go to ``torch.matmul`` (mixed float types promoted);
-    a QTensor's ``compute`` picks the recipe."""
+    plain tensors go to ``ops.f32_gemm.weight_matmul`` (mixed float
+    types promoted; float32 on the card takes the 3xTF32 kernel, the rest
+    ``torch.matmul``); a QTensor's ``compute`` picks the recipe."""
     if not is_qtensor(w):
         if (x.is_floating_point() and w.is_floating_point()
                 and x.dtype != w.dtype):
@@ -160,7 +162,8 @@ def qmatmul(x, w):
             # activations)
             dt = torch.promote_types(x.dtype, w.dtype)
             x, w = x.to(dt), w.to(dt)
-        return torch.matmul(x, w)
+        return f32_gemm.weight_matmul(x, w)
+    f32_gemm.decline("qtensor")
     if w.q.ndim == 2:
         mode = resolve_compute(w, x.shape)
         if mode == "int8":

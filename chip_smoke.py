@@ -731,8 +731,9 @@ def bound(nbytes: float, flops: float, dtype: str):
 def phase_build():
     from bigdl_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    info = _build.build(["flash_fwd", "paged_decode", "flash_bwd"])
-    log(f"[build] three sources in {time.perf_counter() - t0:.2f} s "
+    info = _build.build(["flash_fwd", "paged_decode", "flash_bwd",
+                         "f32_gemm"])
+    log(f"[build] four sources in {time.perf_counter() - t0:.2f} s "
         "(one nvcc each, in parallel)")
     for name, r in info.items():
         log(f"[build] {name}: nvcc {r['seconds']:.2f} s -> {r['path']}")
@@ -1098,6 +1099,81 @@ def phase_kernels(dev):
     return flash_main, paged_main, dkv_main, dq_main
 
 
+# the float32 weight products of the two benchmark models: (label, m, n, k,
+# A layout, B layout), "c" an operand read transposed in place
+GEMM_CASES = (
+    ("train fwd qkvo", 32768, 768, 768, "r", "r"),
+    ("train fwd w1", 32768, 3072, 768, "r", "r"),
+    ("train fwd w2", 32768, 768, 3072, "r", "r"),
+    ("train fwd head", 32768, 50257, 768, "r", "c"),
+    ("train dX qkvo", 32768, 768, 768, "r", "c"),
+    ("train dX head", 32768, 768, 50257, "r", "r"),
+    ("train dW qkvo", 768, 768, 32768, "c", "r"),
+    ("train dW w1", 768, 3072, 32768, "c", "r"),
+    ("train dE head", 50257, 768, 32768, "c", "r"),
+    ("xl prefill w1", 512, 6400, 1600, "r", "r"),
+    ("xl decode qkvo", 64, 1600, 1600, "r", "r"),
+    ("xl decode w1", 64, 6400, 1600, "r", "r"),
+    ("xl decode w2", 64, 1600, 6400, "r", "r"),
+    ("xl decode head", 64, 50257, 1600, "r", "c"))
+GEMM_CHECK_ROWS = 1024  # rows of C held against float64 (all if fewer)
+GEMM_BOUND = 1e-5       # error over |A||B|, as tests/test_torch_port_f32_gemm
+
+
+def gemm_case(dev, label, m, n, k, la, lb):
+    """``ops.f32_gemm`` at one main-path shape: its error against float64
+    (on the first rows), repeatability, kernel ms, bound ms (operations at
+    the 3xTF32 rate or bytes, whichever is larger), plain ms (the 3xTF32
+    arithmetic in three float32 ``torch.matmul``s) and ``torch.matmul``
+    float32 ms, the library's CUDA-core product."""
+    import torch
+    from bigdl_tpu_torch.ops import f32_gemm
+    g = torch.Generator(device=dev).manual_seed(m + n + k)
+
+    def operand(r, c, layout):
+        if layout == "r":
+            return torch.randn(r, c, generator=g, device=dev)
+        return torch.randn(c, r, generator=g, device=dev).T
+
+    a, b = operand(m, k, la), operand(k, n, lb)
+    out, again = f32_gemm.gemm(a, b), f32_gemm.gemm(a, b)
+    rows = min(m, GEMM_CHECK_ROWS)
+    a64, b64 = a[:rows].double(), b.double()
+    err = ((out[:rows].double() - a64 @ b64).abs()
+           / (a64.abs() @ b64.abs()).clamp_min(1e-30)).max().item()
+    del a64, b64
+    name = f"f32_gemm {label} ({m}, {k}) x ({k}, {n}) A{la} B{lb}"
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: output differs between two runs")
+    if err > GEMM_BOUND:
+        raise AssertionError(f"{name}: error {err:.3e} over |A||B| (bound "
+                             f"{GEMM_BOUND})")
+    del out, again
+    iters = 3 if m * n * k > 1e12 else 20
+    ms = cuda_ms(lambda: f32_gemm.gemm(a, b), iters=iters)
+    lib_ms = cuda_ms(lambda: torch.matmul(a, b), iters=iters)
+    plain_ms = cuda_ms(lambda: f32_gemm.matmul_3xtf32_reference(a, b),
+                       iters=min(iters, 5), warmup=1)
+    flops = 2.0 * m * n * k
+    nbytes = 4.0 * (m * k + k * n + m * n)
+    bound_ms, bound_by = bound(nbytes, flops, "float32_3xtf32")
+    log(f"[kernels] {name}: plan {f32_gemm.plan(m, n, k)}, error "
+        f"{err:.3e} over |A||B|, bitwise repeatable | kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
+        f"({bound_by}), plain {plain_ms:.4f} ms, torch.matmul float32 "
+        f"{lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s)")
+    return dict(label=label, m=m, n=n, k=k, err=err, ms=ms,
+                bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms,
+                library_ms=lib_ms)
+
+
+def gemm_cases(dev):
+    import torch
+    rows = [gemm_case(dev, *case) for case in GEMM_CASES]
+    torch.cuda.empty_cache()
+    return rows
+
+
 # --------------------------------------------------------------------------- #
 def serve_prompts(seed=SERVE["seed"]):
     import numpy as np
@@ -1302,7 +1378,10 @@ _OUR_KERNELS = {"flash_fwd_kernel": "flash_fwd",
                 "paged_chunk_kernel": "paged_decode",
                 "paged_combine_kernel": "paged_decode",
                 "flash_bwd_dkv_kernel": "flash_bwd_dkv",
-                "flash_bwd_dq_kernel": "flash_bwd_dq"}
+                "flash_bwd_dq_kernel": "flash_bwd_dq",
+                "f32_gemm_wg_kernel": "f32_gemm",
+                "f32_gemm_kernel": "f32_gemm",
+                "f32_gemm_reduce_kernel": "f32_gemm_reduce"}
 
 
 def _kernel_family(name: str) -> str:
@@ -7644,6 +7723,7 @@ def main() -> int:
     phases["build"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     flash_main, paged_main, dkv_main, dq_main = phase_kernels(dev)
+    gemm_rows = gemm_cases(dev)
     products = quant_products(dev)
     log(f"[quant] products: {json.dumps(products)} | {smi}")
     phases["kernels"] = time.perf_counter() - t0
@@ -8033,6 +8113,9 @@ def main() -> int:
              launches_by_path=by_path("bigdl_flash_bwd_dq",
                                       training + ("dist", "place") + hosted),
              **dq_main),
+        dict(name="f32_gemm", route="cuda",
+             source="bigdl_tpu_torch/csrc/f32_gemm.cu", replaces=None,
+             shapes=gemm_rows),
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
