@@ -54,6 +54,8 @@
 //   `gridDim.y`; the wrapper picks the tile and the split from (M, N, K).
 //   Tiles are walked in groups of 8 tile rows, so a wave of blocks shares
 //   its A rows and B columns in L2.
+#include <atomic>
+
 #include "sm90_mma.cuh"
 
 namespace {
@@ -524,9 +526,25 @@ f32_gemm_reduce_kernel(const float* __restrict__ ws, float* __restrict__ C,
   }
 }
 
+// Grants `kernel` `smem` bytes of dynamic shared memory on the current
+// device, once a device: `granted` holds a bit for each device done.
+cudaError_t grant_smem(void (*kernel)(const Args), size_t smem,
+                       std::atomic<unsigned long long>& granted) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (device & 63);
+  if (granted.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) granted.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
 template <bool A_KC, bool B_NC>
 cudaError_t launch(int tile, const Args& args, int split,
                    cudaStream_t stream) {
+  static std::atomic<unsigned long long> granted[2];
   void (*kernel)(const Args);
   size_t smem;
   int threads, bm, bn;
@@ -546,8 +564,7 @@ cudaError_t launch(int tile, const Args& args, int split,
     bm = sync_tile::BM;
     bn = sync_tile::BN;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = grant_smem(kernel, smem, granted[tile != 0]);
   if (err != cudaSuccess) return err;
   const unsigned tiles = (unsigned)((args.M + bm - 1) / bm) *
                          (unsigned)((args.N + bn - 1) / bn);

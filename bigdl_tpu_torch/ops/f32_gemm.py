@@ -24,9 +24,8 @@ tile shape and the split of K follow (M, N, K) and the card's SM count
 through (``quant.qmatmul``'s plain branch, ``TransformerLM.head_logits``):
 plain float32 CUDA operands take ``matmul_f32``; everything else takes
 ``torch.matmul`` as before and is counted by the first reason that holds
-(:func:`decline_reason`: ``dtensor``, ``dtype``, ``cpu``, ``shape``;
-``qmatmul`` counts its quantized weights as ``qtensor``) in
-:func:`stats`.
+(:func:`decline_reason`: ``dtensor``, ``dtype``, ``cpu``; ``qmatmul``
+counts its quantized weights as ``qtensor``) in :func:`stats`.
 """
 from __future__ import annotations
 
@@ -60,7 +59,7 @@ _BYTES_S = 3.0e12
 _WAVE_S = 3e-6
 _LAUNCH_S = 3e-6
 
-DECLINE_REASONS = ("cpu", "dtype", "dtensor", "qtensor", "shape")
+DECLINE_REASONS = ("cpu", "dtype", "dtensor", "qtensor")
 _stats_lock = threading.Lock()
 _routed = 0
 _declined = dict.fromkeys(DECLINE_REASONS, 0)
@@ -102,8 +101,6 @@ def decline_reason(x, w):
         return "dtype"
     if x.device.type != "cuda" or w.device.type != "cuda":
         return "cpu"
-    if w.dim() != 2 or x.dim() < 1:
-        return "shape"
     return None
 
 
@@ -237,7 +234,8 @@ def gemm(a, b):
     # with a split of K the kernel writes (split, M, N) partials
     c = out if split == 1 else torch.empty((split, m, n), dtype=torch.float32,
                                            device=a.device)
-    F32_GEMM_REDUCE._entry()   # both entry points load outside a capture
+    if F32_GEMM._fn is None:
+        F32_GEMM_REDUCE._entry()   # both entry points load outside a capture
     stream = torch.cuda.current_stream(a.device).cuda_stream
     F32_GEMM.launch(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, lda,
                     ldb, n, m * n if split > 1 else 0, int(a_kc), int(b_nc),

@@ -1116,13 +1116,26 @@ GEMM_CASES = (
     ("xl decode w1", 64, 6400, 1600, "r", "r"),
     ("xl decode w2", 64, 1600, 6400, "r", "r"),
     ("xl decode head", 64, 50257, 1600, "r", "c"))
-GEMM_CHECK_ROWS = 1024  # rows of C held against float64 (all if fewer)
+GEMM_CHECK_ROWS = 1024  # rows a block of C held against float64
 GEMM_BOUND = 1e-5       # error over |A||B|, as tests/test_torch_port_f32_gemm
+
+
+def gemm_check_rows(m, dev):
+    """The rows of an M-row C held against float64: all of them up to three
+    blocks of GEMM_CHECK_ROWS, else the first, a middle and the last block,
+    so the last group of tile rows (partial at a ragged M) is checked."""
+    import torch
+    block = GEMM_CHECK_ROWS
+    if m <= 3 * block:
+        return torch.arange(m, device=dev)
+    mid = (m - block) // 2
+    return torch.cat([torch.arange(s, s + block, device=dev)
+                      for s in (0, mid, m - block)])
 
 
 def gemm_case(dev, label, m, n, k, la, lb):
     """``ops.f32_gemm`` at one main-path shape: its error against float64
-    (on the first rows), repeatability, kernel ms, bound ms (operations at
+    (on the rows of :func:`gemm_check_rows`), repeatability, kernel ms, bound ms (operations at
     the 3xTF32 rate or bytes, whichever is larger), plain ms (the 3xTF32
     arithmetic in three float32 ``torch.matmul``s) and ``torch.matmul``
     float32 ms, the library's CUDA-core product."""
@@ -1137,9 +1150,9 @@ def gemm_case(dev, label, m, n, k, la, lb):
 
     a, b = operand(m, k, la), operand(k, n, lb)
     out, again = f32_gemm.gemm(a, b), f32_gemm.gemm(a, b)
-    rows = min(m, GEMM_CHECK_ROWS)
-    a64, b64 = a[:rows].double(), b.double()
-    err = ((out[:rows].double() - a64 @ b64).abs()
+    rows = gemm_check_rows(m, dev)
+    a64, b64 = a[rows].double(), b.double()
+    err = ((out[rows].double() - a64 @ b64).abs()
            / (a64.abs() @ b64.abs()).clamp_min(1e-30)).max().item()
     del a64, b64
     name = f"f32_gemm {label} ({m}, {k}) x ({k}, {n}) A{la} B{lb}"
@@ -8115,7 +8128,14 @@ def main() -> int:
              **dq_main),
         dict(name="f32_gemm", route="cuda",
              source="bigdl_tpu_torch/csrc/f32_gemm.cu", replaces=None,
+             launches=serve["launches"]["bigdl_f32_gemm"],
+             launches_by_path=by_path("bigdl_f32_gemm", tuple(paths)),
              shapes=gemm_rows),
+        dict(name="f32_gemm_reduce", route="cuda",
+             source="bigdl_tpu_torch/csrc/f32_gemm.cu", replaces=None,
+             launches=serve["launches"]["bigdl_f32_gemm_reduce"],
+             launches_by_path=by_path("bigdl_f32_gemm_reduce",
+                                      tuple(paths))),
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -220,29 +220,11 @@ def test_one_bundle_per_distinct_incident(tmp_path, recorder):
     assert recorder.bundles_written == 3
 
 
-class _StoppedClock:
-    """The ``time`` module with ``time()`` held still until advanced,
-    so a dedup window does not run out while a loaded host writes a
-    bundle."""
-
-    def __init__(self):
-        self.now = time.time()
-
-    def time(self):
-        return self.now
-
-    def __getattr__(self, name):
-        return getattr(time, name)
-
-
-def test_dedup_window_expiry_rearms(tmp_path, recorder, monkeypatch):
-    clock = _StoppedClock()
-    monkeypatch.setattr(flight_mod, "time", clock)
+def test_dedup_window_expiry_rearms(tmp_path, recorder):
     recorder.dedup_window_s = 0.05
     assert recorder.record("stall", key="w") is not None
-    clock.now += 0.04
     assert recorder.record("stall", key="w") is None
-    clock.now += 0.02
+    time.sleep(0.06)
     assert recorder.record("stall", key="w") is not None
 
 
@@ -451,10 +433,6 @@ def test_chaos_soak_span_trees_and_bundles(tmp_path, recorder,
                        "serving.dispatch:die:name=r1,after=3")
     monkeypatch.setenv(faults.ENV_SEED, "0")
     faults.refresh_from_env()
-    # the two incidents are the injected ones: the replicas' own
-    # dispatch watchdog (threshold k x a sub-millisecond median) would
-    # add a third whenever a loaded host slows one dispatch
-    monkeypatch.setenv("BIGDL_TPU_WATCHDOG", "0")
     sampler = TimeSeriesSampler(get_registry(), interval_s=0.02,
                                 capacity=512)
     prev = set_sampler(sampler)

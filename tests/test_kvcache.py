@@ -278,18 +278,12 @@ def test_pool_pressure_defers_then_completes_exact():
 # observability: arena gauge reaches the summary plane                        #
 # --------------------------------------------------------------------------- #
 
-def test_arena_bytes_gauge_in_registry_and_summary(tmp_path, monkeypatch):
+def test_arena_bytes_gauge_in_registry_and_summary(tmp_path):
     """Satellite: kvcache/arena_bytes is a registry gauge (so the SLO
     controller's headroom check can price cache memory) and flows into
     ObsSummary via the standard export."""
-    from bigdl_tpu.obs import registry as registry_mod
     from bigdl_tpu.visualization import ObsSummary
 
-    # a process-wide registry of its own: gauges that tests run earlier
-    # in this process left behind (speculation's string-valued
-    # compute_mode among them) are not this test's to export
-    monkeypatch.setattr(registry_mod, "_GLOBAL",
-                        registry_mod.MetricRegistry())
     model = _lm()
     eng = LMServingEngine(model, slots=1, cache_len=16, block_len=4,
                           prefill_buckets=(8, 16))
